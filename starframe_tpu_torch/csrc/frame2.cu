@@ -1,0 +1,721 @@
+// One batched XPBD frame: frame-start contact manifolds for every slot,
+// then `substeps` x [integrate -> `iterations` x Jacobi contact projection
+// -> velocity reconstruction -> restitution/friction velocity pass].
+//
+// Replaces starframe_tpu/pallas/frame2.py `_frame2_kernel` (launched by
+// `run_frame2`) for its contact-only, uniform-topology, no-CCD, uncompacted
+// (Cs = 0) configuration. Joints, CCD, solve-slot compaction and per-world
+// owner tables are ROADMAP.md work and are refused by the wrapper.
+//
+// What bounds it on an H100: the per-slot frame constants. Each slot of
+// each row carries ~28 floats through the frame (normal, anchors, masks,
+// pair material, the carried static-friction reference, lambda): 229 KB a
+// world at C = 8, M = 256, more than a block's shared memory. They live in
+// a global scratch [W, F2_FIELDS, C, M] laid out so that consecutive
+// threads (rows) touch consecutive addresses; every substep re-reads them
+// (~0.9 GB at W = 4096). The manifold math itself is scalar SAT/clip code,
+// ~1-2k flops per active slot.
+//
+// Design: one CTA per world, 256 threads. A thread is body n in the body
+// phases and collider row i in the slot phases (strided when N or M
+// exceed the block). Body state, the world's collider geometry and the
+// per-row correction sums live in shared memory. The Jacobi semantics are
+// the TPU's: every row reads the iteration's start pose, writes its row
+// sum to shared memory, __syncthreads(), and only then do bodies apply the
+// count-normalised, clipped corrections. A row sums its C slots in order
+// c = 0..C-1 (frame2.py `_sum_w`), and a body sums its colliders' rows in
+// ascending collider order from a CSR built off world 0's topology (what
+// the TPU's one-hot dot computes). No float atomics: the frame is bitwise
+// reproducible. Slots whose manifold has no active point are skipped in
+// the substep loop; they contribute exact zeros in the reference. The
+// static-friction reference is carried from the previous substep's
+// velocity-pass kinematics, starting from the frame-start pose (kin00).
+// The manifold is a per-thread scalar transcription of
+// kernels.manifold_batch over the V (templated) vertices.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kEps = 1e-10f;
+constexpr float kTouchSlop = 1e-3f;
+constexpr float kInf = __builtin_huge_valf();
+
+template <int V>
+__device__ __forceinline__ float sel(const float (&a)[V], int k) {
+  float r = a[0];
+#pragma unroll
+  for (int j = 1; j < V; ++j) r = (j == k) ? a[j] : r;
+  return r;
+}
+
+__device__ __forceinline__ float clamp01(float x) {
+  return fminf(fmaxf(x, 0.f), 1.f);
+}
+
+template <int V>
+__device__ __forceinline__ void edge_data(const float (&vx)[V],
+                                          const float (&vy)[V], int nv,
+                                          float (&e1x)[V], float (&e1y)[V],
+                                          float (&nx)[V], float (&ny)[V],
+                                          bool (&valid)[V]) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const bool wrap = k == nv - 1;
+    const int kn = (k + 1 == V) ? 0 : k + 1;
+    e1x[k] = wrap ? vx[0] : vx[kn];
+    e1y[k] = wrap ? vy[0] : vy[kn];
+    const float dx = e1x[k] - vx[k], dy = e1y[k] - vy[k];
+    const float len = sqrtf(dx * dx + dy * dy);
+    valid[k] = (k < nv) && (nv >= 2) && (len > 1e-9f);
+    const float inv = 1.f / fmaxf(len, kEps);
+    nx[k] = dy * inv;  // outward normal of a CCW edge
+    ny[k] = -dx * inv;
+  }
+}
+
+// max separation over own edge normals vs the other shape's verts, and the
+// first edge attaining it
+template <int V>
+__device__ __forceinline__ void sat(const float (&e0x)[V],
+                                    const float (&e0y)[V],
+                                    const float (&nx)[V], const float (&ny)[V],
+                                    const bool (&valid)[V],
+                                    const float (&ox)[V], const float (&oy)[V],
+                                    float& best, int& kbest) {
+  float sep[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    float mn = nx[k] * ox[0] + ny[k] * oy[0];
+#pragma unroll
+    for (int j = 1; j < V; ++j) mn = fminf(mn, nx[k] * ox[j] + ny[k] * oy[j]);
+    const float s = mn - (nx[k] * e0x[k] + ny[k] * e0y[k]);
+    sep[k] = valid[k] ? s : -kInf;
+  }
+  best = sep[0];
+#pragma unroll
+  for (int k = 1; k < V; ++k) best = fmaxf(best, sep[k]);
+  kbest = 0;
+#pragma unroll
+  for (int k = V - 1; k >= 0; --k)
+    if (sep[k] == best) kbest = k;
+}
+
+__device__ __forceinline__ void closest_seg_seg(
+    float p1x, float p1y, float q1x, float q1y, float p2x, float p2y,
+    float q2x, float q2y, float& c1x, float& c1y, float& c2x, float& c2y) {
+  const float d1x = q1x - p1x, d1y = q1y - p1y;
+  const float d2x = q2x - p2x, d2y = q2y - p2y;
+  const float rx = p1x - p2x, ry = p1y - p2y;
+  const float a = d1x * d1x + d1y * d1y;
+  const float e = d2x * d2x + d2y * d2y;
+  const float f = d2x * rx + d2y * ry;
+  const float c = d1x * rx + d1y * ry;
+  const float b = d1x * d2x + d1y * d2y;
+  const float denom = a * e - b * b;
+  const bool a_deg = a <= kEps, e_deg = e <= kEps;
+  const float a_safe = a_deg ? 1.f : a, e_safe = e_deg ? 1.f : e;
+  float s_gen = denom > kEps ? clamp01((b * f - c * e) / denom) : 0.f;
+  float t_gen = (b * s_gen + f) / e_safe;
+  const float t_cl = clamp01(t_gen);
+  const float s_re = clamp01((b * t_cl - c) / a_safe);
+  if (t_gen < 0.f || t_gen > 1.f) s_gen = s_re;
+  t_gen = t_cl;
+  const float s = (a_deg && e_deg) ? 0.f
+                  : a_deg          ? 0.f
+                  : e_deg          ? clamp01(-c / a_safe)
+                                   : s_gen;
+  const float t = (a_deg && e_deg) ? 0.f
+                  : a_deg          ? clamp01(f / e_safe)
+                  : e_deg          ? 0.f
+                                   : t_gen;
+  c1x = p1x + d1x * s;
+  c1y = p1y + d1y * s;
+  c2x = p2x + d2x * t;
+  c2y = p2y + d2y * t;
+}
+
+struct Manifold {
+  float nx, ny;
+  float wax[2], way[2], wbx[2], wby[2], sep[2], pmask[2];
+};
+
+// kernels.manifold_batch for one pair of rounded convex polygons
+template <int V>
+__device__ void manifold(const float (&vax)[V], const float (&vay)[V],
+                         int na, float ra, const float (&vbx)[V],
+                         const float (&vby)[V], int nb, float rb,
+                         float margin, Manifold& m) {
+  float e1ax[V], e1ay[V], nax[V], nay[V], e1bx[V], e1by[V], nbx[V], nby[V];
+  bool eva[V], evb[V];
+  edge_data<V>(vax, vay, na, e1ax, e1ay, nax, nay, eva);
+  edge_data<V>(vbx, vby, nb, e1bx, e1by, nbx, nby, evb);
+  float sep_a, sep_b;
+  int ka, kb;
+  sat<V>(vax, vay, nax, nay, eva, vbx, vby, sep_a, ka);
+  sat<V>(vbx, vby, nbx, nby, evb, vax, vay, sep_b, kb);
+
+  const bool a_has = na >= 2, b_has = nb >= 2;
+  const bool both_points = !(a_has || b_has);
+  const bool flip = sep_b > sep_a + 1e-5f;
+  const float s_core = fmaxf(sep_a, sep_b);
+
+  const float r0x = flip ? sel(vbx, kb) : sel(vax, ka);
+  const float r0y = flip ? sel(vby, kb) : sel(vay, ka);
+  const float r1x = flip ? sel(e1bx, kb) : sel(e1ax, ka);
+  const float r1y = flip ? sel(e1by, kb) : sel(e1ay, ka);
+  const float nrx = flip ? sel(nbx, kb) : sel(nax, ka);
+  const float nry = flip ? sel(nby, kb) : sel(nay, ka);
+  const float r_ref = flip ? rb : ra;
+  const float r_inc = flip ? ra : rb;
+
+  // incident edge: most anti-parallel normal on the other shape
+  float inc_a[V], inc_b[V];
+  float mina = kInf, minb = kInf;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    inc_a[k] = eva[k] ? nax[k] * nrx + nay[k] * nry : kInf;
+    inc_b[k] = evb[k] ? nbx[k] * nrx + nby[k] * nry : kInf;
+    mina = fminf(mina, inc_a[k]);
+    minb = fminf(minb, inc_b[k]);
+  }
+  int ia = 0, ib = 0;
+#pragma unroll
+  for (int k = V - 1; k >= 0; --k) {
+    if (inc_a[k] == mina) ia = k;
+    if (inc_b[k] == minb) ib = k;
+  }
+  const bool i_has = (flip && a_has) || (!flip && b_has);
+  const float i0x = flip ? (a_has ? sel(vax, ia) : vax[0])
+                         : (b_has ? sel(vbx, ib) : vbx[0]);
+  const float i0y = flip ? (a_has ? sel(vay, ia) : vay[0])
+                         : (b_has ? sel(vby, ib) : vby[0]);
+  const float i1x = flip ? (a_has ? sel(e1ax, ia) : vax[0])
+                         : (b_has ? sel(e1bx, ib) : vbx[0]);
+  const float i1y = flip ? (a_has ? sel(e1ay, ia) : vay[0])
+                         : (b_has ? sel(e1by, ib) : vby[0]);
+  const float inc_dot = flip ? mina : minb;
+
+  // ---- clip path ----
+  const float tdx = r1x - r0x, tdy = r1y - r0y;
+  const float t_len = sqrtf(tdx * tdx + tdy * tdy);
+  const float inv_t = 1.f / fmaxf(t_len, kEps);
+  const float thx = tdx * inv_t, thy = tdy * inv_t;
+  const float lo = thx * r0x + thy * r0y;
+  const float hi = thx * r1x + thy * r1y;
+  const float s0 = thx * i0x + thy * i0y;
+  const float s1 = thx * i1x + thy * i1y;
+  const float ds = s1 - s0;
+  const bool ds_ok = fabsf(ds) > 1e-6f;
+  const float inv_ds = ds_ok ? 1.f / ds : 0.f;
+  const float lo_ = fminf(lo, hi), hi_ = fmaxf(lo, hi);
+  const float cs0 = fminf(fmaxf(s0, lo_), hi_);
+  const float cs1 = fminf(fmaxf(s1, lo_), hi_);
+  const float f0 = (cs0 - s0) * inv_ds;
+  const float f1 = (cs1 - s0) * inv_ds;
+  float q0x = i0x + (i1x - i0x) * f0, q0y = i0y + (i1y - i0y) * f0;
+  float q1x = i0x + (i1x - i0x) * f1, q1y = i0y + (i1y - i0y) * f1;
+  // perpendicular-incident degenerate clip: take the deepest endpoint
+  const bool deep0 = (nrx * i0x + nry * i0y) <= (nrx * i1x + nry * i1y);
+  const float dpx = deep0 ? i0x : i1x, dpy = deep0 ? i0y : i1y;
+  if (!ds_ok) {
+    q0x = dpx; q0y = dpy; q1x = dpx; q1y = dpy;
+  }
+  float csep[2], cwrx[2], cwry[2], cwix[2], cwiy[2];
+  const float qx[2] = {q0x, q1x}, qy[2] = {q0y, q1y};
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float plane = nrx * (qx[p] - r0x) + nry * (qy[p] - r0y);
+    csep[p] = plane - r_ref - r_inc;
+    cwrx[p] = qx[p] - nrx * plane + nrx * r_ref;
+    cwry[p] = qy[p] - nry * plane + nry * r_ref;
+    cwix[p] = qx[p] - nrx * r_inc;
+    cwiy[p] = qy[p] - nry * r_inc;
+  }
+  const float dqx = q1x - q0x, dqy = q1y - q0y;
+  const bool clip_distinct = sqrtf(dqx * dqx + dqy * dqy) > 1e-6f;
+
+  // ---- closest path ----
+  float c1x, c1y, c2x, c2y;
+  closest_seg_seg(r0x, r0y, r1x, r1y, i0x, i0y, i1x, i1y, c1x, c1y, c2x, c2y);
+  if (both_points) {
+    c1x = flip ? vbx[0] : vax[0];
+    c1y = flip ? vby[0] : vay[0];
+    c2x = flip ? vax[0] : vbx[0];
+    c2y = flip ? vay[0] : vby[0];
+  }
+  const float dvx = c2x - c1x, dvy = c2y - c1y;
+  const float d_len = sqrtf(dvx * dvx + dvy * dvy);
+  const float inv_d = 1.f / fmaxf(d_len, kEps);
+  const float ncx = d_len > 1e-9f ? dvx * inv_d : (both_points ? 0.f : nrx);
+  const float ncy = d_len > 1e-9f ? dvy * inv_d : (both_points ? 1.f : nry);
+  const float psep = d_len - r_ref - r_inc;
+  const float pwrx = c1x + ncx * r_ref, pwry = c1y + ncy * r_ref;
+  const float pwix = c2x - ncx * r_inc, pwiy = c2y - ncy * r_inc;
+
+  // ---- choose path ----
+  const bool parallel = i_has && (inc_dot < -0.98f);
+  const bool clip_has_extent = fabsf(cs1 - cs0) > 1e-6f;
+  const bool both_thin = (na <= 2) && (nb <= 2);
+  const bool deep_clip = (s_core <= 0.f) && !both_thin;
+  const bool use_clip =
+      !both_points && (deep_clip || (parallel && clip_has_extent));
+
+  const float fl = flip ? -1.f : 1.f;
+  m.nx = (use_clip ? nrx : ncx) * fl;
+  m.ny = (use_clip ? nry : ncy) * fl;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float wrx = use_clip ? cwrx[p] : pwrx;
+    const float wry = use_clip ? cwry[p] : pwry;
+    const float wix = use_clip ? cwix[p] : pwix;
+    const float wiy = use_clip ? cwiy[p] : pwiy;
+    m.sep[p] = use_clip ? csep[p] : psep;
+    m.wax[p] = flip ? wix : wrx;
+    m.way[p] = flip ? wiy : wry;
+    m.wbx[p] = flip ? wrx : wix;
+    m.wby[p] = flip ? wry : wiy;
+  }
+  m.pmask[0] = (m.sep[0] < margin) ? 1.f : 0.f;
+  m.pmask[1] = (use_clip && clip_distinct && (m.sep[1] < margin)) ? 1.f : 0.f;
+}
+
+struct Shared {
+  // body state [N]
+  float *px, *py, *an, *vx, *vy, *om, *invm, *invi, *dyn, *kin;
+  float *vtx, *vty, *vtom, *cab, *sab, *dxx, *dxy, *dth, *spd;
+  // collider geometry [M] (verts [V, M]) and per-row correction sums [4, M]
+  float *vlx, *vly, *rad, *fric, *rest, *sens, *ext, *row;
+  int *cbody, *nv, *ostart, *oidx;
+};
+
+__host__ __device__ inline size_t shared_bytes(int N, int M, int V) {
+  // body: 19 [N] planes; colliders: verts 2 [V, M], five [M] fields and the
+  // [4, M] row sums; ints: cbody, nverts, owner_idx [M] and owner_start
+  return (size_t)(19 * N + (2 * V + 9) * M) * sizeof(float) +
+         (size_t)(3 * M + N + 1) * sizeof(int);
+}
+
+__device__ Shared carve(float* base, int N, int M, int V) {
+  Shared s;
+  float* p = base;
+  float** bodyf[] = {&s.px,  &s.py,  &s.an,   &s.vx,  &s.vy,  &s.om,  &s.invm,
+                     &s.invi, &s.dyn, &s.kin,  &s.vtx, &s.vty, &s.vtom, &s.cab,
+                     &s.sab, &s.dxx, &s.dxy,  &s.dth, &s.spd};
+  for (float** f : bodyf) {
+    *f = p;
+    p += N;
+  }
+  s.vlx = p; p += V * M;
+  s.vly = p; p += V * M;
+  float** colf[] = {&s.rad, &s.fric, &s.rest, &s.sens, &s.ext};
+  for (float** f : colf) {
+    *f = p;
+    p += M;
+  }
+  s.row = p; p += 4 * M;
+  int* q = reinterpret_cast<int*>(p);
+  s.cbody = q; q += M;
+  s.nv = q; q += M;
+  s.oidx = q; q += M;
+  s.ostart = q;
+  return s;
+}
+
+// sum of a [4, M] row-sum plane over body n's colliders, ascending
+__device__ __forceinline__ void to_body(const Shared& s, int M, int n,
+                                        float (&out)[4]) {
+  out[0] = out[1] = out[2] = out[3] = 0.f;
+  for (int k = s.ostart[n]; k < s.ostart[n + 1]; ++k) {
+    const int col = s.oidx[k];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q] += s.row[q * M + col];
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
+  extern __shared__ float smem[];
+  const int N = a.N, M = a.M, C = a.C;
+  const long long w = blockIdx.x;
+  const Shared s = carve(smem, N, M, V);
+  const size_t plane = (size_t)C * M;  // one scratch field of one world
+  float* scr = a.scratch + (size_t)w * F2_FIELDS * plane;
+  const float gx = a.gravity[2 * w], gy = a.gravity[2 * w + 1];
+  const float h = a.h;
+
+  // ---- load the world ----------------------------------------------------
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const long long g = w * N + n;
+    s.px[n] = a.posx[g]; s.py[n] = a.posy[g]; s.an[n] = a.ang[g];
+    s.vx[n] = a.velx[g]; s.vy[n] = a.vely[g]; s.om[n] = a.angvel[g];
+    s.invm[n] = a.invm[g]; s.invi[n] = a.invi[g];
+    s.dyn[n] = a.dyn[g]; s.kin[n] = a.kin[g];
+    s.cab[n] = cosf(s.an[n]); s.sab[n] = sinf(s.an[n]);
+    s.spd[n] = sqrtf(s.vx[n] * s.vx[n] + s.vy[n] * s.vy[n]);
+  }
+  for (int n = threadIdx.x; n <= N; n += blockDim.x) s.ostart[n] = a.owner_start[n];
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    const long long g = w * M + i;
+    s.cbody[i] = a.cbody[g]; s.nv[i] = a.nverts[g]; s.rad[i] = a.radius[g];
+    s.fric[i] = a.fric[g]; s.rest[i] = a.rest[g]; s.sens[i] = a.sensor[g];
+    s.oidx[i] = a.owner_idx[i];
+    float ext = 0.f;
+    for (int v = 0; v < V; ++v) {
+      const float x = a.vlx[(w * V + v) * M + i];
+      const float y = a.vly[(w * V + v) * M + i];
+      s.vlx[v * M + i] = x;
+      s.vly[v * M + i] = y;
+      const float d = sqrtf(x * x + y * y);
+      ext = v ? fmaxf(ext, d) : d;
+    }
+    s.ext[i] = ext + s.rad[i];  // conservative rotation speed arm
+  }
+  __syncthreads();
+
+  // ---- frame setup: manifolds and frame constants per slot ----------------
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    const int ob = s.cbody[i];
+    const float o_px = s.px[ob], o_py = s.py[ob];
+    const float o_ca = s.cab[ob], o_sa = s.sab[ob];
+    const float o_spd = s.spd[ob] + fabsf(s.om[ob]) * s.ext[i];
+    float vax[V], vay[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float x = s.vlx[v * M + i], y = s.vly[v * M + i];
+      vax[v] = o_px + o_ca * x - o_sa * y;
+      vay[v] = o_py + o_sa * x + o_ca * y;
+    }
+    for (int c = 0; c < C; ++c) {
+      const size_t t = (size_t)c * M + i;
+      const size_t g = (size_t)w * plane + t;
+      float* f = scr + t;
+      const float act = a.slot_act[g];
+      if (act == 0.f) {  // empty slot: every mask zero, nothing to solve
+        f[F2_PM0 * plane] = f[F2_PM1 * plane] = 0.f;
+        f[F2_SM0 * plane] = f[F2_SM1 * plane] = 0.f;
+        a.o_touched[g] = 0.f;
+        continue;
+      }
+      const int pc = a.partner[g];
+      const int pb = s.cbody[pc];
+      const float p_px = s.px[pb], p_py = s.py[pb];
+      const float p_ca = s.cab[pb], p_sa = s.sab[pb];
+      const float p_spd = s.spd[pb] + fabsf(s.om[pb]) * s.ext[pc];
+      float vbx[V], vby[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float x = s.vlx[v * M + pc], y = s.vly[v * M + pc];
+        vbx[v] = p_px + p_ca * x - p_sa * y;
+        vby[v] = p_py + p_sa * x + p_ca * y;
+      }
+      // velocity-expanded speculative margin: a contact that forms during
+      // this frame's substeps must already be in the manifold
+      const float margin_eff = a.margin + a.dt * (o_spd + p_spd);
+      Manifold m;
+      manifold<V>(vax, vay, s.nv[i], s.rad[i], vbx, vby, s.nv[pc], s.rad[pc],
+                  margin_eff, m);
+      const float solvable = act * (1.f - fmaxf(s.sens[i], s.sens[pc]));
+      const float n_ax = o_ca * m.nx + o_sa * m.ny;
+      const float n_ay = -o_sa * m.nx + o_ca * m.ny;
+      f[F2_NAX * plane] = n_ax;
+      f[F2_NAY * plane] = n_ay;
+      float touch0 = 0.f;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const float dxa = m.wax[p] - o_px, dya = m.way[p] - o_py;
+        const float a_ax = o_ca * dxa + o_sa * dya;
+        const float a_ay = -o_sa * dxa + o_ca * dya;
+        const float dxb = m.wbx[p] - p_px, dyb = m.wby[p] - p_py;
+        const float b_ax = p_ca * dxb + p_sa * dyb;
+        const float b_ay = -p_sa * dxb + p_ca * dyb;
+        const float pm = m.pmask[p] * act;
+        f[(F2_AAX0 + p) * plane] = a_ax;
+        f[(F2_AAY0 + p) * plane] = a_ay;
+        f[(F2_BAX0 + p) * plane] = b_ax;
+        f[(F2_BAY0 + p) * plane] = b_ay;
+        f[(F2_PM0 + p) * plane] = pm;
+        f[(F2_SM0 + p) * plane] = pm * solvable;
+        touch0 = fmaxf(touch0, (m.sep[p] < kTouchSlop ? 1.f : 0.f) * pm);
+        // kin00: anchor world positions at the frame-start pose
+        f[(F2_WAX0 + p) * plane] = o_px + (o_ca * a_ax - o_sa * a_ay);
+        f[(F2_WAY0 + p) * plane] = o_py + (o_sa * a_ax + o_ca * a_ay);
+        f[(F2_WBX0 + p) * plane] = p_px + (p_ca * b_ax - p_sa * b_ay);
+        f[(F2_WBY0 + p) * plane] = p_py + (p_sa * b_ax + p_ca * b_ay);
+      }
+      f[F2_FRIC * plane] = sqrtf(s.fric[i] * s.fric[pc]);
+      f[F2_LAM0 * plane] = f[F2_LAM1 * plane] = 0.f;
+      f[F2_REST * plane] = fmaxf(s.rest[i], s.rest[pc]);
+      f[F2_IMB * plane] = s.invm[pb];
+      f[F2_IIB * plane] = s.invi[pb];
+      a.o_touched[g] = touch0;
+    }
+  }
+  __syncthreads();
+
+  // ---- substeps ------------------------------------------------------------
+  for (int step = 0; step < a.substeps; ++step) {
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      // integrate (semi-implicit Euler)
+      const float dyn = s.dyn[n];
+      const float vx = s.vx[n] + gx * h * dyn;
+      const float vy = s.vy[n] + gy * h * dyn;
+      s.vx[n] = vx; s.vy[n] = vy;
+      s.px[n] = s.px[n] + vx * h;
+      s.py[n] = s.py[n] + vy * h;
+      s.an[n] = s.an[n] + s.om[n] * h;
+      s.vtx[n] = vx; s.vty[n] = vy; s.vtom[n] = s.om[n];
+      s.dxx[n] = 0.f; s.dxy[n] = 0.f; s.dth[n] = 0.f;
+    }
+    for (int it = 0; it < a.iterations; ++it) {
+      __syncthreads();
+      for (int n = threadIdx.x; n < N; n += blockDim.x) {
+        s.cab[n] = cosf(s.an[n]);
+        s.sab[n] = sinf(s.an[n]);
+      }
+      __syncthreads();
+      // Jacobi contact projection: every row reads the iteration-start pose
+      for (int i = threadIdx.x; i < M; i += blockDim.x) {
+        const int ob = s.cbody[i];
+        const float ima = s.invm[ob], iia = s.invi[ob];
+        const float o_px = s.px[ob], o_py = s.py[ob];
+        const float o_ca = s.cab[ob], o_sa = s.sab[ob];
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int c = 0; c < C; ++c) {
+          const size_t t = (size_t)c * M + i;
+          float* f = scr + t;
+          const float pm0 = f[F2_PM0 * plane], pm1 = f[F2_PM1 * plane];
+          if (pm0 == 0.f && pm1 == 0.f) continue;
+          const int pb = s.cbody[a.partner[(size_t)w * plane + t]];
+          const float p_px = s.px[pb], p_py = s.py[pb];
+          const float p_ca = s.cab[pb], p_sa = s.sab[pb];
+          const float imb = f[F2_IMB * plane], iib = f[F2_IIB * plane];
+          const float fric = f[F2_FRIC * plane];
+          const float n_ax = f[F2_NAX * plane], n_ay = f[F2_NAY * plane];
+          const float nx = o_ca * n_ax - o_sa * n_ay;
+          const float ny = o_sa * n_ax + o_ca * n_ay;
+          float cax = 0.f, cay = 0.f, dang = 0.f, nact = 0.f;
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const float a_ax = f[(F2_AAX0 + p) * plane];
+            const float a_ay = f[(F2_AAY0 + p) * plane];
+            const float b_ax = f[(F2_BAX0 + p) * plane];
+            const float b_ay = f[(F2_BAY0 + p) * plane];
+            const float rax = o_ca * a_ax - o_sa * a_ay;
+            const float ray = o_sa * a_ax + o_ca * a_ay;
+            const float rbx = p_ca * b_ax - p_sa * b_ay;
+            const float rby = p_sa * b_ax + p_ca * b_ay;
+            const float wax = o_px + rax, way = o_py + ray;
+            const float wbx = p_px + rbx, wby = p_py + rby;
+            const float cc = (wbx - wax) * nx + (wby - way) * ny;
+            const bool active = (cc < 0.f) && (f[(F2_SM0 + p) * plane] > 0.f);
+            const float cr_a = rax * ny - ray * nx;
+            const float cr_b = rbx * ny - rby * nx;
+            const float w_a = ima + iia * cr_a * cr_a;
+            const float w_b = imb + iib * cr_b * cr_b;
+            const float den = w_a + w_b + a.alpha_t;
+            const float dlam =
+                (active && den > kEps) ? -cc / fmaxf(den, kEps) : 0.f;
+            const float p_x = dlam * nx, p_y = dlam * ny;
+            // static friction at position level
+            const float dpx = (wax - f[(F2_WAX0 + p) * plane]) -
+                              (wbx - f[(F2_WBX0 + p) * plane]);
+            const float dpy = (way - f[(F2_WAY0 + p) * plane]) -
+                              (wby - f[(F2_WBY0 + p) * plane]);
+            const float dpn = dpx * nx + dpy * ny;
+            const float tx = dpx - dpn * nx, ty = dpy - dpn * ny;
+            const float ct = sqrtf(tx * tx + ty * ty);
+            const float inv_ct = 1.f / fmaxf(ct, kEps);
+            const float thx = tx * inv_ct, thy = ty * inv_ct;
+            const float cr_at = rax * thy - ray * thx;
+            const float cr_bt = rbx * thy - rby * thx;
+            const float w_at = ima + iia * cr_at * cr_at;
+            const float w_bt = imb + iib * cr_bt * cr_bt;
+            const float dent = w_at + w_bt;
+            const float dlam_t = dent > kEps ? -ct / fmaxf(dent, kEps) : 0.f;
+            const bool stick = active && (fabsf(dlam_t) < fric * dlam);
+            const float pt_x = stick ? dlam_t * thx : 0.f;
+            const float pt_y = stick ? dlam_t * thy : 0.f;
+            const float ax = -p_x + pt_x, ay = -p_y + pt_y;
+            const float da = iia * (-(rax * p_y - ray * p_x) +
+                                    (rax * pt_y - ray * pt_x));
+            cax = p ? cax + ax : ax;
+            cay = p ? cay + ay : ay;
+            dang = p ? dang + da : da;
+            nact += active ? 1.f : 0.f;
+            float* lam = f + (F2_LAM0 + p) * plane;
+            *lam = (it ? *lam : 0.f) + dlam;
+          }
+          acc[0] += cax * ima;
+          acc[1] += cay * ima;
+          acc[2] += dang;
+          acc[3] += nact;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s.row[q * M + i] = acc[q];
+      }
+      __syncthreads();
+      for (int n = threadIdx.x; n < N; n += blockDim.x) {
+        float ab[4];
+        to_body(s, M, n, ab);
+        const float cnt = fmaxf(ab[3], 1.f);
+        const float md = a.max_dpos;
+        const float ddx = fminf(fmaxf(ab[0] * a.relaxation / cnt, -md), md);
+        const float ddy = fminf(fmaxf(ab[1] * a.relaxation / cnt, -md), md);
+        const float dda = fminf(fmaxf(ab[2] * a.relaxation / cnt, -md), md);
+        s.px[n] = s.px[n] + ddx;
+        s.py[n] = s.py[n] + ddy;
+        s.an[n] = s.an[n] + dda;
+        s.dxx[n] = s.dxx[n] + ddx;
+        s.dxy[n] = s.dxy[n] + ddy;
+        s.dth[n] = s.dth[n] + dda;
+      }
+    }
+    __syncthreads();
+    // velocity reconstruction (kinematic bodies keep their velocity)
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      const float kin = s.kin[n], nk = 1.f - kin;
+      s.vx[n] = kin * s.vx[n] + nk * (s.vtx[n] + s.dxx[n] / h);
+      s.vy[n] = kin * s.vy[n] + nk * (s.vty[n] + s.dxy[n] / h);
+      s.om[n] = kin * s.om[n] + nk * (s.vtom[n] + s.dth[n] / h);
+      s.cab[n] = cosf(s.an[n]);
+      s.sab[n] = sinf(s.an[n]);
+    }
+    __syncthreads();
+    // velocity pass: restitution + dynamic friction
+    for (int i = threadIdx.x; i < M; i += blockDim.x) {
+      const int ob = s.cbody[i];
+      const float ima = s.invm[ob], iia = s.invi[ob];
+      const float o_px = s.px[ob], o_py = s.py[ob];
+      const float o_ca = s.cab[ob], o_sa = s.sab[ob];
+      const float vax = s.vx[ob], vay = s.vy[ob], oa = s.om[ob];
+      const float v0ax = s.vtx[ob], v0ay = s.vty[ob], o0a = s.vtom[ob];
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < C; ++c) {
+        const size_t t = (size_t)c * M + i;
+        float* f = scr + t;
+        const float pm[2] = {f[F2_PM0 * plane], f[F2_PM1 * plane]};
+        if (pm[0] == 0.f && pm[1] == 0.f) continue;
+        const size_t g = (size_t)w * plane + t;
+        const int pb = s.cbody[a.partner[g]];
+        const float p_px = s.px[pb], p_py = s.py[pb];
+        const float p_ca = s.cab[pb], p_sa = s.sab[pb];
+        const float vbx = s.vx[pb], vby = s.vy[pb], ob_ = s.om[pb];
+        const float v0bx = s.vtx[pb], v0by = s.vty[pb], o0b = s.vtom[pb];
+        const float imb = f[F2_IMB * plane], iib = f[F2_IIB * plane];
+        const float fric = f[F2_FRIC * plane], rest = f[F2_REST * plane];
+        const float n_ax = f[F2_NAX * plane], n_ay = f[F2_NAY * plane];
+        const float nx = o_ca * n_ax - o_sa * n_ay;
+        const float ny = o_sa * n_ax + o_ca * n_ay;
+        float cbx = 0.f, cby = 0.f, dng = 0.f, nact = 0.f, tk = 0.f;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const float a_ax = f[(F2_AAX0 + p) * plane];
+          const float a_ay = f[(F2_AAY0 + p) * plane];
+          const float b_ax = f[(F2_BAX0 + p) * plane];
+          const float b_ay = f[(F2_BAY0 + p) * plane];
+          const float rax = o_ca * a_ax - o_sa * a_ay;
+          const float ray = o_sa * a_ax + o_ca * a_ay;
+          const float rbx = p_ca * b_ax - p_sa * b_ay;
+          const float rby = p_sa * b_ax + p_ca * b_ay;
+          // the next substep's static-friction reference: positions do not
+          // move after this pass
+          f[(F2_WAX0 + p) * plane] = o_px + rax;
+          f[(F2_WAY0 + p) * plane] = o_py + ray;
+          f[(F2_WBX0 + p) * plane] = p_px + rbx;
+          f[(F2_WBY0 + p) * plane] = p_py + rby;
+          const float uax = vax - oa * ray, uay = vay + oa * rax;
+          const float ubx = vbx - ob_ * rby, uby = vby + ob_ * rbx;
+          const float relx = ubx - uax, rely = uby - uay;
+          const float vn = relx * nx + rely * ny;
+          const float utx = relx - vn * nx, uty = rely - vn * ny;
+          const float vt = sqrtf(utx * utx + uty * uty);
+          const float ua0x = v0ax - o0a * ray, ua0y = v0ay + o0a * rax;
+          const float ub0x = v0bx - o0b * rby, ub0y = v0by + o0b * rbx;
+          const float vn0 = (ub0x - ua0x) * nx + (ub0y - ua0y) * ny;
+          const float lam = f[(F2_LAM0 + p) * plane];
+          const bool active = (lam > 0.f) && (f[(F2_SM0 + p) * plane] > 0.f);
+          const float cr_a = rax * ny - ray * nx;
+          const float cr_b = rbx * ny - rby * nx;
+          const float w_n = ima + iia * cr_a * cr_a + imb + iib * cr_b * cr_b;
+          const float e = (vn0 < -a.rest_threshold) ? rest : 0.f;
+          const float dv_n = active ? -vn + fmaxf(-e * vn0, 0.f) : 0.f;
+          const float lam_v = w_n > kEps ? dv_n / fmaxf(w_n, kEps) : 0.f;
+          const float pnx = lam_v * nx, pny = lam_v * ny;
+          const float inv_vt = 1.f / fmaxf(vt, kEps);
+          const float thx = utx * inv_vt, thy = uty * inv_vt;
+          const float cr_at = rax * thy - ray * thx;
+          const float cr_bt = rbx * thy - rby * thx;
+          const float w_t = ima + iia * cr_at * cr_at + imb + iib * cr_bt * cr_bt;
+          float lam_f = fminf(w_t > kEps ? vt / fmaxf(w_t, kEps) : 0.f,
+                              fric * lam / h);
+          lam_f = active ? lam_f : 0.f;
+          const float impx = pnx - lam_f * thx, impy = pny - lam_f * thy;
+          const float dd = iia * (rax * impy - ray * impx);
+          cbx = p ? cbx + impx : impx;
+          cby = p ? cby + impy : impy;
+          dng = p ? dng + dd : dd;
+          nact += active ? 1.f : 0.f;
+          tk = fmaxf(tk, (lam > 0.f ? 1.f : 0.f) * pm[p]);
+        }
+        acc[0] += -cbx * ima;
+        acc[1] += -cby * ima;
+        acc[2] += -dng;
+        acc[3] += nact;
+        a.o_touched[g] = fmaxf(a.o_touched[g], tk);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s.row[q * M + i] = acc[q];
+    }
+    __syncthreads();
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      float ab[4];
+      to_body(s, M, n, ab);
+      const float cnt = fmaxf(ab[3], 1.f);
+      float vx = s.vx[n] + ab[0] / cnt;
+      float vy = s.vy[n] + ab[1] / cnt;
+      float om = s.om[n] + ab[2] / cnt;
+      if (a.use_lin_damp) {
+        vx = vx * a.lin_sdamp;
+        vy = vy * a.lin_sdamp;
+      }
+      if (a.use_ang_damp) om = om * a.ang_sdamp;
+      s.vx[n] = vx; s.vy[n] = vy; s.om[n] = om;
+    }
+    __syncthreads();
+  }
+
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const long long g = w * N + n;
+    a.o_posx[g] = s.px[n]; a.o_posy[g] = s.py[n]; a.o_ang[g] = s.an[n];
+    a.o_velx[g] = s.vx[n]; a.o_vely[g] = s.vy[n]; a.o_angvel[g] = s.om[n];
+  }
+}
+
+template <int V>
+int launch(const Frame2Args& a, cudaStream_t stream) {
+  const size_t shmem = shared_bytes(a.N, a.M, V);
+  cudaError_t err = cudaFuncSetAttribute(
+      frame2_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shmem);
+  if (err != cudaSuccess) return (int)err;
+  if (a.W > 0) frame2_kernel<V><<<a.W, kThreads, shmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+SF_EXPORT(sf_frame2, Frame2Args)
+
+extern "C" int sf_frame2_fields() { return F2_FIELDS; }
+
+extern "C" int sf_frame2(const Frame2Args* a, void* stream) {
+  // the wrapper pads vertex rows (repeating v0, which leaves every min, max
+  // and manifold unchanged) to one of the compiled widths
+  switch (a->V) {
+    case 4: return launch<4>(*a, (cudaStream_t)stream);
+    case 8: return launch<8>(*a, (cudaStream_t)stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

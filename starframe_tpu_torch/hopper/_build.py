@@ -1,0 +1,175 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+``nvcc`` compiles every source into one shared library with a plain C
+interface, once, at first use, into ``starframe_tpu_torch/_build/``. The
+file name carries a hash of the sources and flags, so an edited kernel is
+rebuilt and a stale library is never loaded. The library is bound with
+``ctypes``: each entry point takes a pointer to an argument struct (mirrored
+below as a ``ctypes.Structure``) and the CUDA stream, launches on that
+stream and returns ``cudaGetLastError()``.
+
+``-fmad=false`` keeps the compiler from contracting ``a * b + c`` into one
+fused multiply-add. The plain PyTorch twins and the JAX reference round
+every product and sum separately; without the flag the kernels would differ
+from both in the last bits, and the frame kernel's contact thresholds
+(``c < 0``, ``lam_n > 0``) would amplify that into different ``touched``
+tables. No ``--use_fast_math``: ``sqrtf``, division, ``cosf`` and ``sinf``
+stay IEEE-accurate for the same reason.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+
+_lib = None
+build_seconds = None  # wall time of this process's build (None: loaded)
+
+
+class EligArgs(ctypes.Structure):
+    _fields_ = [
+        ("cbody", ctypes.c_void_p), ("layer", ctypes.c_void_p),
+        ("lmask", ctypes.c_void_p), ("active", ctypes.c_void_p),
+        ("sensor", ctypes.c_void_p), ("responds", ctypes.c_void_p),
+        ("moves", ctypes.c_void_p), ("elig", ctypes.c_void_p),
+        ("W", ctypes.c_int), ("N", ctypes.c_int), ("M", ctypes.c_int),
+    ]
+
+
+class SlotArgs(ctypes.Structure):
+    _fields_ = [
+        ("posx", ctypes.c_void_p), ("posy", ctypes.c_void_p),
+        ("ang", ctypes.c_void_p), ("velx", ctypes.c_void_p),
+        ("vely", ctypes.c_void_p), ("cbody", ctypes.c_void_p),
+        ("vlx", ctypes.c_void_p), ("vly", ctypes.c_void_p),
+        ("radius", ctypes.c_void_p), ("elig", ctypes.c_void_p),
+        ("partner", ctypes.c_void_p), ("slot_act", ctypes.c_void_p),
+        ("count", ctypes.c_void_p), ("count_touch", ctypes.c_void_p),
+        ("count_close", ctypes.c_void_p), ("budget", ctypes.c_void_p),
+        ("W", ctypes.c_int), ("N", ctypes.c_int), ("M", ctypes.c_int),
+        ("V", ctypes.c_int), ("C", ctypes.c_int),
+        ("partner_aware", ctypes.c_int),
+        ("dt", ctypes.c_float), ("tpad", ctypes.c_float),
+        ("cpad", ctypes.c_float),
+    ]
+
+
+class Frame2Args(ctypes.Structure):
+    _fields_ = [
+        ("posx", ctypes.c_void_p), ("posy", ctypes.c_void_p),
+        ("ang", ctypes.c_void_p), ("velx", ctypes.c_void_p),
+        ("vely", ctypes.c_void_p), ("angvel", ctypes.c_void_p),
+        ("invm", ctypes.c_void_p), ("invi", ctypes.c_void_p),
+        ("dyn", ctypes.c_void_p), ("kin", ctypes.c_void_p),
+        ("cbody", ctypes.c_void_p), ("vlx", ctypes.c_void_p),
+        ("vly", ctypes.c_void_p), ("nverts", ctypes.c_void_p),
+        ("radius", ctypes.c_void_p), ("fric", ctypes.c_void_p),
+        ("rest", ctypes.c_void_p), ("sensor", ctypes.c_void_p),
+        ("partner", ctypes.c_void_p), ("slot_act", ctypes.c_void_p),
+        ("gravity", ctypes.c_void_p), ("owner_start", ctypes.c_void_p),
+        ("owner_idx", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
+        ("o_posx", ctypes.c_void_p), ("o_posy", ctypes.c_void_p),
+        ("o_ang", ctypes.c_void_p), ("o_velx", ctypes.c_void_p),
+        ("o_vely", ctypes.c_void_p), ("o_angvel", ctypes.c_void_p),
+        ("o_touched", ctypes.c_void_p),
+        ("W", ctypes.c_int), ("N", ctypes.c_int), ("M", ctypes.c_int),
+        ("V", ctypes.c_int), ("C", ctypes.c_int),
+        ("substeps", ctypes.c_int), ("iterations", ctypes.c_int),
+        ("h", ctypes.c_float), ("dt", ctypes.c_float),
+        ("margin", ctypes.c_float), ("alpha_t", ctypes.c_float),
+        ("relaxation", ctypes.c_float), ("max_dpos", ctypes.c_float),
+        ("rest_threshold", ctypes.c_float), ("lin_sdamp", ctypes.c_float),
+        ("ang_sdamp", ctypes.c_float), ("use_lin_damp", ctypes.c_int),
+        ("use_ang_damp", ctypes.c_int),
+    ]
+
+
+_ENTRY_POINTS = {"sf_elig": EligArgs, "sf_slots": SlotArgs,
+                 "sf_frame2": Frame2Args}
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call in this checkout."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libsf_kernels_{digest.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, struct in _ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(struct), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        size = getattr(lib, name + "_args_size")
+        size.argtypes = []
+        size.restype = ctypes.c_int
+        if size() != ctypes.sizeof(struct):
+            raise RuntimeError(f"{name}: the C argument struct is "
+                               f"{size()} bytes, its ctypes mirror "
+                               f"{ctypes.sizeof(struct)}")
+    lib.sf_error_string.argtypes = [ctypes.c_int]
+    lib.sf_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def launch(name: str, args: ctypes.Structure, device) -> None:
+    """Call entry point ``name`` on the current stream of ``device``."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib = library()
+    err = getattr(lib, name)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch "
+                           f"({lib.sf_error_string(err).decode()})")
+
+
+def ptr(t) -> int:
+    return t.data_ptr()

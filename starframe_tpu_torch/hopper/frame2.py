@@ -1,0 +1,318 @@
+"""Whole-frame XPBD solve for a world batch.
+
+Replaces ``starframe_tpu/pallas/frame2.py``'s ``_frame2_kernel`` (via
+``run_frame2``) with the CUDA kernel in ``csrc/frame2.cu``, for the
+contact-only, uniform-topology, no-CCD, uncompacted configuration.
+:func:`run_frame2` launches it for CUDA tensors and runs
+:func:`frame2_plain`, the plain PyTorch twin, for CPU tensors.
+``run_frame2.launches`` counts kernel launches.
+
+The frame: manifolds once at the frame-start pose (with a velocity-expanded
+speculative margin, anchors kept body-local), then ``substeps`` x
+[integrate -> ``iterations`` x Jacobi contact projection over each row's
+slots, count-normalised and clipped -> velocity reconstruction ->
+restitution/friction velocity pass]. Every dynamic collider owns its slot
+row, so corrections reach bodies by summing rows (a body's colliders come
+from world 0's ``cbody`` through :func:`owner_csr`: the batch shares one
+topology, so a rollout builds it once).
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import torch
+
+from ..kernels import (
+    TOUCH_SLOP,
+    PairPose,
+    PairVel,
+    _pair_kinematics,
+    manifold_batch,
+    solve_contacts_b,
+    velocity_contacts_b,
+)
+from . import _build
+from .slots import _check, _route
+
+f32 = torch.float32
+i32 = torch.int32
+
+SCRATCH_FIELDS = 28  # csrc/common.cuh F2_FIELDS
+_KERNEL_V = (4, 8)  # vertex widths the kernel is compiled for
+
+
+def owner_csr(cbody0, n_bodies: int):
+    """``(start [N + 1] i32, idx [M] i32)``: body n owns colliders
+    ``idx[start[n]:start[n + 1]]``, ascending. Built on the device, with no
+    host round trip."""
+    cb = cbody0.long()
+    order = torch.argsort(cb, stable=True).to(i32)
+    counts = torch.bincount(cb, minlength=n_bodies)
+    start = torch.zeros(n_bodies + 1, dtype=i32, device=cb.device)
+    start[1:] = torch.cumsum(counts, 0).to(i32)
+    return start, order
+
+
+def _owner_table(start, order):
+    """An :func:`owner_csr` padded to ``(idx [K, N] long, mask [K, N] f32)``:
+    row k holds each body's k-th collider (ascending), mask 0 past its
+    count."""
+    counts = start[1:] - start[:-1]
+    k = torch.arange(max(int(counts.max()), 1), device=order.device)[:, None]
+    mask = k < counts[None]
+    at = torch.clamp(start[:-1][None] + k, max=order.shape[0] - 1)
+    return torch.where(mask, order.long()[at], 0), mask.to(f32)
+
+
+def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
+                 cbody, vlx, vly, nverts, radius, fric, rest, sensor,
+                 partner, slot_act, gravity, owners, *, C, substeps,
+                 iterations, h, dt, margin, compliance, relaxation, max_dpos,
+                 rest_threshold, lin_damp, ang_damp):
+    """Plain PyTorch twin of :func:`run_frame2`: the TPU kernel's sequence
+    of array operations, with ``torch.gather`` in place of its lane gathers
+    and the slots of a row packed on one axis ``[W, C * M]`` (slot-major)."""
+    W, N = posx.shape
+    M = cbody.shape[1]
+    V = vlx.shape[1]
+    cbl = cbody.long()
+
+    def gat(x, idx):
+        return torch.gather(x, 1, idx)
+
+    def tile_c(x):  # [W, M] -> [W, C*M]: own-side quantity per slot
+        return x.repeat(1, C)
+
+    def sum_c(x):  # [..., C*M] -> [..., M]: row sums in slot order
+        acc = x[..., 0:M]
+        for c in range(1, C):
+            acc = acc + x[..., c * M:(c + 1) * M]
+        return acc
+
+    oidx, omask = _owner_table(*owners)
+
+    def to_bodies(vals):  # [4, W, M] row sums -> [4, W, N] body sums
+        acc = None
+        for k in range(oidx.shape[0]):
+            g = vals[..., oidx[k]] * omask[k]
+            acc = g if acc is None else acc + g
+        return acc
+
+    gx = gravity[:, 0:1]
+    gy = gravity[:, 1:2]
+    px, py, an = posx, posy, ang
+    vx, vy, om = velx, vely, angvel
+
+    ca_b, sa_b = torch.cos(an), torch.sin(an)
+    o_px, o_py = gat(px, cbl), gat(py, cbl)
+    o_ca, o_sa = gat(ca_b, cbl), gat(sa_b, cbl)
+    o_invm, o_invi = gat(invm, cbl), gat(invi, cbl)
+    # conservative per-collider speed bound for the speculative margin
+    ext = None
+    for v in range(V):
+        d = torch.sqrt(vlx[:, v] ** 2 + vly[:, v] ** 2)
+        ext = d if ext is None else torch.maximum(ext, d)
+    ext = ext + radius
+    spd_b = torch.sqrt(vx * vx + vy * vy)
+    o_spd = gat(spd_b, cbl) + torch.abs(gat(om, cbl)) * ext
+
+    pc = partner.reshape(W, C * M).long()
+    act = slot_act.reshape(W, C * M)
+    pb = gat(cbody, pc).long()
+    p_px, p_py = gat(px, pb), gat(py, pb)
+    p_ca, p_sa = gat(ca_b, pb), gat(sa_b, pb)
+    p_spd = gat(spd_b, pb) + torch.abs(gat(om, pb)) * gat(ext, pc)
+    o_px_t, o_py_t = tile_c(o_px), tile_c(o_py)
+    o_ca_t, o_sa_t = tile_c(o_ca), tile_c(o_sa)
+
+    own_wx, own_wy, par_wx, par_wy = [], [], [], []
+    for v in range(V):
+        ovx, ovy = vlx[:, v], vly[:, v]
+        own_wx.append(tile_c(o_px + o_ca * ovx - o_sa * ovy))
+        own_wy.append(tile_c(o_py + o_sa * ovx + o_ca * ovy))
+        pvx, pvy = gat(ovx, pc), gat(ovy, pc)
+        par_wx.append(p_px + p_ca * pvx - p_sa * pvy)
+        par_wy.append(p_py + p_sa * pvx + p_ca * pvy)
+
+    margin_eff = margin + dt * (tile_c(o_spd) + p_spd)
+    m = manifold_batch(
+        torch.stack(own_wx), torch.stack(own_wy), tile_c(nverts),
+        tile_c(radius), torch.stack(par_wx), torch.stack(par_wy),
+        gat(nverts, pc), gat(radius, pc), margin_eff)
+    # body-local anchors and normal (rotate by -angle at frame start)
+    dxa = m.wa_x - o_px_t[None]
+    dya = m.wa_y - o_py_t[None]
+    dxb = m.wb_x - p_px[None]
+    dyb = m.wb_y - p_py[None]
+    pmask = m.pmask * act[None]
+    solvable = act * (1.0 - torch.maximum(tile_c(sensor), gat(sensor, pc)))
+    cb_ = SimpleNamespace(
+        n_ax=o_ca_t * m.n_x + o_sa_t * m.n_y,
+        n_ay=-o_sa_t * m.n_x + o_ca_t * m.n_y,
+        a_ax=o_ca_t[None] * dxa + o_sa_t[None] * dya,
+        a_ay=-o_sa_t[None] * dxa + o_ca_t[None] * dya,
+        b_ax=p_ca[None] * dxb + p_sa[None] * dyb,
+        b_ay=-p_sa[None] * dxb + p_ca[None] * dyb,
+        solve_mask=pmask * solvable[None], pmask=pmask, sep=m.sep,
+    )
+    pd_ = SimpleNamespace(
+        friction=torch.sqrt(tile_c(fric) * gat(fric, pc)),
+        restitution=torch.maximum(tile_c(rest), gat(rest, pc)),
+        inv_mass_a=tile_c(o_invm), inv_mass_b=gat(invm, pb),
+        inv_inertia_a=tile_c(o_invi), inv_inertia_b=gat(invi, pb),
+    )
+    touched = ((m.sep < TOUCH_SLOP).to(f32) * pmask).amax(dim=0)
+
+    def slot_pose(cab, sab, px, py):
+        return PairPose(
+            tile_c(gat(px, cbl)), tile_c(gat(py, cbl)),
+            tile_c(gat(cab, cbl)), tile_c(gat(sab, cbl)),
+            gat(px, pb), gat(py, pb), gat(cab, pb), gat(sab, pb))
+
+    def slot_vel(vx, vy, om):
+        return PairVel(
+            tile_c(gat(vx, cbl)), tile_c(gat(vy, cbl)), tile_c(gat(om, cbl)),
+            gat(vx, pb), gat(vy, pb), gat(om, pb))
+
+    # the static-friction reference is carried from the previous substep's
+    # velocity-pass kinematics, starting at the frame-start pose
+    kin0 = _pair_kinematics(
+        cb_, slot_pose(torch.cos(an), torch.sin(an), px, py))[6:10]
+    for _ in range(substeps):
+        vx = vx + gx * h * dyn
+        vy = vy + gy * h * dyn
+        px = px + vx * h
+        py = py + vy * h
+        an = an + om * h
+        vtx, vty, vtom = vx, vy, om
+
+        dxx = torch.zeros_like(px)
+        dxy = torch.zeros_like(py)
+        dth = torch.zeros_like(an)
+        lam_n = torch.zeros_like(cb_.sep)
+        for _it in range(iterations):
+            pose = slot_pose(torch.cos(an), torch.sin(an), px, py)
+            vals_a, _, lam_i = solve_contacts_b(
+                pose, None, pd_, cb_, h, compliance, kin0=kin0)
+            lam_n = lam_n + lam_i
+            ab = to_bodies(sum_c(vals_a))
+            cnt = torch.clamp(ab[3], min=1.0)
+            ddx = torch.clamp(ab[0] * relaxation / cnt, -max_dpos, max_dpos)
+            ddy = torch.clamp(ab[1] * relaxation / cnt, -max_dpos, max_dpos)
+            dda = torch.clamp(ab[2] * relaxation / cnt, -max_dpos, max_dpos)
+            px = px + ddx
+            py = py + ddy
+            an = an + dda
+            dxx = dxx + ddx
+            dxy = dxy + ddy
+            dth = dth + dda
+
+        # velocity reconstruction (kinematic bodies keep their velocity)
+        nk = 1.0 - kin
+        vx = kin * vx + nk * (vtx + dxx / h)
+        vy = kin * vy + nk * (vty + dxy / h)
+        om = kin * om + nk * (vtom + dth / h)
+
+        # velocity pass: restitution + dynamic friction
+        pose_v = slot_pose(torch.cos(an), torch.sin(an), px, py)
+        kin_v = _pair_kinematics(cb_, pose_v)
+        cv_a, _ = velocity_contacts_b(
+            pose_v, slot_vel(vx, vy, om), slot_vel(vtx, vty, vtom), pd_, cb_,
+            lam_n, h, rest_threshold, kin=kin_v)
+        abv = to_bodies(sum_c(cv_a))
+        tk = ((lam_n > 0.0).to(f32) * cb_.pmask).amax(dim=0)
+        touched = torch.maximum(touched, tk)
+        cntv = torch.clamp(abv[3], min=1.0)
+        vx = vx + abv[0] / cntv
+        vy = vy + abv[1] / cntv
+        om = om + abv[2] / cntv
+        if lin_damp > 0.0:
+            sdamp = 1.0 / (1.0 + h * lin_damp)
+            vx = vx * sdamp
+            vy = vy * sdamp
+        if ang_damp > 0.0:
+            om = om * (1.0 / (1.0 + h * ang_damp))
+        kin0 = kin_v[6:10]
+    return px, py, an, vx, vy, om, touched.reshape(W, C, M)
+
+
+def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
+               cbody, vlx, vly, nverts, radius, fric, rest, sensor,
+               partner, slot_act, gravity, *, C, substeps, iterations, h, dt,
+               margin, compliance, relaxation, max_dpos, rest_threshold,
+               lin_damp, ang_damp, owners=None, plain: bool = False):
+    """Run one frame's XPBD substeps for a world batch.
+
+    Body arrays are ``[W, N]`` f32, collider arrays ``[W, M]`` (``cbody``,
+    ``nverts`` i32; verts ``vlx``/``vly`` ``[W, V, M]``), slot tables
+    ``[W, C, M]`` and ``gravity`` ``[W, 2]``. ``owners`` is
+    :func:`owner_csr` of ``cbody[0]``, built here when not given. Returns
+    ``(posx, posy, ang, velx, vely, angvel, touched [W, C, M])``.
+    ``plain=True`` runs the twin even on CUDA tensors (for timing the kernel
+    against it)."""
+    W, N = posx.shape
+    M = cbody.shape[1]
+    V = vlx.shape[1]
+    dev = posx.device
+    checks = [(nm, t, f32, (W, N)) for nm, t in (
+        ("posx", posx), ("posy", posy), ("ang", ang), ("velx", velx),
+        ("vely", vely), ("angvel", angvel), ("invm", invm), ("invi", invi),
+        ("dyn", dyn), ("kin", kin))]
+    checks += [
+        ("cbody", cbody, i32, (W, M)), ("vlx", vlx, f32, (W, V, M)),
+        ("vly", vly, f32, (W, V, M)), ("nverts", nverts, i32, (W, M)),
+        ("radius", radius, f32, (W, M)), ("fric", fric, f32, (W, M)),
+        ("rest", rest, f32, (W, M)), ("sensor", sensor, f32, (W, M)),
+        ("partner", partner, i32, (W, C, M)),
+        ("slot_act", slot_act, f32, (W, C, M)),
+        ("gravity", gravity, f32, (W, 2))]
+    if owners is None:
+        owners = owner_csr(cbody[0], N)
+    checks += [("owner start", owners[0], i32, (N + 1,)),
+               ("owner idx", owners[1], i32, (M,))]
+    for name, t, dtype, shape in checks:
+        _check(name, t, dtype, shape, dev)
+    params = dict(C=C, substeps=substeps, iterations=iterations, h=h, dt=dt,
+                  margin=margin, compliance=compliance,
+                  relaxation=relaxation, max_dpos=max_dpos,
+                  rest_threshold=rest_threshold, lin_damp=lin_damp,
+                  ang_damp=ang_damp)
+    if plain or not _route(dev):
+        return frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi,
+                            dyn, kin, cbody, vlx, vly, nverts, radius, fric,
+                            rest, sensor, partner, slot_act, gravity, owners,
+                            **params)
+
+    lib = _build.library()
+    if lib.sf_frame2_fields() != SCRATCH_FIELDS:
+        raise RuntimeError("frame kernel scratch layout differs from "
+                           "SCRATCH_FIELDS")
+    Vk = next((v for v in _KERNEL_V if v >= V), None)
+    if Vk is None:
+        raise ValueError(f"frame kernel supports up to {_KERNEL_V[-1]} "
+                         f"vertices per collider, got {V}")
+    if Vk != V:  # pad with copies of v0: every min, max and manifold holds
+        vlx = torch.cat([vlx, vlx[:, :1].expand(W, Vk - V, M)], 1)
+        vly = torch.cat([vly, vly[:, :1].expand(W, Vk - V, M)], 1)
+    ostart, oidx = owners
+    scratch = torch.empty((W, SCRATCH_FIELDS, C, M), dtype=f32, device=dev)
+    outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
+    touched = torch.empty((W, C, M), dtype=f32, device=dev)
+    p = _build.ptr
+    args = _build.Frame2Args(
+        *(p(t) for t in (posx, posy, ang, velx, vely, angvel, invm, invi,
+                         dyn, kin, cbody, vlx, vly, nverts, radius, fric,
+                         rest, sensor, partner, slot_act, gravity, ostart,
+                         oidx, scratch, *outs, touched)),
+        W, N, M, Vk, C, substeps, iterations,
+        h, dt, margin, compliance / (h * h), relaxation, max_dpos,
+        rest_threshold, 1.0 / (1.0 + h * lin_damp),
+        1.0 / (1.0 + h * ang_damp), int(lin_damp > 0.0),
+        int(ang_damp > 0.0))
+    _build.launch("sf_frame2", args, dev)
+    run_frame2.launches += 1
+    return (*outs, touched)
+
+
+run_frame2.launches = 0

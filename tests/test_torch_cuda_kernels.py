@@ -1,0 +1,143 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Marked ``gpu``: they skip without ``torch.cuda.is_available()``. Run them
+on a machine with an H100 (the suite's conftest imports jax, which that
+machine lacks, hence ``--noconftest``)::
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py -q
+
+Tolerances: eligibility and the integer slot tables are exact (the kernels
+compute the same compares on the same f32 boxes); the slot budget to 1e-6;
+one frame's poses to 1e-4 and velocities to 1e-3 (the kernel sums the same
+terms in the same order as the twin, so what remains is the last bit of
+``cosf``/``sinf`` and of the frame's contact thresholds).
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from starframe_tpu_torch import hopper, parallel  # noqa: E402
+from starframe_tpu_torch.config import Capacity, SolverConfig  # noqa: E402
+from starframe_tpu_torch.scenes import batched_worlds  # noqa: E402
+from starframe_tpu_torch.shapes import Shape  # noqa: E402
+from starframe_tpu_torch.state import WorldBuilder  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sc = batched_worlds(n_worlds=64, n_bodies=256, substeps=4,
+                        device="cuda")
+    # a few frames in, so the tables and manifolds hold real contacts
+    w, _, _ = parallel.batched_rollout(sc.world, sc.config, 0, 40,
+                                       record=lambda _: None)
+    return sc.config, w
+
+
+def test_elig_kernel_matches_twin(scene):
+    cfg, w = scene
+    body, col = parallel._frame2_arrays(w, cfg)
+    args = (col["cbody"], col["layer"], col["lmask"], col["active"],
+            col["sensor"], body["responds"], body["moves"])
+    n0 = hopper.build_elig_mask.launches
+    got = hopper.build_elig_mask(*args)
+    assert hopper.build_elig_mask.launches == n0 + 1
+    assert torch.equal(got, hopper.elig_mask_plain(*args))
+
+
+@pytest.mark.parametrize("frames", [1, 4])
+def test_slot_kernel_matches_twin(scene, frames):
+    cfg, w = scene
+    elig = parallel.frame2_elig(w, cfg)
+    n0 = hopper.build_slot_tables.launches
+    got, gb = parallel.frame2_tables(w, cfg, frames=frames, elig=elig,
+                                     return_budget=True)
+    assert hopper.build_slot_tables.launches == n0 + 1
+    ref, rb = parallel.frame2_tables(w, cfg, frames=frames, elig=elig,
+                                     return_budget=True, plain=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(gb, rb, rtol=0, atol=1e-6)
+    assert int(got[3].max()) > 0, "no touching candidates: vacuous"
+
+
+def _frame_kernel_matches_twin(cfg, w):
+    tables = parallel.frame2_tables(w, cfg, frames=4,
+                                    elig=parallel.frame2_elig(w, cfg))
+    n0 = hopper.run_frame2.launches
+    wk, tk, *_ = parallel.frame2_step(w, cfg, tables=tables)
+    assert hopper.run_frame2.launches == n0 + 1
+    wp, tp, *_ = parallel.frame2_step(w, cfg, tables=tables, plain=True)
+    assert torch.equal(tk, tp)
+    assert float(tk.sum()) > 0, "no touching contacts: vacuous"
+    bk, bp = wk.bodies, wp.bodies
+    torch.testing.assert_close(bk.pos, bp.pos, rtol=0, atol=1e-4)
+    torch.testing.assert_close(bk.angle, bp.angle, rtol=0, atol=1e-4)
+    torch.testing.assert_close(bk.vel, bp.vel, rtol=0, atol=1e-3)
+    torch.testing.assert_close(bk.ang_vel, bp.ang_vel, rtol=0, atol=1e-3)
+
+
+def test_frame_kernel_matches_twin(scene):
+    _frame_kernel_matches_twin(*scene)
+
+
+# vertex capacity -> the shapes of a pile that fills it (on a capsule
+# ground, 2 vertices). The kernel is compiled for 4 and 8 vertices: 3 and 5
+# go through the wrapper's padding (copies of vertex 0), 8 is the default
+# Capacity.max_verts.
+PILE_SHAPES = {
+    3: (Shape.circle(0.45), Shape.regular_polygon(3, 0.5),
+        Shape.capsule(0.3, 0.2)),
+    5: (Shape.circle(0.45), Shape.box(0.4, 0.35),
+        Shape.regular_polygon(5, 0.45)),
+    8: (Shape.circle(0.45), Shape.box(0.4, 0.35), Shape.hexagon(0.45),
+        Shape.regular_polygon(8, 0.45)),
+}
+
+
+@pytest.mark.parametrize("max_verts", sorted(PILE_SHAPES))
+def test_frame_kernel_matches_twin_vertex_widths(max_verts):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    shapes = PILE_SHAPES[max_verts]
+    b = WorldBuilder(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, Shape.capsule(40.0, 0.5), friction=0.5)
+    for i in range(127):
+        row, col = divmod(i, 16)
+        body = b.add_body(pos=(-8.25 + col * 1.1, 0.7 + row * 1.1))
+        b.add_collider(body, shapes[i % len(shapes)], friction=0.5,
+                       restitution=0.2)
+    cap = Capacity(max_bodies=128, max_colliders=128, max_pairs=1024,
+                   max_joints=0, max_verts=max_verts)
+    world, _ = b.build(cap, device="cuda")
+    assert world.colliders.verts.shape[-2] == max_verts
+    assert int(world.colliders.nverts.max()) == max_verts
+    w = parallel.replicate_world(world, 64)
+    noise = 0.1 * np.random.default_rng(3).standard_normal(
+        tuple(w.bodies.vel.shape), dtype=np.float32)
+    dyn = (w.bodies.inv_mass > 0)[..., None]
+    vel = torch.where(dyn, w.bodies.vel + torch.as_tensor(noise, device="cuda"),
+                      w.bodies.vel)
+    w = dataclasses.replace(w, bodies=dataclasses.replace(w.bodies, vel=vel))
+    cfg = SolverConfig(substeps=4, frames_per_broadphase=4)
+    w, _, _ = parallel.batched_rollout(w, cfg, 0, 40, record=lambda _: None)
+    _frame_kernel_matches_twin(cfg, w)
+
+
+def test_rollout_is_bitwise_reproducible(scene):
+    cfg, w = scene
+    a, _, da = parallel.batched_rollout(w, cfg, 0, 6, record=lambda _: None)
+    b, _, db = parallel.batched_rollout(w, cfg, 0, 6, record=lambda _: None)
+    assert torch.equal(a.bodies.pos, b.bodies.pos)
+    assert torch.equal(a.bodies.vel, b.bodies.vel)
+    assert {k: int(v) for k, v in da.items()} == {
+        k: int(v) for k, v in db.items()}

@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's batched rollout, on one GPU.
+
+    python3 tools/profile_torch_rollout.py [--worlds 4096] [--bodies 256]
+        [--frames 60] [--substeps 10] [--trace PATH]
+
+Runs ``starframe_tpu_torch.parallel.batched_rollout`` (the main path of
+``chip_smoke.py``) once to warm up, three times unprofiled for wall times,
+then once under ``torch.profiler``, and prints:
+
+- each device kernel's total time, call count and share of device time
+  (the three hand-written kernels by name, the small PyTorch ops together);
+- device busy time (the union of kernel, copy and set intervals) against
+  the profiled wall, and so the device's idle share;
+- device kernels and host syncs per frame, peak device memory;
+- one ``frame2_step`` (the frame kernel plus its array packing; CUDA
+  events) on the starting batch and on the final one, beside the
+  slot-table entries per world it solves over.
+
+Imports the package from the checkout this file lives in. ``--trace``
+keeps the Chrome trace; without it the trace goes to a temporary file.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+KERNELS = (("frame2_kernel", "K4 frame"), ("slot_kernel", "K2 slot tables"),
+           ("elig_kernel", "K1 eligibility"))
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
+    """CUDA-event time of one ``frame2_step`` on ``w``, and the slot-table
+    entries per world it solves over."""
+    import torch
+
+    tables = parallel.frame2_tables(w, cfg, frames=cfg.frames_per_broadphase)
+    owners = hopper.owner_csr(w.colliders.body_idx[0], w.bodies.n)
+    parallel.frame2_step(w, cfg, tables=tables, owners=owners)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        parallel.frame2_step(w, cfg, tables=tables, owners=owners)
+    end.record()
+    torch.cuda.synchronize()
+    per_world = float(tables[1].sum()) / tables[1].shape[0]
+    return start.elapsed_time(end) / reps, per_world
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--worlds", type=int, default=4096)
+    ap.add_argument("--bodies", type=int, default=256)
+    ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--substeps", type=int, default=10)
+    ap.add_argument("--trace", default=None, help="keep the Chrome trace here")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_rollout: needs a CUDA device", file=sys.stderr)
+        return 2
+    from starframe_tpu_torch import hopper, parallel
+    from starframe_tpu_torch.scenes import batched_worlds
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    sc = batched_worlds(n_worlds=args.worlds, n_bodies=args.bodies,
+                        substeps=args.substeps, device="cuda")
+    cfg, F = sc.config, args.frames
+
+    def rollout():
+        return parallel.batched_rollout(sc.world, cfg, 0, F,
+                                        record=lambda _: None)
+
+    rollout()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rollout()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"card: {card}")
+    print(f"{args.worlds}x{args.bodies}, {args.substeps} substeps, {F} frames; "
+          f"unprofiled walls {', '.join(f'{w:.4f}' for w in walls)} s "
+          f"({', '.join(f'{1e3 * w / F:.4f}' for w in walls)} ms/frame)")
+
+    torch.cuda.reset_peak_memory_stats()
+    syncs0 = parallel.host_syncs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        final, _, _ = rollout()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    syncs = parallel.host_syncs - syncs0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = args.trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev = [e for e in events
+           if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
+    if not dev:
+        print("no device events in the trace: the profiler saw no device "
+              "time", file=sys.stderr)
+        return 1
+    rows = {label: [0.0, 0] for _, label in KERNELS}
+    rows["other device work"] = [0.0, 0]
+    for e in dev:
+        label = next((lab for key, lab in KERNELS if key in e["name"]),
+                     "other device work")
+        rows[label][0] += e["dur"] / 1e3
+        rows[label][1] += 1
+    device_ms = sum(ms for ms, _ in rows.values())
+    busy_ms = busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e3
+    print(f"profiled run on {card}:")
+    print("| device work | total ms | calls | share of device time |")
+    print("|---|---|---|---|")
+    for label, (ms, n) in rows.items():
+        print(f"| {label} | {ms:.3f} | {n} | {100 * ms / device_ms:.2f}% |")
+    n_kernels = sum(1 for e in dev if e["cat"] == "kernel")
+    print(f"device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled wall: "
+          f"idle {100 * (1 - busy_ms / wall_ms):.2f}%; "
+          f"{n_kernels / F:.2f} device kernels per frame; host syncs "
+          f"{syncs} ({syncs / F:.3f}/frame); peak device memory "
+          f"{peak_gib:.3f} GiB")
+
+    for name, w in (("starting batch", sc.world), (f"after {F} frames", final)):
+        ms, per_world = frame_step_ms(parallel, hopper, w, cfg)
+        print(f"frame2_step on the {name}: {ms:.4f} ms "
+              f"({per_world:.1f} slot-table entries per world)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,17 +4,26 @@
     python3 chip_smoke.py
 
 1. Refuses to run without CUDA (there is no CPU fallback), prints the card's
-   name and power limit and builds the kernels (``csrc/*.cu``, nvcc).
-2. Holds each kernel against its plain PyTorch twin on a 64-world batch
-   advanced into contact: the eligibility mask equal; the slot tables'
-   integer outputs equal with ``partner_aware`` off and on, the budget to
-   1e-6; one frame with ``touched`` equal, poses to 1e-4, velocities to
-   1e-3.
+   name and power limit, builds the kernels (``csrc/*.cu``, one nvcc per
+   source in parallel) and prints ptxas's register report for each.
+2. Holds each kernel against its plain PyTorch twin on 64-world batches
+   advanced into contact. The contact batch: the eligibility mask equal;
+   the slot tables' integer outputs equal with ``partner_aware`` off and
+   on, the budget to 1e-6; one frame with ``touched`` equal, poses to 1e-4,
+   velocities to 1e-3. The jointed batches (``batchify`` of ``mechanism``
+   and ``rope_bridge``, 4 substeps): the joint slots equal, and one frame
+   with joints under both joint tiers to the same bounds.
 3. Drives the main path, ``batched_rollout`` over 4096 worlds x 256 bodies
    (10 substeps, broadphase every 4 frames) for 60 frames: once to warm up,
    then timed between ``torch.cuda.synchronize()`` calls, with every kernel
    launch counter reset just before. Checks the hard counters are 0, the
    poses finite and on the ground's side, and that all three kernels ran.
+   Then drives the jointed path the same way: ``batched_rollout`` over
+   ``batchify(mechanism(), 1024)`` and ``batchify(rope_bridge(), 1024)``
+   (10 substeps) for 60 frames each, with the hard counters 0, the state
+   finite, the joint-slot kernel launched and the frame kernel once per
+   frame, and the joints' health over the worlds (median and 99th
+   percentile) within bounds taken from the JAX package (below).
 4. At the main path's shapes (4096 worlds, from its final state) holds
    each kernel against its twin again and times both (CUDA events); then
    times the same rollout through the twins for a few frames. The mask and
@@ -23,12 +32,18 @@
    twin's distance from the same twin run in float64. The settled 4096-world
    piles are chaotic: one frame of float32 rounding moves the twin by
    ~1e-2 in angle and ~1 in angular velocity, so step 2's fixed bounds do
-   not apply.
-5. Reruns 10 frames from the same state and requires bitwise equality.
+   not apply. The same at 1024 worlds for the joint-slot kernel (equal)
+   and the frame kernel with joints (``touched`` equal, and at most 1% of
+   the worlds past poses 1e-4 or velocities 1e-3 times their fastest
+   body's speed: see ``agree_worlds``), from each jointed run's final
+   state.
+5. Reruns 10 frames of the main path and of the mechanism batch from the
+   same state and requires bitwise equality.
 
 Prints a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
-two parity checks), then the card line, then ``{"ok": true, "device":
-{...}}`` last. Any failed check raises.
+two parity checks; ``frame2_joints`` is the frame kernel's joint
+instantiation, timed on the mechanism batch), then the card line, then
+``{"ok": true, "device": {...}}`` last. Any failed check raises.
 """
 
 import json
@@ -38,6 +53,7 @@ import time
 
 W_MAIN, N_BODIES, SUBSTEPS, FRAMES = 4096, 256, 10, 60
 W_PARITY = 64
+W_JOINTED = 1024  # bench.py:232-237 runs the jointed configs at this width
 TWIN_FRAMES = 8
 KERNELS = (
     # name, wrapper attribute, CUDA source, the TPU kernel it replaces
@@ -47,7 +63,39 @@ KERNELS = (
      "starframe_tpu/pallas/slots.py:107"),
     ("frame2", "run_frame2", "starframe_tpu_torch/csrc/frame2.cu",
      "starframe_tpu/pallas/frame2.py:78"),
+    ("joint_slots", "build_joint_slots",
+     "starframe_tpu_torch/csrc/joint_slots.cu",
+     "starframe_tpu/pallas/slots.py:306"),
+    ("frame2_joints", "run_frame2", "starframe_tpu_torch/csrc/frame2.cu",
+     "starframe_tpu/pallas/frame2.py:78"),
 )
+CONTACT_KERNELS = ("elig", "slots", "frame2")
+JOINTED = ("mechanism", "rope_bridge")
+
+# Joint health after 60 frames from the start, 10 substeps, per world
+# (chip_smoke.joint_health, plus the fastest body's speed and, for the
+# mechanism, how far the wheel's mean angular velocity over the run and its
+# final one lie from the motor's 2 rad/s). Reference: the JAX package's
+# frame-kernel path on the same scenes, `JAX_PLATFORMS=cpu python3
+# tools/joint_health_bounds.py --worlds 256` (Pallas interpret mode on a
+# CPU), as (median, 99th percentile) over its worlds. The mechanism is not
+# a quiet scene there either: its pendulum links overlap at their pins, so
+# contacts fight the pins, and in most worlds some body reaches ~90 m/s; the
+# worst worlds are blow-ups, so they are reported, not bounded. Each
+# quantile of the port's worlds must stay within 3x the reference's same
+# quantile, floored at 1e-3 m, 0.05 rad/s and 1 m/s.
+HEALTH_REFERENCE = {
+    "mechanism": {
+        "pin_gap": (0.09330, 0.36409), "stretch": (3.787e-5, 3.879e-5),
+        "wheel_mean_err": (0.01180, 1.58514),
+        "wheel_final_err": (0.0, 0.27254), "max_speed": (92.703, 210.328)},
+    "rope_bridge": {
+        "pin_gap": (1.073e-7, 9.765e-7), "stretch": (0.037576, 0.040650),
+        "max_speed": (3.9875, 5.9304)},
+}
+HEALTH_FLOOR = {"pin_gap": 1e-3, "stretch": 1e-3, "wheel_mean_err": 0.05,
+                "wheel_final_err": 0.05, "max_speed": 1.0}
+MOTOR_SPEED = 2.0  # scenes.mechanism's default
 
 
 def card_line() -> str:
@@ -66,6 +114,41 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def joint_health(pos, angle, joints) -> dict:
+    """Each world's worst joint violation (numpy, float64, ``[W]``): the
+    gap between the two anchors of a pin or weld (``pin_gap``), and a
+    distance joint's length outside ``[lo, hi]`` (``stretch``). ``pos [W,
+    N, 2]``, ``angle [W, N]``; ``joints`` holds the ``[W, J]`` joint arrays
+    under their field names."""
+    import numpy as np
+
+    pos, angle = np.asarray(pos, np.float64), np.asarray(angle, np.float64)
+
+    def anchor(body, local):
+        p = np.take_along_axis(pos, body[..., None], axis=1)
+        th = np.take_along_axis(angle, body, axis=1)
+        c, s = np.cos(th), np.sin(th)
+        lx, ly = local[..., 0], local[..., 1]
+        return p + np.stack([c * lx - s * ly, s * lx + c * ly], axis=-1)
+
+    jt = joints["jtype"]
+    d = np.linalg.norm(anchor(joints["body_a"], joints["anchor_a"])
+                       - anchor(joints["body_b"], joints["anchor_b"]),
+                       axis=-1)
+    point, dist = (jt == 2) | (jt == 5), jt == 1
+    stretch = np.maximum(np.maximum(d - joints["hi"], joints["lo"] - d), 0.0)
+    return {"pin_gap": np.where(point, d, 0.0).max(axis=1),
+            "stretch": np.where(dist, stretch, 0.0).max(axis=1)}
+
+
+def quantiles(x) -> list:
+    """Median, 99th percentile and max of a per-world array."""
+    import numpy as np
+
+    return [float(v) for v in np.quantile(np.asarray(x, np.float64),
+                                          (0.5, 0.99, 1.0))]
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls, after one warm-up."""
     import torch
@@ -78,6 +161,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def turns(call, twin_reps: int = 2, kernel_reps: int = 5):
+    """``(kernel ms, twin ms)`` of ``call(plain)``: twin, kernel, kernel,
+    twin, so the card's state is shared fairly."""
+    p1 = cuda_ms(lambda: call(True), twin_reps)
+    k1 = cuda_ms(lambda: call(False), kernel_reps)
+    k2 = cuda_ms(lambda: call(False), kernel_reps)
+    p2 = cuda_ms(lambda: call(True), twin_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 FRAME_FIELDS = ("posx", "posy", "ang", "velx", "vely", "angvel")
@@ -99,16 +192,87 @@ def agree(name: str, k, p, spread=None) -> float:
         err = max_err(k[5], p[5])
         check(err <= 1e-6, f"slots: budget off by {err}")
         return err
-    check(torch.equal(k[6], p[6]), "frame2: touched differs")
-    check(float(k[6].sum()) > 0, "frame2: no contacts, vacuous")
+    if name == "joint_slots":
+        for field, a, b in zip(("jslot", "jside", "jact", "count"), k, p):
+            check(torch.equal(a, b), f"joint_slots: {field} differs")
+        return max(max_err(a, b) for a, b in zip(k, p))
+    check(torch.equal(k[6], p[6]), f"{name}: touched differs")
+    check(float(k[6].sum()) > 0, f"{name}: no contacts, vacuous")
     errs = [max_err(a, b) for a, b in zip(k[:6], p[:6])]
     for field, e, s in zip(FRAME_FIELDS, errs, spread):
-        check(e <= 0.1 * s, f"frame2: {field} off by {e}, more than a tenth "
+        check(e <= 0.1 * s, f"{name}: {field} off by {e}, more than a tenth "
               f"of float32's own spread {s}")
-    print("parity frame2 at full size, max abs err (float32 spread): "
+    print(f"parity {name} at full size, max abs err (float32 spread): "
           + ", ".join(f"{f} {e:.3g} ({s:.3g})"
                       for f, e, s in zip(FRAME_FIELDS, errs, spread)))
     return max(errs)
+
+
+def agree_worlds(name, k, p, max_share=0.01) -> float:
+    """The frame with joints at full width, world by world: ``touched``
+    equal everywhere, and in at most ``max_share`` of the worlds a pose
+    further than 1e-4 from the twin's or a velocity further than 1e-3 times
+    the world's fastest body speed (at least 1 m/s). Jointed worlds blow up
+    (the mechanism's pendulum links overlap at their pins, so contacts
+    fight the pins, in the JAX package too: bodies reach ~90 m/s, where one
+    float32 ulp of a position is 1e-2 m/s of velocity), and there one ulp
+    can flip a contact or friction decision, on either side of the
+    reference. Returns the max abs error over all worlds."""
+    import torch
+
+    check(torch.equal(k[6], p[6]), f"{name}: touched differs")
+    check(float(k[6].sum()) > 0, f"{name}: no contacts, vacuous")
+    speed = torch.sqrt(p[3].double() ** 2 + p[4].double() ** 2).amax(dim=1)
+    errs = [(a.double() - b.double()).abs().amax(dim=1)
+            for a, b in zip(k[:6], p[:6])]
+    pose = torch.stack(errs[:3]).amax(0)
+    vel = torch.stack(errs[3:]).amax(0)
+    off = (pose > 1e-4) | (vel > 1e-3 * torch.clamp(speed, min=1.0))
+    n_off, W = int(off.sum()), off.shape[0]
+    q = [float(x) for x in torch.quantile(pose, torch.tensor(
+        [0.5, 0.99], dtype=pose.dtype, device=pose.device))]
+    check(n_off <= max_share * W, f"{name}: {n_off} of {W} worlds off")
+    print(f"parity {name} at full size: touched equal; {n_off} of {W} "
+          f"worlds past poses 1e-4 / velocities 1e-3 x speed; pose err "
+          f"median {q[0]:.3g}, 99th percentile {q[1]:.3g}, max "
+          f"{float(pose.max()):.3g}; velocity err max {float(vel.max()):.3g} "
+          f"(fastest body {float(speed.max()):.3g} m/s)")
+    return max(float(pose.max()), float(vel.max()))
+
+
+def frame_call(hopper, parallel, w, cfg, tables, joint_slots=None):
+    """``(args, kwargs)`` of ``hopper.run_frame2`` for one frame of ``w``,
+    as ``parallel.frame2_step`` builds them."""
+    body, col = parallel._frame2_arrays(w, cfg)
+    W = body["posx"].shape[0]
+    fargs = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
+                               "angvel", "invm", "invi", "dyn", "kin")]
+    fargs += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
+                               "fric", "rest", "sensor")]
+    fargs += [tables[0], tables[1], w.gravity.expand(W, 2).contiguous()]
+    fkw = dict(C=cfg.slot_capacity, substeps=cfg.substeps,
+               iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
+               margin=cfg.contact_margin, compliance=cfg.contact_compliance,
+               relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+               rest_threshold=cfg.restitution_threshold,
+               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
+               owners=hopper.owner_csr(col["cbody"][0], w.bodies.n))
+    if joint_slots is not None:
+        fkw.update(joints=parallel._frame2_joints(w, cfg, joint_slots)[0],
+                   JC=cfg.joint_slot_capacity, joint_solver=cfg.joint_solver,
+                   n_colors=cfg.max_joint_colors, max_dpos_joint=cfg.max_dpos)
+    return fargs, fkw
+
+
+def f32_spread(hopper, fargs, fkw, p):
+    """Per field, how far the f32 twin's frame ``p`` lies from the same
+    twin run in float64 on the same inputs."""
+    import torch
+
+    p64 = hopper.frame2_plain(
+        *[a.double() if a.dtype == torch.float32 else a for a in fargs],
+        **fkw)
+    return [max_err(a, b) for a, b in zip(p[:6], p64[:6])]
 
 
 def parity(dev, hopper, parallel, batched_worlds) -> dict:
@@ -148,21 +312,180 @@ def parity(dev, hopper, parallel, batched_worlds) -> dict:
               f"{int(tk[3].sum())}")
 
     tables = parallel.frame2_tables(w, cfg, frames=4, elig=ek)
-    wk, touched_k, *_ = parallel.frame2_step(w, cfg, tables=tables)
+    errs["frame2"] = frame_parity("frame2", parallel, w, cfg, tables)
+    return errs
+
+
+def frame_parity(name, parallel, w, cfg, tables, joint_slots=None) -> float:
+    """One frame through the kernel and the twin: ``touched`` equal, poses
+    to 1e-4, velocities to 1e-3. Returns the max abs error."""
+    import torch
+
+    wk, touched_k, *_ = parallel.frame2_step(w, cfg, tables=tables,
+                                             joint_slots=joint_slots)
     wp, touched_p, *_ = parallel.frame2_step(w, cfg, tables=tables,
+                                             joint_slots=joint_slots,
                                              plain=True)
-    check(torch.equal(touched_k, touched_p), "frame2: touched differs")
-    check(float(touched_k.sum()) > 0, "frame2: no contacts, vacuous")
+    check(torch.equal(touched_k, touched_p), f"{name}: touched differs")
+    check(float(touched_k.sum()) > 0, f"{name}: no contacts, vacuous")
     e_pose = max(max_err(wk.bodies.pos, wp.bodies.pos),
                  max_err(wk.bodies.angle, wp.bodies.angle))
     e_vel = max(max_err(wk.bodies.vel, wp.bodies.vel),
                 max_err(wk.bodies.ang_vel, wp.bodies.ang_vel))
-    check(e_pose <= 1e-4, f"frame2: pose off by {e_pose}")
-    check(e_vel <= 1e-3, f"frame2: velocity off by {e_vel}")
-    errs["frame2"] = max(e_pose, e_vel)
-    print(f"parity frame2: touched equal ({int(touched_k.sum())} touching "
+    check(e_pose <= 1e-4, f"{name}: pose off by {e_pose}")
+    check(e_vel <= 1e-3, f"{name}: velocity off by {e_vel}")
+    print(f"parity {name}: touched equal ({int(touched_k.sum())} touching "
           f"slots), pose max abs err {e_pose:.3g}, velocity {e_vel:.3g}")
+    return max(e_pose, e_vel)
+
+
+def jointed_scene(name, n_worlds, dev, substeps=SUBSTEPS):
+    """``(batch scene, single-world scene)`` of a jointed config."""
+    from starframe_tpu_torch import scenes
+
+    base = getattr(scenes, name)(substeps=substeps, device=dev)
+    return scenes.batchify(base, n_worlds), base
+
+
+def parity_joints(dev, hopper, parallel) -> dict:
+    """K3 and K4 with joints, kernel vs twin, on both jointed batches at 64
+    worlds 30 frames in, both joint tiers, at 4 substeps (the CPU tests'
+    depth: at 10 the mechanism's pendulum chain amplifies one ulp past the
+    fixed bounds in some worlds, which step 4 handles per world)."""
+    import dataclasses
+
+    errs = {"joint_slots": 0.0, "frame2_joints": 0.0}
+    for name in JOINTED:
+        sc, _ = jointed_scene(name, W_PARITY, dev, substeps=4)
+        cfg = sc.config
+        w, _, _ = parallel.batched_rollout(sc.world, cfg, 0, 30,
+                                           record=lambda _: None)
+        jk = parallel.frame2_joint_slots(w, cfg)
+        jp = parallel.frame2_joint_slots(w, cfg, plain=True)
+        errs["joint_slots"] = max(errs["joint_slots"],
+                                  agree("joint_slots", jk, jp))
+        print(f"parity joint_slots {name}: equal ({int(jk[3].sum())} "
+              f"body-joint incidences, at most {int(jk[3].max())} a body)")
+        tables = parallel.frame2_tables(w, cfg)
+        for solver in ("colored", "jacobi"):
+            cfg_s = dataclasses.replace(cfg, joint_solver=solver)
+            e = frame_parity(f"frame2_joints {name} {solver}", parallel, w,
+                             cfg_s, tables, joint_slots=jk)
+            errs["frame2_joints"] = max(errs["frame2_joints"], e)
     return errs
+
+
+def run_jointed(name, dev, wrappers, parallel, card) -> dict:
+    """Drive ``batched_rollout`` over a 1024-world jointed batch for 60
+    frames (timed after a warm-up) and check it; returns what phase 4
+    needs."""
+    import torch
+
+    sc, base = jointed_scene(name, W_JOINTED, dev)
+    cfg = sc.config
+    active = int(((sc.world.bodies.flags & 1) != 0).sum())
+
+    def rollout(n):
+        return parallel.batched_rollout(sc.world, cfg, 0, n,
+                                        record=lambda _: None)
+
+    rollout(FRAMES)  # warm-up
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    final, _, diag = rollout(FRAMES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"joint_slots": wrappers["joint_slots"].launches,
+                "frame2_joints": wrappers["frame2_joints"].launches}
+    slot_builds = wrappers["slots"].launches
+    diag = {k: int(v) for k, v in diag.items()}
+
+    b = final.bodies
+    check(tuple(b.pos.shape) == (W_JOINTED, sc.world.bodies.n, 2),
+          f"{name}: pos shape {b.pos.shape}")
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(bool(torch.isfinite(getattr(b, field)).all()),
+              f"{name}: non-finite {field}")
+    check(diag["slot_overflow"] == 0,
+          f"{name}: slot_overflow {diag['slot_overflow']}")
+    check(diag["joint_overflow"] == 0,
+          f"{name}: joint_overflow {diag['joint_overflow']}")
+    check(launches["joint_slots"] >= 1,
+          f"{name}: joint_slots launched {launches['joint_slots']} times")
+    check(launches["frame2_joints"] == FRAMES,
+          f"{name}: frame kernel launched {launches['frame2_joints']} times")
+    j = final.joints
+    per_world = joint_health(
+        b.pos.cpu().numpy(), b.angle.cpu().numpy(),
+        {k: getattr(j, k).cpu().numpy() for k in (
+            "jtype", "body_a", "body_b", "anchor_a", "anchor_b", "lo",
+            "hi")})
+    if name == "mechanism":
+        wl = base.wheel
+        mean = (b.angle[:, wl] - sc.world.bodies.angle[:, wl]) / (
+            FRAMES * cfg.dt)
+        per_world["wheel_mean_err"] = (mean - MOTOR_SPEED).abs().cpu().numpy()
+        per_world["wheel_final_err"] = (
+            b.ang_vel[:, wl] - MOTOR_SPEED).abs().cpu().numpy()
+    per_world["max_speed"] = b.vel.norm(dim=-1).amax(dim=1).cpu().numpy()
+    health = {k: quantiles(v) for k, v in per_world.items()}
+    for key, ref in HEALTH_REFERENCE[name].items():
+        for q, got, r in zip(("median", "99th percentile"), health[key], ref):
+            bound = max(3 * r, HEALTH_FLOOR[key])
+            check(got <= bound, f"{name}: {key} {q} over worlds {got} past "
+                  f"its bound {bound}")
+    ms_frame = 1e3 * seconds / FRAMES
+    print(f"jointed path {name}: {W_JOINTED} worlds x {sc.world.bodies.n} "
+          f"bodies ({active // W_JOINTED} active each), {cfg.substeps} "
+          f"substeps, {cfg.joint_solver} joints ({cfg.max_joint_colors} "
+          f"colours), {FRAMES} frames in {seconds:.4f} s = {ms_frame:.4f} "
+          f"ms/frame, {active * FRAMES / seconds:.6g} body-steps/s "
+          f"({active} active bodies/frame) on {card}")
+    print(f"jointed path {name} counters: {json.dumps(diag)}; launches "
+          f"{json.dumps(launches)}, slots {slot_builds}; joint health "
+          f"(median, 99th percentile, max over worlds) {json.dumps(health)}")
+    return dict(final=final, cfg=cfg, launches=launches, ms=ms_frame,
+                sc=sc)
+
+
+def jointed_turns(hopper, parallel, jointed, errs, card) -> dict:
+    """K3 and K4 with joints against their twins at 1024 worlds, from each
+    jointed run's final state, and their times; returns the mechanism
+    batch's ``{name: (kernel ms, twin ms)}``. ``errs`` keeps the worst
+    error of each."""
+    import torch
+
+    times = {}
+    for scene in JOINTED:
+        w, jcfg = jointed[scene]["final"], jointed[scene]["cfg"]
+        j = w.joints
+        jargs = (j.body_a, j.body_b, (j.jtype != 0).to(torch.float32),
+                 w.bodies.n)
+        jkw = dict(JC=jcfg.joint_slot_capacity)
+        joint_slots = hopper.build_joint_slots(*jargs, **jkw)
+        jt = parallel.frame2_tables(w, jcfg)
+        jfargs, jfkw = frame_call(hopper, parallel, w, jcfg, jt, joint_slots)
+        jcalls = {
+            "joint_slots": (
+                lambda p: hopper.build_joint_slots(*jargs, **jkw, plain=p)),
+            "frame2_joints": (
+                lambda p: hopper.run_frame2(*jfargs, **jfkw, plain=p)),
+        }
+        for name, call in jcalls.items():
+            k, p = call(False), call(True)
+            err = (agree_worlds(f"{name} {scene}", k, p)
+                   if name == "frame2_joints" else agree(name, k, p))
+            del k, p
+            errs[name] = max(errs[name], err)
+            t = turns(call)
+            print(f"time {name} on {scene} at {W_JOINTED} worlds: kernel "
+                  f"{t[0]:.4f} ms, plain twin {t[1]:.4f} ms, max abs err "
+                  f"{err:.3g}, on {card}")
+            if scene == "mechanism":
+                times[name] = t
+    return times
 
 
 def main() -> int:
@@ -187,9 +510,13 @@ def main() -> int:
     print(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)}; build "
           f"{_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    for line in _build.build_log().splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            print("ptxas:", line.strip())
 
     # ---- 2. kernel vs twin ------------------------------------------------
     errs = parity(dev, hopper, parallel, batched_worlds)
+    errs.update(parity_joints(dev, hopper, parallel))
 
     # ---- 3. the main path at full width ------------------------------------
     sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
@@ -211,7 +538,7 @@ def main() -> int:
     final, _, diag = rollout(FRAMES)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: wrappers[name].launches for name in CONTACT_KERNELS}
     syncs = parallel.host_syncs - syncs0
     diag = {k: int(v) for k, v in diag.items()}
 
@@ -238,6 +565,10 @@ def main() -> int:
           f"{json.dumps(launches)}; host syncs {syncs} "
           f"({syncs / FRAMES:.3f}/frame); min dynamic y {y_min:.4f}")
 
+    jointed = {name: run_jointed(name, dev, wrappers, parallel, card)
+               for name in JOINTED}
+    launches.update(jointed["mechanism"]["launches"])
+
     # ---- 4. kernel vs twin, and their times, at the main path's shapes ---
     body, col = parallel._frame2_arrays(final, cfg)
     eargs = (col["cbody"], col["layer"], col["lmask"], col["active"],
@@ -249,19 +580,7 @@ def main() -> int:
     skw = dict(C=cfg.slot_capacity, margin=cfg.contact_margin,
                dt=cfg.dt * cfg.frames_per_broadphase, partner_aware=True)
     tables = hopper.build_slot_tables(*sargs, **skw)[:5]
-    gravity = final.gravity.expand(W_MAIN, 2).contiguous()
-    fargs = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
-                               "angvel", "invm", "invi", "dyn", "kin")]
-    fargs += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
-                               "fric", "rest", "sensor")]
-    fargs += [tables[0], tables[1], gravity]
-    fkw = dict(C=cfg.slot_capacity, substeps=cfg.substeps,
-               iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
-               margin=cfg.contact_margin, compliance=cfg.contact_compliance,
-               relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
-               rest_threshold=cfg.restitution_threshold,
-               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-               owners=hopper.owner_csr(col["cbody"][0], N_BODIES))
+    fargs, fkw = frame_call(hopper, parallel, final, cfg, tables)
     calls = {
         "elig": (lambda p: hopper.build_elig_mask(*eargs, plain=p)),
         "slots": (lambda p: hopper.build_slot_tables(*sargs, **skw, plain=p)),
@@ -270,24 +589,13 @@ def main() -> int:
     times = {}
     for name, call in calls.items():
         k, p = call(False), call(True)
-        spread = None
-        if name == "frame2":
-            p64 = hopper.frame2_plain(
-                *[a.double() if a.dtype == torch.float32 else a
-                  for a in fargs], **fkw)
-            spread = [max_err(a, b) for a, b in zip(p[:6], p64[:6])]
-            del p64
+        spread = f32_spread(hopper, fargs, fkw, p) if name == "frame2" else None
         err = agree(name, k, p, spread)
         del k, p
         errs[name] = max(errs[name], err)
         print(f"parity {name} at {W_MAIN}x{N_BODIES}: agrees, max abs err "
               f"{err:.3g}")
-        # twin, kernel, kernel, twin: the card's state is shared fairly
-        p1 = cuda_ms(lambda: call(True), 2)
-        k1 = cuda_ms(lambda: call(False), 5)
-        k2 = cuda_ms(lambda: call(False), 5)
-        p2 = cuda_ms(lambda: call(True), 2)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        times[name] = turns(call)
         print(f"time {name} at {W_MAIN}x{N_BODIES}: kernel "
               f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms "
               f"on {card}")
@@ -301,15 +609,28 @@ def main() -> int:
           f"{TWIN_FRAMES} frames, vs {ms_frame:.4f} ms/frame through the "
           f"kernels, on {card}")
 
+    # the jointed kernels at 1024 worlds, from each jointed run's final state
+    times.update(jointed_turns(hopper, parallel, jointed, errs, card))
+
     # ---- 5. determinism ----------------------------------------------------
     a, _, da = rollout(10)
     b, _, db = rollout(10)
-    for field in ("pos", "angle", "vel", "ang_vel"):
-        check(torch.equal(getattr(a.bodies, field), getattr(b.bodies, field)),
-              f"rerun differs in {field}")
-    check({k: int(v) for k, v in da.items()}
-          == {k: int(v) for k, v in db.items()}, "rerun counters differ")
-    print("determinism: 10-frame rerun bitwise equal")
+    msc = jointed["mechanism"]["sc"]
+    ma, _, dma = parallel.batched_rollout(msc.world, msc.config, 0, 10,
+                                          record=lambda _: None)
+    mb, _, dmb = parallel.batched_rollout(msc.world, msc.config, 0, 10,
+                                          record=lambda _: None)
+    for run, (x, y, dx, dy) in (("main path", (a, b, da, db)),
+                                ("mechanism", (ma, mb, dma, dmb))):
+        for field in ("pos", "angle", "vel", "ang_vel"):
+            check(torch.equal(getattr(x.bodies, field),
+                              getattr(y.bodies, field)),
+                  f"{run} rerun differs in {field}")
+        check({k: int(v) for k, v in dx.items()}
+              == {k: int(v) for k, v in dy.items()},
+              f"{run} rerun counters differ")
+    print("determinism: 10-frame reruns of the main path and the mechanism "
+          "batch bitwise equal")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -4,18 +4,20 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 ``starframe_tpu`` (JAX, TPU) is the reference; this package imports torch
 and numpy and never jax. It keeps the reference's ``World`` arrays, its
 ``SolverConfig``/``Capacity`` knobs, its snapshot keys and its overflow
-counters. Kernels: ``hopper/slots.py`` (pair eligibility and slot tables)
-and ``hopper/frame2.py`` (the whole frame), each with a plain PyTorch twin
-that CPU tensors take. What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP.md item.
+counters. Kernels: ``hopper/slots.py`` (pair eligibility, contact slot
+tables and joint slots) and ``hopper/frame2.py`` (the whole frame, with or
+without joints), each with a plain PyTorch twin that CPU tensors take.
+What is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
-from . import io, kernels, parallel, scenes
+from . import io, kernels, parallel, ropes, scenes
 from .config import Capacity, SolverConfig
 from .parallel import (
     batched_rollout,
     batched_step,
     frame2_elig,
+    frame2_joint_slots,
     frame2_step,
     frame2_tables,
     make_batched_rollout,
@@ -27,7 +29,7 @@ from .state import Bodies, Colliders, Joints, World, WorldBuilder, expand_capaci
 __all__ = [
     "Bodies", "Capacity", "Colliders", "Joints", "Shape", "SolverConfig",
     "World", "WorldBuilder", "batched_rollout", "batched_step",
-    "expand_capacity", "frame2_elig", "frame2_step", "frame2_tables", "io",
-    "kernels", "make_batched_rollout", "parallel",
-    "replicate_world", "scenes",
+    "expand_capacity", "frame2_elig", "frame2_joint_slots", "frame2_step",
+    "frame2_tables", "io", "kernels", "make_batched_rollout", "parallel",
+    "replicate_world", "ropes", "scenes",
 ]

@@ -6,8 +6,8 @@ params structs (``PhysicsParams``-style defaults — SURVEY.md §5.6 [K-med]).
 Both dataclasses are frozen and hashable; array shapes are derived from
 :class:`Capacity` at world-build time and never change afterwards (the
 fixed-capacity design mandated by BASELINE.json:5). Fields that only the
-JAX package's other tiers read (grid broadphase, tile engine, joints,
-sleep, CCD) are kept so configurations stay interchangeable; the port
+JAX package's other tiers read (grid broadphase, tile engine, sleep, CCD)
+are kept so configurations stay interchangeable; the port
 raises where it meets one it does not run yet.
 """
 

@@ -46,6 +46,17 @@ struct SlotArgs {
   float cpad;               // 0.5 * contact margin (close boxes)
 };
 
+struct JointSlotArgs {
+  const int32_t* jba;       // [W, J] joint endpoint bodies
+  const int32_t* jbb;
+  const float* jactive;     // [W, J] 0/1
+  int32_t* jslot;           // [W, JC, N] joint row per body slot
+  float* jside;             // [W, JC, N] 1 where the body is endpoint A
+  float* jact;              // [W, JC, N]
+  int32_t* count;           // [W, N] joints per body (may exceed JC)
+  int W, N, J, JC;
+};
+
 struct Frame2Args {
   const float* posx;        // [W, N] body state
   const float* posy;
@@ -83,6 +94,30 @@ struct Frame2Args {
   float h, dt, margin, alpha_t, relaxation, max_dpos, rest_threshold;
   float lin_sdamp, ang_sdamp;  // 1 / (1 + h * damping)
   int use_lin_damp, use_ang_damp;
+  // joints: null pointers and J = 0 for a contact-only frame
+  const int32_t* jtype;     // [W, J] joint parameters
+  const int32_t* jba;
+  const int32_t* jbb;
+  const float* jaax;        // body-local anchors
+  const float* jaay;
+  const float* jabx;
+  const float* jaby;
+  const float* jrest;
+  const float* jlo;
+  const float* jhi;
+  const float* jcomp;
+  const float* jdamp;
+  const float* jms;         // motor speed
+  const float* jmm;         // motor torque budget (+inf as 3.4e38)
+  const int32_t* jcolor;
+  const int32_t* jslot;     // [W, JC, N] joint slots (joint_slots.cu)
+  const float* jside;
+  const float* jact;
+  int J, JC;
+  int joint_colored;        // 1: coloured Gauss-Seidel, 0: Jacobi
+  int n_colors;
+  float max_dpos_joint;     // clip of a coloured pass (the raw max_dpos)
+  float hh;                 // h * h, rounded once (joint compliance scale)
 };
 
 // Per-slot fields the frame kernel keeps in global scratch, each a [C, M]

@@ -3,9 +3,10 @@
 // -> velocity reconstruction -> restitution/friction velocity pass].
 //
 // Replaces starframe_tpu/pallas/frame2.py `_frame2_kernel` (launched by
-// `run_frame2`) for its contact-only, uniform-topology, no-CCD, uncompacted
-// (Cs = 0) configuration. Joints, CCD, solve-slot compaction and per-world
-// owner tables are ROADMAP.md work and are refused by the wrapper.
+// `run_frame2`) for its uniform-topology, no-CCD, uncompacted (Cs = 0)
+// configuration, contact-only or with joints (both joint tiers). CCD,
+// solve-slot compaction and per-world owner tables are ROADMAP.md work and
+// are refused by the wrapper.
 //
 // What bounds it on an H100: the per-slot frame constants. Each slot of
 // each row carries ~28 floats through the frame (normal, anchors, masks,
@@ -32,6 +33,20 @@
 // velocity-pass kinematics, starting from the frame-start pose (kin00).
 // The manifold is a per-thread scalar transcription of
 // kernels.manifold_batch over the V (templated) vertices.
+//
+// Joints (the kJ instantiation; the contact-only one compiles without any
+// of it, so the main path keeps its registers and occupancy): the world's
+// joint parameters (15 fields x J) live in shared memory, and a thread in
+// a body phase owns that body's JC joint slots (joint_slots.cu), read
+// canonicalised so the own body is endpoint A (frame2.py `jd_all`). The
+// Jacobi tier sums a body's slots in order jc = 0..JC-1 during the contact
+// row phase (every body reads the iteration-start pose) and adds the sum
+// after the contact sum, as the reference does. The coloured Gauss-Seidel
+// tier runs one pass per colour after the contact apply: each pass reads
+// the pass-start pose, writes its per-body sums to shared memory,
+// __syncthreads(), applies, so same-colour joints (which share no dynamic
+// body) apply exactly; the last pass takes every colour >= its own. Motors
+// and joint damping join the velocity pass the same way as the Jacobi sum.
 
 #include "common.cuh"
 
@@ -41,6 +56,11 @@ constexpr int kThreads = 256;
 constexpr float kEps = 1e-10f;
 constexpr float kTouchSlop = 1e-3f;
 constexpr float kInf = __builtin_huge_valf();
+constexpr float kPi = 3.14159265358979323846f;  // pi and 2 pi rounded to f32
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr int kJointFields = 15;  // Frame2Args jtype .. jcolor
+enum JointType { kDistance = 1, kPin = 2, kAngleRange = 3, kMotor = 4,
+                 kWeld = 5 };  // state.py JOINT_*
 
 template <int V>
 __device__ __forceinline__ float sel(const float (&a)[V], int k) {
@@ -288,16 +308,23 @@ struct Shared {
   // collider geometry [M] (verts [V, M]) and per-row correction sums [4, M]
   float *vlx, *vly, *rad, *fric, *rest, *sens, *ext, *row;
   int *cbody, *nv, *ostart, *oidx;
+  // joints (kJ only): parameters [J] and per-body joint sums [4, N]
+  int *jty, *jba, *jbb, *jcol;
+  float *jaax, *jaay, *jabx, *jaby, *jrest, *jlo, *jhi, *jcomp, *jdamp;
+  float *jms, *jmm, *jrow;
 };
 
-__host__ __device__ inline size_t shared_bytes(int N, int M, int V) {
+__host__ __device__ inline size_t shared_bytes(int N, int M, int V, int J) {
   // body: 19 [N] planes; colliders: verts 2 [V, M], five [M] fields and the
-  // [4, M] row sums; ints: cbody, nverts, owner_idx [M] and owner_start
+  // [4, M] row sums; ints: cbody, nverts, owner_idx [M] and owner_start;
+  // with joints: 15 [J] parameter rows and the [4, N] joint sums
   return (size_t)(19 * N + (2 * V + 9) * M) * sizeof(float) +
-         (size_t)(3 * M + N + 1) * sizeof(int);
+         (size_t)(3 * M + N + 1) * sizeof(int) +
+         (J > 0 ? (size_t)(kJointFields * J + 4 * N) * sizeof(float) : 0);
 }
 
-__device__ Shared carve(float* base, int N, int M, int V) {
+template <bool kJ>
+__device__ Shared carve(float* base, int N, int M, int V, int J) {
   Shared s;
   float* p = base;
   float** bodyf[] = {&s.px,  &s.py,  &s.an,   &s.vx,  &s.vy,  &s.om,  &s.invm,
@@ -319,8 +346,187 @@ __device__ Shared carve(float* base, int N, int M, int V) {
   s.cbody = q; q += M;
   s.nv = q; q += M;
   s.oidx = q; q += M;
-  s.ostart = q;
+  s.ostart = q; q += N + 1;
+  if constexpr (kJ) {
+    int** ji[] = {&s.jty, &s.jba, &s.jbb, &s.jcol};
+    for (int** f : ji) {
+      *f = q;
+      q += J;
+    }
+    float* r = reinterpret_cast<float*>(q);
+    float** jf[] = {&s.jaax, &s.jaay, &s.jabx, &s.jaby, &s.jrest, &s.jlo,
+                    &s.jhi,  &s.jcomp, &s.jdamp, &s.jms, &s.jmm};
+    for (float** f : jf) {
+      *f = r;
+      r += J;
+    }
+    s.jrow = r;
+  }
   return s;
+}
+
+// One joint slot of body n, canonicalised so that n is endpoint A: the
+// partner body, the anchors swapped, weld rest and motor speed negated and
+// an angle range's bounds swapped and negated when n is endpoint B.
+struct JointSlot {
+  int ty, pb, color;
+  float act, oax, oay, pax, pay, rest, lo, hi, comp, damp, ms, mm;
+};
+
+__device__ __forceinline__ JointSlot joint_slot(const Shared& s,
+                                                const Frame2Args& a,
+                                                long long w, int jc, int n) {
+  const long long o = (w * a.JC + jc) * a.N + n;
+  const int js = a.jslot[o];
+  const bool own_a = a.jside[o] > 0.f;
+  JointSlot j;
+  j.act = a.jact[o];
+  j.ty = s.jty[js];
+  j.pb = own_a ? s.jbb[js] : s.jba[js];
+  j.color = s.jcol[js];
+  const float aax = s.jaax[js], aay = s.jaay[js];
+  const float abx = s.jabx[js], aby = s.jaby[js];
+  j.oax = own_a ? aax : abx;
+  j.oay = own_a ? aay : aby;
+  j.pax = own_a ? abx : aax;
+  j.pay = own_a ? aby : aay;
+  const float rest = s.jrest[js], lo = s.jlo[js], hi = s.jhi[js];
+  const float ms = s.jms[js];
+  const bool keep_rng = own_a || j.ty != kAngleRange;
+  j.rest = own_a ? rest : -rest;
+  j.lo = keep_rng ? lo : -hi;
+  j.hi = keep_rng ? hi : -lo;
+  j.comp = s.jcomp[js];
+  j.damp = s.jdamp[js];
+  j.ms = own_a ? ms : -ms;
+  j.mm = s.jmm[js];
+  return j;
+}
+
+// world anchors of both ends; offsets from own (ra) and partner (rb) body
+__device__ __forceinline__ void joint_arms(const Shared& s, int n,
+                                           const JointSlot& j, float& wax,
+                                           float& way, float& wbx, float& wby,
+                                           float& rax, float& ray, float& rbx,
+                                           float& rby) {
+  const float pax = s.px[n], pay = s.py[n], ca = s.cab[n], sa = s.sab[n];
+  const float pbx = s.px[j.pb], pby = s.py[j.pb];
+  const float cb = s.cab[j.pb], sb = s.sab[j.pb];
+  wax = pax + ca * j.oax - sa * j.oay;
+  way = pay + sa * j.oax + ca * j.oay;
+  wbx = pbx + cb * j.pax - sb * j.pay;
+  wby = pby + sb * j.pax + cb * j.pay;
+  rax = wax - pax;
+  ray = way - pay;
+  rbx = wbx - pbx;
+  rby = wby - pby;
+}
+
+__device__ __forceinline__ float wrap_pi(float x) {
+  return x - kTwoPi * floorf((x + kPi) / kTwoPi);
+}
+
+// kernels.solve_joints_b for one slot: own-side (dx, dy, dang, count)
+__device__ __forceinline__ void solve_joint(const Shared& s, int n,
+                                            const JointSlot& j, float active,
+                                            float hh, float (&out)[4]) {
+  float wax, way, wbx, wby, rax, ray, rbx, rby;
+  joint_arms(s, n, j, wax, way, wbx, wby, rax, ray, rbx, rby);
+  const float im_o = s.invm[n], ii_o = s.invi[n];
+  const float im_p = s.invm[j.pb], ii_p = s.invi[j.pb];
+  const float dx = wbx - wax, dy = wby - way;
+  const float d = sqrtf(dx * dx + dy * dy);
+  const float inv_d = 1.f / fmaxf(d, kEps);
+  const float nx = dx * inv_d, ny = dy * inv_d;
+  const bool is_dist = j.ty == kDistance;
+  const bool is_point = j.ty == kPin || j.ty == kWeld;
+  const float lo = is_point ? 0.f : j.lo, hi = is_point ? 0.f : j.hi;
+  const float c_lin = d > hi ? d - hi : (d < lo ? d - lo : 0.f);
+  const bool lin_active = (is_dist || is_point) && fabsf(c_lin) > 0.f &&
+                          d > kEps && active > 0.f;
+  const float cr_a = rax * ny - ray * nx;
+  const float cr_b = rbx * ny - rby * nx;
+  const float w_a = im_o + ii_o * cr_a * cr_a;
+  const float w_b = im_p + ii_p * cr_b * cr_b;
+  const float alpha_t = j.comp / hh;
+  const float den = w_a + w_b + alpha_t;
+  const float dlam =
+      (lin_active && den > kEps) ? -c_lin / fmaxf(den, kEps) : 0.f;
+  const float p_x = dlam * nx, p_y = dlam * ny;
+  // angular rows: weld locks the relative angle, a range limits it
+  const float phi = wrap_pi(s.an[j.pb] - s.an[n] - j.rest);
+  const bool is_weld = j.ty == kWeld, is_rng = j.ty == kAngleRange;
+  const float c_ang = is_weld     ? phi
+                      : phi > j.hi ? phi - j.hi
+                      : phi < j.lo ? phi - j.lo
+                                   : 0.f;
+  const bool ang_active =
+      (is_weld || is_rng) && fabsf(c_ang) > 0.f && active > 0.f;
+  const float den_a = ii_o + ii_p + alpha_t;
+  const float dlam_ang =
+      (ang_active && den_a > kEps) ? -c_ang / fmaxf(den_a, kEps) : 0.f;
+  out[0] = -p_x * im_o;
+  out[1] = -p_y * im_o;
+  out[2] = -ii_o * (rax * p_y - ray * p_x) - dlam_ang * ii_o;
+  out[3] = (lin_active ? 1.f : 0.f) + (ang_active ? 1.f : 0.f);
+}
+
+// kernels.velocity_joints_b for one slot: motor and joint damping
+__device__ __forceinline__ void velocity_joint(const Shared& s, int n,
+                                               const JointSlot& j, float h,
+                                               float (&out)[4]) {
+  float wax, way, wbx, wby, rax, ray, rbx, rby;
+  joint_arms(s, n, j, wax, way, wbx, wby, rax, ray, rbx, rby);
+  const float im_o = s.invm[n], ii_o = s.invi[n];
+  const float im_p = s.invm[j.pb], ii_p = s.invi[j.pb];
+  const float oa = s.om[n], ob = s.om[j.pb];
+  const bool is_motor = j.ty == kMotor && j.act > 0.f;
+  const float err = j.ms - (ob - oa);
+  const float w_ang = ii_o + ii_p;
+  float lam_m = w_ang > kEps ? err / fmaxf(w_ang, kEps) : 0.f;
+  lam_m = fminf(fmaxf(lam_m, -j.mm * h), j.mm * h);
+  lam_m = is_motor ? lam_m : 0.f;
+  const bool damped = j.act > 0.f && j.damp > 0.f;
+  const float relx = (s.vx[j.pb] - ob * rby) - (s.vx[n] - oa * ray);
+  const float rely = (s.vy[j.pb] + ob * rbx) - (s.vy[n] + oa * rax);
+  const float w_lin = im_o + im_p;
+  const float damp_f = fminf(j.damp * h, 1.f);
+  const float scale = w_lin > kEps ? damp_f / fmaxf(w_lin, kEps) : 0.f;
+  const float p_dx = damped ? -relx * scale : 0.f;
+  const float p_dy = damped ? -rely * scale : 0.f;
+  out[0] = -p_dx * im_o;
+  out[1] = -p_dy * im_o;
+  out[2] = -lam_m * ii_o - ii_o * (rax * p_dy - ray * p_dx);
+  out[3] = (is_motor || damped) ? 1.f : 0.f;
+}
+
+// Sum of body n's joint slots in order jc = 0..JC-1 into s.jrow (frame2.py
+// `sum_j`): position rows (kVel false) or velocity rows. color < 0 takes
+// every joint; else only that colour, or >= it on the last pass. A slot
+// that is empty or filtered out adds exact zeros in the reference, so it
+// is skipped here.
+template <bool kVel>
+__device__ __forceinline__ void joint_sums(const Shared& s,
+                                           const Frame2Args& a, long long w,
+                                           int n, int color, bool last) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int jc = 0; jc < a.JC; ++jc) {
+    const JointSlot j = joint_slot(s, a, w, jc, n);
+    float active = j.act;
+    if (color >= 0 && !(last ? j.color >= color : j.color == color))
+      active = 0.f;
+    if (active == 0.f) continue;
+    float v[4];
+    if constexpr (kVel)
+      velocity_joint(s, n, j, a.h, v);
+    else
+      solve_joint(s, n, j, active, a.hh, v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += v[q];
+  }
+  const int N = a.N;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) s.jrow[q * N + n] = acc[q];
 }
 
 // sum of a [4, M] row-sum plane over body n's colliders, ascending
@@ -334,12 +540,12 @@ __device__ __forceinline__ void to_body(const Shared& s, int M, int n,
   }
 }
 
-template <int V>
+template <int V, bool kJ>
 __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   extern __shared__ float smem[];
   const int N = a.N, M = a.M, C = a.C;
   const long long w = blockIdx.x;
-  const Shared s = carve(smem, N, M, V);
+  const Shared s = carve<kJ>(smem, N, M, V, a.J);
   const size_t plane = (size_t)C * M;  // one scratch field of one world
   float* scr = a.scratch + (size_t)w * F2_FIELDS * plane;
   const float gx = a.gravity[2 * w], gy = a.gravity[2 * w + 1];
@@ -371,6 +577,18 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       ext = v ? fmaxf(ext, d) : d;
     }
     s.ext[i] = ext + s.rad[i];  // conservative rotation speed arm
+  }
+  if constexpr (kJ) {
+    for (int k = threadIdx.x; k < a.J; k += blockDim.x) {
+      const long long g = w * a.J + k;
+      s.jty[k] = a.jtype[g]; s.jba[k] = a.jba[g]; s.jbb[k] = a.jbb[g];
+      s.jcol[k] = a.jcolor[g];
+      s.jaax[k] = a.jaax[g]; s.jaay[k] = a.jaay[g];
+      s.jabx[k] = a.jabx[g]; s.jaby[k] = a.jaby[g];
+      s.jrest[k] = a.jrest[g]; s.jlo[k] = a.jlo[g]; s.jhi[k] = a.jhi[g];
+      s.jcomp[k] = a.jcomp[g]; s.jdamp[k] = a.jdamp[g];
+      s.jms[k] = a.jms[g]; s.jmm[k] = a.jmm[g];
+    }
   }
   __syncthreads();
 
@@ -555,10 +773,22 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) s.row[q * M + i] = acc[q];
       }
+      if constexpr (kJ) {
+        // Jacobi joints: summed at the iteration-start pose, like contacts
+        if (!a.joint_colored)
+          for (int n = threadIdx.x; n < N; n += blockDim.x)
+            joint_sums<false>(s, a, w, n, -1, false);
+      }
       __syncthreads();
       for (int n = threadIdx.x; n < N; n += blockDim.x) {
         float ab[4];
         to_body(s, M, n, ab);
+        if constexpr (kJ) {
+          if (!a.joint_colored) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) ab[q] = ab[q] + s.jrow[q * N + n];
+          }
+        }
         const float cnt = fmaxf(ab[3], 1.f);
         const float md = a.max_dpos;
         const float ddx = fminf(fmaxf(ab[0] * a.relaxation / cnt, -md), md);
@@ -570,6 +800,38 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
         s.dxx[n] = s.dxx[n] + ddx;
         s.dxy[n] = s.dxy[n] + ddy;
         s.dth[n] = s.dth[n] + dda;
+      }
+      if constexpr (kJ) {
+        // coloured Gauss-Seidel: same-colour joints share no dynamic body,
+        // so each pass applies exactly; the pose refreshes between passes
+        if (a.joint_colored) {
+          for (int color = 0; color < a.n_colors; ++color) {
+            const bool last = color == a.n_colors - 1;
+            for (int n = threadIdx.x; n < N; n += blockDim.x) {
+              s.cab[n] = cosf(s.an[n]);
+              s.sab[n] = sinf(s.an[n]);
+            }
+            __syncthreads();
+            for (int n = threadIdx.x; n < N; n += blockDim.x)
+              joint_sums<false>(s, a, w, n, color, last);
+            __syncthreads();
+            for (int n = threadIdx.x; n < N; n += blockDim.x) {
+              const float cnt = fmaxf(s.jrow[3 * N + n], 1.f);
+              // constraint upkeep, not depenetration: the raw max_dpos
+              const float md = a.max_dpos_joint;
+              const float jdx = fminf(fmaxf(s.jrow[n] / cnt, -md), md);
+              const float jdy = fminf(fmaxf(s.jrow[N + n] / cnt, -md), md);
+              const float jda =
+                  fminf(fmaxf(s.jrow[2 * N + n] / cnt, -md), md);
+              s.px[n] = s.px[n] + jdx;
+              s.py[n] = s.py[n] + jdy;
+              s.an[n] = s.an[n] + jda;
+              s.dxx[n] = s.dxx[n] + jdx;
+              s.dxy[n] = s.dxy[n] + jdy;
+              s.dth[n] = s.dth[n] + jda;
+            }
+          }
+        }
       }
     }
     __syncthreads();
@@ -668,10 +930,19 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) s.row[q * M + i] = acc[q];
     }
+    if constexpr (kJ) {
+      // motors and joint damping, at the post-solve pose and velocities
+      for (int n = threadIdx.x; n < N; n += blockDim.x)
+        joint_sums<true>(s, a, w, n, -1, false);
+    }
     __syncthreads();
     for (int n = threadIdx.x; n < N; n += blockDim.x) {
       float ab[4];
       to_body(s, M, n, ab);
+      if constexpr (kJ) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ab[q] = ab[q] + s.jrow[q * N + n];
+      }
       const float cnt = fmaxf(ab[3], 1.f);
       float vx = s.vx[n] + ab[0] / cnt;
       float vy = s.vy[n] + ab[1] / cnt;
@@ -693,14 +964,14 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   }
 }
 
-template <int V>
+template <int V, bool kJ>
 int launch(const Frame2Args& a, cudaStream_t stream) {
-  const size_t shmem = shared_bytes(a.N, a.M, V);
+  const size_t shmem = shared_bytes(a.N, a.M, V, kJ ? a.J : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      frame2_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      frame2_kernel<V, kJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)shmem);
   if (err != cudaSuccess) return (int)err;
-  if (a.W > 0) frame2_kernel<V><<<a.W, kThreads, shmem, stream>>>(a);
+  if (a.W > 0) frame2_kernel<V, kJ><<<a.W, kThreads, shmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -710,12 +981,18 @@ SF_EXPORT(sf_frame2, Frame2Args)
 
 extern "C" int sf_frame2_fields() { return F2_FIELDS; }
 
+extern "C" long long sf_frame2_shared_bytes(int N, int M, int V, int J) {
+  return (long long)shared_bytes(N, M, V, J);
+}
+
 extern "C" int sf_frame2(const Frame2Args* a, void* stream) {
   // the wrapper pads vertex rows (repeating v0, which leaves every min, max
   // and manifold unchanged) to one of the compiled widths
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool joints = a->J > 0;
   switch (a->V) {
-    case 4: return launch<4>(*a, (cudaStream_t)stream);
-    case 8: return launch<8>(*a, (cudaStream_t)stream);
+    case 4: return joints ? launch<4, true>(*a, st) : launch<4, false>(*a, st);
+    case 8: return joints ? launch<8, true>(*a, st) : launch<8, false>(*a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

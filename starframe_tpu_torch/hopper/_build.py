@@ -1,9 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 ``nvcc`` compiles every source into one shared library with a plain C
-interface, once, at first use, into ``starframe_tpu_torch/_build/``. The
-file name carries a hash of the sources and flags, so an edited kernel is
-rebuilt and a stale library is never loaded. The library is bound with
+interface, once, at first use, into ``starframe_tpu_torch/_build/``: one
+``nvcc`` per source, all started together, then one link. The file name
+carries a hash of the sources and flags, so an edited kernel is rebuilt and
+a stale library is never loaded; the compiler's per-kernel register and
+shared-memory report (``-Xptxas -v``) is kept beside it (:func:`build_log`).
+The library is bound with
 ``ctypes``: each entry point takes a pointer to an argument struct (mirrored
 below as a ``ctypes.Structure``) and the CUDA stream, launches on that
 stream and returns ``cudaGetLastError()``.
@@ -32,10 +35,15 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = None  # wall time of this process's build (None: loaded)
+
+
+# the joint-parameter arrays of the frame kernel, in its argument order
+JOINT_KEYS = ("jtype", "jba", "jbb", "jaax", "jaay", "jabx", "jaby", "jrest",
+              "jlo", "jhi", "jcomp", "jdamp", "jms", "jmm", "jcolor")
 
 
 class EligArgs(ctypes.Structure):
@@ -93,11 +101,28 @@ class Frame2Args(ctypes.Structure):
         ("rest_threshold", ctypes.c_float), ("lin_sdamp", ctypes.c_float),
         ("ang_sdamp", ctypes.c_float), ("use_lin_damp", ctypes.c_int),
         ("use_ang_damp", ctypes.c_int),
+        *((k, ctypes.c_void_p) for k in JOINT_KEYS),
+        ("jslot", ctypes.c_void_p), ("jside", ctypes.c_void_p),
+        ("jact", ctypes.c_void_p),
+        ("J", ctypes.c_int), ("JC", ctypes.c_int),
+        ("joint_colored", ctypes.c_int), ("n_colors", ctypes.c_int),
+        ("max_dpos_joint", ctypes.c_float), ("hh", ctypes.c_float),
+    ]
+
+
+class JointSlotArgs(ctypes.Structure):
+    _fields_ = [
+        ("jba", ctypes.c_void_p), ("jbb", ctypes.c_void_p),
+        ("jactive", ctypes.c_void_p), ("jslot", ctypes.c_void_p),
+        ("jside", ctypes.c_void_p), ("jact", ctypes.c_void_p),
+        ("count", ctypes.c_void_p),
+        ("W", ctypes.c_int), ("N", ctypes.c_int), ("J", ctypes.c_int),
+        ("JC", ctypes.c_int),
     ]
 
 
 _ENTRY_POINTS = {"sf_elig": EligArgs, "sf_slots": SlotArgs,
-                 "sf_frame2": Frame2Args}
+                 "sf_joint_slots": JointSlotArgs, "sf_frame2": Frame2Args}
 
 
 def _sources():
@@ -116,30 +141,60 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libsf_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """What nvcc and ptxas said when this checkout's library was built."""
+    log = _library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def _build(so: Path) -> None:
+    """Compile every ``csrc/*.cu`` in parallel, then link ``so``."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                   str(Path(tmp) / (src.stem + ".o")), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # wait for every compiler before reporting any failure, so none
+        # outlives this call
+        log = [f"$ {' '.join(cmd)}\n{proc.communicate()[0]}"
+               for cmd, proc in jobs]
+        for (_, proc), text in zip(jobs, log):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   + text)
+        objs = [cmd[cmd.index("-o") + 1] for cmd, _ in jobs]
+        part = Path(tmp) / so.name
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(part), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        so.with_suffix(".log").write_text("\n".join(log))
+        os.replace(part, so)  # atomic: concurrent builders never see half a file
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this checkout."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    so = BUILD_DIR / f"libsf_kernels_{digest.hexdigest()[:16]}.so"
+    so = _library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+        _build(so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, struct in _ENTRY_POINTS.items():
@@ -153,6 +208,8 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(f"{name}: the C argument struct is "
                                f"{size()} bytes, its ctypes mirror "
                                f"{ctypes.sizeof(struct)}")
+    lib.sf_frame2_shared_bytes.argtypes = [ctypes.c_int] * 4
+    lib.sf_frame2_shared_bytes.restype = ctypes.c_longlong
     lib.sf_error_string.argtypes = [ctypes.c_int]
     lib.sf_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -2,19 +2,21 @@
 
 Replaces ``starframe_tpu/pallas/frame2.py``'s ``_frame2_kernel`` (via
 ``run_frame2``) with the CUDA kernel in ``csrc/frame2.cu``, for the
-contact-only, uniform-topology, no-CCD, uncompacted configuration.
-:func:`run_frame2` launches it for CUDA tensors and runs
+uniform-topology, no-CCD, uncompacted configuration, contact-only or with
+joints. :func:`run_frame2` launches it for CUDA tensors and runs
 :func:`frame2_plain`, the plain PyTorch twin, for CPU tensors.
 ``run_frame2.launches`` counts kernel launches.
 
 The frame: manifolds once at the frame-start pose (with a velocity-expanded
 speculative margin, anchors kept body-local), then ``substeps`` x
-[integrate -> ``iterations`` x Jacobi contact projection over each row's
-slots, count-normalised and clipped -> velocity reconstruction ->
-restitution/friction velocity pass]. Every dynamic collider owns its slot
-row, so corrections reach bodies by summing rows (a body's colliders come
-from world 0's ``cbody`` through :func:`owner_csr`: the batch shares one
-topology, so a rollout builds it once).
+[integrate -> ``iterations`` x (Jacobi contact projection over each row's
+slots, count-normalised and clipped; joints fused into it, or one coloured
+Gauss-Seidel pass per joint colour after it) -> velocity reconstruction ->
+restitution/friction velocity pass with motors and joint damping]. Every
+dynamic collider owns its slot row, so corrections reach bodies by summing
+rows (a body's colliders come from world 0's ``cbody`` through
+:func:`owner_csr`: the batch shares one topology, so a rollout builds it
+once); every body owns its joint slots (``hopper.build_joint_slots``).
 """
 
 from __future__ import annotations
@@ -30,8 +32,11 @@ from ..kernels import (
     _pair_kinematics,
     manifold_batch,
     solve_contacts_b,
+    solve_joints_b,
     velocity_contacts_b,
+    velocity_joints_b,
 )
+from ..state import JOINT_ANGLE_RANGE
 from . import _build
 from .slots import _check, _route
 
@@ -40,6 +45,23 @@ i32 = torch.int32
 
 SCRATCH_FIELDS = 28  # csrc/common.cuh F2_FIELDS
 _KERNEL_V = (4, 8)  # vertex widths the kernel is compiled for
+SHARED_LIMIT = 232448  # bytes of shared memory one H100 block may use
+# the joint tables run_frame2 takes: parameters [W, J], then slots [W, JC, N]
+JOINT_SLOT_KEYS = ("jslot", "jside", "jact")
+
+
+def kernel_verts(V: int):
+    """The compiled vertex width a ``V``-vertex batch is padded to (None
+    past the widest)."""
+    return next((v for v in _KERNEL_V if v >= V), None)
+
+
+def frame2_shared_bytes(N: int, M: int, V: int, J: int) -> int:
+    """Shared memory of one frame-kernel block (``csrc/frame2.cu``
+    ``shared_bytes``): the world's bodies, colliders and row sums, and with
+    joints their 15 parameter rows and the per-body joint sums."""
+    return (4 * (19 * N + (2 * V + 9) * M) + 4 * (3 * M + N + 1)
+            + (4 * (len(_build.JOINT_KEYS) * J + 4 * N) if J > 0 else 0))
 
 
 def owner_csr(cbody0, n_bodies: int):
@@ -65,14 +87,52 @@ def _owner_table(start, order):
     return torch.where(mask, order.long()[at], 0), mask.to(f32)
 
 
+def _joint_pack(joints, invm, invi):
+    """Canonical per-slot joint parameters ``[W, JC * N]`` (slot-major): the
+    own body is endpoint A, so when it is endpoint B the anchors swap, weld
+    rest and motor speed negate, and an angle range's bounds swap and
+    negate. Returns ``(partner body, params, colour)``."""
+    W, JC, N = joints["jslot"].shape
+    js = joints["jslot"].reshape(W, JC * N).long()
+    own_a = joints["jside"].reshape(W, JC * N) > 0
+
+    def jg(key):
+        return torch.gather(joints[key], 1, js)
+
+    def tile_j(x):
+        return x.repeat(1, JC)
+
+    ty = jg("jtype")
+    pb = torch.where(own_a, jg("jbb"), jg("jba")).long()
+    aax, aay, abx, aby = jg("jaax"), jg("jaay"), jg("jabx"), jg("jaby")
+    rest_j, lo_j, hi_j, ms = jg("jrest"), jg("jlo"), jg("jhi"), jg("jms")
+    keep_rng = own_a | (ty != JOINT_ANGLE_RANGE)
+    jd = SimpleNamespace(
+        jtype=ty,
+        oax=torch.where(own_a, aax, abx), oay=torch.where(own_a, aay, aby),
+        pax=torch.where(own_a, abx, aax), pay=torch.where(own_a, aby, aay),
+        rest=torch.where(own_a, rest_j, -rest_j),
+        lo=torch.where(keep_rng, lo_j, -hi_j),
+        hi=torch.where(keep_rng, hi_j, -lo_j),
+        compliance=jg("jcomp"), damping=jg("jdamp"),
+        motor_speed=torch.where(own_a, ms, -ms), motor_max=jg("jmm"),
+        im_o=tile_j(invm), im_p=torch.gather(invm, 1, pb),
+        ii_o=tile_j(invi), ii_p=torch.gather(invi, 1, pb),
+        active=joints["jact"].reshape(W, JC * N),
+    )
+    return pb, jd, jg("jcolor")
+
+
 def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                  cbody, vlx, vly, nverts, radius, fric, rest, sensor,
                  partner, slot_act, gravity, owners, *, C, substeps,
                  iterations, h, dt, margin, compliance, relaxation, max_dpos,
-                 rest_threshold, lin_damp, ang_damp):
+                 rest_threshold, lin_damp, ang_damp, joints=None,
+                 joint_solver="jacobi", n_colors=1, max_dpos_joint=1e3):
     """Plain PyTorch twin of :func:`run_frame2`: the TPU kernel's sequence
     of array operations, with ``torch.gather`` in place of its lane gathers
-    and the slots of a row packed on one axis ``[W, C * M]`` (slot-major)."""
+    and the slots of a row packed on one axis ``[W, C * M]`` (slot-major),
+    the joint slots of a body on ``[W, JC * N]``."""
     W, N = posx.shape
     M = cbody.shape[1]
     V = vlx.shape[1]
@@ -175,6 +235,30 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             tile_c(gat(vx, cbl)), tile_c(gat(vy, cbl)), tile_c(gat(om, cbl)),
             gat(vx, pb), gat(vy, pb), gat(om, pb))
 
+    jd = None
+    if joints is not None:
+        JC = joints["jslot"].shape[1]
+        pb_j, jd, jcolor = _joint_pack(joints, invm, invi)
+
+        def tile_j(x):  # [W, N] -> [W, JC*N]: own-side quantity per slot
+            return x.repeat(1, JC)
+
+        def sum_j(x):  # [..., JC*N] -> [..., N]: body sums in slot order
+            acc = x[..., 0:N]
+            for jc in range(1, JC):
+                acc = acc + x[..., jc * N:(jc + 1) * N]
+            return acc
+
+        def joint_pose(cab, sab, px, py):
+            """Own pose is the body itself; the partner is gathered."""
+            return PairPose(tile_j(px), tile_j(py), tile_j(cab), tile_j(sab),
+                            gat(px, pb_j), gat(py, pb_j), gat(cab, pb_j),
+                            gat(sab, pb_j))
+
+        def joint_rows(jd_, cab, sab, px, py, an):
+            return sum_j(solve_joints_b(joint_pose(cab, sab, px, py),
+                                        tile_j(an), gat(an, pb_j), jd_, h))
+
     # the static-friction reference is carried from the previous substep's
     # velocity-pass kinematics, starting at the frame-start pose
     kin0 = _pair_kinematics(
@@ -192,11 +276,15 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         dth = torch.zeros_like(an)
         lam_n = torch.zeros_like(cb_.sep)
         for _it in range(iterations):
-            pose = slot_pose(torch.cos(an), torch.sin(an), px, py)
+            cab, sab = torch.cos(an), torch.sin(an)
+            pose = slot_pose(cab, sab, px, py)
             vals_a, _, lam_i = solve_contacts_b(
                 pose, None, pd_, cb_, h, compliance, kin0=kin0)
             lam_n = lam_n + lam_i
             ab = to_bodies(sum_c(vals_a))
+            if jd is not None and joint_solver == "jacobi":
+                # joints: averaged Jacobi fused with the contact apply
+                ab = ab + joint_rows(jd, cab, sab, px, py, an)
             cnt = torch.clamp(ab[3], min=1.0)
             ddx = torch.clamp(ab[0] * relaxation / cnt, -max_dpos, max_dpos)
             ddy = torch.clamp(ab[1] * relaxation / cnt, -max_dpos, max_dpos)
@@ -207,6 +295,30 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             dxx = dxx + ddx
             dxy = dxy + ddy
             dth = dth + dda
+            if jd is not None and joint_solver == "colored":
+                # coloured Gauss-Seidel: one pass per colour, the last one
+                # sweeping every colour past the static bound; clipped by
+                # the raw max_dpos (upkeep, not depenetration)
+                for color in range(n_colors):
+                    cmask = (jcolor >= color if color == n_colors - 1
+                             else jcolor == color)
+                    jd_c = SimpleNamespace(**vars(jd))
+                    jd_c.active = jd.active * cmask.to(jd.active.dtype)
+                    abj = joint_rows(jd_c, torch.cos(an), torch.sin(an),
+                                     px, py, an)
+                    cntj = torch.clamp(abj[3], min=1.0)
+                    jdx = torch.clamp(abj[0] / cntj, -max_dpos_joint,
+                                      max_dpos_joint)
+                    jdy = torch.clamp(abj[1] / cntj, -max_dpos_joint,
+                                      max_dpos_joint)
+                    jda = torch.clamp(abj[2] / cntj, -max_dpos_joint,
+                                      max_dpos_joint)
+                    px = px + jdx
+                    py = py + jdy
+                    an = an + jda
+                    dxx = dxx + jdx
+                    dxy = dxy + jdy
+                    dth = dth + jda
 
         # velocity reconstruction (kinematic bodies keep their velocity)
         nk = 1.0 - kin
@@ -214,8 +326,9 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         vy = kin * vy + nk * (vty + dxy / h)
         om = kin * om + nk * (vtom + dth / h)
 
-        # velocity pass: restitution + dynamic friction
-        pose_v = slot_pose(torch.cos(an), torch.sin(an), px, py)
+        # velocity pass: restitution + dynamic friction + motors/damping
+        cab, sab = torch.cos(an), torch.sin(an)
+        pose_v = slot_pose(cab, sab, px, py)
         kin_v = _pair_kinematics(cb_, pose_v)
         cv_a, _ = velocity_contacts_b(
             pose_v, slot_vel(vx, vy, om), slot_vel(vtx, vty, vtom), pd_, cb_,
@@ -223,6 +336,11 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         abv = to_bodies(sum_c(cv_a))
         tk = ((lam_n > 0.0).to(f32) * cb_.pmask).amax(dim=0)
         touched = torch.maximum(touched, tk)
+        if jd is not None:
+            pvel_j = PairVel(tile_j(vx), tile_j(vy), tile_j(om),
+                             gat(vx, pb_j), gat(vy, pb_j), gat(om, pb_j))
+            abv = abv + sum_j(velocity_joints_b(
+                joint_pose(cab, sab, px, py), pvel_j, jd, h))
         cntv = torch.clamp(abv[3], min=1.0)
         vx = vx + abv[0] / cntv
         vy = vy + abv[1] / cntv
@@ -241,14 +359,22 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                cbody, vlx, vly, nverts, radius, fric, rest, sensor,
                partner, slot_act, gravity, *, C, substeps, iterations, h, dt,
                margin, compliance, relaxation, max_dpos, rest_threshold,
-               lin_damp, ang_damp, owners=None, plain: bool = False):
+               lin_damp, ang_damp, owners=None, joints=None, JC: int = 0,
+               joint_solver: str = "jacobi", n_colors: int = 1,
+               max_dpos_joint: float = 1e3, plain: bool = False):
     """Run one frame's XPBD substeps for a world batch.
 
     Body arrays are ``[W, N]`` f32, collider arrays ``[W, M]`` (``cbody``,
     ``nverts`` i32; verts ``vlx``/``vly`` ``[W, V, M]``), slot tables
     ``[W, C, M]`` and ``gravity`` ``[W, 2]``. ``owners`` is
-    :func:`owner_csr` of ``cbody[0]``, built here when not given. Returns
-    ``(posx, posy, ang, velx, vely, angvel, touched [W, C, M])``.
+    :func:`owner_csr` of ``cbody[0]``, built here when not given.
+    ``joints`` (or None: contact-only) is a dict of the joint parameters
+    ``[W, J]`` under ``_build.JOINT_KEYS`` (``jtype``, ``jba``, ``jbb``,
+    ``jcolor`` i32, the rest f32, ``jmm`` with +inf as 3.4e38) and the
+    joint slots ``jslot``/``jside``/``jact`` ``[W, JC, N]`` of
+    ``build_joint_slots``; ``joint_solver`` is ``"colored"`` (``n_colors``
+    Gauss-Seidel passes, clipped by ``max_dpos_joint``) or ``"jacobi"``.
+    Returns ``(posx, posy, ang, velx, vely, angvel, touched [W, C, M])``.
     ``plain=True`` runs the twin even on CUDA tensors (for timing the kernel
     against it)."""
     W, N = posx.shape
@@ -271,6 +397,16 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         owners = owner_csr(cbody[0], N)
     checks += [("owner start", owners[0], i32, (N + 1,)),
                ("owner idx", owners[1], i32, (M,))]
+    J = 0
+    if joints is not None:
+        if joint_solver not in ("colored", "jacobi"):
+            raise ValueError(f"unknown joint_solver {joint_solver!r}")
+        J = joints["jtype"].shape[1]
+        ints = ("jtype", "jba", "jbb", "jcolor", "jslot")
+        checks += [(k, joints[k], i32 if k in ints else f32, (W, J))
+                   for k in _build.JOINT_KEYS]
+        checks += [(k, joints[k], i32 if k in ints else f32, (W, JC, N))
+                   for k in JOINT_SLOT_KEYS]
     for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, dev)
     params = dict(C=C, substeps=substeps, iterations=iterations, h=h, dt=dt,
@@ -282,16 +418,26 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         return frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi,
                             dyn, kin, cbody, vlx, vly, nverts, radius, fric,
                             rest, sensor, partner, slot_act, gravity, owners,
+                            joints=joints, joint_solver=joint_solver,
+                            n_colors=n_colors, max_dpos_joint=max_dpos_joint,
                             **params)
 
     lib = _build.library()
     if lib.sf_frame2_fields() != SCRATCH_FIELDS:
         raise RuntimeError("frame kernel scratch layout differs from "
                            "SCRATCH_FIELDS")
-    Vk = next((v for v in _KERNEL_V if v >= V), None)
+    Vk = kernel_verts(V)
     if Vk is None:
         raise ValueError(f"frame kernel supports up to {_KERNEL_V[-1]} "
                          f"vertices per collider, got {V}")
+    smem = frame2_shared_bytes(N, M, Vk, J)
+    if lib.sf_frame2_shared_bytes(N, M, Vk, J) != smem:
+        raise RuntimeError("frame kernel shared-memory layout differs from "
+                           "frame2_shared_bytes")
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"frame kernel needs {smem} bytes of shared memory "
+                         f"for N={N}, M={M}, V={Vk}, J={J}; a block has "
+                         f"{SHARED_LIMIT}")
     if Vk != V:  # pad with copies of v0: every min, max and manifold holds
         vlx = torch.cat([vlx, vlx[:, :1].expand(W, Vk - V, M)], 1)
         vly = torch.cat([vly, vly[:, :1].expand(W, Vk - V, M)], 1)
@@ -300,6 +446,8 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
     touched = torch.empty((W, C, M), dtype=f32, device=dev)
     p = _build.ptr
+    jptrs = [p(joints[k]) if joints is not None else None
+             for k in _build.JOINT_KEYS + JOINT_SLOT_KEYS]
     args = _build.Frame2Args(
         *(p(t) for t in (posx, posy, ang, velx, vely, angvel, invm, invi,
                          dyn, kin, cbody, vlx, vly, nverts, radius, fric,
@@ -309,7 +457,8 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         h, dt, margin, compliance / (h * h), relaxation, max_dpos,
         rest_threshold, 1.0 / (1.0 + h * lin_damp),
         1.0 / (1.0 + h * ang_damp), int(lin_damp > 0.0),
-        int(ang_damp > 0.0))
+        int(ang_damp > 0.0), *jptrs, J, JC if joints is not None else 0,
+        int(joint_solver == "colored"), n_colors, max_dpos_joint, h * h)
     _build.launch("sf_frame2", args, dev)
     run_frame2.launches += 1
     return (*outs, touched)

@@ -1,9 +1,10 @@
-"""Slot-table broadphase: the pair-eligibility mask and per-collider partner
-slots for a world batch.
+"""Slot tables for a world batch: the pair-eligibility mask, per-collider
+partner slots and per-body joint slots.
 
 Replaces ``starframe_tpu/pallas/slots.py``'s ``_elig_kernel`` (via
-``build_elig_mask``) and ``_slot_kernel`` (via ``build_slot_tables``) with
-the CUDA kernels in ``csrc/elig.cu`` and ``csrc/slots.cu``. Each wrapper
+``build_elig_mask``), ``_slot_kernel`` (via ``build_slot_tables``) and
+``_joint_slot_kernel`` (via ``build_joint_slots``) with the CUDA kernels in
+``csrc/elig.cu``, ``csrc/slots.cu`` and ``csrc/joint_slots.cu``. Each wrapper
 checks its inputs, launches its kernel for CUDA tensors (and raises if that
 fails: there is no fallback) and runs the plain PyTorch twin beside it for
 CPU tensors. ``<wrapper>.launches`` counts kernel launches.
@@ -255,3 +256,64 @@ def build_slot_tables(posx, posy, ang, velx, vely, cbody, vlx, vly, radius,
 
 
 build_slot_tables.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: joint slots
+# ---------------------------------------------------------------------------
+
+
+def joint_slots_plain(jba, jbb, jactive, n_bodies: int, *, JC: int):
+    """Plain PyTorch twin of :func:`build_joint_slots`: the TPU kernel's
+    exclusive-rank over the joint axis and one-hot sums per slot."""
+    W, J = jba.shape
+    n_iota = torch.arange(n_bodies, dtype=i32, device=jba.device)
+    live = (jactive > 0)[:, :, None]
+    is_a = (jba[:, :, None] == n_iota) & live  # [W, J, N]
+    is_b = (jbb[:, :, None] == n_iota) & live
+    mask = (is_a | is_b).to(i32)
+    rank = torch.cumsum(mask, dim=1, dtype=i32) - mask
+    j_iota = torch.arange(J, dtype=i32, device=jba.device)[None, :, None]
+    slot, side, act = [], [], []
+    for c in range(JC):
+        oh = (rank == c) & (mask > 0)
+        slot.append((oh.to(i32) * j_iota).sum(dim=1, dtype=i32))
+        side.append((oh & is_a).sum(dim=1, dtype=i32).to(f32))
+        act.append(oh.sum(dim=1, dtype=i32).to(f32))
+    return (torch.stack(slot, 1), torch.stack(side, 1), torch.stack(act, 1),
+            mask.sum(dim=1, dtype=i32))
+
+
+def build_joint_slots(jba, jbb, jactive, n_bodies: int, *, JC: int,
+                      plain: bool = False):
+    """Per-body joint slot tables for a world batch: body n's first ``JC``
+    active joints in joint-index order.
+
+    ``jba``/``jbb`` ``[W, J]`` i32 are the joints' endpoint bodies and
+    ``jactive`` ``[W, J]`` f32 their active flags. Returns ``(jslot [W, JC,
+    N] i32`` the joint row, ``jside [W, JC, N] f32`` 1 where the body is
+    endpoint A, ``jact [W, JC, N] f32``, ``count [W, N] i32)``; empty slots
+    are ``0, 0, 0`` and ``count`` is the true number of the body's joints
+    (past ``JC`` the joint overflows). ``plain=True`` runs the twin even on
+    CUDA tensors (for timing the kernel against it)."""
+    W, J = jba.shape
+    N = n_bodies
+    dev = jba.device
+    for name, t, dtype in (("jba", jba, i32), ("jbb", jbb, i32),
+                           ("jactive", jactive, f32)):
+        _check(name, t, dtype, (W, J), dev)
+    if plain or not _route(dev):
+        return joint_slots_plain(jba, jbb, jactive, N, JC=JC)
+    jslot = torch.empty((W, JC, N), dtype=i32, device=dev)
+    jside, jact = (torch.empty((W, JC, N), dtype=f32, device=dev)
+                   for _ in range(2))
+    count = torch.empty((W, N), dtype=i32, device=dev)
+    p = _build.ptr
+    args = _build.JointSlotArgs(p(jba), p(jbb), p(jactive), p(jslot),
+                                p(jside), p(jact), p(count), W, N, J, JC)
+    _build.launch("sf_joint_slots", args, dev)
+    build_joint_slots.launches += 1
+    return jslot, jside, jact, count
+
+
+build_joint_slots.launches = 0

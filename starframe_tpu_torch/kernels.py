@@ -1,20 +1,30 @@
-"""Contact math over any trailing shape: narrowphase manifold, XPBD contact
-projection and the velocity pass.
+"""Contact and joint math over any trailing shape: narrowphase manifold,
+XPBD contact projection, the velocity pass, and the slot-form joint solve.
 
-The PyTorch counterpart of the contact half of ``starframe_tpu/kernels.py``,
+The PyTorch counterpart of the batched half of ``starframe_tpu/kernels.py``,
 written op for op in the same order so the two agree to float32 rounding.
 Every function takes tensors whose leading axis (where there is one) is the
 per-vertex ``[V, ...]`` or per-point ``[2, ...]`` axis and broadcasts over
 the rest. The plain twin of the frame kernel (``hopper/frame2.py``) calls
 these; the CUDA frame kernel (``csrc/frame2.cu``) is a per-thread scalar
-transcription of the same sequence. The joint half comes with ROADMAP.md A3.
+transcription of the same sequence.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
+
+from .state import (
+    JOINT_ANGLE_RANGE,
+    JOINT_ANGULAR_MOTOR,
+    JOINT_DISTANCE,
+    JOINT_PIN,
+    JOINT_WELD,
+)
 
 _EPS = 1e-10
 _PARALLEL_COS = 0.98
@@ -455,3 +465,126 @@ def velocity_contacts_b(pose: PairPose, pvel: PairVel, pvel0: PairVel,
     vals_b = torch.stack([cb_x * pd.inv_mass_b, cb_y * pd.inv_mass_b,
                           dang_b, n_act])
     return vals_a, vals_b
+
+
+# ---------------------------------------------------------------------------
+# slot-form joint solve (each body's joint slots are canonicalised so the
+# own body is endpoint A; only the own-side correction is produced, and the
+# partner computes its half in its own slot)
+# ---------------------------------------------------------------------------
+
+
+def _div(x, s: float):
+    """``x / s`` for a Python float ``s`` rounded to ``x``'s dtype, as a true
+    division on every device (PyTorch's CUDA kernels turn a division by a
+    host scalar into a multiplication by its reciprocal, which rounds
+    differently)."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def _wrap_pi(x):
+    """Wrap to (-pi, pi] without a remainder: ``x - 2 pi floor((x + pi) /
+    2 pi)`` with both constants rounded to ``x``'s dtype."""
+    two_pi = 2.0 * math.pi
+    return x - two_pi * torch.floor(_div(x + math.pi, two_pi))
+
+
+def _joint_anchors(pose: PairPose, jd):
+    """World anchors of both ends and their offsets from each body."""
+    wax = pose.pax + pose.ca * jd.oax - pose.sa * jd.oay
+    way = pose.pay + pose.sa * jd.oax + pose.ca * jd.oay
+    wbx = pose.pbx + pose.cb * jd.pax - pose.sb * jd.pay
+    wby = pose.pby + pose.sb * jd.pax + pose.cb * jd.pay
+    return (wax, way, wbx, wby, wax - pose.pax, way - pose.pay,
+            wbx - pose.pbx, wby - pose.pby)
+
+
+def solve_joints_b(pose: PairPose, an_o, an_p, jd, h: float):
+    """XPBD joint position projection, slot form. ``pose`` carries the own
+    (A) and partner (B) poses, ``an_o``/``an_p`` the raw angles. ``jd``
+    fields (each ``[S]``): jtype, oax, oay (own anchor), pax, pay (partner
+    anchor), rest, lo, hi, compliance, im_o, im_p, ii_o, ii_p, active, all
+    canonicalised so the own body is endpoint A. Returns own-side vals
+    ``[4, S]`` (dpos_x, dpos_y, dang, count)."""
+    jt = jd.jtype
+    wax, way, wbx, wby, rax, ray, rbx, rby = _joint_anchors(pose, jd)
+
+    dx = wbx - wax
+    dy = wby - way
+    d = torch.sqrt(dx * dx + dy * dy)
+    inv_d = 1.0 / torch.clamp(d, min=_EPS)
+    nx = dx * inv_d
+    ny = dy * inv_d
+
+    is_dist = jt == JOINT_DISTANCE
+    is_point = (jt == JOINT_PIN) | (jt == JOINT_WELD)
+    lo = torch.where(is_point, 0.0, jd.lo)
+    hi = torch.where(is_point, 0.0, jd.hi)
+    c_lin = torch.where(d > hi, d - hi, torch.where(d < lo, d - lo, 0.0))
+    lin_active = ((is_dist | is_point) & (torch.abs(c_lin) > 0.0)
+                  & (d > _EPS) & (jd.active > 0))
+
+    cr_a = rax * ny - ray * nx
+    cr_b = rbx * ny - rby * nx
+    w_a = jd.im_o + jd.ii_o * cr_a * cr_a
+    w_b = jd.im_p + jd.ii_p * cr_b * cr_b
+    alpha_t = _div(jd.compliance, h * h)
+    den = w_a + w_b + alpha_t
+    dlam = torch.where(lin_active & (den > _EPS),
+                       -c_lin / torch.clamp(den, min=_EPS), 0.0)
+    p_x = dlam * nx
+    p_y = dlam * ny
+
+    # angular rows (weld locks the relative angle; angle_range limits it)
+    phi = _wrap_pi(an_p - an_o - jd.rest)
+    is_weld = jt == JOINT_WELD
+    is_rng = jt == JOINT_ANGLE_RANGE
+    c_ang = torch.where(
+        is_weld, phi,
+        torch.where(phi > jd.hi, phi - jd.hi,
+                    torch.where(phi < jd.lo, phi - jd.lo, 0.0)))
+    ang_active = ((is_weld | is_rng) & (torch.abs(c_ang) > 0.0)
+                  & (jd.active > 0))
+    den_a = jd.ii_o + jd.ii_p + alpha_t
+    dlam_ang = torch.where(ang_active & (den_a > _EPS),
+                           -c_ang / torch.clamp(den_a, min=_EPS), 0.0)
+
+    n_active = lin_active.to(torch.float32) + ang_active.to(torch.float32)
+    return torch.stack([
+        -p_x * jd.im_o,
+        -p_y * jd.im_o,
+        -jd.ii_o * (rax * p_y - ray * p_x) - dlam_ang * jd.ii_o,
+        n_active.to(p_x.dtype),
+    ])
+
+
+def velocity_joints_b(pose: PairPose, pvel: PairVel, jd, h: float):
+    """Joint velocity rows, slot form: angular motors and joint damping.
+    ``jd`` as for :func:`solve_joints_b`, plus damping, motor_speed and
+    motor_max. Returns own-side vals ``[4, S]``."""
+    is_motor = (jd.jtype == JOINT_ANGULAR_MOTOR) & (jd.active > 0)
+    err = jd.motor_speed - (pvel.ob - pvel.oa)
+    w_ang = jd.ii_o + jd.ii_p
+    lam_m = torch.where(w_ang > _EPS, err / torch.clamp(w_ang, min=_EPS), 0.0)
+    lam_m = torch.minimum(torch.maximum(lam_m, -jd.motor_max * h),
+                          jd.motor_max * h)
+    lam_m = torch.where(is_motor, lam_m, 0.0)
+
+    damped = (jd.active > 0) & (jd.damping > 0.0)
+    _, _, _, _, rax, ray, rbx, rby = _joint_anchors(pose, jd)
+    relx = (pvel.vbx - pvel.ob * rby) - (pvel.vax - pvel.oa * ray)
+    rely = (pvel.vby + pvel.ob * rbx) - (pvel.vay + pvel.oa * rax)
+    w_lin = jd.im_o + jd.im_p
+    damp_f = torch.clamp(jd.damping * h, max=1.0)
+    scale = torch.where(w_lin > _EPS, damp_f / torch.clamp(w_lin, min=_EPS),
+                        0.0)
+    p_dx = torch.where(damped, -relx * scale, 0.0)
+    p_dy = torch.where(damped, -rely * scale, 0.0)
+
+    j_act = (is_motor | damped).to(p_dx.dtype)
+    return torch.stack([
+        -p_dx * jd.im_o,
+        -p_dy * jd.im_o,
+        -lam_m * jd.ii_o - jd.ii_o * (rax * p_dy - ray * p_dx),
+        j_act,
+    ])

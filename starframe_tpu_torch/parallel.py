@@ -4,16 +4,17 @@ The PyTorch counterpart of the batched half of ``starframe_tpu/parallel.py``
 (``frame2_*``, ``batched_step``, ``batched_rollout``). Thousands of
 independent worlds (BASELINE.json:11 — 4096 x 256-body worlds on one chip)
 step together: the slot-table broadphase (``hopper/slots.py``) builds each
-dynamic collider's partner slots, and the frame kernel (``hopper/frame2.py``)
-runs the whole frame. Every function takes ``plain=False``; ``plain=True``
-runs the kernels' plain PyTorch twins even on a card (for timing against
-the kernels), as the JAX package's ``interpret=True`` runs Pallas in
-interpret mode.
+dynamic collider's partner slots and each body's joint slots, and the frame
+kernel (``hopper/frame2.py``) runs the whole frame, joints included. Every
+function takes ``plain=False``; ``plain=True`` runs the kernels' plain
+PyTorch twins even on a card (for timing against the kernels), as the JAX
+package's ``interpret=True`` runs Pallas in interpret mode.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: joints (A3), CCD, solve-slot compaction and per-world owner
-tables (A3), sleeping (A3), and the single-world ``vmap(step)`` tier the
-JAX package falls back to (A2).
+ROADMAP.md item: CCD, solve-slot compaction, per-world owner tables and
+sleeping (A1), and the single-world ``vmap(step)`` tier the JAX package
+falls back to (A3), which is also where batches past the kernels' bounds
+would go.
 """
 
 from __future__ import annotations
@@ -24,13 +25,28 @@ from functools import partial
 import torch
 
 from .config import SolverConfig
-from .hopper.frame2 import owner_csr, run_frame2
-from .hopper.slots import build_elig_mask, build_slot_tables
-from .state import BODY_KINEMATIC, COL_ACTIVE, COL_SENSOR, World, map_world
+from .hopper.frame2 import (
+    SHARED_LIMIT,
+    frame2_shared_bytes,
+    kernel_verts,
+    owner_csr,
+    run_frame2,
+)
+from .hopper.slots import build_elig_mask, build_joint_slots, build_slot_tables
+from .state import (
+    BODY_KINEMATIC,
+    COL_ACTIVE,
+    COL_SENSOR,
+    JOINT_OFF,
+    World,
+    map_world,
+)
 
 # Host round trips the rollouts made (one per guarded frame: the K-frame
 # staleness guard decides on the host whether to rebuild the tables).
 host_syncs = 0
+# joints per world the kernels take (the JAX package's bound as well)
+MAX_JOINTS = 1024
 
 
 def replicate_world(world: World, n: int) -> World:
@@ -41,25 +57,30 @@ def replicate_world(world: World, n: int) -> World:
 
 def frame2_shapes_ok(worlds: World, cfg: SolverConfig) -> bool:
     """Shape/config half of the slot-kernel decision. The CUDA kernels run
-    one block of 256 threads per world with the world's bodies and
-    colliders in shared memory, so both capacities are bounded; the TPU's
-    128-lane and sublane-block rules do not apply."""
+    one block of 256 threads per world with the world's bodies, colliders
+    and joint parameters in shared memory, so the capacities are bounded
+    (N, M, J <= 1024, and the frame kernel's block within an H100's shared
+    memory); the TPU's 128-lane and sublane-block rules do not apply."""
     if cfg.use_pallas is False:
         return False
     if cfg.ccd and cfg.manifold_refresh != "frame":
         return False
-    return worlds.bodies.n <= 1024 and worlds.colliders.m <= 1024
+    n, m, j = worlds.bodies.n, worlds.colliders.m, worlds.joints.j
+    v = worlds.colliders.max_verts
+    smem = frame2_shared_bytes(n, m, kernel_verts(v) or v, j)
+    return (n <= 1024 and m <= 1024 and j <= MAX_JOINTS
+            and smem <= SHARED_LIMIT)
 
 
 def _require_slice(worlds: World, cfg: SolverConfig) -> None:
     """Raise on what the port does not run yet (never fall through)."""
     if not frame2_shapes_ok(worlds, cfg):
         raise NotImplementedError(
-            "this batch or config is not eligible for the slot kernels and "
-            "the single-world vmap(step) tier is not ported yet "
-            "(ROADMAP.md A2)")
+            "this batch or config is not eligible for the slot kernels "
+            f"(N = {worlds.bodies.n}, M = {worlds.colliders.m}, "
+            f"J = {worlds.joints.j}) and the single-world vmap(step) tier "
+            "is not ported yet (ROADMAP.md A3)")
     todo = [
-        (worlds.joints.j > 0, "joints (joint-slot kernel and joint solve)"),
         (cfg.ccd, "CCD (the TOI clamp in the frame kernel)"),
         (0 < cfg.batch_solve_capacity < cfg.slot_capacity,
          "solve-slot compaction (batch_solve_capacity)"),
@@ -70,7 +91,7 @@ def _require_slice(worlds: World, cfg: SolverConfig) -> None:
     for hit, what in todo:
         if hit:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md A3)")
+                f"{what} is not ported yet (ROADMAP.md A1)")
 
 
 def _frame2_arrays(worlds: World, cfg: SolverConfig):
@@ -153,16 +174,49 @@ def frame2_tables(worlds: World, cfg: SolverConfig, frames: int = 1,
     return (tables, budget) if return_budget else tables
 
 
+def frame2_joint_slots(worlds: World, cfg: SolverConfig,
+                       plain: bool = False):
+    """Per-body joint slots ``(jslot, jside, jact [W, JC, N], count [W,
+    N])`` with ``JC = cfg.joint_slot_capacity`` -- constant while the joint
+    topology is, so rollouts build them once."""
+    j = worlds.joints
+    return build_joint_slots(
+        j.body_a, j.body_b, (j.jtype != JOINT_OFF).to(torch.float32),
+        worlds.bodies.n, JC=cfg.joint_slot_capacity, plain=plain)
+
+
+def _frame2_joints(worlds: World, cfg: SolverConfig, joint_slots):
+    """The frame kernel's joint dict (``hopper.run_frame2``) and the hard
+    ``joint_overflow`` counter: joints dropped past the bodies' slots."""
+    j = worlds.joints
+    jslot, jside, jact, jcount = joint_slots
+    JC = cfg.joint_slot_capacity
+    overflow = torch.clamp(jcount - JC, min=0).sum(dtype=torch.int32)
+    joints = dict(
+        jtype=j.jtype, jba=j.body_a, jbb=j.body_b,
+        jaax=j.anchor_a[..., 0].contiguous(),
+        jaay=j.anchor_a[..., 1].contiguous(),
+        jabx=j.anchor_b[..., 0].contiguous(),
+        jaby=j.anchor_b[..., 1].contiguous(),
+        jrest=j.rest, jlo=j.lo, jhi=j.hi, jcomp=j.compliance,
+        jdamp=j.damping, jms=j.motor_speed,
+        jmm=torch.nan_to_num(j.motor_max, posinf=3.4e38), jcolor=j.color,
+        jslot=jslot, jside=jside, jact=jact)
+    return joints, overflow
+
+
 def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
-                plain: bool = False):
+                joint_slots=None, plain: bool = False):
     """One batched frame through the slot kernels. Returns ``(new_worlds,
     touched [W, C, M], partner [W, C, M], (count, count_touch,
-    count_close), aux)`` with ``aux`` the zero-valued counters of the
-    branches this slice does not run (``joint_overflow``,
-    ``owner_overflow``, ``solve_overflow``, ``solve_dropped``). Pass
-    ``tables`` (from :func:`frame2_tables`) to reuse a broadphase, and
-    ``owners`` (``hopper.owner_csr`` of world 0's ``body_idx``) to reuse
-    the collider -> body reduction order."""
+    count_close), aux)`` with ``aux`` the hard scalar counters
+    ``joint_overflow`` (joints past a body's ``cfg.joint_slot_capacity``
+    slots) and the zero-valued ones of the branches this slice does not
+    run (``owner_overflow``, ``solve_overflow``, ``solve_dropped``). Pass
+    ``tables`` (from :func:`frame2_tables`) to reuse a broadphase, ``owners``
+    (``hopper.owner_csr`` of world 0's ``body_idx``) to reuse the collider
+    -> body reduction order, and ``joint_slots`` (from
+    :func:`frame2_joint_slots`) to reuse the joint slots."""
     _require_slice(worlds, cfg)
     body, col = _frame2_arrays(worlds, cfg)
     if tables is None:
@@ -170,6 +224,12 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
     partner, slot_act, count, count_touch, count_close = tables
     W = body["posx"].shape[0]
     gravity = worlds.gravity.expand(W, 2).contiguous()
+    zero = torch.zeros((), dtype=torch.int32, device=gravity.device)
+    joints, joint_overflow = None, zero
+    if worlds.joints.j > 0:
+        if joint_slots is None:
+            joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
+        joints, joint_overflow = _frame2_joints(worlds, cfg, joint_slots)
     posx, posy, ang, velx, vely, angvel, touched = run_frame2(
         body["posx"], body["posy"], body["ang"],
         body["velx"], body["vely"], body["angvel"],
@@ -182,7 +242,10 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
         relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
         rest_threshold=cfg.restitution_threshold,
         lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-        owners=owners, plain=plain)
+        owners=owners, joints=joints, JC=cfg.joint_slot_capacity,
+        joint_solver=cfg.joint_solver, n_colors=cfg.max_joint_colors,
+        # joints are constraint upkeep: the raw clip, not max_dpos_eff
+        max_dpos_joint=cfg.max_dpos, plain=plain)
     b = worlds.bodies
     new_bodies = dataclasses.replace(
         b, pos=torch.stack([posx, posy], dim=-1), angle=ang,
@@ -190,8 +253,7 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
         prev_pos=b.pos, prev_angle=b.angle)
     new_worlds = dataclasses.replace(
         worlds, bodies=new_bodies, step_count=worlds.step_count + 1)
-    zero = torch.zeros((), dtype=torch.int32, device=posx.device)
-    aux = dict(joint_overflow=zero, owner_overflow=zero,
+    aux = dict(joint_overflow=joint_overflow, owner_overflow=zero,
                solve_overflow=zero, solve_dropped=zero)
     return new_worlds, touched, partner, (count, count_touch, count_close), aux
 
@@ -242,9 +304,11 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
     - ``margin_dropped`` / ``spec_dropped``: the same for margin-close and
       swept-speculative candidates (bounded staleness: a dropped
       not-yet-touching pair re-enters at the next rebuild);
-    - ``joint_overflow``, ``owner_overflow``, ``solve_overflow``,
-      ``solve_dropped``: 0 on this slice (no joints, uniform topology, no
-      compaction);
+    - ``joint_overflow``: max over frames of the joints dropped past the
+      bodies' ``cfg.joint_slot_capacity`` slots (hard: a joint went
+      unsolved);
+    - ``owner_overflow``, ``solve_overflow``, ``solve_dropped``: 0 on this
+      slice (uniform topology, no compaction);
     - ``forced_rebuilds``: table rebuilds forced by the staleness guard.
 
     With ``cfg.frames_per_broadphase = K > 1`` the tables are rebuilt every
@@ -266,11 +330,14 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
     neg = torch.tensor(-(2 ** 31), dtype=torch.int32, device=dev)
     ovf = marg = spec = neg
     rebuilds = 0
-    # INVARIANT: the eligibility mask and the collider -> body owner lists
-    # depend only on flags and topology, which nothing inside a rollout
-    # changes, so they are built once
+    # INVARIANT: the eligibility mask, the collider -> body owner lists and
+    # the joint slots depend only on flags and topology, which nothing
+    # inside a rollout changes, so they are built once
     elig = frame2_elig(worlds, cfg, plain=plain)
     owners = owner_csr(worlds.colliders.body_idx[0], worlds.bodies.n)
+    joint_slots = (frame2_joint_slots(worlds, cfg, plain=plain)
+                   if worlds.joints.j > 0 else None)
+    jovf = torch.zeros((), dtype=torch.int32, device=dev)
 
     def build(w):
         # per-body position budget: the min over the body's active
@@ -311,7 +378,10 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
             rebuilds += int(viol)
             age = (1 if (age == 0 or viol) else age + 1) % K
         w, touched, partner, counts, aux = frame2_step(
-            w, cfg, tables=tables, owners=owners, plain=plain)
+            w, cfg, tables=tables, owners=owners, joint_slots=joint_slots,
+            plain=plain)
+        if joint_slots is not None:
+            jovf = torch.maximum(jovf, aux["joint_overflow"])
         hard, m_, s_ = _frame_diag(C, counts)
         ovf = torch.maximum(ovf, hard)
         marg = torch.maximum(marg, m_)
@@ -319,7 +389,7 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
         traj.append(record(w))
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     diag = dict(slot_overflow=ovf.clamp(min=0), margin_dropped=marg.clamp(min=0),
-                spec_dropped=spec.clamp(min=0), joint_overflow=zero,
+                spec_dropped=spec.clamp(min=0), joint_overflow=jovf,
                 forced_rebuilds=torch.tensor(rebuilds, dtype=torch.int32,
                                              device=dev),
                 solve_overflow=zero, solve_dropped=zero, owner_overflow=zero)

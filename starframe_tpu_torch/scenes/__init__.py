@@ -1,6 +1,9 @@
 """Scene builders."""
 
-from .base import Scene
-from .batched import batched_worlds
+from .base import Scene, add_ground, tighten_joint_colors
+from .batched import batched_worlds, batchify
+from .mechanism import mechanism
+from .rope_bridge import rope_bridge
 
-__all__ = ["Scene", "batched_worlds"]
+__all__ = ["Scene", "add_ground", "batched_worlds", "batchify", "mechanism",
+           "rope_bridge", "tighten_joint_colors"]

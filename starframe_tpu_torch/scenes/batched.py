@@ -1,6 +1,7 @@
-"""``n_worlds`` independent 256-body settling worlds (BASELINE.json:11): the
-batched-rollout workload the throughput metric is defined on. The same
-scene as ``starframe_tpu/scenes/batched.py``; the per-world velocity noise
+"""World batches: ``n_worlds`` independent 256-body settling worlds
+(BASELINE.json:11, the workload the throughput metric is defined on) and
+:func:`batchify`, which turns any single-world scene into a batch. The same
+scenes as ``starframe_tpu/scenes/batched.py``; the per-world velocity noise
 is drawn with numpy's ``default_rng(seed)`` instead of ``jax.random``, so
 worlds match the JAX package's in everything but the noise."""
 
@@ -14,7 +15,7 @@ import torch
 from ..config import Capacity, SolverConfig
 from ..parallel import replicate_world
 from ..shapes import Shape
-from ..state import WorldBuilder
+from ..state import WorldBuilder, expand_capacity
 from .base import Scene
 
 
@@ -49,18 +50,40 @@ def _single_world(n_bodies: int, substeps: int, device):
     return world, cap, cfg
 
 
+def _with_noise(batched, scale: float, seed: int):
+    """Add ``scale``-sized normal velocity noise to every dynamic body of
+    every world, drawn from ``default_rng(seed)``."""
+    b = batched.bodies
+    noise = scale * np.random.default_rng(seed).standard_normal(
+        tuple(b.vel.shape), dtype=np.float32)
+    dyn = (b.inv_mass > 0)[..., None]
+    vel = torch.where(dyn, b.vel + torch.as_tensor(noise, device=b.vel.device),
+                      b.vel)
+    return dataclasses.replace(batched, bodies=dataclasses.replace(b, vel=vel))
+
+
+def batchify(scene: Scene, n_worlds: int, seed: int = 0,
+             noise: float = 0.05) -> Scene:
+    """Turn a single-world scene into an ``n_worlds`` batch: pad the body
+    and collider capacities to multiples of 128, replicate the world and
+    add per-world velocity noise so the worlds diverge. The CUDA kernels do
+    not need the padding (it is the TPU kernels' lane rule); it is kept so
+    that both packages hold the same arrays. The scene keeps its
+    ``joint_solver`` (the frame kernel runs both joint tiers)."""
+    world = scene.world
+    world = expand_capacity(world, extra_bodies=(-world.bodies.n) % 128,
+                            extra_colliders=(-world.colliders.m) % 128)
+    batched = _with_noise(replicate_world(world, n_worlds), noise, seed)
+    cap = dataclasses.replace(scene.capacity, max_bodies=world.bodies.n,
+                              max_colliders=world.colliders.m)
+    return Scene(f"batched_{scene.name}", batched, cap, scene.config)
+
+
 def batched_worlds(n_worlds: int = 4096, n_bodies: int = 256,
                    substeps: int = 10, seed: int = 0, device="cpu") -> Scene:
     """``n_worlds`` copies of a 256-body settling scene, with per-world
     velocity noise (0.1 m/s normal, dynamic bodies only) drawn from
     ``default_rng(seed)`` so worlds diverge but replays are identical."""
     world, cap, cfg = _single_world(n_bodies, substeps, device)
-    batched = replicate_world(world, n_worlds)
-    noise = 0.1 * np.random.default_rng(seed).standard_normal(
-        (n_worlds, n_bodies, 2), dtype=np.float32)
-    dyn = (batched.bodies.inv_mass > 0)[..., None]
-    vel = torch.where(dyn, batched.bodies.vel + torch.as_tensor(
-        noise, device=device), batched.bodies.vel)
-    batched = dataclasses.replace(
-        batched, bodies=dataclasses.replace(batched.bodies, vel=vel))
+    batched = _with_noise(replicate_world(world, n_worlds), 0.1, seed)
     return Scene("batched_worlds", batched, cap, cfg)

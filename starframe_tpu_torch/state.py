@@ -9,9 +9,9 @@ the same dtypes (f32 and i32), with the same flag constants:
   does and converts them once, at the end, with
   ``torch.as_tensor(..., device=)``.
 
-Joints are part of the state so snapshots carry them, but joint colouring
-(and every joint solve) is ROADMAP.md item A3's work: a builder with joints
-raises until then.
+Joints are rows of the same fixed-capacity SoA. The builder colours the
+joint graph at build time (:func:`native.greedy_color`), as the JAX builder
+does, so the frame kernel can run one Gauss-Seidel pass per colour.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .config import Capacity
+from .native import greedy_color
 from .shapes import Shape
 
 # Body flags
@@ -205,8 +206,8 @@ class WorldBuilder:
     """Host-side scene construction (numpy), producing a :class:`World`.
 
     The same API and the same arrays as ``starframe_tpu.state.WorldBuilder``
-    for bodies and colliders; mass and inertia come from the attached
-    collider shapes unless overridden.
+    for bodies, colliders and joints; mass and inertia come from the
+    attached collider shapes unless overridden.
     """
 
     def __init__(self, gravity=(0.0, -9.81)):
@@ -259,13 +260,96 @@ class WorldBuilder:
 
     # -- joints -------------------------------------------------------------
 
-    def distance_joint(self, body_a: int, body_b: int, *args, **kwargs):
-        """Recorded so a scene can be described; :meth:`build` raises until
-        joint colouring and the joint solve are ported (ROADMAP.md A3)."""
-        self._joints.append(dict(body_a=body_a, body_b=body_b))
+    def _add_joint(self, **kw) -> int:
+        row = dict(jtype=JOINT_OFF, body_a=0, body_b=0, anchor_a=(0.0, 0.0),
+                   anchor_b=(0.0, 0.0), rest=0.0, lo=0.0, hi=0.0,
+                   compliance=0.0, damping=0.0, motor_speed=0.0,
+                   motor_max=np.inf)
+        row.update(kw)
+        if row["anchor_a"] is None or row["anchor_b"] is None:
+            # a None anchor would become NaN and poison the whole solve
+            raise ValueError(
+                "joint anchors must not be None: pass world_point or "
+                "explicit anchor_a/anchor_b")
+        self._joints.append(row)
         return len(self._joints) - 1
 
-    pin_joint = weld_joint = angle_limit = angular_motor = distance_joint
+    def distance_joint(self, body_a: int, body_b: int, anchor_a=(0.0, 0.0),
+                       anchor_b=(0.0, 0.0), rest: Optional[float] = None,
+                       limits: Optional[tuple] = None,
+                       compliance: float = 0.0, damping: float = 0.0) -> int:
+        """Distance constraint between body-local anchor points; with
+        ``limits=(lo, hi)`` the length is only held inside that range."""
+        if rest is None:
+            pa = self._world_anchor(body_a, anchor_a)
+            pb = self._world_anchor(body_b, anchor_b)
+            rest = float(np.linalg.norm(pa - pb))
+        lo, hi = limits if limits is not None else (rest, rest)
+        return self._add_joint(
+            jtype=JOINT_DISTANCE, body_a=body_a, body_b=body_b,
+            anchor_a=anchor_a, anchor_b=anchor_b, rest=rest, lo=lo, hi=hi,
+            compliance=compliance, damping=damping)
+
+    def _point_anchors(self, body_a, body_b, world_point, anchor_a,
+                       anchor_b):
+        """Anchors of a point joint: from a world point (the bodies'
+        midpoint when nothing is given) or as passed."""
+        if world_point is None and anchor_a is None and anchor_b is None:
+            world_point = 0.5 * (np.asarray(self._bodies[body_a]["pos"])
+                                 + np.asarray(self._bodies[body_b]["pos"]))
+        if world_point is not None:
+            anchor_a = self._local_anchor(body_a, world_point)
+            anchor_b = self._local_anchor(body_b, world_point)
+        return anchor_a, anchor_b
+
+    def pin_joint(self, body_a: int, body_b: int, world_point=None,
+                  anchor_a=None, anchor_b=None, compliance: float = 0.0,
+                  damping: float = 0.0) -> int:
+        """Point attachment (revolute joint): the two anchors coincide and
+        rotation stays free."""
+        anchor_a, anchor_b = self._point_anchors(body_a, body_b, world_point,
+                                                 anchor_a, anchor_b)
+        return self._add_joint(
+            jtype=JOINT_PIN, body_a=body_a, body_b=body_b, anchor_a=anchor_a,
+            anchor_b=anchor_b, compliance=compliance, damping=damping)
+
+    def weld_joint(self, body_a, body_b, world_point=None, anchor_a=None,
+                   anchor_b=None, compliance: float = 0.0) -> int:
+        """Pin + relative angle locked at its build-time value."""
+        anchor_a, anchor_b = self._point_anchors(body_a, body_b, world_point,
+                                                 anchor_a, anchor_b)
+        rel = self._bodies[body_b]["angle"] - self._bodies[body_a]["angle"]
+        return self._add_joint(
+            jtype=JOINT_WELD, body_a=body_a, body_b=body_b, anchor_a=anchor_a,
+            anchor_b=anchor_b, rest=rel, compliance=compliance)
+
+    def angle_limit(self, body_a, body_b, lo, hi,
+                    compliance: float = 0.0) -> int:
+        """Constrain the relative angle (angle_b - angle_a) into [lo, hi]."""
+        return self._add_joint(jtype=JOINT_ANGLE_RANGE, body_a=body_a,
+                               body_b=body_b, lo=lo, hi=hi,
+                               compliance=compliance)
+
+    def angular_motor(self, body_a, body_b, speed, max_torque=np.inf) -> int:
+        """Drive the relative angular velocity (w_b - w_a) toward ``speed``
+        within a torque budget."""
+        return self._add_joint(jtype=JOINT_ANGULAR_MOTOR, body_a=body_a,
+                               body_b=body_b, motor_speed=speed,
+                               motor_max=max_torque)
+
+    def _world_anchor(self, body: int, local) -> np.ndarray:
+        b = self._bodies[body]
+        c, s = np.cos(b["angle"]), np.sin(b["angle"])
+        la = np.asarray(local, np.float32)
+        return b["pos"] + np.array([c * la[0] - s * la[1],
+                                    s * la[0] + c * la[1]])
+
+    def _local_anchor(self, body: int, world) -> np.ndarray:
+        b = self._bodies[body]
+        c, s = np.cos(-b["angle"]), np.sin(-b["angle"])
+        d = np.asarray(world, np.float32) - b["pos"]
+        return np.array([c * d[0] - s * d[1], s * d[0] + c * d[1]],
+                        np.float32)
 
     # -- build ---------------------------------------------------------------
 
@@ -289,10 +373,6 @@ class WorldBuilder:
               reserve_joints: int = 0, device="cpu"
               ) -> tuple[World, Capacity]:
         """Materialize the scene on ``device``."""
-        if self._joints:
-            raise NotImplementedError(
-                "joints are not ported yet (ROADMAP.md A3: joint colouring, "
-                "the joint-slot kernel and the joint solve)")
         cap = self._auto_capacity(
             capacity, (reserve_bodies, reserve_colliders, reserve_joints))
         arrays = _empty_arrays(cap, self.gravity)
@@ -345,6 +425,25 @@ class WorldBuilder:
             arrays["colliders/mask"][i] = c["mask"]
             arrays["colliders/flags"][i] = (
                 COL_ACTIVE | (COL_SENSOR if c["sensor"] else 0))
+
+        keys = ("jtype", "body_a", "body_b", "anchor_a", "anchor_b", "rest",
+                "lo", "hi", "compliance", "damping", "motor_speed",
+                "motor_max")
+        for i, row in enumerate(self._joints):
+            for k in keys:
+                arrays[f"joints/{k}"][i] = row[k]
+        nj = len(self._joints)
+        if nj > 0:
+            # static bodies never conflict: no impulse moves them
+            flags = arrays["bodies/flags"]
+            body_static = ((arrays["bodies/inv_mass"] == 0.0)
+                           & (arrays["bodies/inv_inertia"] == 0.0)
+                           & ((flags & BODY_KINEMATIC) == 0))
+            jtype = arrays["joints/jtype"][:nj]
+            arrays["joints/color"][:nj], _ = greedy_color(
+                arrays["joints/body_a"][:nj], arrays["joints/body_b"][:nj],
+                active=jtype != JOINT_OFF, body_is_static=body_static,
+                n_bodies=cap.max_bodies)
 
         from .io import world_from_numpy
 

@@ -51,3 +51,52 @@ def build_pile(builder_cls, shape_cls, n=128, seed=0, sensor_idx=None,
         b.add_collider(body, shape, friction=0.5, restitution=0.2,
                        sensor=is_sensor, **kw)
     return b
+
+
+def build_jointed(builder_cls, shape_cls, n=128, seed=11):
+    """Ground + mixed bodies with joints of every type (the scene of
+    tests/test_frame2.py:233-284): a particle chain on distance joints, a
+    pinned pendulum, a weld pair, a pinned angle-limited pair and a pinned
+    motor pair, filled with circles to ``n`` bodies. Returns the builder
+    and its capacity."""
+    b = builder_cls(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, shape_cls.box(60.0, 0.5), friction=0.5)
+    anchor = b.add_static(pos=(0.0, 14.0))
+    b.add_collider(anchor, shape_cls.circle(0.1), mask=0)
+    chain = []
+    for k in range(6):
+        p = b.add_body(pos=(0.3 * k, 13.0 - 0.6 * k), mass=0.5,
+                       inertia=np.inf)
+        b.add_collider(p, shape_cls.circle(0.1), mask=0)
+        chain.append(p)
+    b.distance_joint(anchor, chain[0], rest=1.0)
+    for a_, b_ in zip(chain, chain[1:]):
+        b.distance_joint(a_, b_, rest=0.7)
+    pl_ = b.add_body(pos=(6.0, 12.0))
+    b.add_collider(pl_, shape_cls.box(0.8, 0.2))
+    b.pin_joint(anchor, pl_, world_point=(6.0, 13.0))
+    w1 = b.add_body(pos=(-6.0, 5.0))
+    b.add_collider(w1, shape_cls.box(0.5, 0.5))
+    w2 = b.add_body(pos=(-6.0, 6.1))
+    b.add_collider(w2, shape_cls.box(0.5, 0.5))
+    b.weld_joint(w1, w2, world_point=(-6.0, 5.55))
+    r1 = b.add_body(pos=(9.0, 8.0))
+    b.add_collider(r1, shape_cls.box(0.6, 0.2))
+    r2 = b.add_body(pos=(10.3, 8.0))
+    b.add_collider(r2, shape_cls.box(0.6, 0.2))
+    b.pin_joint(r1, r2, world_point=(9.65, 8.0))
+    b.angle_limit(r1, r2, -0.4, 0.4)
+    m1 = b.add_body(pos=(-10.0, 4.0))
+    b.add_collider(m1, shape_cls.circle(0.5))
+    m2 = b.add_body(pos=(-10.0, 4.0))
+    b.add_collider(m2, shape_cls.box(1.2, 0.1), mask=0)
+    b.pin_joint(m1, m2, world_point=(-10.0, 4.0))
+    b.angular_motor(m1, m2, speed=2.0, max_torque=50.0)
+    i = 0
+    while len(b._bodies) < n:
+        body = b.add_body(pos=(14.0 + (i % 8) * 1.1, 0.7 + (i // 8) * 1.1))
+        b.add_collider(body, shape_cls.circle(0.45), friction=0.5)
+        i += 1
+    return b, dict(max_bodies=n, max_colliders=n, max_pairs=8 * n,
+                   max_joints=len(b._joints), max_verts=4)

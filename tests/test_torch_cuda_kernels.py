@@ -6,10 +6,11 @@ machine lacks, hence ``--noconftest``)::
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py -q
 
-Tolerances: eligibility and the integer slot tables are exact (the kernels
-compute the same compares on the same f32 boxes); the slot budget to 1e-6;
-one frame's poses to 1e-4 and velocities to 1e-3 (the kernel sums the same
-terms in the same order as the twin, so what remains is the last bit of
+Tolerances: eligibility, the integer slot tables and the joint slots are
+exact (the kernels compute the same compares on the same f32 boxes and
+indices); the slot budget to 1e-6; one frame's poses to 1e-4 and
+velocities to 1e-3, with or without joints (the kernel sums the same terms
+in the same order as the twin, so what remains is the last bit of
 ``cosf``/``sinf`` and of the frame's contact thresholds).
 """
 
@@ -23,7 +24,12 @@ import numpy as np  # noqa: E402
 
 from starframe_tpu_torch import hopper, parallel  # noqa: E402
 from starframe_tpu_torch.config import Capacity, SolverConfig  # noqa: E402
-from starframe_tpu_torch.scenes import batched_worlds  # noqa: E402
+from starframe_tpu_torch.scenes import (  # noqa: E402
+    batched_worlds,
+    batchify,
+    mechanism,
+    rope_bridge,
+)
 from starframe_tpu_torch.shapes import Shape  # noqa: E402
 from starframe_tpu_torch.state import WorldBuilder  # noqa: E402
 
@@ -70,7 +76,8 @@ def test_slot_kernel_matches_twin(scene, frames):
 
 
 def _frame_kernel_matches_twin(cfg, w):
-    tables = parallel.frame2_tables(w, cfg, frames=4,
+    tables = parallel.frame2_tables(w, cfg,
+                                    frames=max(cfg.frames_per_broadphase, 1),
                                     elig=parallel.frame2_elig(w, cfg))
     n0 = hopper.run_frame2.launches
     wk, tk, *_ = parallel.frame2_step(w, cfg, tables=tables)
@@ -141,3 +148,47 @@ def test_rollout_is_bitwise_reproducible(scene):
     assert torch.equal(a.bodies.vel, b.bodies.vel)
     assert {k: int(v) for k, v in da.items()} == {
         k: int(v) for k, v in db.items()}
+
+
+JOINTED = {"mechanism": mechanism, "rope_bridge": rope_bridge}
+
+
+@pytest.fixture(scope="module")
+def jointed():
+    """Both jointed batches at 64 worlds, 30 frames in (the wheel's paddles
+    among the circles, the loads on the rope)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    out = {}
+    for name, make in JOINTED.items():
+        sc = batchify(make(substeps=4, device="cuda"), 64)
+        w, _, _ = parallel.batched_rollout(sc.world, sc.config, 0, 30,
+                                           record=lambda _: None)
+        out[name] = (sc.config, w)
+    return out
+
+
+@pytest.mark.parametrize("JC", [4, 2])
+@pytest.mark.parametrize("name", sorted(JOINTED))
+def test_joint_slot_kernel_matches_twin(jointed, name, JC):
+    cfg, w = jointed[name]
+    cfg = dataclasses.replace(cfg, joint_slot_capacity=JC)
+    n0 = hopper.build_joint_slots.launches
+    got = parallel.frame2_joint_slots(w, cfg)
+    assert hopper.build_joint_slots.launches == n0 + 1
+    ref = parallel.frame2_joint_slots(w, cfg, plain=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got[3].max()) >= 2
+    _, overflow = parallel._frame2_joints(w, cfg, got)
+    # JC = 2: the rope's middle particle holds three joints
+    assert int(overflow) == (64 if (JC == 2 and name == "rope_bridge")
+                             else 0)
+
+
+@pytest.mark.parametrize("solver", ["colored", "jacobi"])
+@pytest.mark.parametrize("name", sorted(JOINTED))
+def test_frame_kernel_with_joints_matches_twin(jointed, name, solver):
+    cfg, w = jointed[name]
+    _frame_kernel_matches_twin(
+        dataclasses.replace(cfg, joint_solver=solver), w)

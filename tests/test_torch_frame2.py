@@ -91,7 +91,7 @@ def test_off_slice_configs_raise():
                      (dict(batch_solve_capacity=4), "compaction"),
                      (dict(batch_uniform_topology=False), "owner tables"),
                      (dict(sleep_velocity=0.1), "sleeping"),
-                     (dict(use_pallas=False), "A2")):
+                     (dict(use_pallas=False), "A3")):
         cfg = dataclasses.replace(sc.config, **kw)
         with pytest.raises(NotImplementedError, match=what):
             parallel.frame2_step(sc.world, cfg)

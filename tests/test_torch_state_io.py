@@ -65,14 +65,22 @@ def test_builder_auto_capacity_and_kinds_match():
 
 
 def test_builder_with_joints_raises():
+    """A joint with a missing anchor is refused when it is added (as the
+    JAX builder refuses it: NaN anchors would poison the solve); a jointed
+    world past the kernels' joint bound is refused when it is stepped,
+    naming the XLA tier it would need (ROADMAP.md A3)."""
     b = st.WorldBuilder()
     a = b.add_body(pos=(0.0, 0.0))
     b.add_collider(a, st.Shape.circle(0.2))
     c = b.add_body(pos=(1.0, 0.0))
     b.add_collider(c, st.Shape.circle(0.2))
+    with pytest.raises(ValueError, match="anchors must not be None"):
+        b.pin_joint(a, c, anchor_a=(0.0, 0.0))
     b.distance_joint(a, c, rest=1.0)
+    world, cap = b.build(reserve_joints=st.parallel.MAX_JOINTS)
+    assert cap.max_joints == world.joints.j == st.parallel.MAX_JOINTS + 1
     with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        b.build()
+        st.batched_step(st.replicate_world(world, 1), st.SolverConfig(), 0)
 
 
 def test_snapshots_cross_between_packages(tmp_path):

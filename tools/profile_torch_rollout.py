@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's batched rollout, on one GPU.
 
-    python3 tools/profile_torch_rollout.py [--worlds 4096] [--bodies 256]
-        [--frames 60] [--substeps 10] [--trace PATH]
+    python3 tools/profile_torch_rollout.py [--scene batched|mechanism|rope]
+        [--worlds W] [--bodies 256] [--frames 60] [--substeps 10]
+        [--trace PATH]
 
-Runs ``starframe_tpu_torch.parallel.batched_rollout`` (the main path of
-``chip_smoke.py``) once to warm up, three times unprofiled for wall times,
-then once under ``torch.profiler``, and prints:
+Runs ``starframe_tpu_torch.parallel.batched_rollout`` on one of the paths of
+``chip_smoke.py`` (``batched``: the main path, ``batched_worlds`` at 4096
+worlds x ``--bodies``; ``mechanism``/``rope``: ``batchify`` of the jointed
+scene at 1024 worlds) once to warm up, three times unprofiled for wall
+times, then once under ``torch.profiler``, and prints:
 
 - each device kernel's total time, call count and share of device time
-  (the three hand-written kernels by name, the small PyTorch ops together);
+  (the hand-written kernels by name, the small PyTorch ops together);
 - device busy time (the union of kernel, copy and set intervals) against
   the profiled wall, and so the device's idle share;
 - device kernels and host syncs per frame, peak device memory;
@@ -35,8 +38,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNELS = (("frame2_kernel", "K4 frame"), ("slot_kernel", "K2 slot tables"),
-           ("elig_kernel", "K1 eligibility"))
+KERNELS = (("frame2_kernel", "K4 frame"), ("joint_slot_kernel", "K3 joint slots"),
+           ("slot_kernel", "K2 slot tables"), ("elig_kernel", "K1 eligibility"))
 
 
 def busy_us(intervals) -> float:
@@ -58,12 +61,14 @@ def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
     import torch
 
     tables = parallel.frame2_tables(w, cfg, frames=cfg.frames_per_broadphase)
-    owners = hopper.owner_csr(w.colliders.body_idx[0], w.bodies.n)
-    parallel.frame2_step(w, cfg, tables=tables, owners=owners)
+    kw = dict(owners=hopper.owner_csr(w.colliders.body_idx[0], w.bodies.n),
+              joint_slots=(parallel.frame2_joint_slots(w, cfg)
+                           if w.joints.j > 0 else None))
+    parallel.frame2_step(w, cfg, tables=tables, **kw)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
-        parallel.frame2_step(w, cfg, tables=tables, owners=owners)
+        parallel.frame2_step(w, cfg, tables=tables, **kw)
     end.record()
     torch.cuda.synchronize()
     per_world = float(tables[1].sum()) / tables[1].shape[0]
@@ -72,7 +77,10 @@ def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--worlds", type=int, default=4096)
+    ap.add_argument("--scene", choices=("batched", "mechanism", "rope"),
+                    default="batched")
+    ap.add_argument("--worlds", type=int, default=None,
+                    help="default 4096 for batched, 1024 for the jointed")
     ap.add_argument("--bodies", type=int, default=256)
     ap.add_argument("--frames", type=int, default=60)
     ap.add_argument("--substeps", type=int, default=10)
@@ -85,15 +93,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_rollout: needs a CUDA device", file=sys.stderr)
         return 2
-    from starframe_tpu_torch import hopper, parallel
-    from starframe_tpu_torch.scenes import batched_worlds
+    from starframe_tpu_torch import hopper, parallel, scenes
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    sc = batched_worlds(n_worlds=args.worlds, n_bodies=args.bodies,
-                        substeps=args.substeps, device="cuda")
+    if args.scene == "batched":
+        args.worlds = args.worlds or 4096
+        sc = scenes.batched_worlds(n_worlds=args.worlds, n_bodies=args.bodies,
+                                   substeps=args.substeps, device="cuda")
+    else:
+        args.worlds = args.worlds or 1024
+        make = (scenes.mechanism if args.scene == "mechanism"
+                else scenes.rope_bridge)
+        sc = scenes.batchify(make(substeps=args.substeps, device="cuda"),
+                             args.worlds)
     cfg, F = sc.config, args.frames
+    active = int(((sc.world.bodies.flags & 1) != 0).sum())
 
     def rollout():
         return parallel.batched_rollout(sc.world, cfg, 0, F,
@@ -108,7 +124,8 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(f"card: {card}")
-    print(f"{args.worlds}x{args.bodies}, {args.substeps} substeps, {F} frames; "
+    print(f"{sc.name}: {args.worlds} worlds x {sc.world.bodies.n} body slots "
+          f"({active} active bodies), {args.substeps} substeps, {F} frames; "
           f"unprofiled walls {', '.join(f'{w:.4f}' for w in walls)} s "
           f"({', '.join(f'{1e3 * w / F:.4f}' for w in walls)} ms/frame)")
 

@@ -37,13 +37,28 @@
    the worlds past poses 1e-4 or velocities 1e-3 times their fastest
    body's speed: see ``agree_worlds``), from each jointed run's final
    state.
-5. Reruns 10 frames of the main path and of the mechanism batch from the
-   same state and requires bitwise equality.
+5. Reruns 10 frames of the main path, of the mechanism batch and of the
+   pile from the same state and requires bitwise equality.
+
+The tile engine runs through the same steps. Step 3 drives
+``tiled_rollout`` over ``scenes.pile(n_bodies=10_000, sleep=False)`` (10
+substeps, 16 table and 8 solve slots, tables every 8 frames) for 240
+frames, warmed up and timed the same way, with the hard counters 0, the
+state finite, every body inside the container, the tile kernels' launches
+(tables at least once, manifolds once a frame, project and apply once a
+substep) and the pile's health at frame 240 within bounds taken from the
+JAX package (below). Step 2 holds the four tile kernels against their twins
+on ``pile(1021)`` (4 tiles): integer outputs and ``touched`` equal, the
+rest to 1e-6, with the manifolds also under a
+wake speed and a skipped tile. Step 4 does so again at 10k bodies from the
+pile's final state, times each kernel and its twin, and times the pile
+through the twins.
 
 Prints a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
 two parity checks; ``frame2_joints`` is the frame kernel's joint
-instantiation, timed on the mechanism batch), then the card line, then
-``{"ok": true, "device": {...}}`` last. Any failed check raises.
+instantiation, timed on the mechanism batch; ``bound_ms``: the least time
+for each call's bytes or operations, see ``bound``), then the card line,
+then ``{"ok": true, "device": {...}}`` last. Any failed check raises.
 """
 
 import json
@@ -71,6 +86,60 @@ KERNELS = (
 )
 CONTACT_KERNELS = ("elig", "slots", "frame2")
 JOINTED = ("mechanism", "rope_bridge")
+TILE_KERNELS = (
+    ("tile_tables", "build_tile_tables",
+     "starframe_tpu_torch/csrc/tile_tables.cu",
+     "starframe_tpu/pallas/tiles.py:169"),
+    ("tile_manifold", "tile_manifold",
+     "starframe_tpu_torch/csrc/tile_manifold.cu",
+     "starframe_tpu/pallas/tiles.py:419"),
+    ("tile_project", "tile_project",
+     "starframe_tpu_torch/csrc/tile_substep.cu",
+     "starframe_tpu/pallas/tiles.py:943"),
+    ("tile_apply", "tile_apply", "starframe_tpu_torch/csrc/tile_substep.cu",
+     "starframe_tpu/pallas/tiles.py:1004"),
+)
+# What each tile kernel reads of the tile layout, for its bound (the
+# pointers of its Args struct in hopper/_build.py): state fields, consts
+# fields, large-set fields. Of the solve slots, K8 and K9 read the solve
+# masks (sm0, sm1) of every slot and the words of SOLVED_SLOT_WORDS only on
+# a slot whose mask is set; K8 reads ``touched`` on every slot.
+_STATE = ("px", "py", "an", "vx", "vy", "om")
+TILE_READS = {
+    "tile_tables": (
+        _STATE[:5], ("vlx", "vly", "rad", "act", "mov", "lay", "msk",
+                     "obody", "responds", "sen"),
+        ("px", "py", "an", "vlx", "vly", "rad", "act", "lay", "msk")),
+    "tile_manifold": (
+        _STATE, ("vlx", "vly", "rad", "nv", "fric", "rst", "sen", "invm",
+                 "invi"),
+        ("px", "py", "an", "vlx", "vly", "rad", "nv", "fric", "rst", "sen")),
+    "tile_project": (_STATE, ("invm", "invi", "dynb"), ("px", "py", "an")),
+    "tile_apply": (_STATE, ("invm", "invi", "dynb", "kin"),
+                   ("px", "py", "an")),
+}
+SOLVED_SLOT_WORDS = {
+    # pidx_c; pdyn imb iib fric nax nay, 8 anchors, pm0 pm1
+    "tile_project": 17,
+    # pidx_c; pdyn imb iib fric rest nax nay, 8 anchors; the slot's 2 lam
+    "tile_apply": 18,
+}
+# the pile: bench.py:266-280 runs it in chunks of 240 frames
+PILE_N, PILE_FRAMES, PILE_TWIN_FRAMES = 10_000, 240, 4
+PILE_PARITY_N = 1021  # 4 tiles of 256 colliders with the 3 statics
+
+# The least time the card could take for a kernel's work: the larger of
+# the bytes it must move (each input read once, each output written once)
+# over HBM's 3.35 TB/s and its operations over the 67 TFLOP/s of float32
+# outside the tensor cores (H100 SXM datasheet figures). The
+# kernels' compares and selects are counted at the float32 rate. Operations
+# per item, counted from the kernels' code: one candidate pair's box tests
+# and tier select (K2, K5), one manifold of two polygons at 8 vertices
+# (K4, K6), and one solved slot's projection and velocity pass per substep
+# (K4, K8, K9).
+PEAK_BYTES_S, PEAK_FLOPS_S = 3.35e12, 67e12
+PAIR_FLOPS, MANIFOLD_FLOPS, PROJECT_FLOPS, VELOCITY_FLOPS = 20, 1000, 200, 220
+JOINT_FLOPS = 100  # one joint slot's solve, per pass
 
 # Joint health after 60 frames from the start, 10 substeps, per world
 # (chip_smoke.joint_health, plus the fastest body's speed and, for the
@@ -96,6 +165,22 @@ HEALTH_REFERENCE = {
 HEALTH_FLOOR = {"pin_gap": 1e-3, "stretch": 1e-3, "wheel_mean_err": 0.05,
                 "wheel_final_err": 0.05, "max_speed": 1.0}
 MOTOR_SPEED = 2.0  # scenes.mechanism's default
+
+# Pile health after 240 frames from the start, 10 substeps
+# (chip_smoke.pile_health) of pile(n_bodies=10_000, sleep=False). Reference:
+# the JAX package's XLA tier on the same scene, `JAX_PLATFORMS=cpu python3
+# tools/pile_health_bounds.py --seeds 0 1 2` (CPU, minutes a seed), per seed
+# 0, 1, 2. The port runs seed 0. Its centre of mass must lie within 0.3 m of
+# the reference's seed 0, its lowest body no deeper than 0.1 m below the
+# reference's lowest, and its fastest and mean speeds within 3x the
+# reference's largest (the fastest body is a heavy-tailed number: 2.43,
+# 3.23 and 2.40 m/s over the seeds). The reference's pair buffer overflowed
+# by 0, 1 and 16 pairs in the three runs (`pair_overflow`).
+PILE_HEALTH_REFERENCE = {
+    "com_y": (18.24416, 18.23897, 18.28439),
+    "min_y": (0.385594, 0.381567, 0.381492),
+    "max_speed": (2.43117, 3.22629, 2.40076),
+    "mean_speed": (0.158670, 0.188415, 0.177532)}
 
 
 def card_line() -> str:
@@ -139,6 +224,20 @@ def joint_health(pos, angle, joints) -> dict:
     stretch = np.maximum(np.maximum(d - joints["hi"], joints["lo"] - d), 0.0)
     return {"pin_gap": np.where(point, d, 0.0).max(axis=1),
             "stretch": np.where(dist, stretch, 0.0).max(axis=1)}
+
+
+def pile_health(pos, vel, dyn) -> dict:
+    """A pile's aggregate health (numpy, float64): the dynamic bodies' mean
+    height (the centre of mass: the pile's bodies have one density), the
+    lowest one's, and their fastest and mean speed. ``pos``/``vel`` ``[N,
+    2]``, ``dyn`` ``[N]`` bool."""
+    import numpy as np
+
+    p = np.asarray(pos, np.float64)[dyn]
+    speed = np.linalg.norm(np.asarray(vel, np.float64)[dyn], axis=-1)
+    return {"com_y": float(p[:, 1].mean()), "min_y": float(p[:, 1].min()),
+            "max_speed": float(speed.max()),
+            "mean_speed": float(speed.mean())}
 
 
 def quantiles(x) -> list:
@@ -450,11 +549,11 @@ def run_jointed(name, dev, wrappers, parallel, card) -> dict:
                 sc=sc)
 
 
-def jointed_turns(hopper, parallel, jointed, errs, card) -> dict:
+def jointed_turns(hopper, parallel, jointed, errs, bounds, card) -> dict:
     """K3 and K4 with joints against their twins at 1024 worlds, from each
     jointed run's final state, and their times; returns the mechanism
     batch's ``{name: (kernel ms, twin ms)}``. ``errs`` keeps the worst
-    error of each."""
+    error of each, ``bounds`` the mechanism batch's bound of each."""
     import torch
 
     times = {}
@@ -473,10 +572,23 @@ def jointed_turns(hopper, parallel, jointed, errs, card) -> dict:
             "frame2_joints": (
                 lambda p: hopper.run_frame2(*jfargs, **jfkw, plain=p)),
         }
+        W, N = w.bodies.inv_mass.shape
+        entries = int(jt[1].sum())
+        jwork = {
+            "joint_slots": (jargs[:3], W * N * j.j * 3),
+            "frame2_joints": (
+                (jfargs, jfkw),
+                entries * (MANIFOLD_FLOPS + jcfg.substeps * jcfg.iterations
+                           * (PROJECT_FLOPS + VELOCITY_FLOPS))
+                + W * N * jcfg.joint_slot_capacity * jcfg.substeps
+                * (jcfg.max_joint_colors + 1) * JOINT_FLOPS),
+        }
         for name, call in jcalls.items():
             k, p = call(False), call(True)
             err = (agree_worlds(f"{name} {scene}", k, p)
                    if name == "frame2_joints" else agree(name, k, p))
+            if scene == "mechanism":
+                bounds[name] = bound(jwork[name][0], k, jwork[name][1])
             del k, p
             errs[name] = max(errs[name], err)
             t = turns(call)
@@ -488,6 +600,296 @@ def jointed_turns(hopper, parallel, jointed, errs, card) -> dict:
     return times
 
 
+def nbytes(*xs) -> int:
+    """Bytes of every tensor in ``xs`` (nested in tuples, lists, dicts)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (list, tuple)):
+            total += nbytes(*x)
+        elif hasattr(x, "element_size"):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def bound(inputs, outputs, flops, extra_bytes=0) -> tuple:
+    """``(bound_ms, bound_by)``: the least time for moving ``inputs``,
+    ``outputs`` and ``extra_bytes`` more once each and doing ``flops``
+    operations on one H100."""
+    t_bytes = (nbytes(inputs) + nbytes(outputs) + extra_bytes) / PEAK_BYTES_S
+    t_ops = float(flops) / PEAK_FLOPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def to64(x):
+    """Float tensors of ``x`` (nested in tuples, lists, dicts) in float64."""
+    import torch
+
+    if isinstance(x, dict):
+        return {k: to64(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to64(v) for v in x)
+    if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+        return x.double()
+    return x
+
+
+def tile_inputs(w, cfg):
+    """``(state, consts, large, edges, gravity)`` of the tile layout of
+    ``w``, as ``tiled_rollout`` enters it."""
+    from starframe_tpu_torch import tiled
+
+    state, consts, large, _, _ = tiled._enter_tiles(w, cfg)
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    return state, consts, large, edges, w.gravity.contiguous()
+
+
+def tile_calls(hopper, w, cfg):
+    """Each tile kernel's call ``call(plain)`` on ``w``'s layout, chained as
+    one frame chains them (each on its predecessor's twin outputs), and
+    what its bound counts: ``(call, inputs, extra_bytes, flops)``, the
+    inputs it reads whole and the bytes it reads only on solved slots."""
+    import torch
+
+    state, consts, large, edges, g = tile_inputs(w, cfg)
+    Nt = state["px"].shape[0]
+    C = -(-cfg.slot_capacity // 8) * 8
+    Cs = min(-(-cfg.tile_solve_capacity // 8) * 8, C)
+    h = cfg.dt / cfg.substeps
+    live = torch.ones(Nt, device=g.device)
+    tkw = dict(C=C, margin=cfg.contact_margin, dt=cfg.dt,
+               sweep_frames=cfg.frames_per_broadphase,
+               sweep_slack=cfg.broadphase_speed_slack,
+               sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+    tables = hopper.build_tile_tables(state, consts, large, *edges, g, **tkw,
+                                      plain=True)
+    mkw = dict(Cs=Cs, margin=cfg.contact_margin, dt=cfg.dt)
+    sol, pidx_c = hopper.tile_manifold(state, consts, large, *tables[:2],
+                                       live, **mkw, plain=True)[:2]
+    touched = torch.zeros(pidx_c.shape, device=g.device)
+    pkw = dict(h=h, compliance=cfg.contact_compliance)
+    proj = hopper.tile_project(state, consts, large, pidx_c, sol, g, touched,
+                               live, **pkw, plain=True)
+    akw = dict(h=h, relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+               rest_threshold=cfg.restitution_threshold,
+               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
+    pargs = (state, consts, large, pidx_c, sol, g, touched, live)
+    aargs = (state, proj[:4], consts, large, pidx_c, sol, proj[4], g, live)
+    margs = (state, consts, large, *tables[:2], live)
+    from starframe_tpu_torch.hopper.tiles import SOL
+
+    sm = sol[:, [SOL["sm0"], SOL["sm1"]]]
+    solved = int((sm != 0).any(dim=1).sum())
+
+    def reads(name, *more):
+        sk, ck, lk = TILE_READS[name]
+        return ([state[k] for k in sk], [consts[k] for k in ck],
+                [large[k] for k in lk], more)
+
+    calls = {
+        "tile_tables": (
+            lambda p: hopper.build_tile_tables(state, consts, large, *edges,
+                                               g, **tkw, plain=p),
+            reads("tile_tables", edges, g), 0,
+            int((consts["responds"] > 0).sum()) * (3 * 256 + 128)
+            * PAIR_FLOPS),
+        "tile_manifold": (
+            lambda p: hopper.tile_manifold(*margs, **mkw, plain=p),
+            reads("tile_manifold", *tables[:2], live), 0,
+            int(tables[1].sum()) * MANIFOLD_FLOPS),
+        "tile_project": (
+            lambda p: hopper.tile_project(*pargs, **pkw, plain=p),
+            reads("tile_project", sm, g, touched, live),
+            4 * SOLVED_SLOT_WORDS["tile_project"] * solved,
+            solved * PROJECT_FLOPS),
+        "tile_apply": (
+            lambda p: hopper.tile_apply(*aargs, **akw, plain=p),
+            reads("tile_apply", sm, proj[:4], g, live),
+            4 * SOLVED_SLOT_WORDS["tile_apply"] * solved,
+            solved * VELOCITY_FLOPS),
+    }
+    plain64 = {
+        "tile_project": lambda: hopper.tile_project_plain(*to64(pargs), **pkw),
+        "tile_apply": lambda: hopper.tile_apply_plain(*to64(aargs), **akw),
+    }
+    return calls, plain64
+
+
+def agree_tiles(name, k, p, spread=None) -> float:
+    """One tile kernel's outputs against its twin's: the integer outputs
+    and ``touched`` equal; the float outputs to 1e-6 or, with ``spread``,
+    to a tenth of float32's own spread there (the twin against itself in
+    float64; the batched frame's full-size rule for a chaotic pile) where
+    that is larger: one substep from a settled state moves float32 by as
+    little as 3e-7, and a tenth of that is under one ulp of the fields.
+    Returns the max abs error."""
+    import torch
+
+    ks = list(k.values()) if isinstance(k, dict) else list(k)
+    ps = list(p.values()) if isinstance(p, dict) else list(p)
+    errs = []
+    for n, (a, b) in enumerate(zip(ks, ps)):
+        if a.dtype != torch.float32 or (name == "tile_project" and n == 5):
+            check(torch.equal(a, b), f"{name}: output {n} differs")
+            continue
+        e = max_err(a, b)
+        errs.append(e)
+        tol = 1e-6
+        if spread is not None:
+            tol = max(tol, 0.1 * spread[n])
+        check(e <= tol, f"{name}: output {n} off by {e}, past {tol}")
+    return max(errs) if errs else 0.0
+
+
+def parity_tiles(dev, hopper) -> dict:
+    """The four tile kernels against their twins on pile(1021) (4 tiles)
+    30 frames in: K5 at one-frame and K-frame sweeps, K6 awake and with a
+    wake speed and a skipped tile, one substep of K8 and K9."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch import scenes, tiled
+
+    sc = scenes.pile(n_bodies=PILE_PARITY_N, sleep=False, device=dev)
+    w, _ = tiled.tiled_rollout(sc.world, sc.config, 30)
+    errs = {}
+    for K in (1, sc.config.frames_per_broadphase):
+        cfg = dataclasses.replace(sc.config, frames_per_broadphase=K)
+        calls, _ = tile_calls(hopper, w, cfg)
+        for name, (call, *_) in calls.items():
+            k, p = call(False), call(True)
+            errs[name] = max(errs.get(name, 0.0), agree_tiles(name, k, p))
+    state, consts, large, edges, g = tile_inputs(w, sc.config)
+    tables = hopper.build_tile_tables(
+        state, consts, large, *edges, g, C=16, margin=0.05, dt=sc.config.dt,
+        sweep_frames=8, plain=True)
+    live = torch.ones(state["px"].shape[0], device=dev)
+    live[1] = 0.0
+    kw = dict(Cs=8, margin=0.05, dt=sc.config.dt, sleep_velocity=0.2)
+    k = hopper.tile_manifold(state, consts, large, *tables[:2], live, **kw)
+    p = hopper.tile_manifold(state, consts, large, *tables[:2], live, **kw,
+                             plain=True)
+    errs["tile_manifold"] = max(errs["tile_manifold"],
+                                agree_tiles("tile_manifold", k, p))
+    check(float(k[4].sum()) > 0, "tile_manifold: nothing woke, vacuous")
+    check(not bool(k[0][1].any()), "tile_manifold: a skipped tile computed")
+    print(f"parity tiles at {PILE_PARITY_N} bodies (4 tiles): K5 (K = 1, "
+          f"{sc.config.frames_per_broadphase}), K6 (awake; waking, one tile "
+          f"skipped: {int(k[4].sum())} rows woke), K8, K9: integer outputs "
+          f"and touched equal, max abs err "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    return errs
+
+
+def run_pile(dev, hopper, tiled, card) -> dict:
+    """Drive ``tiled_rollout`` over pile(10_000, sleep=False) for 240 frames
+    (after a warm-up), timed, and check it; returns what phase 4 needs."""
+    import torch
+    from starframe_tpu_torch import scenes
+
+    sc = scenes.pile(n_bodies=PILE_N, sleep=False, device=dev)
+    cfg = sc.config
+    active = int(((sc.world.bodies.flags & 1) != 0).sum())
+    dyn_n = int((sc.world.bodies.inv_mass > 0).sum())
+    tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES)  # warm-up
+    torch.cuda.synchronize()
+    for name, attr, _, _ in TILE_KERNELS:
+        getattr(hopper, attr).launches = 0
+    syncs0 = tiled.host_syncs
+    t0 = time.perf_counter()
+    final, diag = tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: getattr(hopper, attr).launches
+                for name, attr, _, _ in TILE_KERNELS}
+    syncs = tiled.host_syncs - syncs0
+    diag = {k: int(v) for k, v in diag.items()}
+
+    b = final.bodies
+    dyn = b.inv_mass > 0
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(bool(torch.isfinite(getattr(b, field)).all()),
+              f"pile: non-finite {field}")
+    for key in ("slot_overflow", "solve_overflow", "window_overflow",
+                "large_overflow"):
+        check(diag[key] == 0, f"pile: {key} {diag[key]}")
+    # inside the container: the walls' inner faces and the floor's top
+    wall = float(sc.world.bodies.pos[2, 0]) - 0.5
+    x, y = b.pos[dyn, 0], b.pos[dyn, 1]
+    check(float(x.abs().max()) < wall, f"pile: a body left the container "
+          f"(|x| = {float(x.abs().max())}, walls at {wall})")
+    check(float(y.min()) > 0.0, f"pile: a body sank below the floor "
+          f"(y = {float(y.min())})")
+    check(launches["tile_tables"] >= 1,
+          f"tile_tables launched {launches['tile_tables']} times")
+    check(launches["tile_manifold"] == PILE_FRAMES,
+          f"tile_manifold launched {launches['tile_manifold']} times")
+    for name in ("tile_project", "tile_apply"):
+        check(launches[name] == PILE_FRAMES * cfg.substeps,
+              f"{name} launched {launches[name]} times")
+    ms_frame = 1e3 * seconds / PILE_FRAMES
+    health = pile_health(b.pos.cpu().numpy(), b.vel.cpu().numpy(),
+                         dyn.cpu().numpy())
+    print(f"pile path: pile({PILE_N}, sleep=False), {dyn_n} dynamic bodies "
+          f"+ {active - dyn_n} statics, {cfg.substeps} substeps, C = "
+          f"{cfg.slot_capacity}, Cs = {cfg.tile_solve_capacity}, K = "
+          f"{cfg.frames_per_broadphase}; {PILE_FRAMES} frames in "
+          f"{seconds:.4f} s = {ms_frame:.4f} ms/frame, "
+          f"{dyn_n * PILE_FRAMES / seconds:.6g} body-steps/s ({dyn_n} active "
+          f"bodies/frame) on {card}")
+    print(f"pile path counters: {json.dumps(diag)}; launches "
+          f"{json.dumps(launches)}; host syncs {syncs} "
+          f"({syncs / PILE_FRAMES:.3f}/frame); health at frame "
+          f"{PILE_FRAMES}: {json.dumps(health)}")
+    check_pile_health(health)
+    return dict(final=final, cfg=cfg, sc=sc, launches=launches, ms=ms_frame)
+
+
+def check_pile_health(health) -> None:
+    """The pile's aggregate health at frame 240 within the bounds from the
+    JAX package (PILE_HEALTH_REFERENCE)."""
+    ref = PILE_HEALTH_REFERENCE
+    check(abs(health["com_y"] - ref["com_y"][0]) <= 0.3,
+          f"pile health: centre of mass at {health['com_y']}, reference "
+          f"{ref['com_y'][0]}")
+    check(health["min_y"] >= min(ref["min_y"]) - 0.1,
+          f"pile health: lowest body at {health['min_y']}")
+    for key in ("max_speed", "mean_speed"):
+        check(health[key] <= 3 * max(ref[key]),
+              f"pile health: {key} {health[key]} past 3x {max(ref[key])}")
+    print(f"pile health within bounds of the JAX package's (XLA tier, seeds "
+          f"0, 1, 2): {json.dumps(ref)}")
+
+
+def pile_turns(hopper, pile, errs, bounds, card) -> dict:
+    """The four tile kernels against their twins at the pile's full size,
+    from its final state, their times and bounds."""
+    calls, plain64 = tile_calls(hopper, pile["final"], pile["cfg"])
+    times = {}
+    for name, (call, inputs, extra_bytes, flops) in calls.items():
+        k, p = call(False), call(True)
+        spread = None
+        if name in plain64:
+            p64 = plain64[name]()
+            p64 = list(p64.values()) if isinstance(p64, dict) else list(p64)
+            pl = list(p.values()) if isinstance(p, dict) else list(p)
+            spread = [max_err(a, b) for a, b in zip(pl, p64)]
+        err = agree_tiles(name, k, p, spread)
+        errs[name] = max(errs[name], err)
+        bounds[name] = bound(inputs, k, flops, extra_bytes)
+        del k, p
+        times[name] = turns(call)
+        print(f"time {name} at {PILE_N} bodies: kernel {times[name][0]:.4f} "
+              f"ms, plain twin {times[name][1]:.4f} ms, bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), max abs err "
+              f"{err:.3g}" + (f" (float32 spread "
+                              f"{', '.join(f'{x:.3g}' for x in spread)})"
+                              if spread else "") + f", on {card}")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -496,7 +898,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from starframe_tpu_torch import hopper, parallel
+    from starframe_tpu_torch import hopper, parallel, tiled
     from starframe_tpu_torch.hopper import _build
     from starframe_tpu_torch.scenes import batched_worlds
 
@@ -517,6 +919,7 @@ def main() -> int:
     # ---- 2. kernel vs twin ------------------------------------------------
     errs = parity(dev, hopper, parallel, batched_worlds)
     errs.update(parity_joints(dev, hopper, parallel))
+    errs.update(parity_tiles(dev, hopper))
 
     # ---- 3. the main path at full width ------------------------------------
     sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
@@ -568,6 +971,8 @@ def main() -> int:
     jointed = {name: run_jointed(name, dev, wrappers, parallel, card)
                for name in JOINTED}
     launches.update(jointed["mechanism"]["launches"])
+    pile = run_pile(dev, hopper, tiled, card)
+    launches.update(pile["launches"])
 
     # ---- 4. kernel vs twin, and their times, at the main path's shapes ---
     body, col = parallel._frame2_arrays(final, cfg)
@@ -586,19 +991,30 @@ def main() -> int:
         "slots": (lambda p: hopper.build_slot_tables(*sargs, **skw, plain=p)),
         "frame2": (lambda p: hopper.run_frame2(*fargs, **fkw, plain=p)),
     }
-    times = {}
+    W, M = col["cbody"].shape
+    entries = int(tables[1].sum())
+    work = {  # (inputs, operations) of each call, for its bound
+        "elig": (eargs, W * M * M * 8),
+        "slots": (sargs, W * M * M + 2 * int(elig.sum()) * PAIR_FLOPS),
+        "frame2": ((fargs, fkw), entries * (MANIFOLD_FLOPS + cfg.substeps
+                                            * cfg.iterations
+                                            * (PROJECT_FLOPS
+                                               + VELOCITY_FLOPS))),
+    }
+    times, bounds = {}, {}
     for name, call in calls.items():
         k, p = call(False), call(True)
         spread = f32_spread(hopper, fargs, fkw, p) if name == "frame2" else None
         err = agree(name, k, p, spread)
+        bounds[name] = bound(work[name][0], k, work[name][1])
         del k, p
         errs[name] = max(errs[name], err)
         print(f"parity {name} at {W_MAIN}x{N_BODIES}: agrees, max abs err "
               f"{err:.3g}")
         times[name] = turns(call)
         print(f"time {name} at {W_MAIN}x{N_BODIES}: kernel "
-              f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms "
-              f"on {card}")
+              f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) on {card}")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -610,7 +1026,20 @@ def main() -> int:
           f"kernels, on {card}")
 
     # the jointed kernels at 1024 worlds, from each jointed run's final state
-    times.update(jointed_turns(hopper, parallel, jointed, errs, card))
+    times.update(jointed_turns(hopper, parallel, jointed, errs, bounds,
+                               card))
+
+    # the tile kernels at the pile's full size, from its final state
+    times.update(pile_turns(hopper, pile, errs, bounds, card))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiled.tiled_rollout(pile["sc"].world, pile["cfg"], PILE_TWIN_FRAMES,
+                        plain=True)
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.perf_counter() - t0) / PILE_TWIN_FRAMES
+    print(f"pile path through the plain twins: {twin_ms:.4f} ms/frame over "
+          f"{PILE_TWIN_FRAMES} frames, vs {pile['ms']:.4f} ms/frame through "
+          f"the kernels, on {card}")
 
     # ---- 5. determinism ----------------------------------------------------
     a, _, da = rollout(10)
@@ -620,8 +1049,11 @@ def main() -> int:
                                           record=lambda _: None)
     mb, _, dmb = parallel.batched_rollout(msc.world, msc.config, 0, 10,
                                           record=lambda _: None)
+    pa, dpa = tiled.tiled_rollout(pile["sc"].world, pile["cfg"], 10)
+    pb, dpb = tiled.tiled_rollout(pile["sc"].world, pile["cfg"], 10)
     for run, (x, y, dx, dy) in (("main path", (a, b, da, db)),
-                                ("mechanism", (ma, mb, dma, dmb))):
+                                ("mechanism", (ma, mb, dma, dmb)),
+                                ("pile", (pa, pb, dpa, dpb))):
         for field in ("pos", "angle", "vel", "ang_vel"):
             check(torch.equal(getattr(x.bodies, field),
                               getattr(y.bodies, field)),
@@ -629,14 +1061,17 @@ def main() -> int:
         check({k: int(v) for k, v in dx.items()}
               == {k: int(v) for k, v in dy.items()},
               f"{run} rerun counters differ")
-    print("determinism: 10-frame reruns of the main path and the mechanism "
-          "batch bitwise equal")
+    print("determinism: 10-frame reruns of the main path, the mechanism "
+          "batch and the pile bitwise equal")
 
+    # no single PyTorch call computes any of these kernels: library_ms null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, _, src, tpu in KERNELS]}))
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
+        for name, _, src, tpu in KERNELS + TILE_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

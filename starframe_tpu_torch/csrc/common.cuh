@@ -134,5 +134,178 @@ enum Frame2Field {
   F2_FIELDS
 };
 
+// The tile engine (tile_tables.cu, tile_manifold.cu, tile_substep.cu).
+// Rows are colliders sorted along the sort axis, cut into Nt tiles of
+// TILE_T rows: per-row arrays [Nt, T] (flat row t * T + i), vertices
+// [Nt, V, T]. Tile t's candidates are the 3T rows of its clamped window
+// (first tile max(min(t - 1, Nt - 3), 0)) followed by the L large-set
+// statics ([L], vertices [V, L]); a slot's partner index is that candidate
+// index.
+#define TILE_T 256
+#define TILE_WIN 3
+#define TILE_L 128
+
+struct TileTablesArgs {
+  const float* px;          // [Nt, T] state
+  const float* py;
+  const float* an;
+  const float* vx;
+  const float* vy;
+  const float* vlx;         // [Nt, V, T]
+  const float* vly;
+  const float* rad;         // [Nt, T] consts
+  const float* act;
+  const float* mov;
+  const int32_t* lay;
+  const int32_t* msk;
+  const int32_t* obody;
+  const float* responds;
+  const float* sen;
+  const float* l_px;        // [L] large set
+  const float* l_py;
+  const float* l_an;
+  const float* l_vlx;       // [V, L]
+  const float* l_vly;
+  const float* l_rad;
+  const float* l_act;
+  const int32_t* l_lay;
+  const int32_t* l_msk;
+  const float* edge_lo;     // [Nt] window coverage along the sort axis
+  const float* edge_hi;
+  const float* gravity;     // [2]
+  int32_t* pidx;            // [Nt, C, T]
+  float* act_o;             // [Nt, C, T]
+  int32_t* count;           // [Nt, T]
+  int32_t* count_touch;
+  int32_t* count_close;
+  int32_t* winover;
+  float* sweep;             // [Nt, T]
+  int Nt, V, C, sort_axis, sweep_frames;
+  float dt, kdt;            // frame, sweep_frames * dt
+  float tpad, cpad;         // 0.1 and 0.5 x the contact margin
+  float sweep_slack, sweep_floor, sweep_cap;
+};
+
+// The frame's solve tables [Nt, TS_FIELDS, Cs, T]: one plane per constant
+// (hopper/tiles.py SOL_KEYS).
+enum TileSolveField {
+  TS_ACT, TS_NAX, TS_NAY, TS_FRIC, TS_REST, TS_IMB, TS_IIB, TS_PDYN,
+  TS_AAX0, TS_AAX1, TS_AAY0, TS_AAY1, TS_BAX0, TS_BAX1, TS_BAY0, TS_BAY1,
+  TS_SM0, TS_SM1, TS_PM0, TS_PM1, TS_SEP0, TS_SEP1,
+  TS_FIELDS
+};
+
+struct TileManifoldArgs {
+  const float* px;          // [Nt, T] state
+  const float* py;
+  const float* an;
+  const float* vx;
+  const float* vy;
+  const float* om;
+  const float* vlx;         // [Nt, V, T]
+  const float* vly;
+  const float* rad;         // [Nt, T] consts
+  const int32_t* nv;
+  const float* fric;
+  const float* rst;
+  const float* sen;
+  const float* invm;
+  const float* invi;
+  const float* l_px;        // [L] large set
+  const float* l_py;
+  const float* l_an;
+  const float* l_vlx;       // [V, L]
+  const float* l_vly;
+  const float* l_rad;
+  const int32_t* l_nv;
+  const float* l_fric;
+  const float* l_rst;
+  const float* l_sen;
+  const int32_t* pidx;      // [Nt, C, T] slot tables
+  const float* act;
+  const float* tile_live;   // [Nt]
+  float* sol;               // [Nt, TS_FIELDS, Cs, T]
+  int32_t* pidx_c;          // [Nt, Cs, T]
+  int32_t* src;
+  int32_t* nact;            // [Nt, 2, T]
+  float* wake;              // [Nt, T]
+  float* pen;
+  float* npts;
+  int Nt, V, C, Cs;
+  float margin, dt, sleep_v2;  // sleep_v2: squared wake speed
+  int use_wake;
+};
+
+struct TileProjectArgs {
+  const float* px;          // [Nt, T] state at the substep's start
+  const float* py;
+  const float* an;
+  const float* vx;
+  const float* vy;
+  const float* om;
+  const float* invm;        // [Nt, T] consts
+  const float* invi;
+  const float* dynb;
+  const float* l_px;        // [L] large-set pose
+  const float* l_py;
+  const float* l_an;
+  const int32_t* pidx_c;    // [Nt, Cs, T]
+  const float* sol;         // [Nt, TS_FIELDS, Cs, T]
+  const float* gravity;     // [2]
+  const float* touched_in;  // [Nt, Cs, T]
+  const float* tile_live;   // [Nt]
+  float* dxx;               // [Nt, T] own-row Jacobi sums
+  float* dxy;
+  float* dth;
+  float* cnt;
+  float* lam;               // [Nt, 2, Cs, T]
+  float* touched;           // [Nt, Cs, T]
+  int Nt, Cs;
+  float h, alpha_t;
+};
+
+struct TileApplyArgs {
+  const float* px;          // [Nt, T] state at the substep's start
+  const float* py;
+  const float* an;
+  const float* vx;
+  const float* vy;
+  const float* om;
+  const float* dxx;         // [Nt, T] the project phase's sums
+  const float* dxy;
+  const float* dth;
+  const float* cnt;
+  const float* invm;        // [Nt, T] consts
+  const float* invi;
+  const float* dynb;
+  const float* kin;
+  const float* l_px;        // [L] large-set pose
+  const float* l_py;
+  const float* l_an;
+  const int32_t* pidx_c;    // [Nt, Cs, T]
+  const float* sol;         // [Nt, TS_FIELDS, Cs, T]
+  const float* lam;         // [Nt, 2, Cs, T]
+  const float* gravity;     // [2]
+  const float* tile_live;   // [Nt]
+  float* o_px;              // [Nt, T] the substep's end state
+  float* o_py;
+  float* o_an;
+  float* o_vx;
+  float* o_vy;
+  float* o_om;
+  int Nt, Cs;
+  float h, relaxation, max_dpos, rest_threshold;
+  float lin_sdamp, ang_sdamp;  // 1 / (1 + h * damping)
+  int use_lin_damp, use_ang_damp;
+};
+
+// Candidate j of tile t: the flat row of a window candidate (j < 3T), or
+// -1 - l for large-set slot l.
+static __device__ __forceinline__ int tile_candidate(int t, int Nt, int j) {
+  const int start = max(min(t - 1, Nt - TILE_WIN), 0);
+  return j < TILE_WIN * TILE_T ? start * TILE_T + j
+                               : -1 - (j - TILE_WIN * TILE_T);
+}
+
 #define SF_EXPORT(name, Args)                                     \
   extern "C" int name##_args_size() { return (int)sizeof(Args); }

@@ -10,7 +10,21 @@ from .slots import (
     joint_slots_plain,
     slot_tables_plain,
 )
+from .tiles import (
+    build_tile_tables,
+    run_tiled_frame,
+    tile_apply,
+    tile_apply_plain,
+    tile_manifold,
+    tile_manifold_plain,
+    tile_project,
+    tile_project_plain,
+    tile_tables_plain,
+)
 
 __all__ = ["build_elig_mask", "build_joint_slots", "build_slot_tables",
-           "elig_mask_plain", "frame2_plain", "joint_slots_plain",
-           "owner_csr", "run_frame2", "slot_tables_plain"]
+           "build_tile_tables", "elig_mask_plain", "frame2_plain",
+           "joint_slots_plain", "owner_csr", "run_frame2", "run_tiled_frame",
+           "slot_tables_plain", "tile_apply", "tile_apply_plain",
+           "tile_manifold", "tile_manifold_plain", "tile_project",
+           "tile_project_plain", "tile_tables_plain"]

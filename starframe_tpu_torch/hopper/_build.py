@@ -121,8 +121,64 @@ class JointSlotArgs(ctypes.Structure):
     ]
 
 
+def _struct(name: str, pointers: str, ints: str = "", floats: str = ""):
+    """A ctypes mirror of a C argument struct: the named pointers, then
+    the ints, then the floats, in that order."""
+    fields = ([(k, ctypes.c_void_p) for k in pointers.split()]
+              + [(k, ctypes.c_int) for k in ints.split()]
+              + [(k, ctypes.c_float) for k in floats.split()])
+    return type(name, (ctypes.Structure,), {"_fields_": fields})
+
+
+TileTablesArgs = _struct(
+    "TileTablesArgs",
+    "px py an vx vy vlx vly rad act mov lay msk obody responds sen l_px l_py "
+    "l_an l_vlx l_vly l_rad l_act l_lay l_msk edge_lo edge_hi gravity pidx "
+    "act_o count count_touch count_close winover sweep",
+    "Nt V C sort_axis sweep_frames",
+    "dt kdt tpad cpad sweep_slack sweep_floor sweep_cap")
+
+
+class TileManifoldArgs(ctypes.Structure):
+    _fields_ = [
+        *((k, ctypes.c_void_p) for k in (
+            "px py an vx vy om vlx vly rad nv fric rst sen invm invi l_px "
+            "l_py l_an l_vlx l_vly l_rad l_nv l_fric l_rst l_sen pidx act "
+            "tile_live sol pidx_c src nact wake pen npts").split()),
+        ("Nt", ctypes.c_int), ("V", ctypes.c_int), ("C", ctypes.c_int),
+        ("Cs", ctypes.c_int), ("margin", ctypes.c_float),
+        ("dt", ctypes.c_float), ("sleep_v2", ctypes.c_float),
+        ("use_wake", ctypes.c_int),
+    ]
+
+
+TileProjectArgs = _struct(
+    "TileProjectArgs",
+    "px py an vx vy om invm invi dynb l_px l_py l_an pidx_c sol gravity "
+    "touched_in tile_live dxx dxy dth cnt lam touched",
+    "Nt Cs", "h alpha_t")
+
+
+class TileApplyArgs(ctypes.Structure):
+    _fields_ = [
+        *((k, ctypes.c_void_p) for k in (
+            "px py an vx vy om dxx dxy dth cnt invm invi dynb kin l_px l_py "
+            "l_an pidx_c sol lam gravity tile_live o_px o_py o_an o_vx o_vy "
+            "o_om").split()),
+        ("Nt", ctypes.c_int), ("Cs", ctypes.c_int),
+        *((k, ctypes.c_float) for k in (
+            "h relaxation max_dpos rest_threshold lin_sdamp "
+            "ang_sdamp").split()),
+        ("use_lin_damp", ctypes.c_int), ("use_ang_damp", ctypes.c_int),
+    ]
+
+
 _ENTRY_POINTS = {"sf_elig": EligArgs, "sf_slots": SlotArgs,
-                 "sf_joint_slots": JointSlotArgs, "sf_frame2": Frame2Args}
+                 "sf_joint_slots": JointSlotArgs, "sf_frame2": Frame2Args,
+                 "sf_tile_tables": TileTablesArgs,
+                 "sf_tile_manifold": TileManifoldArgs,
+                 "sf_tile_project": TileProjectArgs,
+                 "sf_tile_apply": TileApplyArgs}
 
 
 def _sources():
@@ -210,6 +266,8 @@ def library() -> ctypes.CDLL:
                                f"{ctypes.sizeof(struct)}")
     lib.sf_frame2_shared_bytes.argtypes = [ctypes.c_int] * 4
     lib.sf_frame2_shared_bytes.restype = ctypes.c_longlong
+    lib.sf_tile_solve_fields.argtypes = []
+    lib.sf_tile_solve_fields.restype = ctypes.c_int
     lib.sf_error_string.argtypes = [ctypes.c_int]
     lib.sf_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -30,9 +30,24 @@ def world_to_numpy(world: World) -> dict:
     return out
 
 
-def world_from_numpy(arrays: dict, device="cpu") -> World:
-    """Build a :class:`World` on ``device`` from a ``world_to_numpy`` dict
-    (or an ``np.load`` of a snapshot). Dtypes are kept as stored."""
+def target_device(device) -> torch.device:
+    """``device`` as a ``torch.device``. The port's entry points default to
+    the card (``"cuda"``); without one that default raises, and a caller
+    that wants the CPU passes ``device="cpu"``: there is no quiet fallback."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to build on the CPU")
+    return device
+
+
+def world_from_numpy(arrays: dict, device="cuda") -> World:
+    """Build a :class:`World` on ``device`` (the card unless the caller asks
+    for the CPU) from a ``world_to_numpy`` dict (or an ``np.load`` of a
+    snapshot). Dtypes are kept as stored."""
+    device = target_device(device)
+
     def t(key):
         # copy: arrays exported by jax are read-only views
         return torch.as_tensor(np.array(arrays[key]), device=device)
@@ -45,7 +60,7 @@ def world_from_numpy(arrays: dict, device="cpu") -> World:
     return World(**groups, gravity=t("gravity"), step_count=t("step_count"))
 
 
-def load_npz(path: str, device="cpu") -> World:
+def load_npz(path: str, device="cuda") -> World:
     """Read a snapshot written by ``starframe_tpu.io.save`` (or by
     ``np.savez`` of a :func:`world_to_numpy` dict)."""
     with np.load(path) as data:

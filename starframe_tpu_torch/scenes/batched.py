@@ -80,7 +80,7 @@ def batchify(scene: Scene, n_worlds: int, seed: int = 0,
 
 
 def batched_worlds(n_worlds: int = 4096, n_bodies: int = 256,
-                   substeps: int = 10, seed: int = 0, device="cpu") -> Scene:
+                   substeps: int = 10, seed: int = 0, device="cuda") -> Scene:
     """``n_worlds`` copies of a 256-body settling scene, with per-world
     velocity noise (0.1 m/s normal, dynamic bodies only) drawn from
     ``default_rng(seed)`` so worlds diverge but replays are identical."""

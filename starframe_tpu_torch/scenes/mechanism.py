@@ -14,7 +14,7 @@ from .base import Scene, add_ground, tighten_joint_colors
 
 def mechanism(n_pendulum_links: int = 6, link_half: float = 0.5,
               motor_speed: float = 2.0, seed: int = 0, substeps: int = 10,
-              device="cpu") -> Scene:
+              device="cuda") -> Scene:
     """A paddle wheel (two crossed capsules) pinned to a static hub and
     driven by an angular motor, a capsule-chain pendulum of revolute pins,
     a platform with cargo hung by two distance joints, and eight circles.

@@ -1,0 +1,72 @@
+"""The 10k-body pile (BASELINE.json:8, config 2): mixed convex bodies
+falling into a container and settling, the workload of the metric
+BASELINE.json:2 names first. The scene of ``starframe_tpu/scenes/pile.py``
+``pile``, built from the same numpy draws, so both packages hold the same
+arrays."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..config import SolverConfig
+from ..shapes import Shape
+from ..state import WorldBuilder
+from .base import Scene
+
+
+def pile(n_bodies: int = 10_000, body_half: float = 0.5,
+         friction: float = 0.5, seed: int = 0, substeps: int = 10,
+         container_half_width: float = None, sleep: bool = True,
+         device="cuda") -> Scene:
+    """Boxes, hexagons and circles packed in a grid above a floor between
+    two walls, falling into a pile several bodies deep. ``sleep=False``
+    keeps every body live (``sleep_velocity = 0``); the tile engine runs
+    only that all-awake pile yet (ROADMAP.md A4)."""
+    rng = np.random.default_rng(seed)
+    b = WorldBuilder(gravity=(0.0, -9.81))
+
+    cols = int(np.ceil(np.sqrt(n_bodies * 4)))
+    rows = int(np.ceil(n_bodies / cols))
+    spacing = body_half * 2.2
+    if container_half_width is None:
+        container_half_width = cols * spacing / 2 + 2.0
+
+    # container: floor + two walls
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, Shape.box(container_half_width + 2.0, 0.5),
+                   friction=friction)
+    wl = b.add_static(pos=(-container_half_width, rows * spacing))
+    b.add_collider(wl, Shape.box(0.5, rows * spacing + 4.0), friction=friction)
+    wr = b.add_static(pos=(container_half_width, rows * spacing))
+    b.add_collider(wr, Shape.box(0.5, rows * spacing + 4.0), friction=friction)
+
+    x0 = -(cols - 1) * spacing / 2
+    count = 0
+    for row in range(rows):
+        for col in range(cols):
+            if count >= n_bodies:
+                break
+            x = x0 + col * spacing + rng.uniform(-0.05, 0.05) * body_half
+            y = body_half * 1.5 + row * spacing
+            body = b.add_body(pos=(x, y), angle=float(rng.uniform(0, np.pi)))
+            kind = rng.integers(0, 3)
+            if kind == 0:
+                b.add_collider(body, Shape.circle(body_half * 0.9),
+                               friction=friction)
+            elif kind == 1:
+                b.add_collider(body, Shape.box(body_half, body_half * 0.8),
+                               friction=friction)
+            else:
+                b.add_collider(body, Shape.hexagon(body_half),
+                               friction=friction)
+            count += 1
+
+    world, cap = b.build(device=device)
+    # the tile engine keeps K = 8 frames of slot tables (16 slots a row: a
+    # settled dense pile peaks at 9-12 true candidates) and re-sorts every
+    # 8 frames or when the staleness guard fires
+    cfg = SolverConfig(dt=1 / 60, substeps=substeps, broadphase="grid",
+                       grid_cell_capacity=b.suggest_grid_cell_capacity(),
+                       frames_per_broadphase=8, slot_capacity=16,
+                       sleep_velocity=0.1 if sleep else 0.0, sleep_frames=30)
+    return Scene("pile", world, cap, cfg)

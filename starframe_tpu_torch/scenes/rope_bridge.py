@@ -15,7 +15,7 @@ from .base import Scene, tighten_joint_colors
 
 def rope_bridge(span: float = 16.0, n_particles: int = 40, n_loads: int = 6,
                 load_half: float = 0.45, thickness: float = 0.25,
-                seed: int = 0, substeps: int = 10, device="cpu") -> Scene:
+                seed: int = 0, substeps: int = 10, device="cuda") -> Scene:
     """A rope strung between two static pillars, with boxes dropped onto it
     (contacts couple them to the particle chain) and a crate hung from the
     middle particle by a second rope (pure attachment coupling).

@@ -195,8 +195,9 @@ def _empty_arrays(cap: Capacity, gravity) -> dict:
     }
 
 
-def empty_world(cap: Capacity, gravity=(0.0, -9.81), device="cpu") -> World:
-    """An all-inactive world with the given capacities."""
+def empty_world(cap: Capacity, gravity=(0.0, -9.81), device="cuda") -> World:
+    """An all-inactive world with the given capacities, on ``device`` (the
+    card unless the caller asks for the CPU)."""
     from .io import world_from_numpy
 
     return world_from_numpy(_empty_arrays(cap, gravity), device)
@@ -353,6 +354,38 @@ class WorldBuilder:
 
     # -- build ---------------------------------------------------------------
 
+    def _collider_extents(self, margin: float = 0.05):
+        """Host-side per-collider AABB extents and centres at build poses
+        (numpy)."""
+        exts = []
+        centers = []
+        for c in self._colliders:
+            b = self._bodies[c["body"]]
+            co, si = np.cos(b["angle"]), np.sin(b["angle"])
+            rot = np.array([[co, -si], [si, co]], np.float32)
+            wv = c["verts"] @ rot.T + b["pos"]
+            lo = wv.min(0) - c["radius"] - margin
+            hi = wv.max(0) + c["radius"] + margin
+            exts.append(hi - lo)
+            centers.append((lo + hi) / 2)
+        return np.asarray(exts, np.float32), np.asarray(centers, np.float32)
+
+    def suggest_grid_cell_capacity(self, margin: float = 0.05) -> int:
+        """Grid-broadphase per-cell fan-out from the scene's size
+        distribution: how many of the smallest colliders can crowd one
+        broadphase cell when packed. Scenes pass this to
+        ``SolverConfig(grid_cell_capacity=...)``."""
+        if not self._colliders:
+            return 8
+        exts, _ = self._collider_extents(margin)
+        max_ext = exts.max(-1)
+        cell = 1.5 * float(np.mean(max_ext))
+        small = float(np.percentile(max_ext, 10))
+        # the smallest colliders tile a (cell + ext)^2 window whose centres
+        # hash to one cell; 1.2x safety over the packing bound
+        packed = (cell / max(small, 1e-3) + 1.0) ** 2
+        return int(max(8, np.ceil(1.2 * packed)))
+
     def _auto_capacity(self, cap: Optional[Capacity],
                        reserve=(0, 0, 0)) -> Capacity:
         nb = len(self._bodies) + reserve[0]
@@ -370,9 +403,10 @@ class WorldBuilder:
 
     def build(self, capacity: Optional[Capacity] = None,
               reserve_bodies: int = 0, reserve_colliders: int = 0,
-              reserve_joints: int = 0, device="cpu"
+              reserve_joints: int = 0, device="cuda"
               ) -> tuple[World, Capacity]:
-        """Materialize the scene on ``device``."""
+        """Materialize the scene on ``device`` (the card unless the caller
+        asks for the CPU; without a card the default raises)."""
         cap = self._auto_capacity(
             capacity, (reserve_bodies, reserve_colliders, reserve_joints))
         arrays = _empty_arrays(cap, self.gravity)

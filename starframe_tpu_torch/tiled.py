@@ -1,0 +1,483 @@
+"""The sorted-sweep tile engine's glue for one big world: the sort into tile
+layout, the large set, the per-frame kernels and the sort back.
+
+The PyTorch counterpart of ``starframe_tpu/tiled.py`` for the all-awake,
+one-collider-per-body world (the 10k-body pile with ``sleep=False``,
+BASELINE.json:2), on one device. Rows are colliders sorted along
+``cfg.tile_sort_axis`` and cut into tiles of ``T`` rows; every contact
+partner is either in the row's 3-tile sort window or in the large set of
+static colliders (``hopper/tiles.py``).
+
+- :func:`tiled_step`: one frame, sorted in and out (the World-API shape).
+- :func:`tiled_rollout`: N frames kept in tile layout, re-sorted every
+  ``cfg.frames_per_broadphase`` frames while rows drift, or earlier when
+  the window-completeness guard (from actual per-tile extents, so a stale
+  sort is safe) fires; the slot tables are rebuilt early when a row leaves
+  its sweep budget. The guard's three verdicts are read in one host sync
+  per frame, counted in :data:`host_syncs`.
+
+What the port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item (:func:`use_tiled`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .config import SolverConfig
+from .hopper.tiles import (
+    L,
+    T,
+    WIN,
+    build_tile_tables,
+    run_tiled_frame,
+    win_start,
+)
+from .state import BODY_KINEMATIC, COL_ACTIVE, COL_SENSOR, World
+
+f32 = torch.float32
+i32 = torch.int32
+
+_BIG = 1e30
+
+# host round trips of the rollouts (one per frame with K > 1: the staleness
+# guard's verdicts decide on the host whether to re-sort or rebuild)
+host_syncs = 0
+
+
+def _require_slice(world: World, cfg: SolverConfig, with_events=False,
+                   shard_axis=None) -> None:
+    """Raise on what the port's tile engine does not run yet."""
+    todo = [
+        (world.joints.j > 0, "joints on the tile engine (_tile_joint_pass)"),
+        (world.colliders.m != world.bodies.n,
+         "compound bodies on the tile engine (owner reductions)"),
+        (cfg.ccd, "CCD on the tile engine (K7 _ccd_kernel)"),
+        (cfg.sleep_velocity > 0.0,
+         "sleep on the tile engine (wake, tile skips, awake-prefix "
+         "compaction)"),
+        (with_events, "contact events on the tile engine (in-kernel keys)"),
+        (shard_axis is not None, "the sharded tile axis"),
+    ]
+    for hit, what in todo:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md A4)")
+
+
+def use_tiled(world: World, cfg: SolverConfig, with_events: bool = False,
+              shard_axis=None) -> bool:
+    """Shape/config gate of the tiled single-world path: False where the
+    JAX package keeps a world on its other tiers (``use_pallas`` off,
+    ``iterations != 1``, per-substep manifolds, fewer than four tiles of
+    colliders). A world that passes and needs a branch the port has not
+    ported raises ``NotImplementedError`` naming its ROADMAP.md item."""
+    if cfg.use_pallas is False or cfg.iterations != 1:
+        return False
+    if cfg.manifold_refresh != "frame":
+        return False
+    if world.colliders.m < 4 * T:
+        return False
+    _require_slice(world, cfg, with_events, shard_axis)
+    return True
+
+
+def _solve_cap(cfg: SolverConfig) -> int:
+    """Per-frame solve-slot width (``cfg.tile_solve_capacity``): rounded up
+    to a multiple of 8 and clamped to the table width; <= 0 disables
+    compaction."""
+    Cs = -(-cfg.slot_capacity // 8) * 8
+    if cfg.tile_solve_capacity <= 0:
+        return Cs
+    return min(-(-cfg.tile_solve_capacity // 8) * 8, Cs)
+
+
+def _table_cap(cfg: SolverConfig) -> int:
+    """Slot-table width: ``cfg.slot_capacity`` rounded up to 8."""
+    return -(-cfg.slot_capacity // 8) * 8
+
+
+# ---------------------------------------------------------------------------
+# tile-layout entry/exit + re-sort
+# ---------------------------------------------------------------------------
+
+
+def _sort_key(act, mov, x):
+    """Moving active rows by position, then statics, then inactive rows
+    and padding (ties keep index order: the sorts are stable)."""
+    return torch.where((act > 0) & (mov > 0), x,
+                       torch.where(act > 0, torch.full_like(x, _BIG),
+                                   torch.full_like(x, 2 * _BIG)))
+
+
+def _enter_tiles(world: World, cfg: SolverConfig):
+    """Canonical world -> ``(state, consts, large, body_id,
+    large_overflow)``: ``state``/``consts`` ``[Nt, T]`` (verts ``[Nt, V,
+    T]``) in sorted order, ``body_id [Mp]`` the canonical collider of each
+    tile row (padding rows get ids >= M, so an argsort of ``body_id``
+    restores canonical order), ``large`` the static active colliders
+    (``[L]``, verts ``[V, L]``), which never change."""
+    b, c = world.bodies, world.colliders
+    M = c.m
+    dev = b.pos.device
+    n_tiles = -(-M // T)
+    if n_tiles < 3:
+        raise ValueError("tiled path needs >= 3 tiles")
+    Mp = n_tiles * T
+    cb = c.body_idx.long()
+
+    responds = ((b.inv_mass[cb] > 0) | (b.inv_inertia[cb] > 0)).to(f32)
+    kin = ((b.flags[cb] & BODY_KINEMATIC) != 0).to(f32)
+    moves = torch.maximum(responds, kin)
+    col_active = ((c.flags & COL_ACTIVE) != 0).to(f32)
+    sensor = ((c.flags & COL_SENSOR) != 0).to(f32)
+
+    axis = 0 if cfg.tile_sort_axis == "x" else 1
+    perm = torch.argsort(_sort_key(col_active, moves, b.pos[cb, axis]),
+                         stable=True)
+    perm = torch.cat([perm, torch.arange(M, Mp, device=dev)])
+    body_id = perm.to(i32)
+
+    def srt(x):
+        pad = torch.zeros((Mp - M,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=dev)
+        return torch.cat([x, pad])[perm]
+
+    def tile2(x):
+        return x.reshape(n_tiles, T).contiguous()
+
+    def tiled(x):
+        return tile2(srt(x))
+
+    state = dict(px=tiled(b.pos[cb, 0]), py=tiled(b.pos[cb, 1]),
+                 an=tiled(b.angle[cb]), vx=tiled(b.vel[cb, 0]),
+                 vy=tiled(b.vel[cb, 1]), om=tiled(b.ang_vel[cb]))
+    V = c.verts.shape[1]
+
+    def verts(k):
+        return srt(c.verts[..., k]).reshape(n_tiles, T, V).transpose(
+            1, 2).contiguous()
+
+    # conservative per-collider extent for the staleness guard: max vertex
+    # norm + dilation radius + the narrowphase margin pad
+    vx_, vy_ = c.verts[..., 0], c.verts[..., 1]
+    ext = (torch.sqrt(vx_ * vx_ + vy_ * vy_).amax(1)
+           + c.radius + 0.5 * cfg.contact_margin)
+    obody = torch.cat([cb.to(i32), torch.arange(M, Mp, dtype=i32, device=dev)
+                       + b.n])[perm]
+    consts = dict(
+        rad=tiled(c.radius), nv=tiled(c.nverts), fric=tiled(c.friction),
+        rst=tiled(c.restitution), sen=tiled(sensor), act=tiled(col_active),
+        mov=tiled(moves), invm=tiled(b.inv_mass[cb]),
+        invi=tiled(b.inv_inertia[cb]), lay=tiled(c.layer),
+        msk=tiled(c.mask), responds=tiled(responds),
+        dynb=tiled((b.inv_mass[cb] > 0).to(f32)), kin=tiled(kin),
+        ext=tiled(ext), sleep=tiled(b.sleep_count[cb]), obody=tile2(obody), kept=torch.ones((n_tiles, T), dtype=f32,
+                                            device=dev),
+        vlx=verts(0), vly=verts(1))
+
+    # large set: the static active colliders, broadcast to every tile
+    lkey = torch.where((col_active > 0) & (moves == 0),
+                       torch.arange(M, dtype=i32, device=dev),
+                       torch.full((M,), 2 ** 30, dtype=i32, device=dev))
+    lsort = torch.sort(lkey).values[:L]
+    n_large = (lkey < 2 ** 30).sum(dtype=i32)
+    l_valid = torch.arange(L, device=dev) < torch.clamp(n_large, max=L)
+    lidx = torch.where(l_valid, lsort, 0).long()
+    lb = cb[lidx]
+    large = dict(
+        px=b.pos[lb, 0].contiguous(), py=b.pos[lb, 1].contiguous(),
+        an=b.angle[lb].contiguous(),
+        vlx=c.verts[lidx, :, 0].T.contiguous(),
+        vly=c.verts[lidx, :, 1].T.contiguous(),
+        rad=c.radius[lidx], nv=c.nverts[lidx], fric=c.friction[lidx],
+        rst=c.restitution[lidx], sen=sensor[lidx],
+        act=torch.where(l_valid, col_active[lidx], 0.0),
+        lay=c.layer[lidx], msk=c.mask[lidx], cols=lidx.to(i32))
+    large_overflow = torch.clamp(n_large - L, min=0)
+    return state, consts, large, body_id, large_overflow
+
+
+_RESORT_KEYS = ("rad", "nv", "fric", "rst", "sen", "act", "mov", "invm",
+                "invi", "lay", "msk", "responds", "dynb", "kin", "ext",
+                "sleep", "kept", "obody")
+
+
+def _resort(state: dict, consts: dict, body_id, axis_key: str = "px"):
+    """Re-sort the tile layout by the current sort-axis position (statics
+    and padding keep the tail)."""
+    key = _sort_key(consts["act"].reshape(-1), consts["mov"].reshape(-1),
+                    state[axis_key].reshape(-1))
+    perm = torch.argsort(key, stable=True)
+    return _apply_perm(state, consts, body_id, perm)
+
+
+def _apply_perm(state, consts, body_id, perm):
+    """Apply a row permutation ``perm [Mp]`` to the whole tile layout."""
+    Nt = state["px"].shape[0]
+
+    def rows(x):
+        return x.reshape(-1)[perm].reshape(Nt, T)
+
+    state = {k: rows(v) for k, v in state.items()}
+    new_consts = {k: rows(consts[k]) for k in _RESORT_KEYS}
+    V = consts["vlx"].shape[1]
+    for k in ("vlx", "vly"):
+        v = consts[k].transpose(1, 2).reshape(Nt * T, V)[perm]
+        new_consts[k] = v.reshape(Nt, T, V).transpose(1, 2).contiguous()
+    return state, new_consts, body_id[perm]
+
+
+def _edge_rows(state: dict, consts: dict, cfg: SolverConfig):
+    """Window-completeness bounds from ACTUAL per-tile extents, valid for
+    any (possibly stale) order. Returns ``(edge_lo, edge_hi)`` ``[Nt]`` for
+    the table kernel and the staleness flag (a device bool): some live
+    row's reach escapes its 3-tile window's coverage."""
+    Nt = state["px"].shape[0]
+    ak = "x" if cfg.tile_sort_axis == "x" else "y"
+    px, vx = state["p" + ak], state["v" + ak]
+    live = ((consts["act"] > 0) & (consts["mov"] > 0)
+            & (consts["kept"] > 0))
+    reach = consts["ext"] + torch.abs(vx) * cfg.dt
+    tile_hi = torch.where(live, px + reach, -_BIG).amax(dim=1)
+    tile_lo = torch.where(live, px - reach, _BIG).amin(dim=1)
+    premax = torch.cummax(tile_hi, 0).values  # prefix max of tile highs
+    sufmin = torch.flip(torch.cummin(torch.flip(tile_lo, [0]), 0).values,
+                        [0])  # suffix min of tile lows
+    start = win_start(Nt, px.device)
+    right = start + WIN  # first tile past the window
+    left = start - 1  # last tile before the window
+    edge_hi = torch.where(right <= Nt - 1,
+                          sufmin[torch.clamp(right, max=Nt - 1)], _BIG)
+    edge_lo = torch.where(left >= 0, premax[torch.clamp(left, min=0)], -_BIG)
+    stale = torch.any((tile_hi > edge_hi) | (tile_lo < edge_lo))
+    return edge_lo.contiguous(), edge_hi.contiguous(), stale
+
+
+def _run_frame(state, consts, large, cfg: SolverConfig, gravity,
+               tables=None, edges=None, plain: bool = False):
+    """One frame on tile-layout state. Returns ``(state', frame)``, with
+    ``frame`` the rest of :func:`run_tiled_frame`'s outputs; ``tables =
+    (pidx, act)`` reuses a K-frame build, None builds one-frame tables.
+    Every tile is live (no body sleeps)."""
+    if edges is None:
+        edge_lo, edge_hi, _ = _edge_rows(state, consts, cfg)
+    else:
+        edge_lo, edge_hi = edges
+    Nt = state["px"].shape[0]
+    kc = dict(consts, edge_lo=edge_lo, edge_hi=edge_hi,
+              tile_live=torch.ones((Nt,), dtype=f32,
+                                   device=state["px"].device))
+    new_state, *frame = run_tiled_frame(
+        state, kc, large, gravity, tables, C=_table_cap(cfg),
+        Cs=_solve_cap(cfg), substeps=cfg.substeps, h=cfg.dt / cfg.substeps,
+        dt=cfg.dt, margin=cfg.contact_margin,
+        compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
+        max_dpos=cfg.max_dpos_eff, rest_threshold=cfg.restitution_threshold,
+        lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
+        sleep_velocity=cfg.sleep_velocity * cfg.wake_velocity_factor,
+        sort_axis=0 if cfg.tile_sort_axis == "x" else 1, plain=plain)
+    return new_state, frame
+
+
+def _solve_counts(nact, Csol: int):
+    """``(solve_overflow, solve_dropped)`` of a frame's active-slot counts
+    ``nact [Nt, 2, T]``: compaction keeps the closest ``Csol`` active
+    manifolds; dropping an imminent one (sep < margin) is the hard
+    overflow, dropping a merely margin-active one the soft drop."""
+    hard = torch.clamp(nact[:, 1] - Csol, min=0)
+    soft = torch.clamp(nact[:, 0] - Csol, min=0) - hard
+    return hard.sum(dtype=i32), soft.sum(dtype=i32)
+
+
+def _exit_tiles(world: World, state: dict, consts: dict, prev: dict,
+                body_id, n_frames: int) -> World:
+    """Tile-layout state -> canonical World (the inverse of the sort)."""
+    b = world.bodies
+    M = world.colliders.m
+    take = torch.argsort(body_id)  # canonical collider -> tile row
+
+    def unsort(x):
+        return x.reshape(-1)[take][:M]
+
+    pos = torch.stack([unsort(state["px"]), unsort(state["py"])], dim=-1)
+    vel = torch.stack([unsort(state["vx"]), unsort(state["vy"])], dim=-1)
+    new_bodies = dataclasses.replace(
+        b, pos=pos, angle=unsort(state["an"]), vel=vel,
+        ang_vel=unsort(state["om"]),
+        prev_pos=torch.stack([unsort(prev["px"]), unsort(prev["py"])],
+                             dim=-1),
+        prev_angle=unsort(prev["an"]), sleep_count=unsort(consts["sleep"]))
+    return dataclasses.replace(world, bodies=new_bodies,
+                               step_count=world.step_count + n_frames)
+
+
+def touch_keys(touched, pidx, body_id, large_cols, n_colliders: int):
+    """Canonical contact-pair keys ``min * M + max`` of the touching slots
+    ``[Nt, K, T]`` (``-1`` where not touching), from the slot tables and
+    the sort permutation: a dynamic pair appears in both rows with the
+    same key."""
+    Nt = pidx.shape[0]
+    dev = pidx.device
+    Mp = body_id.shape[0]
+    start = win_start(Nt, dev)
+    pl = pidx.long()
+    row = start[:, None, None] * T + torch.clamp(pl, max=WIN * T - 1)
+    win_col = body_id[torch.clamp(row, 0, Mp - 1)]
+    lrg_col = large_cols[torch.clamp(pl - WIN * T, 0, large_cols.shape[0] - 1)]
+    partner = torch.where(pl < WIN * T, win_col, lrg_col)
+    own_row = (torch.arange(Nt, device=dev)[:, None, None] * T
+               + torch.arange(T, device=dev)[None, None, :])
+    own = body_id[own_row.expand(pidx.shape)]
+    keys = torch.minimum(own, partner) * n_colliders + torch.maximum(
+        own, partner)
+    return torch.where(touched > 0, keys, -1)
+
+
+def tiled_step(world: World, cfg: SolverConfig, plain: bool = False):
+    """One frame via the tile engine. Returns ``(new_world, diag)``. Sorts
+    in and out every call: rollouts should use :func:`tiled_rollout`."""
+    _require_slice(world, cfg)
+    g = world.gravity.to(f32).contiguous()
+    state, consts, large, body_id, large_ovf = _enter_tiles(world, cfg)
+    prev = {k: state[k] for k in ("px", "py", "an")}
+    new_state, frame = _run_frame(state, consts, large, cfg, g, plain=plain)
+    (touched, (count, count_touch, count_close), winover, _wake, pen, pidx,
+     pidx_c, act, npts, src, nact) = frame
+    C = _table_cap(cfg)
+    solve_overflow, solve_dropped = _solve_counts(nact, _solve_cap(cfg))
+    # undirected counts comparable with the XLA tier's diagnostics: window
+    # (dynamic) entries appear in both rows (weight 0.5), large-set ones once
+    und_w = torch.where(pidx < WIN * T, 0.5, 1.0)
+    und_ws = torch.where(pidx_c < WIN * T, 0.5, 1.0)
+    diag = dict(
+        slot_count=count,
+        slot_overflow=torch.clamp(count_touch - C, min=0).sum(dtype=i32),
+        solve_overflow=solve_overflow, solve_dropped=solve_dropped,
+        margin_dropped=torch.clamp(count_close - C, min=0).sum(dtype=i32),
+        spec_dropped=torch.clamp(count - C, min=0).sum(dtype=i32),
+        window_overflow=winover.sum(dtype=i32),
+        max_penetration=pen.max(),
+        touched=touched, slot_src=src,
+        pair_und=(act * und_w).sum(),
+        touching_und=((touched > 0) * und_ws).sum(),
+        contact_und=npts.sum(),
+        large_overflow=large_ovf,
+        touch_keys=touch_keys(touched, pidx_c, body_id, large["cols"],
+                              world.colliders.m))
+    return _exit_tiles(world, new_state, consts, prev, body_id, 1), diag
+
+
+def _rollout_core(state, consts, large, body_id, gravity, *,
+                  cfg: SolverConfig, n_frames: int, plain: bool):
+    """The tile-layout rollout: the initial table build, then per frame
+    the staleness guard, a re-sort + build, a table rebuild or neither,
+    and the frame. Returns ``(state, consts, body_id, prev_last,
+    counters)``."""
+    global host_syncs
+    g = gravity
+    K = max(cfg.frames_per_broadphase, 1)
+    Cs = _table_cap(cfg)
+    Csol = _solve_cap(cfg)
+    gmag = torch.sqrt(torch.sum(g * g))
+    ak = "px" if cfg.tile_sort_axis == "x" else "py"
+
+    def build(state, consts, edges):
+        """K-frame slot tables + the positional-guard budget."""
+        edge_lo, edge_hi = edges
+        (pidx, act, count, count_touch, count_close, winover,
+         sweep) = build_tile_tables(
+            state, consts, large, edge_lo, edge_hi, g, C=Cs,
+            margin=cfg.contact_margin, dt=cfg.dt,
+            sort_axis=0 if cfg.tile_sort_axis == "x" else 1,
+            sweep_frames=K, sweep_slack=cfg.broadphase_speed_slack,
+            sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap,
+            plain=plain)
+        pos0 = {"px": state["px"], "py": state["py"]}
+        counts = torch.stack([
+            torch.clamp(count_touch - Cs, min=0).sum(dtype=i32),
+            torch.clamp(count_close - Cs, min=0).sum(dtype=i32),
+            torch.clamp(count - Cs, min=0).sum(dtype=i32),
+            (winover * (consts["kept"] > 0)).sum(dtype=i32)])
+        return (pidx, act), pos0, sweep, counts
+
+    el, eh, _ = _edge_rows(state, consts, cfg)
+    tables, pos0, sweep, build_max = build(state, consts, (el, eh))
+    # solve_overflow, solve_dropped; the frames reuse the build's tables,
+    # so the builds alone count window_overflow
+    frame_max = torch.zeros(2, dtype=i32, device=g.device)
+    age = 1 % K
+    resorts = rebuilds = 0
+    prev = None
+    for _ in range(n_frames):
+        el, eh, stale = _edge_rows(state, consts, cfg)
+        if K > 1:
+            # positional staleness guard: a live row whose displacement
+            # since the build plus its coming frame motion escapes its sweep
+            # budget forces a table rebuild; the scheduled re-sort waits
+            # until some live row has used half its budget (drift)
+            disp = torch.maximum(torch.abs(state["px"] - pos0["px"]),
+                                 torch.abs(state["py"] - pos0["py"]))
+            motion = (torch.sqrt(state["vx"] * state["vx"]
+                                 + state["vy"] * state["vy"])
+                      + gmag * cfg.dt) * cfg.dt
+            livb = (consts["mov"] > 0) & (consts["act"] > 0)
+            used = disp + motion
+            esc_t = torch.any((used > sweep + 1e-5) & livb)
+            drift_t = torch.any((used > 0.5 * sweep) & livb)
+            stale, esc, drift = torch.stack([stale, esc_t, drift_t]).tolist()
+            host_syncs += 1
+        else:
+            esc, drift = False, True
+            stale = True  # K = 1 re-sorts every frame: no need to read it
+        do_sort = (age == 0 and drift) or stale
+        if do_sort:
+            state, consts, body_id = _resort(state, consts, body_id, ak)
+            el, eh, _ = _edge_rows(state, consts, cfg)
+        if do_sort or esc:
+            tables, pos0, sweep, counts = build(state, consts, (el, eh))
+            build_max = torch.maximum(build_max, counts)
+        prev = {k: state[k] for k in ("px", "py", "an")}
+        state, frame = _run_frame(state, consts, large, cfg, g,
+                                  tables=tables, edges=(el, eh), plain=plain)
+        frame_max = torch.maximum(frame_max, torch.stack(
+            _solve_counts(frame[-1], Csol)))
+        resorts += int(do_sort and age != 0)
+        rebuilds += int(esc and not do_sort)
+        age = (1 if do_sort else age + 1) % K
+    if prev is None:
+        prev = {k: state[k] for k in ("px", "py", "an")}
+    zero = torch.zeros((), dtype=i32, device=g.device)
+    counters = dict(
+        slot_overflow=build_max[0], solve_overflow=frame_max[0],
+        solve_dropped=frame_max[1], margin_dropped=build_max[1],
+        spec_dropped=build_max[2], window_overflow=build_max[3],
+        joint_shard_overflow=zero,
+        forced_resorts=torch.tensor(resorts, dtype=i32, device=g.device),
+        forced_rebuilds=torch.tensor(rebuilds, dtype=i32, device=g.device),
+        compacted_rows=zero)
+    return state, consts, body_id, prev, counters
+
+
+def tiled_rollout(world: World, cfg: SolverConfig, n_frames: int,
+                  plain: bool = False):
+    """N frames with the state kept in tile layout (one sort in, one sort
+    out). Returns ``(final_world, diag)`` with the JAX package's scalar
+    counters: ``slot_overflow`` (HARD: touching candidates truncated at a
+    table build), ``solve_overflow`` (HARD: an imminent manifold compacted
+    out of the solve slots), ``solve_dropped``, ``margin_dropped``,
+    ``spec_dropped`` (soft: candidates deferred to a later build or frame),
+    ``window_overflow`` (rows whose margin box escaped the window's
+    coverage), ``forced_resorts``, ``forced_rebuilds``,
+    ``large_overflow``; ``joint_shard_overflow`` and ``compacted_rows`` are
+    0 on this slice. ``plain=True`` runs the kernels' twins."""
+    _require_slice(world, cfg)
+    g = world.gravity.to(f32).contiguous()
+    state, consts, large, body_id, large_ovf = _enter_tiles(world, cfg)
+    state, consts, body_id, prev, counters = _rollout_core(
+        state, consts, large, body_id, g, cfg=cfg, n_frames=n_frames,
+        plain=plain)
+    final = _exit_tiles(world, state, consts, prev, body_id, n_frames)
+    return final, dict(counters, large_overflow=large_ovf)

@@ -23,6 +23,17 @@ def numpy_to_jax(arrays: dict, like):
     return jax.tree_util.tree_unflatten(treedef, leaves)
 
 
+def build(builder, *args, **kw):
+    """``builder.build(*args, **kw)``, on the CPU when ``builder`` is the
+    port's (which builds on the card unless told otherwise; the JAX
+    builder takes no device)."""
+    from starframe_tpu_torch.state import WorldBuilder
+
+    if isinstance(builder, WorldBuilder):
+        kw["device"] = "cpu"
+    return builder.build(*args, **kw)
+
+
 def build_pile(builder_cls, shape_cls, n=128, seed=0, sensor_idx=None,
                layered=False):
     """One static ground + ``n - 1`` mixed dynamic bodies (the scene of
@@ -100,3 +111,36 @@ def build_jointed(builder_cls, shape_cls, n=128, seed=11):
         i += 1
     return b, dict(max_bodies=n, max_colliders=n, max_pairs=8 * n,
                    max_joints=len(b._joints), max_verts=4)
+
+
+def build_tiled(builder_cls, shape_cls, n=1024, seed=5):
+    """Ground + two walls + ``n - 3`` mixed bodies spread in x over
+    ``n / 256`` tiles of the tile engine (the scene of
+    tests/test_tiles.py), described through either package's builder.
+    Returns the builder and its capacity's fields."""
+    rng = np.random.default_rng(seed)
+    b = builder_cls(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, shape_cls.box(400.0, 0.5), friction=0.5)
+    wl = b.add_static(pos=(-390.0, 10.0))
+    b.add_collider(wl, shape_cls.box(0.5, 12.0), friction=0.5)
+    wr = b.add_static(pos=(390.0, 10.0))
+    b.add_collider(wr, shape_cls.box(0.5, 12.0), friction=0.5)
+    n_dyn = n - 3
+    cols = n_dyn // 4
+    for i in range(n_dyn):
+        row, col = divmod(i, cols)
+        x = -(cols - 1) * 0.75 + col * 1.5 + rng.uniform(-0.1, 0.1)
+        y = 0.7 + row * 1.2
+        body = b.add_body(pos=(x, y), vel=rng.normal(scale=0.2, size=2),
+                          ang_vel=float(rng.normal(scale=0.1)))
+        kind = i % 3
+        if kind == 0:
+            b.add_collider(body, shape_cls.circle(0.45), friction=0.5,
+                           restitution=0.1)
+        elif kind == 1:
+            b.add_collider(body, shape_cls.box(0.4, 0.35), friction=0.5)
+        else:
+            b.add_collider(body, shape_cls.hexagon(0.42), friction=0.5)
+    return b, dict(max_bodies=n, max_colliders=n, max_pairs=8 * n,
+                   max_joints=0, max_verts=6)

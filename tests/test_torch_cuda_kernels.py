@@ -11,7 +11,9 @@ exact (the kernels compute the same compares on the same f32 boxes and
 indices); the slot budget to 1e-6; one frame's poses to 1e-4 and
 velocities to 1e-3, with or without joints (the kernel sums the same terms
 in the same order as the twin, so what remains is the last bit of
-``cosf``/``sinf`` and of the frame's contact thresholds).
+``cosf``/``sinf`` and of the frame's contact thresholds). The tile
+engine's kernels: integer outputs and ``touched`` equal, the rest as each
+test states.
 """
 
 import dataclasses
@@ -192,3 +194,118 @@ def test_frame_kernel_with_joints_matches_twin(jointed, name, solver):
     cfg, w = jointed[name]
     _frame_kernel_matches_twin(
         dataclasses.replace(cfg, joint_solver=solver), w)
+
+
+# ---- the tile engine (K5, K6, K8, K9) ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tile_layout():
+    """``pile(n_bodies=4093, sleep=False)`` (16 tiles) 60 frames in, in tile
+    layout, with its K-frame tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from starframe_tpu_torch import tiled
+    from starframe_tpu_torch.scenes import pile
+
+    sc = pile(n_bodies=4093, sleep=False, device="cuda")
+    cfg = sc.config
+    w, _ = tiled.tiled_rollout(sc.world, cfg, 60)
+    state, consts, large, _, _ = tiled._enter_tiles(w, cfg)
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    g = w.gravity.contiguous()
+    tables = hopper.build_tile_tables(
+        state, consts, large, *edges, g, C=16, margin=cfg.contact_margin,
+        dt=cfg.dt, sweep_frames=8, sweep_floor=cfg.tile_sweep_floor,
+        sweep_cap=cfg.tile_sweep_cap, plain=True)
+    return cfg, state, consts, large, edges, g, tables
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_tile_tables_kernel_matches_twin(tile_layout, K):
+    cfg, state, consts, large, edges, g, _ = tile_layout
+    kw = dict(C=16, margin=cfg.contact_margin, dt=cfg.dt, sweep_frames=K,
+              sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+    n0 = hopper.build_tile_tables.launches
+    got = hopper.build_tile_tables(state, consts, large, *edges, g, **kw)
+    assert hopper.build_tile_tables.launches == n0 + 1
+    ref = hopper.build_tile_tables(state, consts, large, *edges, g, **kw,
+                                   plain=True)
+    for a, b in zip(got[:6], ref[:6]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[6], ref[6], rtol=0, atol=1e-6)
+    assert int(got[3].sum()) > 1000, "few touching candidates: vacuous"
+
+
+@pytest.mark.parametrize("case", ["awake", "waking_dead_tile"])
+def test_tile_manifold_kernel_matches_twin(tile_layout, case):
+    """Integer outputs equal; the constants, the wake signal and the row
+    sums to 1e-6 (the same float32 code: bitwise in practice)."""
+    cfg, state, consts, large, _, _, tables = tile_layout
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    sv = 0.0
+    if case != "awake":
+        live[2] = 0.0
+        sv = 0.2
+    kw = dict(Cs=8, margin=cfg.contact_margin, dt=cfg.dt, sleep_velocity=sv)
+    n0 = hopper.tile_manifold.launches
+    got = hopper.tile_manifold(state, consts, large, *tables[:2], live, **kw)
+    assert hopper.tile_manifold.launches == n0 + 1
+    ref = hopper.tile_manifold(state, consts, large, *tables[:2], live, **kw,
+                               plain=True)
+    for a, b in zip(got[1:4], ref[1:4]):
+        assert torch.equal(a, b)
+    for a, b in zip(got[:1] + got[4:], ref[:1] + ref[4:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    assert int(got[3][:, 0].sum()) > 1000, "few active slots: vacuous"
+    if case != "awake":
+        assert float(got[4].sum()) > 0 and not bool(got[0][2].any())
+
+
+def test_tile_substep_kernels_match_twins(tile_layout):
+    """One substep's project and apply, each against its twin on the same
+    inputs: ``touched`` equal, the rest to 1e-6 (lam, corrections) and
+    1e-5 (state; the twin divides by the substep through a host scalar in
+    the friction bound, which the card turns into a reciprocal)."""
+    cfg, state, consts, large, _, g, tables = tile_layout
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    sol, pidx_c = hopper.tile_manifold(
+        state, consts, large, *tables[:2], live, Cs=8,
+        margin=cfg.contact_margin, dt=cfg.dt, plain=True)[:2]
+    touched = torch.zeros(pidx_c.shape, device="cuda")
+    h = cfg.dt / cfg.substeps
+    pkw = dict(h=h, compliance=cfg.contact_compliance)
+    n0 = hopper.tile_project.launches
+    got = hopper.tile_project(state, consts, large, pidx_c, sol, g, touched,
+                              live, **pkw)
+    assert hopper.tile_project.launches == n0 + 1
+    ref = hopper.tile_project(state, consts, large, pidx_c, sol, g, touched,
+                              live, **pkw, plain=True)
+    assert torch.equal(got[5], ref[5])
+    assert float(got[5].sum()) > 1000, "few touching slots: vacuous"
+    for a, b in zip(got[:5], ref[:5]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    akw = dict(h=h, relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+               rest_threshold=cfg.restitution_threshold,
+               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
+    n0 = hopper.tile_apply.launches
+    got_s = hopper.tile_apply(state, ref[:4], consts, large, pidx_c, sol,
+                              ref[4], g, live, **akw)
+    assert hopper.tile_apply.launches == n0 + 1
+    ref_s = hopper.tile_apply(state, ref[:4], consts, large, pidx_c, sol,
+                              ref[4], g, live, **akw, plain=True)
+    for k in got_s:
+        torch.testing.assert_close(got_s[k], ref_s[k], rtol=0, atol=1e-5)
+
+
+def test_tiled_rollout_is_bitwise_reproducible(tile_layout):
+    from starframe_tpu_torch import tiled
+    from starframe_tpu_torch.scenes import pile
+
+    sc = pile(n_bodies=4093, sleep=False, device="cuda")
+    a, da = tiled.tiled_rollout(sc.world, sc.config, 20)
+    b, db = tiled.tiled_rollout(sc.world, sc.config, 20)
+    for f in ("pos", "angle", "vel", "ang_vel"):
+        assert torch.equal(getattr(a.bodies, f), getattr(b.bodies, f))
+    assert {k: int(v) for k, v in da.items()} == {
+        k: int(v) for k, v in db.items()}

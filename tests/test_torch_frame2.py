@@ -23,13 +23,14 @@ from _torch_parity import build_pile  # noqa: E402
 def _pile(cfg):
     cap = Capacity(max_bodies=128, max_colliders=128, max_pairs=1024,
                    max_joints=0, max_verts=4)
-    w, _ = build_pile(st.WorldBuilder, st.Shape, seed=6).build(cap)
+    w, _ = build_pile(st.WorldBuilder, st.Shape, seed=6).build(
+        cap, device="cpu")
     return st.replicate_world(w, 2), cfg
 
 
 def _batched(cfg):
     sc = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3,
-                                  seed=2)
+                                  seed=2, device="cpu")
     return sc.world, cfg
 
 
@@ -84,7 +85,8 @@ def test_frame_twin_matches_pallas(case):
 
 
 def test_off_slice_configs_raise():
-    sc = st.scenes.batched_worlds(n_worlds=1, n_bodies=256, substeps=2)
+    sc = st.scenes.batched_worlds(n_worlds=1, n_bodies=256, substeps=2,
+                                  device="cpu")
     import dataclasses
 
     for kw, what in ((dict(ccd=True), "CCD"),

@@ -25,12 +25,13 @@ from _torch_parity import build_jointed  # noqa: E402
 
 def _jointed():
     b, cap = build_jointed(st.WorldBuilder, st.Shape)
-    w, _ = b.build(Capacity(**cap))
+    w, _ = b.build(Capacity(**cap), device="cpu")
     return st.replicate_world(w, 2), SolverConfig(substeps=4, slot_capacity=8)
 
 
 def _mechanism():
-    sc = st.scenes.batchify(st.scenes.mechanism(substeps=4), 2)
+    sc = st.scenes.batchify(
+        st.scenes.mechanism(substeps=4, device="cpu"), 2)
     return sc.world, sc.config
 
 

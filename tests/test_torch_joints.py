@@ -26,19 +26,21 @@ from starframe_tpu_torch import io as tio  # noqa: E402
 from starframe_tpu_torch.config import Capacity  # noqa: E402
 from starframe_tpu_torch.native import greedy_color  # noqa: E402
 
-from _torch_parity import build_jointed, jax_to_numpy  # noqa: E402
+from _torch_parity import build, build_jointed, jax_to_numpy  # noqa: E402
 
 
 def _jointed(pkg, cap_cls):
     b, cap = build_jointed(pkg.WorldBuilder, pkg.Shape)
-    return b.build(cap_cls(**cap))[0]
+    return build(b, cap_cls(**cap))[0]
 
 
 SCENES = {
     "mechanism": (lambda: sf.scenes.mechanism(substeps=4).world,
-                  lambda: st.scenes.mechanism(substeps=4).world),
+                  lambda: st.scenes.mechanism(substeps=4,
+                                                  device="cpu").world),
     "rope_bridge": (lambda: sf.scenes.rope_bridge(substeps=4).world,
-                    lambda: st.scenes.rope_bridge(substeps=4).world),
+                    lambda: st.scenes.rope_bridge(substeps=4,
+                                                      device="cpu").world),
     "jointed": (lambda: _jointed(sf, JCapacity),
                 lambda: _jointed(st, Capacity)),
 }
@@ -58,7 +60,7 @@ def test_builder_joint_arrays_match_jax(name):
 @pytest.mark.parametrize("name", ["mechanism", "rope_bridge"])
 def test_tightened_colors_match_jax(name):
     js = getattr(sf.scenes, name)(substeps=4)
-    ts = getattr(st.scenes, name)(substeps=4)
+    ts = getattr(st.scenes, name)(substeps=4, device="cpu")
     assert dataclasses.asdict(js.config) == dataclasses.asdict(ts.config)
     assert ts.config.max_joint_colors == {"mechanism": 2,
                                           "rope_bridge": 3}[name]
@@ -232,7 +234,8 @@ def test_joint_slot_twin_matches_pallas(name):
 def test_joint_slot_overflow_matches_pallas():
     """JC = 2 on the rope bridge: the middle particle, which also holds the
     hanging rope, carries 3 joints."""
-    world = st.replicate_world(st.scenes.rope_bridge(substeps=4).world, 2)
+    world = st.replicate_world(
+        st.scenes.rope_bridge(substeps=4, device="cpu").world, 2)
     cfg = st.SolverConfig(joint_slot_capacity=2)
     got = parallel.frame2_joint_slots(world, cfg)
     ref = _jax_joint_slots(world, 2)

@@ -30,7 +30,7 @@ def start():
     """A batch 12 frames in (bottom rows on the ground), as numpy arrays,
     with its JAX-side template and config."""
     sc = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=2,
-                                  seed=1)
+                                  seed=1, device="cpu")
     w, _, _ = parallel.batched_rollout(sc.world, sc.config, 0, 12,
                                        record=lambda _: None)
     like = sf.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=2)
@@ -46,7 +46,7 @@ def test_rollout_matches_jax(start, K):
     jf, jtraj, jd = sf.parallel.batched_rollout(
         numpy_to_jax(arrays, like), jcfg, 0, N_FRAMES, interpret=True)
     tf, ttraj, td = st.batched_rollout(
-        tio.world_from_numpy(arrays), cfg, 0, N_FRAMES)
+        tio.world_from_numpy(arrays, "cpu"), cfg, 0, N_FRAMES)
 
     assert sorted(jd) == sorted(td)  # one key set on the kernel path
     counters = {k: int(v) for k, v in td.items()}
@@ -69,7 +69,7 @@ def test_rollout_matches_jax(start, K):
 def test_batched_step_matches_one_frame_rollout(start):
     arrays, _, cfg = start
     cfg = dataclasses.replace(cfg, frames_per_broadphase=1)
-    w0 = tio.world_from_numpy(arrays)
+    w0 = tio.world_from_numpy(arrays, "cpu")
     a, diag = st.batched_step(w0, cfg, 0, with_diag=True)
     b, _, d2 = st.make_batched_rollout(cfg, 0, 1, record=lambda _: None)(w0)
     assert torch.equal(a.bodies.pos, b.bodies.pos)

@@ -27,7 +27,7 @@ N_FRAMES = 4
 
 @pytest.mark.parametrize("name", ["mechanism", "rope_bridge"])
 def test_jointed_rollout_matches_jax(name):
-    base = getattr(st.scenes, name)(substeps=4)
+    base = getattr(st.scenes, name)(substeps=4, device="cpu")
     sc = st.scenes.batchify(base, 2, seed=3)
     like = sf.scenes.batchify(getattr(sf.scenes, name)(substeps=4), 2).world
     arrays = tio.world_to_numpy(sc.world)
@@ -35,7 +35,7 @@ def test_jointed_rollout_matches_jax(name):
     jcfg = sf.SolverConfig(**dataclasses.asdict(cfg))
     jf, jtraj, jd = sf.parallel.batched_rollout(
         numpy_to_jax(arrays, like), jcfg, 0, N_FRAMES, interpret=True)
-    tf, ttraj, td = st.batched_rollout(tio.world_from_numpy(arrays), cfg, 0,
+    tf, ttraj, td = st.batched_rollout(tio.world_from_numpy(arrays, "cpu"), cfg, 0,
                                        N_FRAMES)
 
     assert sorted(jd) == sorted(td)
@@ -68,7 +68,8 @@ def test_batched_step_reports_joint_overflow():
     """Two joint slots per body: the rope's middle particle holds three
     joints (two stretch, one pin of the hanging rope), so one joint per
     world goes unsolved and the hard counter says so."""
-    sc = st.scenes.batchify(st.scenes.rope_bridge(substeps=2), 2)
+    sc = st.scenes.batchify(
+        st.scenes.rope_bridge(substeps=2, device="cpu"), 2)
     cfg = dataclasses.replace(sc.config, joint_slot_capacity=2)
     _, diag = st.batched_step(sc.world, cfg, 0, with_diag=True)
     _, _, rdiag = st.batched_rollout(sc.world, cfg, 0, 2)
@@ -80,7 +81,8 @@ def test_batched_step_reports_joint_overflow():
 def test_joint_count_past_the_bound_raises():
     """The kernels keep a world's joints in shared memory: past
     parallel.MAX_JOINTS the batch needs the XLA tier (ROADMAP.md A3)."""
-    sc = st.scenes.batchify(st.scenes.mechanism(substeps=2), 1)
+    sc = st.scenes.batchify(
+        st.scenes.mechanism(substeps=2, device="cpu"), 1)
     extra = parallel.MAX_JOINTS + 1 - sc.world.joints.j
     big = st.expand_capacity(parallel.map_world(lambda x: x[0], sc.world),
                              extra_joints=extra)

@@ -51,7 +51,7 @@ def worlds():
     from _torch_parity import numpy_to_jax
 
     return numpy_to_jax(arrays, j_replicate(jw, 2)), tio.world_from_numpy(
-        arrays)
+        arrays, "cpu")
 
 
 def _np(x):
@@ -122,7 +122,8 @@ def test_cpu_tensors_take_the_twins():
                 hopper.run_frame2)
     for f in counters:
         f.launches = 0
-    sc = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=2)
+    sc = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=2,
+                                  device="cpu")
     w, traj, diag = st.batched_rollout(sc.world, sc.config, 0, 2)
     assert [f.launches for f in counters] == [0, 0, 0]
     assert traj[0].shape == (2, 2, 256, 2)

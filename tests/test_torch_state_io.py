@@ -22,7 +22,12 @@ from starframe_tpu.state import expand_capacity as j_expand  # noqa: E402
 import starframe_tpu_torch as st  # noqa: E402
 from starframe_tpu_torch import io as tio  # noqa: E402
 
-from _torch_parity import build_pile, jax_to_numpy, numpy_to_jax  # noqa: E402
+from _torch_parity import (  # noqa: E402
+    build,
+    build_pile,
+    jax_to_numpy,
+    numpy_to_jax,
+)
 
 
 def _assert_same(a: dict, b: dict):
@@ -39,7 +44,7 @@ def test_builder_reproduces_jax_arrays(layered, sensor):
     jw, _ = build_pile(JBuilder, JShape, seed=4, sensor_idx=sensor,
                        layered=layered).build(cap)
     tw, _ = build_pile(st.WorldBuilder, st.Shape, seed=4, sensor_idx=sensor,
-                       layered=layered).build(cap)
+                       layered=layered).build(cap, device="cpu")
     _assert_same(jax_to_numpy(jw), tio.world_to_numpy(tw))
 
 
@@ -54,7 +59,7 @@ def test_builder_auto_capacity_and_kinds_match():
         b.add_collider(d, shape_cls.circle(0.2), offset=(0.6, 0.0))
         p = b.add_particle(pos=(3.0, 3.0), mass=0.5)
         b.add_collider(p, shape_cls.circle(0.1), mask=0)
-        return b.build(reserve_bodies=2, reserve_colliders=3)
+        return build(b, reserve_bodies=2, reserve_colliders=3)
 
     jw, jcap = describe(JBuilder, JShape)
     tw, tcap = describe(st.WorldBuilder, st.Shape)
@@ -77,7 +82,8 @@ def test_builder_with_joints_raises():
     with pytest.raises(ValueError, match="anchors must not be None"):
         b.pin_joint(a, c, anchor_a=(0.0, 0.0))
     b.distance_joint(a, c, rest=1.0)
-    world, cap = b.build(reserve_joints=st.parallel.MAX_JOINTS)
+    world, cap = b.build(reserve_joints=st.parallel.MAX_JOINTS,
+                         device="cpu")
     assert cap.max_joints == world.joints.j == st.parallel.MAX_JOINTS + 1
     with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
         st.batched_step(st.replicate_world(world, 1), st.SolverConfig(), 0)
@@ -90,7 +96,7 @@ def test_snapshots_cross_between_packages(tmp_path):
     jb = sf.parallel.replicate_world(jw, 3)
     # JAX writes, the port reads
     sf.io.save(str(tmp_path / "j.npz"), jb)
-    tw = tio.load_npz(str(tmp_path / "j.npz"))
+    tw = tio.load_npz(str(tmp_path / "j.npz"), "cpu")
     _assert_same(jax_to_numpy(jb), tio.world_to_numpy(tw))
     assert tw.bodies.pos.shape == (3, 128, 2)
     assert tw.bodies.n == 128 and tw.colliders.m == 128
@@ -101,14 +107,15 @@ def test_snapshots_cross_between_packages(tmp_path):
     # in-memory round trip through both packages
     _assert_same(jax_to_numpy(numpy_to_jax(tio.world_to_numpy(tw), jb)),
                  tio.world_to_numpy(tio.world_from_numpy(
-                     tio.world_to_numpy(tw))))
+                     tio.world_to_numpy(tw), "cpu")))
 
 
 def test_replicate_world_matches_jax():
     cap = Capacity(max_bodies=128, max_colliders=128, max_pairs=1024,
                    max_joints=0, max_verts=4)
     jw, _ = build_pile(JBuilder, JShape, seed=2).build(cap)
-    tw, _ = build_pile(st.WorldBuilder, st.Shape, seed=2).build(cap)
+    tw, _ = build_pile(st.WorldBuilder, st.Shape, seed=2).build(
+        cap, device="cpu")
     tb = st.replicate_world(tw, 4)
     _assert_same(jax_to_numpy(sf.parallel.replicate_world(jw, 4)),
                  tio.world_to_numpy(tb))
@@ -120,7 +127,8 @@ def test_batched_scene_matches_jax_apart_from_noise():
     noise (numpy here, jax.random there) differs, and it stays on dynamic
     bodies at the same scale."""
     js = sf.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3)
-    ts = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3)
+    ts = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3,
+                                device="cpu")
     asdict = dataclasses.asdict
     assert asdict(js.config) == asdict(ts.config)
     assert asdict(js.capacity) == asdict(ts.capacity)
@@ -131,7 +139,8 @@ def test_batched_scene_matches_jax_apart_from_noise():
     dyn = a["bodies/inv_mass"] > 0
     assert np.all(b["bodies/vel"][~dyn] == 0.0)
     assert 0.05 < b["bodies/vel"][dyn].std() < 0.2
-    again = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3)
+    again = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3,
+                                   device="cpu")
     assert torch.equal(again.world.bodies.vel, ts.world.bodies.vel)
 
 

@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's batched rollout, on one GPU.
 
-    python3 tools/profile_torch_rollout.py [--scene batched|mechanism|rope]
-        [--worlds W] [--bodies 256] [--frames 60] [--substeps 10]
-        [--trace PATH]
+    python3 tools/profile_torch_rollout.py
+        [--scene batched|mechanism|rope|pile] [--worlds W] [--bodies N]
+        [--frames F] [--substeps 10] [--trace PATH]
 
-Runs ``starframe_tpu_torch.parallel.batched_rollout`` on one of the paths of
-``chip_smoke.py`` (``batched``: the main path, ``batched_worlds`` at 4096
-worlds x ``--bodies``; ``mechanism``/``rope``: ``batchify`` of the jointed
-scene at 1024 worlds) once to warm up, three times unprofiled for wall
-times, then once under ``torch.profiler``, and prints:
+Runs one of the paths of ``chip_smoke.py`` (``batched``: the main path,
+``parallel.batched_rollout`` over ``batched_worlds`` at 4096 worlds x
+``--bodies`` (256); ``mechanism``/``rope``: ``batchify`` of the jointed
+scene at 1024 worlds; ``pile``: ``tiled.tiled_rollout`` over
+``scenes.pile(--bodies (10000), sleep=False)``, 240 frames) once to warm
+up, three times unprofiled for wall times, then once under
+``torch.profiler``, and prints:
 
 - each device kernel's total time, call count and share of device time
   (the hand-written kernels by name, the small PyTorch ops together);
 - device busy time (the union of kernel, copy and set intervals) against
   the profiled wall, and so the device's idle share;
 - device kernels and host syncs per frame, peak device memory;
-- one ``frame2_step`` (the frame kernel plus its array packing; CUDA
-  events) on the starting batch and on the final one, beside the
-  slot-table entries per world it solves over.
+- for the batched paths, one ``frame2_step`` (the frame kernel plus its
+  array packing; CUDA events) on the starting batch and on the final one,
+  beside the slot-table entries per world it solves over.
 
 Imports the package from the checkout this file lives in. ``--trace``
 keeps the Chrome trace; without it the trace goes to a temporary file.
@@ -39,7 +41,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 KERNELS = (("frame2_kernel", "K4 frame"), ("joint_slot_kernel", "K3 joint slots"),
-           ("slot_kernel", "K2 slot tables"), ("elig_kernel", "K1 eligibility"))
+           ("slot_kernel", "K2 slot tables"), ("elig_kernel", "K1 eligibility"),
+           ("tile_tables_kernel", "K5 tile tables"),
+           ("tile_manifold_kernel", "K6 tile manifolds"),
+           ("tile_project_kernel", "K8 tile project"),
+           ("tile_apply_kernel", "K9 tile apply"))
 
 
 def busy_us(intervals) -> float:
@@ -77,12 +83,14 @@ def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scene", choices=("batched", "mechanism", "rope"),
+    ap.add_argument("--scene", choices=("batched", "mechanism", "rope", "pile"),
                     default="batched")
     ap.add_argument("--worlds", type=int, default=None,
                     help="default 4096 for batched, 1024 for the jointed")
-    ap.add_argument("--bodies", type=int, default=256)
-    ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--bodies", type=int, default=None,
+                    help="default 256 a world for batched, 10000 for pile")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="default 60, 240 for pile (bench.py's pile chunk)")
     ap.add_argument("--substeps", type=int, default=10)
     ap.add_argument("--trace", default=None, help="keep the Chrome trace here")
     args = ap.parse_args()
@@ -93,14 +101,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_rollout: needs a CUDA device", file=sys.stderr)
         return 2
-    from starframe_tpu_torch import hopper, parallel, scenes
+    from starframe_tpu_torch import hopper, parallel, scenes, tiled
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if args.scene == "batched":
+    if args.scene == "pile":
+        args.worlds = 1
+        sc = scenes.pile(n_bodies=args.bodies or 10_000, substeps=args.substeps,
+                         sleep=False, device="cuda")
+    elif args.scene == "batched":
         args.worlds = args.worlds or 4096
-        sc = scenes.batched_worlds(n_worlds=args.worlds, n_bodies=args.bodies,
+        sc = scenes.batched_worlds(n_worlds=args.worlds,
+                                   n_bodies=args.bodies or 256,
                                    substeps=args.substeps, device="cuda")
     else:
         args.worlds = args.worlds or 1024
@@ -108,10 +121,14 @@ def main() -> int:
                 else scenes.rope_bridge)
         sc = scenes.batchify(make(substeps=args.substeps, device="cuda"),
                              args.worlds)
-    cfg, F = sc.config, args.frames
+    cfg = sc.config
+    F = args.frames or (240 if args.scene == "pile" else 60)
     active = int(((sc.world.bodies.flags & 1) != 0).sum())
+    syncing = tiled if args.scene == "pile" else parallel
 
     def rollout():
+        if args.scene == "pile":
+            return tiled.tiled_rollout(sc.world, cfg, F)
         return parallel.batched_rollout(sc.world, cfg, 0, F,
                                         record=lambda _: None)
 
@@ -130,13 +147,13 @@ def main() -> int:
           f"({', '.join(f'{1e3 * w / F:.4f}' for w in walls)} ms/frame)")
 
     torch.cuda.reset_peak_memory_stats()
-    syncs0 = parallel.host_syncs
+    syncs0 = syncing.host_syncs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        final, _, _ = rollout()
+        final = rollout()[0]
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    syncs = parallel.host_syncs - syncs0
+    syncs = syncing.host_syncs - syncs0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -171,6 +188,8 @@ def main() -> int:
           f"{syncs} ({syncs / F:.3f}/frame); peak device memory "
           f"{peak_gib:.3f} GiB")
 
+    if args.scene == "pile":
+        return 0
     for name, w in (("starting batch", sc.world), (f"after {F} frames", final)):
         ms, per_world = frame_step_ms(parallel, hopper, w, cfg)
         print(f"frame2_step on the {name}: {ms:.4f} ms "

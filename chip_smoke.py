@@ -43,16 +43,31 @@
 The tile engine runs through the same steps. Step 3 drives
 ``tiled_rollout`` over ``scenes.pile(n_bodies=10_000, sleep=False)`` (10
 substeps, 16 table and 8 solve slots, tables every 8 frames) for 240
-frames, warmed up and timed the same way, with the hard counters 0, the
-state finite, every body inside the container, the tile kernels' launches
-(tables at least once, manifolds once a frame, project and apply once a
-substep) and the pile's health at frame 240 within bounds taken from the
-JAX package (below). Step 2 holds the four tile kernels against their twins
-on ``pile(1021)`` (4 tiles): integer outputs and ``touched`` equal, the
-rest to 1e-6, with the manifolds also under a
-wake speed and a skipped tile. Step 4 does so again at 10k bodies from the
-pile's final state, times each kernel and its twin, and times the pile
-through the twins.
+frames with ``fuse=False``, warmed up and timed the same way, with the hard
+counters 0, the state finite, every body inside the container, the tile
+kernels' launches (tables at least once, manifolds once a frame, project
+and apply once a substep, the whole-frame kernel never) and the pile's
+health at frame 240 within bounds taken from the JAX package (below); then
+the same 240 frames fused (the whole-frame kernel K10 once a frame, no
+project or apply launch), bitwise equal to the unfused run. Then bench.py's
+``pile`` config: ``scenes.pile(n_bodies=10_000)`` with its default sleep
+and awake-prefix compaction, fused, for 7 chunks of 240 frames, each a
+``tiled_rollout`` continuing from the last, timed each (the best of chunks
+2-7 is bench.py's number), with the hard counters 0 in every chunk, the
+state finite and inside the container, rows compacted in the last three
+chunks, K10 and K6 once per frame that ran (none when nothing is awake), no
+K8/K9 launch, at most one host sync a frame, the asleep share and the
+health at frame ``PILE_SLEEP_HEALTH_FRAME`` within bounds taken from the
+JAX package, and the last chunk rerun bitwise equal from the same state.
+Step 2 holds the tile kernels against their twins on ``pile(1021)`` (4
+tiles): integer outputs and ``touched`` equal, the rest to 1e-6, with the
+manifolds also under a wake speed and a skipped tile, and K10 (2 and 10
+substeps, a skipped tile) bitwise equal to the K8/K9 kernels launched once
+a substep. Step 4 does so again at 10k bodies from the pile's final state,
+and holds K10 against K8/K9 (bitwise) and its twin on the sleeping pile's
+states after chunks 2 and 7 (compacted layouts with live and skipped
+tiles), times each kernel and its twin, and times the pile through the
+twins.
 
 Prints a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
 two parity checks; ``frame2_joints`` is the frame kernel's joint
@@ -98,12 +113,16 @@ TILE_KERNELS = (
      "starframe_tpu/pallas/tiles.py:943"),
     ("tile_apply", "tile_apply", "starframe_tpu_torch/csrc/tile_substep.cu",
      "starframe_tpu/pallas/tiles.py:1004"),
+    ("tile_frame", "tile_frame", "starframe_tpu_torch/csrc/tile_frame.cu",
+     "starframe_tpu/pallas/tiles.py:1220"),
 )
 # What each tile kernel reads of the tile layout, for its bound (the
 # pointers of its Args struct in hopper/_build.py): state fields, consts
 # fields, large-set fields. Of the solve slots, K8 and K9 read the solve
 # masks (sm0, sm1) of every slot and the words of SOLVED_SLOT_WORDS only on
-# a slot whose mask is set; K8 reads ``touched`` on every slot.
+# a slot whose mask is set; K8 reads ``touched`` on every slot. K10 reads
+# the same once a frame: its per-substep rereads hit L2, and its own
+# corrections, ``lam`` and ``touched`` are scratch it writes first.
 _STATE = ("px", "py", "an", "vx", "vy", "om")
 TILE_READS = {
     "tile_tables": (
@@ -117,15 +136,21 @@ TILE_READS = {
     "tile_project": (_STATE, ("invm", "invi", "dynb"), ("px", "py", "an")),
     "tile_apply": (_STATE, ("invm", "invi", "dynb", "kin"),
                    ("px", "py", "an")),
+    "tile_frame": (_STATE, ("invm", "invi", "dynb", "kin"),
+                   ("px", "py", "an")),
 }
 SOLVED_SLOT_WORDS = {
     # pidx_c; pdyn imb iib fric nax nay, 8 anchors, pm0 pm1
     "tile_project": 17,
     # pidx_c; pdyn imb iib fric rest nax nay, 8 anchors; the slot's 2 lam
     "tile_apply": 18,
+    # the union of K8's and K9's input words: pidx_c; pdyn imb iib fric rest
+    # nax nay, 8 anchors, pm0 pm1
+    "tile_frame": 18,
 }
-# the pile: bench.py:266-280 runs it in chunks of 240 frames
-PILE_N, PILE_FRAMES, PILE_TWIN_FRAMES = 10_000, 240, 4
+# the pile: bench.py:266-280 runs it in chunks of 240 frames, the sleeping
+# `pile` config in 7 of them (the first one compiles on the TPU)
+PILE_N, PILE_FRAMES, PILE_TWIN_FRAMES, PILE_CHUNKS = 10_000, 240, 4, 7
 PILE_PARITY_N = 1021  # 4 tiles of 256 colliders with the 3 statics
 
 # The least time the card could take for a kernel's work: the larger of
@@ -181,6 +206,23 @@ PILE_HEALTH_REFERENCE = {
     "min_y": (0.385594, 0.381567, 0.381492),
     "max_speed": (2.43117, 3.22629, 2.40076),
     "mean_speed": (0.158670, 0.188415, 0.177532)}
+
+# Sleeping-pile health (bench.py's `pile` config: pile(n_bodies=10_000),
+# sleep on) at frame PILE_SLEEP_HEALTH_FRAME, the end of the 7th 240-frame
+# chunk, and the share of dynamic bodies asleep there. Reference: the JAX
+# package's XLA tier with the same sleep config, `JAX_PLATFORMS=cpu python3
+# tools/pile_health_bounds.py --sleep --frames 1680 --seeds 0 1 2` (CPU,
+# ~26 minutes a seed), per seed; held as PILE_HEALTH_REFERENCE is. The
+# asleep share must lie within the seeds' range widened by its own width
+# on either side (0.8085-0.897): a sleep that freezes too eagerly or a pile
+# that keeps jittering awake falls outside.
+PILE_SLEEP_HEALTH_FRAME = 1680
+PILE_SLEEP_HEALTH_REFERENCE = {
+    "com_y": (18.03562, 18.02846, 18.07793),
+    "min_y": (0.377700, 0.379307, 0.378075),
+    "max_speed": (1.76000, 0.435943, 1.15827),
+    "mean_speed": (0.005717, 0.002756, 0.003161)}
+PILE_SLEEP_ASLEEP = (0.838, 0.8613, 0.8675)
 
 
 def card_line() -> str:
@@ -717,6 +759,10 @@ def tile_calls(hopper, w, cfg):
     return calls, plain64
 
 
+# the ``touched`` output of the kernels that return one (held equal)
+TOUCHED_OUTPUT = {("tile_project", 5), ("tile_frame", 6)}
+
+
 def agree_tiles(name, k, p, spread=None) -> float:
     """One tile kernel's outputs against its twin's: the integer outputs
     and ``touched`` equal; the float outputs to 1e-6 or, with ``spread``,
@@ -731,7 +777,7 @@ def agree_tiles(name, k, p, spread=None) -> float:
     ps = list(p.values()) if isinstance(p, dict) else list(p)
     errs = []
     for n, (a, b) in enumerate(zip(ks, ps)):
-        if a.dtype != torch.float32 or (name == "tile_project" and n == 5):
+        if a.dtype != torch.float32 or (name, n) in TOUCHED_OUTPUT:
             check(torch.equal(a, b), f"{name}: output {n} differs")
             continue
         e = max_err(a, b)
@@ -780,7 +826,86 @@ def parity_tiles(dev, hopper) -> dict:
           f"skipped: {int(k[4].sum())} rows woke), K8, K9: integer outputs "
           f"and touched equal, max abs err "
           + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    errs["tile_frame"] = 0.0
+    for substeps in (2, sc.config.substeps):
+        cfg = dataclasses.replace(sc.config, substeps=substeps)
+        args, kw = frame_inputs(hopper, tiled, w, cfg, dead_tile=1)
+        errs["tile_frame"] = max(errs["tile_frame"], frame_agree(
+            hopper, args, kw, f"at {PILE_PARITY_N} bodies, {substeps} "
+            "substeps, tile 1 skipped"))
     return errs
+
+
+def frame_inputs(hopper, tiled, w, cfg, dead_tile=None):
+    """``(args, kwargs)`` of ``hopper.tile_frame`` for a frame of ``w`` as
+    ``tiled_rollout`` enters it: the layout (after the compacting re-sort
+    when the pile sleeps), its K-frame tables, the frame's consts (sleepers
+    frozen, ``tile_live``; ``dead_tile`` skipped too) and K6's solve
+    tables."""
+    state, consts, large, body_id, _ = tiled._enter_tiles(w, cfg)
+    g = w.gravity.contiguous()
+    if cfg.sleep_velocity > 0.0 and cfg.tile_awake_compaction:
+        state, consts, _ = tiled._compact_resort(state, consts, body_id, cfg,
+                                                 g, "px")
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    kc = tiled._frame_consts(state, consts, cfg, edges)
+    if dead_tile is not None:
+        kc["tile_live"][dead_tile] = 0.0
+    tables = hopper.build_tile_tables(
+        state, consts, large, *edges, g, C=tiled._table_cap(cfg),
+        margin=cfg.contact_margin, dt=cfg.dt,
+        sweep_frames=cfg.frames_per_broadphase,
+        sweep_slack=cfg.broadphase_speed_slack,
+        sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+    sol, pidx_c = hopper.tile_manifold(
+        state, kc, large, *tables[:2], kc["tile_live"],
+        Cs=tiled._solve_cap(cfg), margin=cfg.contact_margin, dt=cfg.dt,
+        sleep_velocity=cfg.sleep_velocity * cfg.wake_velocity_factor)[:2]
+    kw = dict(substeps=cfg.substeps, h=cfg.dt / cfg.substeps,
+              compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
+              max_dpos=cfg.max_dpos_eff,
+              rest_threshold=cfg.restitution_threshold,
+              lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
+    return (state, kc, large, pidx_c, sol, g, kc["tile_live"]), kw
+
+
+def substep_pair(hopper, args, kw):
+    """The frame through the K8/K9 kernels, launched once a substep:
+    ``(state, touched)``."""
+    from starframe_tpu_torch.hopper.tiles import substep_loop
+
+    return substep_loop(hopper.tile_project, hopper.tile_apply, *args, **kw)
+
+
+def frame_outputs(state, touched) -> list:
+    return [state[k] for k in _STATE] + [touched]
+
+
+def frame_agree(hopper, args, kw, what, spread=False) -> float:
+    """K10 against the K8/K9 kernels launched once a substep (bitwise
+    equal) and against its twin (``agree_tiles``; with ``spread``, a tenth
+    of float32's own spread there). Returns the max abs error against the
+    twin."""
+    import torch
+
+    k = frame_outputs(*hopper.tile_frame(*args, **kw))
+    ref = frame_outputs(*substep_pair(hopper, args, kw))
+    for field, a, b in zip(_STATE + ("touched",), k, ref):
+        check(torch.equal(a, b), f"tile_frame {what}: {field} differs from "
+              f"the K8/K9 kernels")
+    check(float(k[6].sum()) > 0, f"tile_frame {what}: no contacts, vacuous")
+    p = frame_outputs(*hopper.tile_frame(*args, **kw, plain=True))
+    spread_v = None
+    if spread:
+        p64 = frame_outputs(*hopper.tile_frame_plain(*to64(args), **kw))
+        spread_v = [max_err(a, b) for a, b in zip(p, p64)]
+    err = agree_tiles("tile_frame", k, p, spread_v)
+    live = args[6]
+    print(f"parity tile_frame {what}: equal to the K8/K9 kernels in every "
+          f"output ({int(k[6].sum())} touching slots, {int((live > 0).sum())}"
+          f" of {live.numel()} tiles live); against its twin max abs err "
+          f"{err:.3g}")
+    return err
 
 
 def run_pile(dev, hopper, tiled, card) -> dict:
@@ -793,19 +918,23 @@ def run_pile(dev, hopper, tiled, card) -> dict:
     cfg = sc.config
     active = int(((sc.world.bodies.flags & 1) != 0).sum())
     dyn_n = int((sc.world.bodies.inv_mass > 0).sum())
-    tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES)  # warm-up
-    torch.cuda.synchronize()
-    for name, attr, _, _ in TILE_KERNELS:
-        getattr(hopper, attr).launches = 0
-    syncs0 = tiled.host_syncs
-    t0 = time.perf_counter()
-    final, diag = tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {name: getattr(hopper, attr).launches
-                for name, attr, _, _ in TILE_KERNELS}
-    syncs = tiled.host_syncs - syncs0
-    diag = {k: int(v) for k, v in diag.items()}
+    def timed(fuse):
+        tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES, fuse=fuse)  # warm-up
+        torch.cuda.synchronize()
+        for name, attr, _, _ in TILE_KERNELS:
+            getattr(hopper, attr).launches = 0
+        syncs0 = tiled.host_syncs
+        t0 = time.perf_counter()
+        final, diag = tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES,
+                                          fuse=fuse)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: getattr(hopper, attr).launches
+                    for name, attr, _, _ in TILE_KERNELS}
+        return (final, {k: int(v) for k, v in diag.items()}, seconds,
+                launches, tiled.host_syncs - syncs0)
+
+    final, diag, seconds, launches, syncs = timed(False)
 
     b = final.bodies
     dyn = b.inv_mass > 0
@@ -829,10 +958,13 @@ def run_pile(dev, hopper, tiled, card) -> dict:
     for name in ("tile_project", "tile_apply"):
         check(launches[name] == PILE_FRAMES * cfg.substeps,
               f"{name} launched {launches[name]} times")
+    check(launches["tile_frame"] == 0, "fuse=False launched the whole-frame "
+          "kernel")
     ms_frame = 1e3 * seconds / PILE_FRAMES
     health = pile_health(b.pos.cpu().numpy(), b.vel.cpu().numpy(),
                          dyn.cpu().numpy())
-    print(f"pile path: pile({PILE_N}, sleep=False), {dyn_n} dynamic bodies "
+    print(f"pile path: pile({PILE_N}, sleep=False), fuse=False, {dyn_n} "
+          f"dynamic bodies "
           f"+ {active - dyn_n} statics, {cfg.substeps} substeps, C = "
           f"{cfg.slot_capacity}, Cs = {cfg.tile_solve_capacity}, K = "
           f"{cfg.frames_per_broadphase}; {PILE_FRAMES} frames in "
@@ -843,24 +975,144 @@ def run_pile(dev, hopper, tiled, card) -> dict:
           f"{json.dumps(launches)}; host syncs {syncs} "
           f"({syncs / PILE_FRAMES:.3f}/frame); health at frame "
           f"{PILE_FRAMES}: {json.dumps(health)}")
-    check_pile_health(health)
+    check_pile_health(health, PILE_HEALTH_REFERENCE, PILE_FRAMES)
+
+    # the same frames with the substeps in K10: bitwise the same rollout
+    fused, fdiag, fseconds, flaunches, fsyncs = timed(True)
+    check(flaunches["tile_frame"] == PILE_FRAMES
+          and flaunches["tile_manifold"] == PILE_FRAMES,
+          f"fused: K10 launched {flaunches['tile_frame']} times, K6 "
+          f"{flaunches['tile_manifold']}")
+    check(flaunches["tile_project"] == flaunches["tile_apply"] == 0,
+          "fused: the per-substep kernels ran")
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(fused.bodies, field),
+                          getattr(final.bodies, field)),
+              f"pile: fused and unfused rollouts differ in {field}")
+    check(fdiag == diag, "pile: fused and unfused counters differ")
+    fms = 1e3 * fseconds / PILE_FRAMES
+    print(f"pile path fused (K10): {PILE_FRAMES} frames in {fseconds:.4f} s "
+          f"= {fms:.4f} ms/frame, {dyn_n * PILE_FRAMES / fseconds:.6g} "
+          f"body-steps/s (unfused {ms_frame:.4f} ms/frame); launches "
+          f"{json.dumps(flaunches)}; host syncs {fsyncs}; bitwise equal to "
+          f"the unfused rollout (pos, angle, vel, ang_vel, sleep_count, "
+          f"counters), on {card}")
     return dict(final=final, cfg=cfg, sc=sc, launches=launches, ms=ms_frame)
 
 
-def check_pile_health(health) -> None:
-    """The pile's aggregate health at frame 240 within the bounds from the
-    JAX package (PILE_HEALTH_REFERENCE)."""
-    ref = PILE_HEALTH_REFERENCE
+def run_pile_sleep(dev, hopper, tiled, card) -> dict:
+    """bench.py's ``pile`` config: ``pile(10_000)`` (sleep on, awake-prefix
+    compaction, the substeps in K10) for 7 chunks of 240 frames, each a
+    rollout continuing from the last, timed each, and checked; returns the
+    states after chunks 2 and 7 and what the kernels line needs."""
+    import torch
+    from starframe_tpu_torch import scenes
+
+    sc = scenes.pile(n_bodies=PILE_N, device=dev)
+    cfg = sc.config
+    check(cfg.sleep_velocity > 0.0 and cfg.tile_awake_compaction,
+          "pile(): sleep or compaction off")
+    dyn = sc.world.bodies.inv_mass > 0
+    dyn_n = int(dyn.sum())
+    wall = float(sc.world.bodies.pos[2, 0]) - 0.5
+    torch.cuda.synchronize()
+    for name, attr, _, _ in TILE_KERNELS:
+        getattr(hopper, attr).launches = 0
+    syncs0 = tiled.host_syncs
+    w, states, chunks = sc.world, {}, []
+    for c in range(1, PILE_CHUNKS + 1):
+        start = w
+        t0 = time.perf_counter()
+        w, diag = tiled.tiled_rollout(w, cfg, PILE_FRAMES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        diag = {k: int(v) for k, v in diag.items()}
+        b = w.bodies
+        for field in ("pos", "angle", "vel", "ang_vel"):
+            check(bool(torch.isfinite(getattr(b, field)).all()),
+                  f"sleeping pile chunk {c}: non-finite {field}")
+        for key in ("slot_overflow", "solve_overflow", "window_overflow",
+                    "large_overflow"):
+            check(diag[key] == 0, f"sleeping pile chunk {c}: {key} "
+                  f"{diag[key]}")
+        x, y = b.pos[dyn, 0], b.pos[dyn, 1]
+        check(float(x.abs().max()) < wall and float(y.min()) > 0.0,
+              f"sleeping pile chunk {c}: a body left the container")
+        if c > PILE_CHUNKS - 3:
+            check(diag["compacted_rows"] > 0,
+                  f"sleeping pile chunk {c}: nothing compacted")
+        asleep = float(((b.sleep_count >= cfg.sleep_frames) & dyn).sum()
+                       / dyn_n)
+        chunks.append(dict(ms=1e3 * seconds / PILE_FRAMES,
+                           bps=dyn_n * PILE_FRAMES / seconds,
+                           asleep=asleep, diag=diag))
+        print(f"sleeping pile chunk {c} (frames {PILE_FRAMES * (c - 1) + 1}-"
+              f"{PILE_FRAMES * c}): {chunks[-1]['ms']:.4f} ms/frame, "
+              f"{chunks[-1]['bps']:.6g} body-steps/s, asleep share "
+              f"{asleep:.4f}; counters {json.dumps(diag)}")
+        if c * PILE_FRAMES == PILE_SLEEP_HEALTH_FRAME:
+            health = pile_health(b.pos.cpu().numpy(), b.vel.cpu().numpy(),
+                                 dyn.cpu().numpy())
+            print(f"sleeping pile health at frame {c * PILE_FRAMES}: "
+                  f"{json.dumps(health)}, asleep share {asleep:.4f} "
+                  f"(JAX package: {PILE_SLEEP_ASLEEP})")
+            check_pile_health(health, PILE_SLEEP_HEALTH_REFERENCE,
+                              PILE_SLEEP_HEALTH_FRAME)
+            lo, hi = min(PILE_SLEEP_ASLEEP), max(PILE_SLEEP_ASLEEP)
+            lo, hi = lo - (hi - lo), hi + (hi - lo)
+            check(lo <= asleep <= hi, f"sleeping pile: asleep share {asleep} "
+                  f"at frame {c * PILE_FRAMES} outside {lo:.4f}-{hi:.4f}")
+        if c in (2, PILE_CHUNKS):
+            states[c] = w
+    frames = PILE_CHUNKS * PILE_FRAMES
+    launches = {name: getattr(hopper, attr).launches
+                for name, attr, _, _ in TILE_KERNELS}
+    syncs = tiled.host_syncs - syncs0
+    check(launches["tile_project"] == launches["tile_apply"] == 0,
+          "sleeping pile: the per-substep kernels ran")
+    check(0 < launches["tile_frame"] == launches["tile_manifold"] <= frames,
+          f"sleeping pile: K10 launched {launches['tile_frame']} times, K6 "
+          f"{launches['tile_manifold']}, over {frames} frames")
+    check(syncs <= frames, f"sleeping pile: {syncs} host syncs in {frames} "
+          "frames")
+    best = min(ch["ms"] for ch in chunks[1:])
+    print(f"sleeping pile (bench.py's pile config): pile({PILE_N}), sleep "
+          f"velocity {cfg.sleep_velocity}, {cfg.sleep_frames} frames, "
+          f"compaction on, fused; best of chunks 2-{PILE_CHUNKS}: "
+          f"{best:.4f} ms/frame, {dyn_n / best * 1e3:.6g} body-steps/s "
+          f"({dyn_n} dynamic bodies/frame); per chunk ms/frame "
+          + ", ".join(f"{ch['ms']:.4f}" for ch in chunks)
+          + f"; launches over {frames} frames {json.dumps(launches)} (K10 "
+          f"{launches['tile_frame'] / frames:.4f}/frame); host syncs "
+          f"{syncs} ({syncs / frames:.3f}/frame); on {card}")
+
+    # the last chunk again from the same state: bitwise the same
+    again, adiag = tiled.tiled_rollout(start, cfg, PILE_FRAMES)
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(again.bodies, field),
+                          getattr(w.bodies, field)),
+              f"sleeping pile rerun differs in {field}")
+    check({k: int(v) for k, v in adiag.items()} == chunks[-1]["diag"],
+          "sleeping pile rerun counters differ")
+    return dict(states=states, cfg=cfg, launches=launches, ms=best)
+
+
+def check_pile_health(health, ref, frame) -> None:
+    """A pile's aggregate health at ``frame`` within the bounds from the
+    JAX package's ``ref`` (seeds 0, 1, 2): the centre of mass within 0.3 m
+    of seed 0's, the lowest body no more than 0.1 m below the lowest, the
+    fastest and mean speeds within 3x the largest."""
     check(abs(health["com_y"] - ref["com_y"][0]) <= 0.3,
           f"pile health: centre of mass at {health['com_y']}, reference "
           f"{ref['com_y'][0]}")
     check(health["min_y"] >= min(ref["min_y"]) - 0.1,
           f"pile health: lowest body at {health['min_y']}")
     for key in ("max_speed", "mean_speed"):
-        check(health[key] <= 3 * max(ref[key]),
-              f"pile health: {key} {health[key]} past 3x {max(ref[key])}")
-    print(f"pile health within bounds of the JAX package's (XLA tier, seeds "
-          f"0, 1, 2): {json.dumps(ref)}")
+        limit = 3 * max(ref[key])
+        check(health[key] <= limit,
+              f"pile health: {key} {health[key]} past {limit}")
+    print(f"pile health at frame {frame} within bounds of the JAX package's "
+          f"(XLA tier, seeds 0, 1, 2): {json.dumps(ref)}")
 
 
 def pile_turns(hopper, pile, errs, bounds, card) -> dict:
@@ -887,6 +1139,68 @@ def pile_turns(hopper, pile, errs, bounds, card) -> dict:
               f"{err:.3g}" + (f" (float32 spread "
                               f"{', '.join(f'{x:.3g}' for x in spread)})"
                               if spread else "") + f", on {card}")
+    return times
+
+
+def frame_turns(hopper, tiled, sleep, errs, bounds, card) -> tuple:
+    """K10 at 10k bodies on the sleeping pile's states after chunks 2 and
+    7 (compacted layouts, live and skipped tiles): against the K8/K9
+    kernels (bitwise) and its twin (a tenth of float32's spread), and on
+    chunk 7's state its bound and time, beside the K8/K9 pair launched once
+    a substep on the same inputs. Returns ``(kernel ms, twin ms)``."""
+    from starframe_tpu_torch.hopper.tiles import SOL
+
+    cfg = sleep["cfg"]
+    for c, w in sorted(sleep["states"].items()):
+        args, kw = frame_inputs(hopper, tiled, w, cfg)
+        errs["tile_frame"] = max(errs["tile_frame"], frame_agree(
+            hopper, args, kw, f"at {PILE_N} bodies, the sleeping pile after "
+            f"chunk {c}", spread=True))
+    state, kc, large, pidx_c, sol, g, live = args
+    on = live > 0  # a skipped tile reads none of its solve tables
+    sm = sol[on][:, [SOL["sm0"], SOL["sm1"]]]
+    solved = int((sm != 0).any(dim=1).sum())
+    n = kw["substeps"]
+
+    def reads(name, *more):
+        sk, ck, lk = TILE_READS[name]
+        return ([state[k] for k in sk], [kc[k] for k in ck],
+                [large[k] for k in lk], more)
+
+    k = hopper.tile_frame(*args, **kw)
+    bounds["tile_frame"] = bound(
+        reads("tile_frame", sm, g, live), k,
+        n * solved * (PROJECT_FLOPS + VELOCITY_FLOPS),
+        4 * SOLVED_SLOT_WORDS["tile_frame"] * solved)
+    # one substep of K8 and K9 on the same inputs, for their bounds
+    import torch
+
+    proj = hopper.tile_project(state, kc, large, pidx_c, sol, g,
+                               torch.zeros(pidx_c.shape, device=g.device),
+                               live, h=kw["h"], compliance=kw["compliance"])
+    new = hopper.tile_apply(
+        state, proj[:4], kc, large, pidx_c, sol, proj[4], g, live,
+        **{k: v for k, v in kw.items() if k not in ("substeps",
+                                                   "compliance")})
+    pair_bound = n * (
+        bound(reads("tile_project", sm, g, proj[5], live), proj,
+              solved * PROJECT_FLOPS,
+              4 * SOLVED_SLOT_WORDS["tile_project"] * solved)[0]
+        + bound(reads("tile_apply", sm, proj[:4], g, live), new,
+                solved * VELOCITY_FLOPS,
+                4 * SOLVED_SLOT_WORDS["tile_apply"] * solved)[0])
+    del k, proj, new
+    p1 = cuda_ms(lambda: substep_pair(hopper, args, kw), 5)
+    times = turns(lambda p: hopper.tile_frame(*args, **kw, plain=p))
+    p2 = cuda_ms(lambda: substep_pair(hopper, args, kw), 5)
+    print(f"time tile_frame at {PILE_N} bodies (the sleeping pile after "
+          f"chunk {PILE_CHUNKS}, {int(on.sum())} of {on.numel()} tiles live, "
+          f"{solved} solved slots, {n} substeps): kernel {times[0]:.4f} ms, "
+          f"plain twin {times[1]:.4f} ms, the K8/K9 kernels once a substep "
+          f"{(p1 + p2) / 2:.4f} ms; bound {bounds['tile_frame'][0]:.4f} ms "
+          f"({bounds['tile_frame'][1]}; the frame's read set once), the "
+          f"K8/K9 bounds over {n} substeps {pair_bound:.4f} ms; max abs err "
+          f"against the twin {errs['tile_frame']:.3g}, on {card}")
     return times
 
 
@@ -973,6 +1287,8 @@ def main() -> int:
     launches.update(jointed["mechanism"]["launches"])
     pile = run_pile(dev, hopper, tiled, card)
     launches.update(pile["launches"])
+    sleep = run_pile_sleep(dev, hopper, tiled, card)
+    launches["tile_frame"] = sleep["launches"]["tile_frame"]
 
     # ---- 4. kernel vs twin, and their times, at the main path's shapes ---
     body, col = parallel._frame2_arrays(final, cfg)
@@ -1029,8 +1345,11 @@ def main() -> int:
     times.update(jointed_turns(hopper, parallel, jointed, errs, bounds,
                                card))
 
-    # the tile kernels at the pile's full size, from its final state
+    # the tile kernels at the pile's full size, from its final state; K10
+    # on the sleeping pile's states
     times.update(pile_turns(hopper, pile, errs, bounds, card))
+    times["tile_frame"] = frame_turns(hopper, tiled, sleep, errs, bounds,
+                                      card)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tiled.tiled_rollout(pile["sc"].world, pile["cfg"], PILE_TWIN_FRAMES,
@@ -1062,7 +1381,8 @@ def main() -> int:
               == {k: int(v) for k, v in dy.items()},
               f"{run} rerun counters differ")
     print("determinism: 10-frame reruns of the main path, the mechanism "
-          "batch and the pile bitwise equal")
+          "batch and the pile bitwise equal (and the sleeping pile's last "
+          "chunk, above)")
 
     # no single PyTorch call computes any of these kernels: library_ms null
     print(json.dumps({"kernels": [

@@ -299,6 +299,21 @@ struct TileApplyArgs {
   int use_lin_damp, use_ang_damp;
 };
 
+// The whole frame's substeps (tile_frame.cu). `project` and `apply` hold
+// the first substep's arguments: their state pointers are the frame's
+// input, `project`'s corrections, lam and touched (touched_in == touched,
+// zeroed by the caller) are the frame's scratch, which `apply` reads. Later
+// substeps swap in the ping-pong buffers: substep s reads the input (s = 0),
+// else `st_b` (s odd) or `st_a` (s even), and writes `st_b` (s even) or
+// `st_a` (s odd). Each buffer is px, py, an, vx, vy, om, [Nt, T] each.
+struct TileFrameArgs {
+  TileProjectArgs project;
+  TileApplyArgs apply;
+  float* st_a[6];
+  float* st_b[6];
+  int substeps;
+};
+
 // Candidate j of tile t: the flat row of a window candidate (j < 3T), or
 // -1 - l for large-set slot l.
 static __device__ __forceinline__ int tile_candidate(int t, int Nt, int j) {

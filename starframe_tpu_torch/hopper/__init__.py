@@ -15,6 +15,8 @@ from .tiles import (
     run_tiled_frame,
     tile_apply,
     tile_apply_plain,
+    tile_frame,
+    tile_frame_plain,
     tile_manifold,
     tile_manifold_plain,
     tile_project,
@@ -26,5 +28,6 @@ __all__ = ["build_elig_mask", "build_joint_slots", "build_slot_tables",
            "build_tile_tables", "elig_mask_plain", "frame2_plain",
            "joint_slots_plain", "owner_csr", "run_frame2", "run_tiled_frame",
            "slot_tables_plain", "tile_apply", "tile_apply_plain",
-           "tile_manifold", "tile_manifold_plain", "tile_project",
-           "tile_project_plain", "tile_tables_plain"]
+           "tile_frame", "tile_frame_plain", "tile_manifold",
+           "tile_manifold_plain", "tile_project", "tile_project_plain",
+           "tile_tables_plain"]

@@ -173,12 +173,19 @@ class TileApplyArgs(ctypes.Structure):
     ]
 
 
+class TileFrameArgs(ctypes.Structure):
+    _fields_ = [("project", TileProjectArgs), ("apply", TileApplyArgs),
+                ("st_a", ctypes.c_void_p * 6), ("st_b", ctypes.c_void_p * 6),
+                ("substeps", ctypes.c_int)]
+
+
 _ENTRY_POINTS = {"sf_elig": EligArgs, "sf_slots": SlotArgs,
                  "sf_joint_slots": JointSlotArgs, "sf_frame2": Frame2Args,
                  "sf_tile_tables": TileTablesArgs,
                  "sf_tile_manifold": TileManifoldArgs,
                  "sf_tile_project": TileProjectArgs,
-                 "sf_tile_apply": TileApplyArgs}
+                 "sf_tile_apply": TileApplyArgs,
+                 "sf_tile_frame": TileFrameArgs}
 
 
 def _sources():

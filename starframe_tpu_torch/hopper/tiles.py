@@ -1,13 +1,15 @@
 """Sorted-sweep tile engine for one big world: the tile tables, the frame
-manifolds and the per-substep project/apply pair.
+manifolds, the per-substep project/apply pair and the whole-frame kernel.
 
 Replaces ``starframe_tpu/pallas/tiles.py``'s ``_tables_kernel`` (via
 :func:`build_tile_tables`), ``_manifold_kernel`` (:func:`tile_manifold`),
-``_project_kernel`` (:func:`tile_project`) and ``_apply_kernel``
-(:func:`tile_apply`) with the CUDA kernels of ``csrc/tile_tables.cu``,
-``csrc/tile_manifold.cu`` and ``csrc/tile_substep.cu``;
-:func:`run_tiled_frame` composes them into one frame (the JAX function's
-``fuse=False`` semantics: one project and one apply launch per substep).
+``_project_kernel`` (:func:`tile_project`), ``_apply_kernel``
+(:func:`tile_apply`) and ``_mega_kernel`` (:func:`tile_frame`) with the
+CUDA kernels of ``csrc/tile_tables.cu``, ``csrc/tile_manifold.cu``,
+``csrc/tile_substep.cu`` and ``csrc/tile_frame.cu``;
+:func:`run_tiled_frame` composes them into one frame (``fuse=True``: the
+substeps in one K10 launch; ``fuse=False``: one project and one apply
+launch per substep).
 Each wrapper checks its inputs, launches its kernel for CUDA tensors (and
 raises if that fails: there is no fallback) and runs its plain PyTorch twin
 for CPU tensors; ``plain=True`` runs the twin on CUDA tensors too, for
@@ -27,6 +29,8 @@ substep kernels read consecutive addresses.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from types import SimpleNamespace
 
 import torch
@@ -779,6 +783,106 @@ tile_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K10: the whole frame's substeps
+# ---------------------------------------------------------------------------
+
+
+def substep_loop(project, apply, state, consts, large, pidx_c, sol,
+                 gravity, tile_live, *, substeps: int, h: float,
+                 compliance: float, **apply_kw):
+    """``substeps`` x (``project``, then ``apply``) over all tiles, as
+    :func:`tile_project` and :func:`tile_apply` (or their twins) take
+    their arguments. Returns ``(new_state, touched)``."""
+    touched = torch.zeros(pidx_c.shape, dtype=f32, device=pidx_c.device)
+    for _ in range(substeps):
+        *corr, lam, touched = project(state, consts, large, pidx_c, sol,
+                                      gravity, touched, tile_live, h=h,
+                                      compliance=compliance)
+        state = apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
+                      tile_live, h=h, **apply_kw)
+    return state, touched
+
+
+def tile_frame_plain(state, consts, large, pidx_c, sol, gravity, tile_live,
+                     **kw):
+    """Plain PyTorch twin of :func:`tile_frame`: the K8/K9 twins, looped
+    over the substeps."""
+    return substep_loop(tile_project_plain, tile_apply_plain, state, consts,
+                        large, pidx_c, sol, gravity, tile_live, **kw)
+
+
+def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
+               substeps: int, h: float, compliance: float, relaxation: float,
+               max_dpos: float, rest_threshold: float, lin_damp: float,
+               ang_damp: float, ccd: bool = False, plain: bool = False):
+    """Every substep of a frame in one launch: ``substeps`` x
+    (:func:`tile_project` over all tiles, then :func:`tile_apply` over all
+    tiles), bitwise equal to that pair launched once a substep. Returns
+    ``(new_state, touched [Nt, Cs, T])``, ``touched`` max-accumulated over
+    the substeps. The corrections, ``lam`` and the two state buffers the
+    substeps ping-pong between are allocated here, once a frame."""
+    if ccd:
+        raise NotImplementedError(
+            "CCD on the tile engine (K7 _ccd_kernel and K10's CCD phase) is "
+            "not ported yet (ROADMAP.md A4.4)")
+    if substeps < 1:
+        raise ValueError(f"a frame needs at least one substep, got "
+                         f"{substeps}")
+    dev = pidx_c.device
+    Nt = _check_tiles(state, consts, {}, ("invm", "invi", "dynb", "kin"),
+                      dev)
+    Cs = pidx_c.shape[1]
+    for name, t, dtype, shape in (
+            ("large px", large["px"], f32, (L,)),
+            ("large py", large["py"], f32, (L,)),
+            ("large an", large["an"], f32, (L,)),
+            ("pidx_c", pidx_c, i32, (Nt, Cs, T)),
+            ("sol", sol, f32, (Nt, SOL_FIELDS, Cs, T)),
+            ("gravity", gravity, f32, (2,)),
+            ("tile_live", tile_live, f32, (Nt,))):
+        _check(name, t, dtype, shape, dev)
+    kw = dict(substeps=substeps, h=h, compliance=compliance,
+              relaxation=relaxation, max_dpos=max_dpos,
+              rest_threshold=rest_threshold, lin_damp=lin_damp,
+              ang_damp=ang_damp)
+    if plain or not _route(dev):
+        return tile_frame_plain(state, consts, large, pidx_c, sol, gravity,
+                                tile_live, **kw)
+    corr = torch.empty((4, Nt, T), dtype=f32, device=dev)
+    lam = torch.empty((Nt, 2, Cs, T), dtype=f32, device=dev)
+    touched = torch.zeros((Nt, Cs, T), dtype=f32, device=dev)
+    bufs = torch.empty((2, len(STATE_KEYS), Nt, T), dtype=f32, device=dev)
+    p = _build.ptr
+    s, c = state, consts
+    st_in = [p(s[k]) for k in STATE_KEYS]
+    large_pose = [p(large[k]) for k in ("px", "py", "an")]
+    project = _build.TileProjectArgs(
+        *st_in, p(c["invm"]), p(c["invi"]), p(c["dynb"]), *large_pose,
+        p(pidx_c), p(sol), p(gravity), p(touched), p(tile_live),
+        *(p(x) for x in corr), p(lam), p(touched),
+        Nt, Cs, h, compliance / (h * h))
+    apply = _build.TileApplyArgs(
+        *st_in, *(p(x) for x in corr), p(c["invm"]), p(c["invi"]),
+        p(c["dynb"]), p(c["kin"]), *large_pose, p(pidx_c), p(sol), p(lam),
+        p(gravity), p(tile_live), *(p(x) for x in bufs[1]),
+        Nt, Cs, h, relaxation, max_dpos, rest_threshold,
+        1.0 / (1.0 + h * lin_damp), 1.0 / (1.0 + h * ang_damp),
+        int(lin_damp > 0.0), int(ang_damp > 0.0))
+    six = ctypes.c_void_p * len(STATE_KEYS)
+    args = _build.TileFrameArgs(
+        project, apply, six(*(p(x) for x in bufs[0])),
+        six(*(p(x) for x in bufs[1])), substeps)
+    _build.launch("sf_tile_frame", args, dev)
+    tile_frame.launches += 1
+    # substep s writes the second buffer when s is even, the first when odd
+    out = bufs[1] if substeps % 2 else bufs[0]
+    return dict(zip(STATE_KEYS, out)), touched
+
+
+tile_frame.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # one frame
 # ---------------------------------------------------------------------------
 
@@ -788,10 +892,13 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
                     margin: float, compliance: float, relaxation: float,
                     max_dpos: float, rest_threshold: float, lin_damp: float,
                     ang_damp: float, sleep_velocity: float = 0.0,
-                    sort_axis: int = 0, plain: bool = False):
+                    sort_axis: int = 0, fuse: bool = True,
+                    plain: bool = False):
     """One frame on the sorted-tile layout: slot tables (built here with
     one-frame sweeps unless ``tables = (pidx, act)`` reuses a K-frame
-    build), the manifold kernel, then ``substeps`` x (project, apply).
+    build), the manifold kernel, then the substeps: with ``fuse`` (the
+    default) all of them in one :func:`tile_frame` launch, else ``substeps``
+    x (project, apply) launches, K10's bitwise reference.
 
     ``consts`` carries the per-row constants, ``edge_lo``/``edge_hi``
     ``[Nt]`` and ``tile_live`` ``[Nt]``. Returns ``(new_state, touched
@@ -800,7 +907,6 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
     T], npts [Nt, T], src [Nt, Cs, T], nact [Nt, 2, T])``; the counts and
     ``winover`` are None when ``tables`` is given (the caller keeps them
     from its build)."""
-    dev = state["px"].device
     if tables is None:
         (pidx, act, count, count_touch, count_close, winover,
          _sweep) = build_tile_tables(
@@ -814,15 +920,16 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
     sol, pidx_c, src, nact, wake, pen, npts = tile_manifold(
         state, consts, large, pidx, act, tile_live, Cs=Cs, margin=margin,
         dt=dt, sleep_velocity=sleep_velocity, plain=plain)
-    touched = torch.zeros(pidx_c.shape, dtype=f32, device=dev)
-    for _ in range(substeps):
-        *corr, lam, touched = tile_project(
-            state, consts, large, pidx_c, sol, gravity, touched, tile_live,
-            h=h, compliance=compliance, plain=plain)
-        state = tile_apply(
-            state, corr, consts, large, pidx_c, sol, lam, gravity, tile_live,
-            h=h, relaxation=relaxation, max_dpos=max_dpos,
-            rest_threshold=rest_threshold, lin_damp=lin_damp,
-            ang_damp=ang_damp, plain=plain)
+    kw = dict(substeps=substeps, h=h, compliance=compliance,
+              relaxation=relaxation, max_dpos=max_dpos,
+              rest_threshold=rest_threshold, lin_damp=lin_damp,
+              ang_damp=ang_damp)
+    args = (state, consts, large, pidx_c, sol, gravity, tile_live)
+    if fuse:
+        state, touched = tile_frame(*args, **kw, plain=plain)
+    else:
+        state, touched = substep_loop(
+            functools.partial(tile_project, plain=plain),
+            functools.partial(tile_apply, plain=plain), *args, **kw)
     return (state, touched, (count, count_touch, count_close), winover, wake,
             pen, pidx, pidx_c, act, npts, src, nact)

@@ -19,9 +19,11 @@ def pile(n_bodies: int = 10_000, body_half: float = 0.5,
          container_half_width: float = None, sleep: bool = True,
          device="cuda") -> Scene:
     """Boxes, hexagons and circles packed in a grid above a floor between
-    two walls, falling into a pile several bodies deep. ``sleep=False``
-    keeps every body live (``sleep_velocity = 0``); the tile engine runs
-    only that all-awake pile yet (ROADMAP.md A4)."""
+    two walls, falling into a pile several bodies deep. Sleep is on by
+    default (``sleep_velocity = 0.1``, ``sleep_frames = 30``: settled bodies
+    freeze, and the tile engine's rollouts compact them into skipped
+    tiles); ``sleep=False`` keeps every body live (``sleep_velocity =
+    0``)."""
     rng = np.random.default_rng(seed)
     b = WorldBuilder(gravity=(0.0, -9.81))
 

@@ -1,20 +1,35 @@
 """The sorted-sweep tile engine's glue for one big world: the sort into tile
-layout, the large set, the per-frame kernels and the sort back.
+layout, the large set, the per-frame kernels, sleep and the sort back.
 
-The PyTorch counterpart of ``starframe_tpu/tiled.py`` for the all-awake,
-one-collider-per-body world (the 10k-body pile with ``sleep=False``,
-BASELINE.json:2), on one device. Rows are colliders sorted along
-``cfg.tile_sort_axis`` and cut into tiles of ``T`` rows; every contact
-partner is either in the row's 3-tile sort window or in the large set of
-static colliders (``hopper/tiles.py``).
+The PyTorch counterpart of ``starframe_tpu/tiled.py`` for the
+one-collider-per-body world without joints (the 10k-body pile,
+BASELINE.json:2, asleep or awake), on one device. Rows are colliders
+sorted along ``cfg.tile_sort_axis`` and cut into tiles of ``T`` rows;
+every contact partner is either in the row's 3-tile sort window or in the
+large set of static colliders (``hopper/tiles.py``).
 
 - :func:`tiled_step`: one frame, sorted in and out (the World-API shape).
 - :func:`tiled_rollout`: N frames kept in tile layout, re-sorted every
   ``cfg.frames_per_broadphase`` frames while rows drift, or earlier when
   the window-completeness guard (from actual per-tile extents, so a stale
   sort is safe) fires; the slot tables are rebuilt early when a row leaves
-  its sweep budget. The guard's three verdicts are read in one host sync
-  per frame, counted in :data:`host_syncs`.
+  its sweep budget. The guard's verdicts, and with sleep on whether
+  anything is awake and whether the layout is partitioned, are read in
+  one host sync per frame, counted in :data:`host_syncs`.
+
+Sleep (``cfg.sleep_velocity > 0``) is the JAX package's: a body whose
+speed stays under ``sleep_velocity`` for ``sleep_frames`` frames is frozen
+(its inverse masses are zeroed for the frame, so awake partners solve
+against it as static) and wakes when a fast dynamic partner comes inside
+its margin. A tile whose 3-tile window holds no awake body skips its
+kernel work (``tile_live``); a frame with nothing awake launches nothing.
+With ``cfg.tile_awake_compaction`` the rollout's re-sorts partition the
+layout: awake bodies and every row they can reach first, in sort order,
+then the sleepers nothing awake can reach, which fill trailing tiles whose
+windows sleep. The kernels always run over the full grid of tiles and let
+``tile_live`` skip the sleeping tail: the JAX package's precompiled
+awake-prefix grid sizes (``_bucket_sizes``) are a TPU compile answer and
+are not kept (ROADMAP.md C).
 
 What the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item (:func:`use_tiled`).
@@ -42,8 +57,9 @@ i32 = torch.int32
 
 _BIG = 1e30
 
-# host round trips of the rollouts (one per frame with K > 1: the staleness
-# guard's verdicts decide on the host whether to re-sort or rebuild)
+# host round trips of the rollouts (one per frame with K > 1 or sleep on:
+# the guard's verdicts and whether anything is awake decide on the host
+# whether to re-sort, rebuild or run the frame)
 host_syncs = 0
 
 
@@ -51,20 +67,20 @@ def _require_slice(world: World, cfg: SolverConfig, with_events=False,
                    shard_axis=None) -> None:
     """Raise on what the port's tile engine does not run yet."""
     todo = [
-        (world.joints.j > 0, "joints on the tile engine (_tile_joint_pass)"),
+        (world.joints.j > 0, "joints on the tile engine (_tile_joint_pass)",
+         "A4.5"),
         (world.colliders.m != world.bodies.n,
-         "compound bodies on the tile engine (owner reductions)"),
-        (cfg.ccd, "CCD on the tile engine (K7 _ccd_kernel)"),
-        (cfg.sleep_velocity > 0.0,
-         "sleep on the tile engine (wake, tile skips, awake-prefix "
-         "compaction)"),
-        (with_events, "contact events on the tile engine (in-kernel keys)"),
-        (shard_axis is not None, "the sharded tile axis"),
+         "compound bodies on the tile engine (owner reductions)", "A4.6"),
+        (cfg.ccd, "CCD on the tile engine (K7 _ccd_kernel)", "A4.4"),
+        (with_events, "contact events on the tile engine (in-kernel keys)",
+         "A4.3"),
+        (shard_axis is not None, "the sharded tile axis",
+         "A4, with the multi-device work of A5"),
     ]
-    for hit, what in todo:
+    for hit, what, item in todo:
         if hit:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md A4)")
+                f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 def use_tiled(world: World, cfg: SolverConfig, with_events: bool = False,
@@ -230,6 +246,110 @@ def _apply_perm(state, consts, body_id, perm):
     return state, new_consts, body_id[perm]
 
 
+def _asleep(consts: dict, cfg: SolverConfig):
+    """Rows asleep: the counter has run out on a dynamic body."""
+    return (consts["sleep"] >= cfg.sleep_frames) & (consts["invm"] > 0)
+
+
+def _keep_boxes(state: dict, consts: dict, cfg: SolverConfig, gravity):
+    """Per-row swept boxes and flags for the keep set, ``[Mp]`` each, in any
+    row order (no window reads). Returns ``((lox, hix, loy, hiy), mova,
+    awake)``: ``mova`` the moving active rows, ``awake`` those not asleep.
+
+    The boxes inflate like :func:`build_tile_tables`'s (the margin pad plus
+    the K-frame speed sweep with the same slack, floor and cap) without its
+    layer and sensor filters: a superset, so every pair a later table build
+    or the positional guard's horizon can admit is covered by an overlap of
+    these boxes."""
+    Mp = state["px"].numel()
+    px, py, an, vx, vy = (state[k].reshape(Mp)
+                          for k in ("px", "py", "an", "vx", "vy"))
+    V = consts["vlx"].shape[1]
+    vlx = consts["vlx"].transpose(1, 2).reshape(Mp, V)
+    vly = consts["vly"].transpose(1, 2).reshape(Mp, V)
+    rad = consts["rad"].reshape(Mp)
+    mova = (consts["mov"].reshape(Mp) > 0) & (consts["act"].reshape(Mp) > 0)
+    ca = torch.cos(an)[:, None]
+    sa = torch.sin(an)[:, None]
+    wx = px[:, None] + ca * vlx - sa * vly
+    wy = py[:, None] + sa * vlx + ca * vly
+    ext = torch.sqrt(vlx * vlx + vly * vly).amax(1) + rad
+    pad = rad + 0.5 * cfg.contact_margin
+    K = max(cfg.frames_per_broadphase, 1)
+    if K > 1:
+        gmag = torch.sqrt(torch.sum(gravity * gravity))
+        spd = torch.sqrt(vx * vx + vy * vy)
+        sw = torch.minimum(
+            (spd + gmag * cfg.dt + cfg.broadphase_speed_slack) * (K * cfg.dt)
+            + cfg.tile_sweep_floor * ext, cfg.tile_sweep_cap * ext) * mova
+    else:
+        sw = torch.maximum(torch.abs(vx), torch.abs(vy)) * cfg.dt * mova
+    grow = pad + sw
+    boxes = (wx.amin(1) - grow, wx.amax(1) + grow, wy.amin(1) - grow,
+             wy.amax(1) + grow)
+    return boxes, mova, mova & ~_asleep(consts, cfg).reshape(Mp)
+
+
+def _keep_hop(boxes, flag, n_tiles: int):
+    """One neighbourhood hop on a layout sorted along the sort axis: the
+    rows whose box overlaps a flagged box in their 3-tile window (a dense
+    ``[Nt, 3T, T]`` test, exhaustive on a sorted layout)."""
+    lox, hix, loy, hiy = (b.reshape(n_tiles, T) for b in boxes)
+    start = win_start(n_tiles, lox.device)
+
+    def win(a):  # [Nt, T] -> [Nt, 3T]
+        return torch.cat([a[start], a[start + 1], a[start + 2]], dim=1)
+
+    fl = win(flag.reshape(n_tiles, T))[:, :, None]
+    ov = ((win(lox)[:, :, None] <= hix[:, None, :])
+          & (lox[:, None, :] <= win(hix)[:, :, None])
+          & (win(loy)[:, :, None] <= hiy[:, None, :])
+          & (loy[:, None, :] <= win(hiy)[:, :, None]))
+    return (ov & fl).any(dim=1).reshape(n_tiles * T)
+
+
+def _partition_perm(key_x, boxes_x, mova_x, awake_x, n_tiles: int):
+    """The keep set and the partition permutation, computed in sorted row
+    order (``*_x``). ``kept`` holds the awake rows, every moving row whose
+    box an awake row's box overlaps (the contacts and wake signals awake
+    bodies can cause within the guard's horizon) and two more hops (a woken
+    sleeper at the edge finds its own partners already in the prefix).
+    Returns ``(perm_p [Mp] into sorted order, kept_x [Mp] bool)``: moving
+    kept rows, moving rows not kept, statics, then inactive rows and
+    padding, each class in sorted order (the sort is stable).
+
+    The JAX package widens the keep set to whole compound bodies and along
+    joints; worlds with either raise at :func:`_require_slice` (ROADMAP.md
+    A4.5, A4.6)."""
+    kept = awake_x
+    for _ in range(3):
+        kept = kept | (mova_x & _keep_hop(boxes_x, kept, n_tiles))
+    kept = torch.where(mova_x, kept, True)
+    pclass = torch.where(mova_x, torch.where(kept, 0.0, 1.0),
+                         torch.where(key_x >= 2 * _BIG, 3.0, 2.0))
+    return torch.argsort(pclass, stable=True), kept
+
+
+def _compact_resort(state: dict, consts: dict, body_id, cfg: SolverConfig,
+                    gravity, axis_key: str):
+    """The compacting re-sort: one composed permutation (the sort along the
+    sort axis, then the stable keep partition) and the new ``kept`` flags.
+    The keep set is computed on the sorted layout, where the 3-tile window
+    test is exhaustive."""
+    Nt = state["px"].shape[0]
+    key = _sort_key(consts["act"].reshape(-1), consts["mov"].reshape(-1),
+                    state[axis_key].reshape(-1))
+    perm_x = torch.argsort(key, stable=True)
+    boxes, mova, awake = _keep_boxes(state, consts, cfg, gravity)
+    perm_p, kept_x = _partition_perm(
+        key[perm_x], tuple(b[perm_x] for b in boxes), mova[perm_x],
+        awake[perm_x], Nt)
+    state, consts, body_id = _apply_perm(state, consts, body_id,
+                                         perm_x[perm_p])
+    consts["kept"] = kept_x[perm_p].to(f32).reshape(Nt, T)
+    return state, consts, body_id
+
+
 def _edge_rows(state: dict, consts: dict, cfg: SolverConfig):
     """Window-completeness bounds from ACTUAL per-tile extents, valid for
     any (possibly stale) order. Returns ``(edge_lo, edge_hi)`` ``[Nt]`` for
@@ -256,30 +376,68 @@ def _edge_rows(state: dict, consts: dict, cfg: SolverConfig):
     return edge_lo.contiguous(), edge_hi.contiguous(), stale
 
 
-def _run_frame(state, consts, large, cfg: SolverConfig, gravity,
-               tables=None, edges=None, plain: bool = False):
-    """One frame on tile-layout state. Returns ``(state', frame)``, with
-    ``frame`` the rest of :func:`run_tiled_frame`'s outputs; ``tables =
-    (pidx, act)`` reuses a K-frame build, None builds one-frame tables.
-    Every tile is live (no body sleeps)."""
-    if edges is None:
-        edge_lo, edge_hi, _ = _edge_rows(state, consts, cfg)
-    else:
-        edge_lo, edge_hi = edges
+def _frame_consts(state, consts, cfg: SolverConfig, edges) -> dict:
+    """The consts a frame's kernels read: ``consts`` with the window
+    edges and ``tile_live``, and with sleep on, the sleepers frozen for the
+    frame (inverse masses zeroed, so awake partners solve against them as
+    static) and ``tile_live`` 0 for a tile whose clamped 3-tile window holds
+    no awake moving row (it skips its kernel work)."""
     Nt = state["px"].shape[0]
-    kc = dict(consts, edge_lo=edge_lo, edge_hi=edge_hi,
-              tile_live=torch.ones((Nt,), dtype=f32,
-                                   device=state["px"].device))
+    dev = state["px"].device
+    kc = dict(consts, edge_lo=edges[0], edge_hi=edges[1])
+    if cfg.sleep_velocity > 0.0:
+        asleep = _asleep(consts, cfg)
+        awake_f = 1.0 - asleep.to(f32)
+        kc.update(invm=consts["invm"] * awake_f,
+                  invi=consts["invi"] * awake_f,
+                  dynb=consts["dynb"] * awake_f)
+        awake_t = ((consts["mov"] > 0) & (consts["act"] > 0)
+                   & ~asleep).any(dim=1)
+        start = win_start(Nt, dev)
+        kc["tile_live"] = (awake_t[start] | awake_t[start + 1]
+                           | awake_t[start + 2]).to(f32)
+    else:
+        kc["tile_live"] = torch.ones((Nt,), dtype=f32, device=dev)
+    return kc
+
+
+def _run_frame(state, consts, large, cfg: SolverConfig, gravity,
+               tables=None, edges=None, fuse: bool = True,
+               plain: bool = False):
+    """One frame on tile-layout state. Returns ``(state', consts', frame)``,
+    with ``frame`` the rest of :func:`run_tiled_frame`'s outputs; ``tables =
+    (pidx, act)`` reuses a K-frame build, None builds one-frame tables.
+
+    The kernels read :func:`_frame_consts`. With sleep on, after the frame
+    each row's sleep counter counts up while it is slow (at the raw
+    ``sleep_velocity``; the kernels take the wake threshold,
+    ``sleep_velocity * wake_velocity_factor``) and resets when it is fast
+    or K6 saw a fast dynamic partner (``wake``); rows asleep after that have
+    their velocities zeroed (``consts'`` carries the new counters)."""
+    if edges is None:
+        edges = _edge_rows(state, consts, cfg)[:2]
     new_state, *frame = run_tiled_frame(
-        state, kc, large, gravity, tables, C=_table_cap(cfg),
-        Cs=_solve_cap(cfg), substeps=cfg.substeps, h=cfg.dt / cfg.substeps,
-        dt=cfg.dt, margin=cfg.contact_margin,
+        state, _frame_consts(state, consts, cfg, edges), large, gravity,
+        tables, C=_table_cap(cfg), Cs=_solve_cap(cfg), substeps=cfg.substeps,
+        h=cfg.dt / cfg.substeps, dt=cfg.dt, margin=cfg.contact_margin,
         compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
         max_dpos=cfg.max_dpos_eff, rest_threshold=cfg.restitution_threshold,
         lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
         sleep_velocity=cfg.sleep_velocity * cfg.wake_velocity_factor,
-        sort_axis=0 if cfg.tile_sort_axis == "x" else 1, plain=plain)
-    return new_state, frame
+        sort_axis=0 if cfg.tile_sort_axis == "x" else 1, fuse=fuse,
+        plain=plain)
+    if cfg.sleep_velocity > 0.0:
+        vx, vy, om = new_state["vx"], new_state["vy"], new_state["om"]
+        slow = (vx * vx + vy * vy + om * om) < cfg.sleep_velocity ** 2
+        sleep = torch.where(slow, consts["sleep"] + 1, 0)
+        wake = frame[3]
+        sleep = torch.where(wake > 0, 0, sleep)
+        consts = dict(consts, sleep=sleep)
+        asleep = _asleep(consts, cfg)
+        new_state = dict(new_state, **{
+            k: torch.where(asleep, 0.0, new_state[k])
+            for k in ("vx", "vy", "om")})
+    return new_state, consts, frame
 
 
 def _solve_counts(nact, Csol: int):
@@ -336,14 +494,20 @@ def touch_keys(touched, pidx, body_id, large_cols, n_colliders: int):
     return torch.where(touched > 0, keys, -1)
 
 
-def tiled_step(world: World, cfg: SolverConfig, plain: bool = False):
+def tiled_step(world: World, cfg: SolverConfig, fuse: bool = True,
+               plain: bool = False):
     """One frame via the tile engine. Returns ``(new_world, diag)``. Sorts
-    in and out every call: rollouts should use :func:`tiled_rollout`."""
+    in and out every call: rollouts should use :func:`tiled_rollout`. With
+    sleep on, the frame freezes sleepers and updates the sleep counters, on
+    the unpartitioned layout (no awake-prefix compaction, as in the JAX
+    package). ``fuse=False`` runs the substeps as per-substep project/apply
+    launches instead of the whole-frame kernel."""
     _require_slice(world, cfg)
     g = world.gravity.to(f32).contiguous()
     state, consts, large, body_id, large_ovf = _enter_tiles(world, cfg)
     prev = {k: state[k] for k in ("px", "py", "an")}
-    new_state, frame = _run_frame(state, consts, large, cfg, g, plain=plain)
+    new_state, consts, frame = _run_frame(state, consts, large, cfg, g,
+                                          fuse=fuse, plain=plain)
     (touched, (count, count_touch, count_close), winover, _wake, pen, pidx,
      pidx_c, act, npts, src, nact) = frame
     C = _table_cap(cfg)
@@ -371,11 +535,11 @@ def tiled_step(world: World, cfg: SolverConfig, plain: bool = False):
 
 
 def _rollout_core(state, consts, large, body_id, gravity, *,
-                  cfg: SolverConfig, n_frames: int, plain: bool):
+                  cfg: SolverConfig, n_frames: int, fuse: bool, plain: bool):
     """The tile-layout rollout: the initial table build, then per frame
     the staleness guard, a re-sort + build, a table rebuild or neither,
-    and the frame. Returns ``(state, consts, body_id, prev_last,
-    counters)``."""
+    and the frame, which a world with nothing awake skips. Returns
+    ``(state, consts, body_id, prev_last, counters)``."""
     global host_syncs
     g = gravity
     K = max(cfg.frames_per_broadphase, 1)
@@ -383,6 +547,9 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
     Csol = _solve_cap(cfg)
     gmag = torch.sqrt(torch.sum(g * g))
     ak = "px" if cfg.tile_sort_axis == "x" else "py"
+    sleep_on = cfg.sleep_velocity > 0.0
+    # awake-prefix compaction: the re-sorts partition the layout
+    compact_on = sleep_on and cfg.tile_awake_compaction
 
     def build(state, consts, edges):
         """K-frame slot tables + the positional-guard budget."""
@@ -396,10 +563,18 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
             sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap,
             plain=plain)
         pos0 = {"px": state["px"], "py": state["py"]}
+        if sleep_on:
+            # sleepers are frozen, so they need no settle-jitter floor; a
+            # woken body on this tight budget escapes its guard within a
+            # frame or two, forcing the re-sort that brings it into the
+            # awake prefix before it can push deep into untabled neighbours
+            sweep = torch.where(_asleep(consts, cfg), 0.1 * consts["ext"],
+                                sweep)
         counts = torch.stack([
             torch.clamp(count_touch - Cs, min=0).sum(dtype=i32),
             torch.clamp(count_close - Cs, min=0).sum(dtype=i32),
             torch.clamp(count - Cs, min=0).sum(dtype=i32),
+            # the completeness counter covers the live partition only
             (winover * (consts["kept"] > 0)).sum(dtype=i32)])
         return (pidx, act), pos0, sweep, counts
 
@@ -413,6 +588,10 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
     prev = None
     for _ in range(n_frames):
         el, eh, stale = _edge_rows(state, consts, cfg)
+        # the frame's verdicts, read in one host sync: the guard's (with
+        # K > 1), and with sleep on whether any moving row is awake and
+        # (compaction) whether the layout is partitioned or wants to be
+        verdicts = [stale]
         if K > 1:
             # positional staleness guard: a live row whose displacement
             # since the build plus its coming frame motion escapes its sweep
@@ -425,25 +604,51 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
                       + gmag * cfg.dt) * cfg.dt
             livb = (consts["mov"] > 0) & (consts["act"] > 0)
             used = disp + motion
-            esc_t = torch.any((used > sweep + 1e-5) & livb)
-            drift_t = torch.any((used > 0.5 * sweep) & livb)
-            stale, esc, drift = torch.stack([stale, esc_t, drift_t]).tolist()
+            verdicts += [torch.any((used > sweep + 1e-5) & livb),
+                         torch.any((used > 0.5 * sweep) & livb)]
+        if sleep_on:
+            mova = (consts["mov"] > 0) & (consts["act"] > 0)
+            asleep = _asleep(consts, cfg)
+            verdicts.append(torch.any(mova & ~asleep))
+            if compact_on:
+                partitioned_t = torch.any(mova & (consts["kept"] == 0))
+                # an unpartitioned layout with a sleeping mass compacts at
+                # the next scheduled slot even without drift
+                verdicts += [partitioned_t,
+                             torch.any(asleep & mova) & ~partitioned_t]
+        if K > 1 or sleep_on:
+            read = torch.stack(verdicts).tolist()
             host_syncs += 1
         else:
-            esc, drift = False, True
-            stale = True  # K = 1 re-sorts every frame: no need to read it
-        do_sort = (age == 0 and drift) or stale
+            read = [True]  # K = 1 re-sorts every frame: nothing to read
+        stale = read.pop(0)
+        esc, drift = (read.pop(0), read.pop(0)) if K > 1 else (False, True)
+        awake = read.pop(0) if sleep_on else True
+        partitioned, want_part = read if compact_on else (False, False)
+        # a world with nothing awake keeps a valid sort: no scheduled
+        # re-sort (the guard still forces one); while partitioned, a budget
+        # escape forces a full re-sort, since the partitioned windows hide
+        # tail sleepers the escapee may now reach
+        do_sort = ((age == 0 and awake and (drift or want_part)) or stale
+                   or (esc and partitioned))
         if do_sort:
-            state, consts, body_id = _resort(state, consts, body_id, ak)
+            if compact_on:
+                state, consts, body_id = _compact_resort(
+                    state, consts, body_id, cfg, g, ak)
+            else:
+                state, consts, body_id = _resort(state, consts, body_id, ak)
+                consts["kept"] = torch.ones_like(consts["kept"])
             el, eh, _ = _edge_rows(state, consts, cfg)
         if do_sort or esc:
             tables, pos0, sweep, counts = build(state, consts, (el, eh))
             build_max = torch.maximum(build_max, counts)
         prev = {k: state[k] for k in ("px", "py", "an")}
-        state, frame = _run_frame(state, consts, large, cfg, g,
-                                  tables=tables, edges=(el, eh), plain=plain)
-        frame_max = torch.maximum(frame_max, torch.stack(
-            _solve_counts(frame[-1], Csol)))
+        if awake:  # a world with nothing awake launches nothing
+            state, consts, frame = _run_frame(
+                state, consts, large, cfg, g, tables=tables, edges=(el, eh),
+                fuse=fuse, plain=plain)
+            frame_max = torch.maximum(frame_max, torch.stack(
+                _solve_counts(frame[-1], Csol)))
         resorts += int(do_sort and age != 0)
         rebuilds += int(esc and not do_sort)
         age = (1 if do_sort else age + 1) % K
@@ -457,27 +662,33 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
         joint_shard_overflow=zero,
         forced_resorts=torch.tensor(resorts, dtype=i32, device=g.device),
         forced_rebuilds=torch.tensor(rebuilds, dtype=i32, device=g.device),
-        compacted_rows=zero)
+        # moving rows in the sleeping tail of the final layout (0: the
+        # layout is not partitioned)
+        compacted_rows=((consts["mov"] > 0) & (consts["act"] > 0)
+                        & (consts["kept"] == 0)).sum(dtype=i32))
     return state, consts, body_id, prev, counters
 
 
 def tiled_rollout(world: World, cfg: SolverConfig, n_frames: int,
-                  plain: bool = False):
+                  fuse: bool = True, plain: bool = False):
     """N frames with the state kept in tile layout (one sort in, one sort
     out). Returns ``(final_world, diag)`` with the JAX package's scalar
     counters: ``slot_overflow`` (HARD: touching candidates truncated at a
     table build), ``solve_overflow`` (HARD: an imminent manifold compacted
     out of the solve slots), ``solve_dropped``, ``margin_dropped``,
     ``spec_dropped`` (soft: candidates deferred to a later build or frame),
-    ``window_overflow`` (rows whose margin box escaped the window's
-    coverage), ``forced_resorts``, ``forced_rebuilds``,
-    ``large_overflow``; ``joint_shard_overflow`` and ``compacted_rows`` are
-    0 on this slice. ``plain=True`` runs the kernels' twins."""
+    ``window_overflow`` (rows of the live partition whose margin box escaped
+    the window's coverage), ``forced_resorts``, ``forced_rebuilds``,
+    ``compacted_rows`` (moving rows in the final layout's sleeping tail),
+    ``large_overflow``; ``joint_shard_overflow`` is 0 on this slice.
+    ``fuse=False`` runs the substeps as per-substep project/apply launches
+    instead of the whole-frame kernel; ``plain=True`` runs the kernels'
+    twins."""
     _require_slice(world, cfg)
     g = world.gravity.to(f32).contiguous()
     state, consts, large, body_id, large_ovf = _enter_tiles(world, cfg)
     state, consts, body_id, prev, counters = _rollout_core(
         state, consts, large, body_id, g, cfg=cfg, n_frames=n_frames,
-        plain=plain)
+        fuse=fuse, plain=plain)
     final = _exit_tiles(world, state, consts, prev, body_id, n_frames)
     return final, dict(counters, large_overflow=large_ovf)

@@ -144,3 +144,63 @@ def build_tiled(builder_cls, shape_cls, n=1024, seed=5):
             b.add_collider(body, shape_cls.hexagon(0.42), friction=0.5)
     return b, dict(max_bodies=n, max_colliders=n, max_pairs=8 * n,
                    max_joints=0, max_verts=6)
+
+
+STATE_KEYS = ("px", "py", "an", "vx", "vy", "om")
+
+
+def jax_tile_manifold(state, kc, large, pidx, act, tile_live, *, Cs, V,
+                      margin, dt, sleep_velocity):
+    """``starframe_tpu/pallas/tiles.py``'s manifold kernel as
+    ``run_tiled_frame`` calls it, in interpret mode, on a JAX tile layout
+    (``[Nt, 1, T]`` rows, ``tile_live [Nt, 1, T]``). Returns its outputs
+    ``(cc, c2, pidx_c, src, nact, wake, pen, npts)``."""
+    import functools
+
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from starframe_tpu.pallas import tiles as jpt
+
+    Nt, C, T = pidx.shape[0], pidx.shape[1], jpt.T
+
+    def wrows(x):
+        return [x, x, x]
+
+    args = (sum([wrows(state[k]) for k in STATE_KEYS], [])
+            + wrows(kc["vlx"]) + wrows(kc["vly"])
+            + sum([wrows(kc[k]) for k in ("rad", "nv", "fric", "rst", "sen",
+                                          "invm", "invi")], [])
+            + [kc["sen"]]
+            + [large[k] for k in ("px", "py", "an", "vlx", "vly", "rad",
+                                  "nv", "fric", "rst", "sen")]
+            + [pidx, act, tile_live])
+    kernel = functools.partial(
+        jpt._manifold_kernel, C=C, Cs=Cs, V=V, margin=margin, dt=dt,
+        n_tiles=Nt, sleep_velocity=sleep_velocity)
+    f32, i32 = jnp.float32, jnp.int32
+    return pl.pallas_call(
+        kernel, grid=(Nt,), in_specs=jpt._manifold_specs(Nt, C, V),
+        out_specs=(jpt._own3(Cs * jpt.KC), jpt._own3(Cs * jpt.K2),
+                   jpt._own3(Cs), jpt._own3(Cs), jpt._own3(2),
+                   jpt._own_spec(), jpt._own_spec(), jpt._own_spec()),
+        out_shape=(jax.ShapeDtypeStruct((Nt, Cs * jpt.KC, T), f32),
+                   jax.ShapeDtypeStruct((Nt, Cs * jpt.K2, T), f32),
+                   jax.ShapeDtypeStruct((Nt, Cs, T), i32),
+                   jax.ShapeDtypeStruct((Nt, Cs, T), i32),
+                   jax.ShapeDtypeStruct((Nt, 2, T), i32),
+                   jax.ShapeDtypeStruct((Nt, 1, T), f32),
+                   jax.ShapeDtypeStruct((Nt, 1, T), f32),
+                   jax.ShapeDtypeStruct((Nt, 1, T), f32)),
+        interpret=True)(*args)
+
+
+def sol_from_jax(cc, c2, Cs):
+    """The port's solve tables ``[Nt, SOL_FIELDS, Cs, T]`` of the JAX
+    manifold kernel's ``cc [Nt, KC * Cs, T]`` and ``c2 [Nt, K2 * Cs, T]``
+    (``cc``'s first plane, the partner index, is ``pidx_c``)."""
+    from starframe_tpu.pallas import tiles as jpt
+
+    cc, c2 = np.asarray(cc), np.asarray(c2)
+    return np.stack([cc[:, k * Cs:(k + 1) * Cs] for k in range(1, jpt.KC)]
+                    + [c2[:, q * Cs:(q + 1) * Cs] for q in range(jpt.K2)], 1)

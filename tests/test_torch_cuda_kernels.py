@@ -309,3 +309,79 @@ def test_tiled_rollout_is_bitwise_reproducible(tile_layout):
         assert torch.equal(getattr(a.bodies, f), getattr(b.bodies, f))
     assert {k: int(v) for k, v in da.items()} == {
         k: int(v) for k, v in db.items()}
+
+
+# ---- K10, the whole frame's substeps -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def frame_inputs():
+    """``pile(n_bodies=1021, sleep=False)`` (4 tiles) 30 frames in, in tile
+    layout: its K-frame tables' manifolds (16 table and 8 solve slots) with
+    tile 1 skipped, and the frame's arguments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from starframe_tpu_torch import tiled
+    from starframe_tpu_torch.scenes import pile
+
+    sc = pile(n_bodies=1021, sleep=False, device="cuda")
+    cfg = sc.config
+    w, _ = tiled.tiled_rollout(sc.world, cfg, 30)
+    state, consts, large, _, _ = tiled._enter_tiles(w, cfg)
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    g = w.gravity.contiguous()
+    tables = hopper.build_tile_tables(
+        state, consts, large, *edges, g, C=16, margin=cfg.contact_margin,
+        dt=cfg.dt, sweep_frames=8, sweep_floor=cfg.tile_sweep_floor,
+        sweep_cap=cfg.tile_sweep_cap)
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    live[1] = 0.0
+    sol, pidx_c = hopper.tile_manifold(state, consts, large, *tables[:2],
+                                       live, Cs=8, margin=cfg.contact_margin,
+                                       dt=cfg.dt)[:2]
+    kw = dict(h=cfg.dt / cfg.substeps, compliance=cfg.contact_compliance,
+              relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+              rest_threshold=cfg.restitution_threshold,
+              lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
+    return (state, consts, large, pidx_c, sol, g, live), kw
+
+
+@pytest.mark.parametrize("substeps", [2, 10])
+def test_tile_frame_kernel_equals_the_substep_pair(frame_inputs, substeps):
+    """K10 against K8/K9 launched once a substep: bitwise equal, the
+    skipped tile's state passed through."""
+    args, kw = frame_inputs
+    state, consts, large, pidx_c, sol, g, live = args
+    n0 = hopper.tile_frame.launches
+    got, touched = hopper.tile_frame(*args, substeps=substeps, **kw)
+    assert hopper.tile_frame.launches == n0 + 1
+    pk = dict(h=kw["h"], compliance=kw["compliance"])
+    ak = {k: v for k, v in kw.items() if k != "compliance"}
+    ref, ref_t = state, torch.zeros_like(touched)
+    for _ in range(substeps):
+        *corr, lam, ref_t = hopper.tile_project(
+            ref, consts, large, pidx_c, sol, g, ref_t, live, **pk)
+        ref = hopper.tile_apply(ref, corr, consts, large, pidx_c, sol, lam,
+                                g, live, **ak)
+    assert torch.equal(touched, ref_t)
+    assert float(touched.sum()) > 500, "few touching slots: vacuous"
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k][1], state[k][1]), k
+
+
+def test_tile_frame_kernel_matches_twin(frame_inputs):
+    """K10 against its twin (the K8/K9 twins looped): ``touched`` equal,
+    the state to 1e-6."""
+    args, kw = frame_inputs
+    got, touched = hopper.tile_frame(*args, substeps=10, **kw)
+    ref, ref_t = hopper.tile_frame(*args, substeps=10, **kw, plain=True)
+    assert torch.equal(touched, ref_t)
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-6)
+
+
+def test_tile_frame_refuses_ccd(frame_inputs):
+    args, kw = frame_inputs
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4.4"):
+        hopper.tile_frame(*args, substeps=2, ccd=True, **kw)

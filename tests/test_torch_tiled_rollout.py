@@ -126,7 +126,6 @@ def _tiled_world(joint=False, compound=False):
 
 
 GATES = {
-    "sleep": (lambda: _tiled_world(), dict(sleep_velocity=0.1), {}),
     "joints": (lambda: _tiled_world(joint=True), {}, {}),
     "compound": (lambda: _tiled_world(compound=True), {}, {}),
     "ccd": (lambda: _tiled_world(), dict(ccd=True), {}),

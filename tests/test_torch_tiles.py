@@ -47,8 +47,10 @@ from starframe_tpu_torch.hopper import tiles as ht  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     build_tiled,
+    jax_tile_manifold,
     jax_to_numpy,
     numpy_to_jax,
+    sol_from_jax,
 )
 
 CFG = dict(substeps=4, iterations=1, manifold_refresh="frame",
@@ -186,40 +188,9 @@ def test_tile_tables_twin_matches_jax(layouts, K):
 def _jax_manifold(state, kc, large, pidx, act, tile_live, sleep_velocity):
     """``pallas/tiles.py``'s manifold kernel as ``run_tiled_frame`` calls
     it (C = 16, Cs = 8, interpret mode)."""
-    from jax.experimental import pallas as pl
-
-    Nt = state["px"].shape[0]
-    C, Cs, T = 16, 8, jpt.T
-
-    def wrows(x):
-        return [x, x, x]
-
-    args = (sum([wrows(state[k]) for k in STATE], [])
-            + wrows(kc["vlx"]) + wrows(kc["vly"])
-            + sum([wrows(kc[k]) for k in ("rad", "nv", "fric", "rst", "sen",
-                                          "invm", "invi")], [])
-            + [kc["sen"]]
-            + [large[k] for k in ("px", "py", "an", "vlx", "vly", "rad",
-                                  "nv", "fric", "rst", "sen")]
-            + [pidx, act, tile_live])
-    kernel = functools.partial(
-        jpt._manifold_kernel, C=C, Cs=Cs, V=6, margin=0.05, dt=1 / 60,
-        n_tiles=Nt, sleep_velocity=sleep_velocity)
-    f32, i32 = jnp.float32, jnp.int32
-    return pl.pallas_call(
-        kernel, grid=(Nt,), in_specs=jpt._manifold_specs(Nt, C, 6),
-        out_specs=(jpt._own3(Cs * jpt.KC), jpt._own3(Cs * jpt.K2),
-                   jpt._own3(Cs), jpt._own3(Cs), jpt._own3(2),
-                   jpt._own_spec(), jpt._own_spec(), jpt._own_spec()),
-        out_shape=(jax.ShapeDtypeStruct((Nt, Cs * jpt.KC, T), f32),
-                   jax.ShapeDtypeStruct((Nt, Cs * jpt.K2, T), f32),
-                   jax.ShapeDtypeStruct((Nt, Cs, T), i32),
-                   jax.ShapeDtypeStruct((Nt, Cs, T), i32),
-                   jax.ShapeDtypeStruct((Nt, 2, T), i32),
-                   jax.ShapeDtypeStruct((Nt, 1, T), f32),
-                   jax.ShapeDtypeStruct((Nt, 1, T), f32),
-                   jax.ShapeDtypeStruct((Nt, 1, T), f32)),
-        interpret=True)(*args)
+    return jax_tile_manifold(state, kc, large, pidx, act, tile_live, Cs=8,
+                             V=6, margin=0.05, dt=1 / 60,
+                             sleep_velocity=sleep_velocity)
 
 
 @pytest.mark.parametrize("case", ["awake", "waking_dead_tile"])
@@ -240,9 +211,7 @@ def test_tile_manifold_twin_matches_jax(layouts, case):
         t["state"], t["consts"], t["large"], _t(jtab[0]), _t(jtab[1]),
         torch.as_tensor(live), Cs=8, margin=0.05, dt=1 / 60,
         sleep_velocity=sv)
-    cc, c2 = _n(jout[0]), _n(jout[1])  # [Nt, KC * Cs, T], [Nt, K2 * Cs, T]
-    jsol = np.stack([cc[:, k * 8:(k + 1) * 8] for k in range(1, jpt.KC)]
-                    + [c2[:, q * 8:(q + 1) * 8] for q in range(jpt.K2)], 1)
+    jsol = sol_from_jax(jout[0], jout[1], 8)
     np.testing.assert_array_equal(_n(jout[2]), _n(pidx_c))
     np.testing.assert_array_equal(_n(jout[3]), _n(src))
     np.testing.assert_array_equal(_n(jout[4]), _n(nact))

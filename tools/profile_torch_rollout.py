@@ -2,16 +2,18 @@
 """Where the time goes in the PyTorch port's batched rollout, on one GPU.
 
     python3 tools/profile_torch_rollout.py
-        [--scene batched|mechanism|rope|pile] [--worlds W] [--bodies N]
-        [--frames F] [--substeps 10] [--trace PATH]
+        [--scene batched|mechanism|rope|pile|pile_sleep] [--worlds W]
+        [--bodies N] [--frames F] [--substeps 10] [--trace PATH]
 
 Runs one of the paths of ``chip_smoke.py`` (``batched``: the main path,
 ``parallel.batched_rollout`` over ``batched_worlds`` at 4096 worlds x
 ``--bodies`` (256); ``mechanism``/``rope``: ``batchify`` of the jointed
 scene at 1024 worlds; ``pile``: ``tiled.tiled_rollout`` over
-``scenes.pile(--bodies (10000), sleep=False)``, 240 frames) once to warm
-up, three times unprofiled for wall times, then once under
-``torch.profiler``, and prints:
+``scenes.pile(--bodies (10000), sleep=False)``, 240 frames; ``pile_sleep``:
+bench.py's ``pile`` config, ``scenes.pile(--bodies)`` with its default
+sleep, 240 frames from the state after SETTLE_FRAMES (960) frames, where
+~85% of the bodies sleep) once to warm up, three times unprofiled for wall
+times, then once under ``torch.profiler``, and prints:
 
 - each device kernel's total time, call count and share of device time
   (the hand-written kernels by name, the small PyTorch ops together);
@@ -40,12 +42,14 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SETTLE_FRAMES = 960  # pile_sleep: frames run before the measured ones
 KERNELS = (("frame2_kernel", "K4 frame"), ("joint_slot_kernel", "K3 joint slots"),
            ("slot_kernel", "K2 slot tables"), ("elig_kernel", "K1 eligibility"),
            ("tile_tables_kernel", "K5 tile tables"),
            ("tile_manifold_kernel", "K6 tile manifolds"),
            ("tile_project_kernel", "K8 tile project"),
-           ("tile_apply_kernel", "K9 tile apply"))
+           ("tile_apply_kernel", "K9 tile apply"),
+           ("tile_frame_kernel", "K10 tile frame"))
 
 
 def busy_us(intervals) -> float:
@@ -83,7 +87,8 @@ def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scene", choices=("batched", "mechanism", "rope", "pile"),
+    ap.add_argument("--scene", choices=("batched", "mechanism", "rope", "pile",
+                                        "pile_sleep"),
                     default="batched")
     ap.add_argument("--worlds", type=int, default=None,
                     help="default 4096 for batched, 1024 for the jointed")
@@ -106,10 +111,11 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if args.scene == "pile":
+    piles = ("pile", "pile_sleep")
+    if args.scene in piles:
         args.worlds = 1
         sc = scenes.pile(n_bodies=args.bodies or 10_000, substeps=args.substeps,
-                         sleep=False, device="cuda")
+                         sleep=args.scene == "pile_sleep", device="cuda")
     elif args.scene == "batched":
         args.worlds = args.worlds or 4096
         sc = scenes.batched_worlds(n_worlds=args.worlds,
@@ -122,13 +128,20 @@ def main() -> int:
         sc = scenes.batchify(make(substeps=args.substeps, device="cuda"),
                              args.worlds)
     cfg = sc.config
-    F = args.frames or (240 if args.scene == "pile" else 60)
+    F = args.frames or (240 if args.scene in piles else 60)
     active = int(((sc.world.bodies.flags & 1) != 0).sum())
-    syncing = tiled if args.scene == "pile" else parallel
+    syncing = tiled if args.scene in piles else parallel
+    start = sc.world
+    if args.scene == "pile_sleep":
+        start, _ = tiled.tiled_rollout(start, cfg, SETTLE_FRAMES)
+        dyn = start.bodies.inv_mass > 0
+        asleep = ((start.bodies.sleep_count >= cfg.sleep_frames) & dyn).sum()
+        print(f"after {SETTLE_FRAMES} settling frames: "
+              f"{float(asleep / dyn.sum()):.4f} of the dynamic bodies asleep")
 
     def rollout():
-        if args.scene == "pile":
-            return tiled.tiled_rollout(sc.world, cfg, F)
+        if args.scene in piles:
+            return tiled.tiled_rollout(start, cfg, F)
         return parallel.batched_rollout(sc.world, cfg, 0, F,
                                         record=lambda _: None)
 
@@ -188,7 +201,7 @@ def main() -> int:
           f"{syncs} ({syncs / F:.3f}/frame); peak device memory "
           f"{peak_gib:.3f} GiB")
 
-    if args.scene == "pile":
+    if args.scene in piles:
         return 0
     for name, w in (("starting batch", sc.world), (f"after {F} frames", final)):
         ms, per_world = frame_step_ms(parallel, hopper, w, cfg)

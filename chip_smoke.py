@@ -69,7 +69,30 @@ states after chunks 2 and 7 (compacted layouts with live and skipped
 tiles), times each kernel and its twin, and times the pile through the
 twins.
 
-Prints a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
+Events and compound bodies (bench.py's ``pile_events`` and
+``pile_compound``) run through the same steps. Step 2 holds K6 with event
+keys against its twin on ``pile(1021)`` (compacted, not, and with a
+skipped tile: keys equal, the rest as without keys), and on the compound
+scene of tests/test_tiled_compound.py (515 two-collider bodies, 5 tiles,
+built with the port's builder, 30 frames in) K5 (equal, no active slot
+pairing two rows of one body), K9's compound form (state and raw velocity
+sums to 1e-6) and the owner kernels (bitwise). Step 3 runs 240 fused
+frames of ``pile(10_000, sleep=False)`` with events in turns with the same
+rollout without (bitwise the same state and counters, every key -1 or a
+pair a < b < M, K10 and the keyed K6 once a frame, a rerun bitwise equal),
+then ``pile_compound(10_000)`` for 7 chunks of 240 frames (hard counters
+0, ``owner_overflow`` included, the state finite and inside the
+container, K10 never, K8, K9's compound form and both owner kernels once a
+substep of every frame that ran, K6 once a frame that ran, at most one
+host sync a frame, health at frame 240 within bounds taken from the JAX
+package, the asleep share at frame 1680), and the last chunk again through
+the tile layout directly: every sibling row's state and sleep counter
+equal to its block's first, and the chunk bitwise the same. Step 4 times
+K6 with keys on the awake pile's final state and K9's compound form and
+the owner kernels on the compound pile's, against their twins, with their
+bounds, and the compound pile through its twins.
+
+Prints the run's wall time, a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
 two parity checks; ``frame2_joints`` is the frame kernel's joint
 instantiation, timed on the mechanism batch; ``bound_ms``: the least time
 for each call's bytes or operations, see ``bound``), then the card line,
@@ -223,6 +246,45 @@ PILE_SLEEP_HEALTH_REFERENCE = {
     "max_speed": (1.76000, 0.435943, 1.15827),
     "mean_speed": (0.005717, 0.002756, 0.003161)}
 PILE_SLEEP_ASLEEP = (0.838, 0.8613, 0.8675)
+
+# The events and compound paths' kernels: name, wrapper, its launch counter
+# (K6 with event keys and K9's compound form count apart from their plain
+# launches), CUDA source, what it replaces. The owner reductions replace
+# XLA code of the JAX package, not a Pallas kernel.
+EC_KERNELS = (
+    ("tile_manifold_keys", "tile_manifold", "keys_launches",
+     "starframe_tpu_torch/csrc/tile_manifold.cu",
+     "starframe_tpu/pallas/tiles.py:419"),
+    ("tile_apply_compound", "tile_apply", "compound_launches",
+     "starframe_tpu_torch/csrc/tile_substep.cu",
+     "starframe_tpu/pallas/tiles.py:1004"),
+    ("owner_sum", "owner_sum", "launches",
+     "starframe_tpu_torch/csrc/owner_reduce.cu",
+     "starframe_tpu/pallas/tiles.py:1460 (_owner_shift_reduce: XLA code, "
+     "not a Pallas kernel)"),
+    ("owner_velocity", "owner_velocity", "launches",
+     "starframe_tpu_torch/csrc/owner_reduce.cu",
+     "starframe_tpu/pallas/tiles.py:1460 (_owner_shift_reduce: XLA code, "
+     "not a Pallas kernel)"),
+)
+COMPOUND_PARITY_N = 515  # tests/test_tiled_compound.py: 1033 rows, 5 tiles
+
+# Compound-pile health at frame 240 from the start (bench.py's
+# `pile_compound`: pile_compound(n_bodies=10_000), sleep on, 10 substeps;
+# chip_smoke.pile_health), held as PILE_HEALTH_REFERENCE is. Reference: the
+# JAX package's tile engine on the same scene, in interpret mode on a CPU,
+# `JAX_PLATFORMS=cpu python3 tools/pile_health_bounds.py --scene compound
+# --seeds 0 1 2` (~70 minutes a seed, three at once), per seed 0, 1, 2; its
+# hard counters 0. Not the XLA tier, as for the pile: its grid broadphase
+# drops ~4000 pairs a frame while this lattice falls (`pair_overflow`
+# 3842-4011; ROADMAP.md C). At frame 240 the last rows have just landed:
+# the fastest body is a heavy-tailed number.
+PILE_COMPOUND_HEALTH_FRAME = 240
+PILE_COMPOUND_HEALTH_REFERENCE = {
+    "com_y": (7.956663, 7.960443, 7.959355),
+    "min_y": (0.262114, 0.257949, 0.260877),
+    "max_speed": (6.351058, 15.461591, 12.796039),
+    "mean_speed": (0.395540, 0.482502, 0.409107)}
 
 
 def card_line() -> str:
@@ -821,6 +883,8 @@ def parity_tiles(dev, hopper) -> dict:
                                 agree_tiles("tile_manifold", k, p))
     check(float(k[4].sum()) > 0, "tile_manifold: nothing woke, vacuous")
     check(not bool(k[0][1].any()), "tile_manifold: a skipped tile computed")
+    errs["tile_manifold_keys"] = parity_keys(dev, hopper, tiled, w,
+                                             sc.config, tables)
     print(f"parity tiles at {PILE_PARITY_N} bodies (4 tiles): K5 (K = 1, "
           f"{sc.config.frames_per_broadphase}), K6 (awake; waking, one tile "
           f"skipped: {int(k[4].sum())} rows woke), K8, K9: integer outputs "
@@ -845,8 +909,9 @@ def frame_inputs(hopper, tiled, w, cfg, dead_tile=None):
     state, consts, large, body_id, _ = tiled._enter_tiles(w, cfg)
     g = w.gravity.contiguous()
     if cfg.sleep_velocity > 0.0 and cfg.tile_awake_compaction:
-        state, consts, _ = tiled._compact_resort(state, consts, body_id, cfg,
-                                                 g, "px")
+        state, consts, _ = tiled._compact_resort(
+            state, consts, body_id, cfg, g, "px",
+            compound=w.colliders.m != w.bodies.n)
     edges = tiled._edge_rows(state, consts, cfg)[:2]
     kc = tiled._frame_consts(state, consts, cfg, edges)
     if dead_tile is not None:
@@ -1112,7 +1177,7 @@ def check_pile_health(health, ref, frame) -> None:
         check(health[key] <= limit,
               f"pile health: {key} {health[key]} past {limit}")
     print(f"pile health at frame {frame} within bounds of the JAX package's "
-          f"(XLA tier, seeds 0, 1, 2): {json.dumps(ref)}")
+          f"(seeds 0, 1, 2): {json.dumps(ref)}")
 
 
 def pile_turns(hopper, pile, errs, bounds, card) -> dict:
@@ -1204,8 +1269,486 @@ def frame_turns(hopper, tiled, sleep, errs, bounds, card) -> tuple:
     return times
 
 
+def counted(hopper) -> dict:
+    """Each tile kernel's launch counter: ``{name: (wrapper, attribute)}``."""
+    pairs = {name: (getattr(hopper, attr), "launches")
+             for name, attr, _, _ in TILE_KERNELS}
+    pairs.update({name: (getattr(hopper, attr), cnt)
+                  for name, attr, cnt, _, _ in EC_KERNELS})
+    return pairs
+
+
+def reset_counts(hopper) -> None:
+    for fn, cnt in counted(hopper).values():
+        setattr(fn, cnt, 0)
+
+
+def read_counts(hopper) -> dict:
+    return {name: getattr(fn, cnt) for name, (fn, cnt) in counted(hopper).items()}
+
+
+def compound_scene(dev, n_dyn=COMPOUND_PARITY_N, seed=7):
+    """tests/test_tiled_compound.py's compound scene (``_compound_scene``
+    and ``_cfg``) through the port's builder: a ground, two walls and
+    ``n_dyn`` two-collider bodies (dumbbells and L-shapes) spread in x,
+    ``3 + 2 n_dyn`` collider rows. Returns ``(world, cfg)``."""
+    import numpy as np
+    from starframe_tpu_torch import Capacity, Shape, SolverConfig, WorldBuilder
+
+    rng = np.random.default_rng(seed)
+    b = WorldBuilder(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, Shape.box(400.0, 0.5), friction=0.5)
+    wl = b.add_static(pos=(-390.0, 10.0))
+    b.add_collider(wl, Shape.box(0.5, 12.0), friction=0.5)
+    wr = b.add_static(pos=(390.0, 10.0))
+    b.add_collider(wr, Shape.box(0.5, 12.0), friction=0.5)
+    cols = max(n_dyn // 4, 1)
+    for i in range(n_dyn):
+        row, col = divmod(i, cols)
+        x = -(cols - 1) * 1.1 + col * 2.2 + rng.uniform(-0.1, 0.1)
+        y = 0.8 + row * 1.6
+        body = b.add_body(pos=(x, y), vel=rng.normal(scale=0.2, size=2),
+                          ang_vel=float(rng.normal(scale=0.1)))
+        if i % 3 == 0:  # L-shape: two offset boxes
+            b.add_collider(body, Shape.box(0.55, 0.18), friction=0.5,
+                           offset=(0.0, -0.3))
+            b.add_collider(body, Shape.box(0.18, 0.3), friction=0.5,
+                           offset=(-0.37, 0.18))
+        else:  # dumbbell: two offset circles
+            b.add_collider(body, Shape.circle(0.28), friction=0.5,
+                           restitution=0.1, offset=(-0.3, 0.0))
+            b.add_collider(body, Shape.circle(0.28), friction=0.5,
+                           restitution=0.1, offset=(0.3, 0.0))
+    m = 3 + 2 * n_dyn
+    world, _ = b.build(Capacity(max_bodies=n_dyn + 3, max_colliders=m,
+                                max_pairs=12 * m, max_joints=0, max_verts=6),
+                       device=dev)
+    cfg = SolverConfig(substeps=4, iterations=1, manifold_refresh="frame",
+                       slot_capacity=8, broadphase="grid",
+                       grid_cell_capacity=12)
+    return world, cfg
+
+
+def parity_keys(dev, hopper, tiled, w, cfg, tables) -> float:
+    """K6 with event keys against its twin on ``w`` (pile(1021) 30 frames
+    in): compacted (Cs = 8), not (Cs = 16), and compacted with tile 1
+    skipped; ``keyc`` and the integer outputs equal, the rest as K6
+    without keys, and equal to the launch without keys."""
+    import torch
+
+    state, consts, large, body_id, _ = tiled._enter_tiles(w, cfg)
+    ids = (body_id.reshape(-1, 256), large["cols"])
+    M = w.colliders.m
+    err = 0.0
+    for Cs, dead in ((8, None), (16, None), (8, 1)):
+        live = torch.ones(state["px"].shape[0], device=dev)
+        if dead is not None:
+            live[dead] = 0.0
+        kw = dict(Cs=Cs, margin=cfg.contact_margin, dt=cfg.dt,
+                  event_ids=ids, n_colliders=M)
+        k = hopper.tile_manifold(state, consts, large, *tables[:2], live,
+                                 **kw)
+        p = hopper.tile_manifold(state, consts, large, *tables[:2], live,
+                                 **kw, plain=True)
+        check(torch.equal(k[7], p[7]), f"tile_manifold_keys Cs={Cs}: keys "
+              "differ from the twin")
+        err = max(err, agree_tiles("tile_manifold", k[:7], p[:7]))
+        bare = hopper.tile_manifold(state, consts, large, *tables[:2], live,
+                                    Cs=Cs, margin=cfg.contact_margin,
+                                    dt=cfg.dt)
+        for a, b in zip(k[:7], bare):
+            check(torch.equal(a, b), "tile_manifold_keys: an output differs "
+                  "from the launch without keys")
+        n_keys = int((k[7] > 0).sum())
+        check(n_keys > 1000, f"tile_manifold_keys Cs={Cs}: few keys, vacuous")
+        if dead is not None:
+            check(not bool(k[7][dead].any()), "tile_manifold_keys: a skipped "
+                  "tile wrote keys")
+        print(f"parity tile_manifold_keys at {PILE_PARITY_N} bodies, C = 16, "
+              f"Cs = {Cs}" + (f", tile {dead} skipped" if dead else "")
+              + f": keys equal ({n_keys} nonzero), the rest as without keys")
+    return err
+
+
+def parity_compound(dev, hopper, tiled) -> dict:
+    """The compound kernels against their twins on tests/test_tiled_compound
+    .py's scene 30 frames in (5 tiles, C = Cs = 8, 4 substeps): K5's tables
+    (no active slot pairs two rows of one body), K9's compound form (state
+    and raw velocity sums to 1e-6) and the owner kernels (bitwise)."""
+    import torch
+    from starframe_tpu_torch.hopper.tiles import T, WIN, win_start
+
+    w0, cfg = compound_scene(dev)
+    w, d = tiled.tiled_rollout(w0, cfg, 30)
+    check(int(d["owner_overflow"]) == 0, "compound scene: owner_overflow")
+    state, consts, large, _, _ = tiled._enter_tiles(w, cfg)
+    Nt = state["px"].shape[0]
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    g = w.gravity.contiguous()
+    tkw = dict(C=tiled._table_cap(cfg), margin=cfg.contact_margin, dt=cfg.dt,
+               sweep_frames=cfg.frames_per_broadphase,
+               sweep_slack=cfg.broadphase_speed_slack,
+               sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+    k = hopper.build_tile_tables(state, consts, large, *edges, g, **tkw)
+    p = hopper.build_tile_tables(state, consts, large, *edges, g, **tkw,
+                                 plain=True)
+    errs = {"tile_tables": agree_tiles("tile_tables", k, p)}
+    pidx, act = k[:2]
+    ob = consts["obody"].reshape(-1)
+    row = (win_start(Nt, dev)[:, None, None] * T
+           + torch.clamp(pidx.long(), max=WIN * T - 1))
+    partner_ob = torch.where(pidx < WIN * T, ob[row], -1)
+    siblings = int(((act > 0) & (partner_ob == consts["obody"][:, None]))
+                   .sum())
+    check(siblings == 0, f"tile_tables: {siblings} active slots pair two "
+          "rows of one body")
+    check(int((ob[1:] == ob[:-1]).sum()) == COMPOUND_PARITY_N,
+          "compound scene: sibling rows not contiguous")
+    check(int((act > 0).sum()) > 100, "compound tables: few slots, vacuous")
+
+    live = torch.ones(Nt, device=dev)
+    live[1] = 0.0
+    Cs, kc = tiled._solve_cap(cfg), cfg.max_colliders_per_body
+    sol, pidx_c = hopper.tile_manifold(state, consts, large, pidx, act, live,
+                                       Cs=Cs, margin=cfg.contact_margin,
+                                       dt=cfg.dt)[:2]
+    h = cfg.dt / cfg.substeps
+    *corr, lam, _ = hopper.tile_project(
+        state, consts, large, pidx_c, sol, g, torch.zeros_like(sol[:, 0]),
+        live, h=h, compliance=cfg.contact_compliance)
+    osum = hopper.owner_sum(corr, ob, kc)
+    for a, b in zip(osum, hopper.owner_sum(corr, ob, kc, plain=True)):
+        check(torch.equal(a, b), "owner_sum: kernel != twin")
+    check(not torch.equal(osum[3], corr[3]), "owner_sum: no sibling summed")
+    akw = dict(h=h, relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+               rest_threshold=cfg.restitution_threshold,
+               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
+    aargs = (state, osum, consts, large, pidx_c, sol, lam, g, live)
+    ak, accv = hopper.tile_apply(*aargs, **akw, compound=True)
+    ap, accv_p = hopper.tile_apply(*aargs, **akw, compound=True, plain=True)
+    errs["tile_apply_compound"] = agree_tiles(
+        "tile_apply_compound", list(ak.values()) + [accv],
+        list(ap.values()) + [accv_p])
+    check(float(accv[3].sum()) > 0, "tile_apply_compound: no velocity rows")
+    check(not bool(accv[:, 1].any()), "tile_apply_compound: a skipped tile "
+          "wrote sums")
+    for damp in ((akw["lin_damp"], akw["ang_damp"]), (0.3, 0.2)):
+        vkw = dict(h=h, lin_damp=damp[0], ang_damp=damp[1])
+        vk = hopper.owner_velocity(ak, accv, ob, kc, **vkw)
+        vp = hopper.owner_velocity(ak, accv, ob, kc, **vkw, plain=True)
+        for f in ("vx", "vy", "om"):
+            check(torch.equal(vk[f], vp[f]), f"owner_velocity: {f} kernel "
+                  f"!= twin (damping {damp})")
+    errs["owner_sum"] = errs["owner_velocity"] = 0.0
+    print(f"parity compound at {COMPOUND_PARITY_N} bodies ({w.colliders.m} "
+          f"rows, {Nt} tiles, 30 frames in): K5 tables equal, no slot pairs "
+          f"siblings; owner_sum and owner_velocity bitwise equal; K9 "
+          f"compound max abs err {errs['tile_apply_compound']:.3g} "
+          f"({int((accv[3] > 0).sum())} rows with velocity sums)")
+    return errs
+
+
+def run_pile_events(dev, hopper, tiled, pile, card) -> dict:
+    """bench.py's ``pile_events``: 240 fused frames of pile(10_000,
+    sleep=False) with events, in turns with the same rollout without
+    (without, with, with, without), timed each; checked and returned."""
+    import torch
+
+    sc, cfg = pile["sc"], pile["cfg"]
+    M = sc.world.colliders.m
+    dyn_n = int((sc.world.bodies.inv_mass > 0).sum())
+
+    def run(events):
+        torch.cuda.synchronize()
+        reset_counts(hopper)
+        syncs0 = tiled.host_syncs
+        t0 = time.perf_counter()
+        out = tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES,
+                                  with_events=events)
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, read_counts(hopper),
+                tiled.host_syncs - syncs0)
+
+    run(True)  # warm-up: the key table and the keyed K6
+    plain_a, t_a, _, _ = run(False)
+    events, t_b, launches, syncs = run(True)
+    again, t_c, _, _ = run(True)
+    plain_b, t_d, _, _ = run(False)
+    final, diag, keys = events
+    diag = {k: int(v) for k, v in diag.items()}
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(final.bodies, field),
+                          getattr(plain_a[0].bodies, field)),
+              f"pile_events: {field} differs from the rollout without events")
+        check(torch.equal(getattr(again[0].bodies, field),
+                          getattr(final.bodies, field)),
+              f"pile_events rerun differs in {field}")
+    check(diag == {k: int(v) for k, v in plain_a[1].items()},
+          "pile_events: counters differ from the rollout without events")
+    for key in ("slot_overflow", "solve_overflow", "window_overflow",
+                "large_overflow"):
+        check(diag[key] == 0, f"pile_events: {key} {diag[key]}")
+    Csol = tiled._solve_cap(cfg)
+    check(tuple(keys.shape) == (PILE_FRAMES, -(-M // 256), Csol, 256)
+          and keys.dtype == torch.int32,
+          f"pile_events: keys {tuple(keys.shape)} {keys.dtype}")
+    a, b = keys // M, keys % M
+    check(bool(((keys == -1) | ((keys >= 0) & (a < b) & (b < M))).all()),
+          "pile_events: a key is neither -1 nor a pair a < b < M")
+    check(torch.equal(again[2], keys), "pile_events rerun: keys differ")
+    per_frame = (keys >= 0).sum(dim=(1, 2, 3))
+    check(int(per_frame.min()) > 0, "pile_events: a frame without touches")
+    check(launches["tile_frame"] == PILE_FRAMES
+          and launches["tile_manifold_keys"] == PILE_FRAMES
+          and launches["tile_manifold"] == 0,
+          f"pile_events: K10 launched {launches['tile_frame']} times, keyed "
+          f"K6 {launches['tile_manifold_keys']}, plain K6 "
+          f"{launches['tile_manifold']}")
+    check(syncs <= PILE_FRAMES, f"pile_events: {syncs} host syncs")
+    ms_ev = 1e3 * (t_b + t_c) / 2 / PILE_FRAMES
+    ms_plain = 1e3 * (t_a + t_d) / 2 / PILE_FRAMES
+    print(f"pile_events path (bench.py's pile_events): pile({PILE_N}, "
+          f"sleep=False), fused, with_events; {PILE_FRAMES} frames in "
+          f"{t_b:.4f}, {t_c:.4f} s = {ms_ev:.4f} ms/frame, "
+          f"{dyn_n / ms_ev * 1e3:.6g} body-steps/s; without events in the "
+          f"same call {t_a:.4f}, {t_d:.4f} s = {ms_plain:.4f} ms/frame, "
+          f"{dyn_n / ms_plain * 1e3:.6g} body-steps/s; touching keys a frame "
+          f"{int(per_frame.min())}-{int(per_frame.max())}; launches "
+          f"{json.dumps(launches)}; host syncs {syncs} "
+          f"({syncs / PILE_FRAMES:.3f}/frame); state, counters bitwise equal "
+          f"to the run without events, rerun bitwise equal; on {card}")
+    return dict(final=final, cfg=cfg, launches=launches, ms=ms_ev)
+
+
+def run_pile_compound(dev, hopper, tiled, card) -> dict:
+    """bench.py's ``pile_compound``: ``pile_compound(10_000)`` (sleep on,
+    awake-prefix compaction) for 7 chunks of 240 frames, each a rollout
+    continuing from the last, timed each, checked; the last chunk again
+    through the tile layout directly (sibling rows identical, bitwise the
+    same chunk)."""
+    import torch
+    from starframe_tpu_torch import scenes
+    from starframe_tpu_torch.hopper.tiles import STATE_KEYS
+
+    sc = scenes.pile_compound(n_bodies=PILE_N, device=dev)
+    cfg = sc.config
+    check(cfg.sleep_velocity > 0.0 and cfg.tile_awake_compaction,
+          "pile_compound(): sleep or compaction off")
+    check(tiled.use_tiled(sc.world, cfg), "pile_compound: off the tile engine")
+    dyn = sc.world.bodies.inv_mass > 0
+    dyn_n = int(dyn.sum())
+    wall = float(sc.world.bodies.pos[2, 0]) - 0.5
+    torch.cuda.synchronize()
+    reset_counts(hopper)
+    syncs0 = tiled.host_syncs
+    w, chunks = sc.world, []
+    for c in range(1, PILE_CHUNKS + 1):
+        start = w
+        t0 = time.perf_counter()
+        w, diag = tiled.tiled_rollout(w, cfg, PILE_FRAMES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        diag = {k: int(v) for k, v in diag.items()}
+        b = w.bodies
+        for field in ("pos", "angle", "vel", "ang_vel"):
+            check(bool(torch.isfinite(getattr(b, field)).all()),
+                  f"compound pile chunk {c}: non-finite {field}")
+        for key in ("slot_overflow", "solve_overflow", "window_overflow",
+                    "large_overflow", "owner_overflow"):
+            check(diag[key] == 0, f"compound pile chunk {c}: {key} "
+                  f"{diag[key]}")
+        x, y = b.pos[dyn, 0], b.pos[dyn, 1]
+        check(float(x.abs().max()) < wall and float(y.min()) > 0.0,
+              f"compound pile chunk {c}: a body left the container")
+        asleep = float(((b.sleep_count >= cfg.sleep_frames) & dyn).sum()
+                       / dyn_n)
+        chunks.append(dict(ms=1e3 * seconds / PILE_FRAMES, asleep=asleep,
+                           diag=diag))
+        print(f"compound pile chunk {c} (frames {PILE_FRAMES * (c - 1) + 1}-"
+              f"{PILE_FRAMES * c}): {chunks[-1]['ms']:.4f} ms/frame, "
+              f"{dyn_n / chunks[-1]['ms'] * 1e3:.6g} body-steps/s, asleep "
+              f"share {asleep:.4f}; counters {json.dumps(diag)}")
+        if c * PILE_FRAMES == PILE_COMPOUND_HEALTH_FRAME:
+            health = pile_health(b.pos.cpu().numpy(), b.vel.cpu().numpy(),
+                                 dyn.cpu().numpy())
+            print(f"compound pile health at frame {c * PILE_FRAMES}: "
+                  f"{json.dumps(health)}")
+            check_pile_health(health, PILE_COMPOUND_HEALTH_REFERENCE,
+                              PILE_COMPOUND_HEALTH_FRAME)
+    frames = PILE_CHUNKS * PILE_FRAMES
+    launches = read_counts(hopper)
+    syncs = tiled.host_syncs - syncs0
+    ran = launches["tile_manifold"]  # K6 runs once a frame that runs
+    per_substep = ran * cfg.substeps
+    check(0 < ran <= frames, f"compound pile: K6 launched {ran} times")
+    check(launches["tile_frame"] == 0 and launches["tile_apply"] == 0,
+          "compound pile: K10 or K9's plain form ran")
+    for name in ("tile_project", "tile_apply_compound", "owner_sum",
+                 "owner_velocity"):
+        check(launches[name] == per_substep, f"compound pile: {name} "
+              f"launched {launches[name]} times, {per_substep} substeps ran")
+    check(syncs <= frames, f"compound pile: {syncs} host syncs in {frames} "
+          "frames")
+    best = min(ch["ms"] for ch in chunks[1:])
+    print(f"compound pile (bench.py's pile_compound): pile_compound({PILE_N}),"
+          f" {sc.world.colliders.m} collider rows, C = {cfg.slot_capacity}, "
+          f"sleep velocity {cfg.sleep_velocity}, compaction on; best of "
+          f"chunks 2-{PILE_CHUNKS}: {best:.4f} ms/frame, "
+          f"{dyn_n / best * 1e3:.6g} body-steps/s ({dyn_n} dynamic bodies/"
+          f"frame); per chunk ms/frame "
+          + ", ".join(f"{ch['ms']:.4f}" for ch in chunks)
+          + f"; asleep share at frame {frames} {chunks[-1]['asleep']:.4f}; "
+          f"launches over {frames} frames {json.dumps(launches)} (K6 "
+          f"{ran / frames:.4f}/frame); host syncs {syncs} "
+          f"({syncs / frames:.3f}/frame); on {card}")
+
+    # the last chunk again, through the tile layout: sibling rows hold the
+    # same state and sleep counter bit for bit, and it is the same chunk
+    g = start.gravity.to(torch.float32).contiguous()
+    state, consts, large, body_id, _ = tiled._enter_tiles(start, cfg)
+    state, consts, body_id, prev, counters, _ = tiled._rollout_core(
+        state, consts, large, body_id, g, cfg=cfg, n_frames=PILE_FRAMES,
+        fuse=True, plain=False, compound=True)
+    ob = consts["obody"].reshape(-1)
+    same = ob[1:] == ob[:-1]
+    check(int(same.sum()) == PILE_N, "compound pile: sibling rows apart")
+    for name, x in [(k, state[k]) for k in STATE_KEYS] + [
+            ("sleep", consts["sleep"])]:
+        x = x.reshape(-1)
+        check(torch.equal(x[1:][same], x[:-1][same]),
+              f"compound pile: sibling rows differ in {name}")
+    again = tiled._exit_tiles(start, state, consts, prev, body_id,
+                              PILE_FRAMES)
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(again.bodies, field),
+                          getattr(w.bodies, field)),
+              f"compound pile rerun differs in {field}")
+    check({k: int(v) for k, v in counters.items()}
+          == {k: v for k, v in chunks[-1]["diag"].items() if k in counters},
+          "compound pile rerun counters differ")
+    print(f"compound pile: the last chunk rerun through the tile layout is "
+          f"bitwise the same; every sibling row equal to its block's first "
+          f"({int(same.sum())} blocks of two), state and sleep counters")
+    return dict(final=w, sc=sc, cfg=cfg, launches=launches, ms=best)
+
+
+def ec_turns(hopper, tiled, events, compound, errs, bounds, card) -> dict:
+    """The events and compound kernels at 10k bodies against their twins,
+    timed in turns, with their bounds: K6 with keys on the awake pile's
+    final state, K9's compound form and the owner kernels on one substep
+    of the compound pile's final state (compacted, live and skipped
+    tiles)."""
+    import torch
+    from starframe_tpu_torch.hopper.tiles import SOL
+
+    times = {}
+
+    def report(name, call, inputs, outputs, flops, extra=0, bitwise=False,
+               what=""):
+        bounds[name] = bound(inputs, outputs, flops, extra)
+        times[name] = turns(call)
+        print(f"time {name} at {PILE_N} bodies{what}: kernel "
+              f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+              + ("bitwise equal to the twin" if bitwise else
+                 f"max abs err {errs[name]:.3g}") + f", on {card}")
+
+    w, cfg = events["final"], events["cfg"]
+    state, consts, large, body_id, _ = tiled._enter_tiles(w, cfg)
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    g = w.gravity.contiguous()
+    tables = hopper.build_tile_tables(
+        state, consts, large, *edges, g, C=tiled._table_cap(cfg),
+        margin=cfg.contact_margin, dt=cfg.dt,
+        sweep_frames=cfg.frames_per_broadphase,
+        sweep_slack=cfg.broadphase_speed_slack,
+        sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+    live = torch.ones(state["px"].shape[0], device=g.device)
+    ids = (body_id.reshape(-1, 256), large["cols"])
+    mkw = dict(Cs=tiled._solve_cap(cfg), margin=cfg.contact_margin,
+               dt=cfg.dt, event_ids=ids, n_colliders=w.colliders.m)
+
+    def keyed(p):
+        return hopper.tile_manifold(state, consts, large, *tables[:2], live,
+                                    **mkw, plain=p)
+
+    k, p = keyed(False), keyed(True)
+    check(torch.equal(k[7], p[7]), "tile_manifold_keys at 10k: keys differ")
+    errs["tile_manifold_keys"] = max(errs["tile_manifold_keys"],
+                                     agree_tiles("tile_manifold", k[:7],
+                                                 p[:7]))
+    sk, ck, lk = TILE_READS["tile_manifold"]
+    report("tile_manifold_keys", keyed,
+           ([state[x] for x in sk], [consts[x] for x in ck],
+            [large[x] for x in lk], tables[:2], live, ids), k,
+           int(tables[1].sum()) * MANIFOLD_FLOPS,
+           what=" (the awake pile's final state)")
+    del k, p
+
+    args, kw = frame_inputs(hopper, tiled, compound["final"],
+                            compound["cfg"])
+    state, kc, large, pidx_c, sol, g, live = args
+    ccfg = compound["cfg"]
+    ob, oc = kc["obody"].reshape(-1), ccfg.max_colliders_per_body
+    h = kw["h"]
+    *corr, lam, _ = hopper.tile_project(
+        state, kc, large, pidx_c, sol, g, torch.zeros_like(sol[:, 0]), live,
+        h=h, compliance=kw["compliance"])
+    osum = hopper.owner_sum(corr, ob, oc)
+    akw = {x: v for x, v in kw.items() if x not in ("substeps",
+                                                    "compliance")}
+    aargs = (state, osum, kc, large, pidx_c, sol, lam, g, live)
+
+    def apply_c(p):
+        return hopper.tile_apply(*aargs, **akw, compound=True, plain=p)
+
+    (ak, accv), (ap, accv_p) = apply_c(False), apply_c(True)
+    errs["tile_apply_compound"] = max(
+        errs["tile_apply_compound"],
+        agree_tiles("tile_apply_compound", list(ak.values()) + [accv],
+                    list(ap.values()) + [accv_p]))
+    on = live > 0
+    sm = sol[on][:, [SOL["sm0"], SOL["sm1"]]]
+    solved = int((sm != 0).any(dim=1).sum())
+    sk, ck, lk = TILE_READS["tile_apply"]
+    where = (f" (the compound pile's final state, {int(on.sum())} of "
+             f"{on.numel()} tiles live, {solved} solved slots)")
+    report("tile_apply_compound", apply_c,
+           ([state[x] for x in sk], [kc[x] for x in ck],
+            [large[x] for x in lk], sm, osum, g, live), (ak, accv),
+           solved * VELOCITY_FLOPS,
+           4 * SOLVED_SLOT_WORDS["tile_apply"] * solved, what=where)
+    del ap, accv_p
+
+    def osum_call(p):
+        return hopper.owner_sum(corr, ob, oc, plain=p)
+
+    for a, b in zip(osum_call(False), osum_call(True)):
+        check(torch.equal(a, b), "owner_sum at 10k: kernel != twin")
+    rows = ob.numel()
+    report("owner_sum", osum_call, (corr, ob), osum,
+           rows * 4 * 4 * (oc - 1), bitwise=True, what=where)
+
+    vkw = dict(h=h, lin_damp=kw["lin_damp"], ang_damp=kw["ang_damp"])
+
+    def ovel(p):
+        return hopper.owner_velocity(ak, accv, ob, oc, **vkw, plain=p)
+
+    vk, vp = ovel(False), ovel(True)
+    for f in ("vx", "vy", "om"):
+        check(torch.equal(vk[f], vp[f]), f"owner_velocity at 10k: {f}")
+    report("owner_velocity", ovel,
+           ([ak[x] for x in ("vx", "vy", "om")], accv, ob),
+           [vk[x] for x in ("vx", "vy", "om")],
+           rows * (4 * 4 * (oc - 1) + 12), bitwise=True, what=where)
+    return times
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1234,6 +1777,9 @@ def main() -> int:
     errs = parity(dev, hopper, parallel, batched_worlds)
     errs.update(parity_joints(dev, hopper, parallel))
     errs.update(parity_tiles(dev, hopper))
+    cerrs = parity_compound(dev, hopper, tiled)
+    errs["tile_tables"] = max(errs["tile_tables"], cerrs.pop("tile_tables"))
+    errs.update(cerrs)
 
     # ---- 3. the main path at full width ------------------------------------
     sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
@@ -1289,6 +1835,11 @@ def main() -> int:
     launches.update(pile["launches"])
     sleep = run_pile_sleep(dev, hopper, tiled, card)
     launches["tile_frame"] = sleep["launches"]["tile_frame"]
+    events = run_pile_events(dev, hopper, tiled, pile, card)
+    launches["tile_manifold_keys"] = events["launches"]["tile_manifold_keys"]
+    compound = run_pile_compound(dev, hopper, tiled, card)
+    for name in ("tile_apply_compound", "owner_sum", "owner_velocity"):
+        launches[name] = compound["launches"][name]
 
     # ---- 4. kernel vs twin, and their times, at the main path's shapes ---
     body, col = parallel._frame2_arrays(final, cfg)
@@ -1360,6 +1911,30 @@ def main() -> int:
           f"{PILE_TWIN_FRAMES} frames, vs {pile['ms']:.4f} ms/frame through "
           f"the kernels, on {card}")
 
+    # the events and compound kernels at 10k bodies; the compound pile
+    # through its twins
+    times.update(ec_turns(hopper, tiled, events, compound, errs, bounds,
+                          card))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiled.tiled_rollout(compound["sc"].world, compound["cfg"],
+                        PILE_TWIN_FRAMES, plain=True)
+    torch.cuda.synchronize()
+    twin_ms = 1e3 * (time.perf_counter() - t0) / PILE_TWIN_FRAMES
+    print(f"compound pile through the plain twins: {twin_ms:.4f} ms/frame "
+          f"over {PILE_TWIN_FRAMES} frames from the start, vs "
+          f"{compound['ms']:.4f} ms/frame through the kernels (best chunk), "
+          f"on {card}")
+    frames = PILE_CHUNKS * PILE_FRAMES
+    print("launches a frame: pile_events K6 with keys "
+          f"{events['launches']['tile_manifold_keys'] / PILE_FRAMES:.4f}, "
+          f"K10 {events['launches']['tile_frame'] / PILE_FRAMES:.4f}; "
+          "pile_compound "
+          + ", ".join(f"{n} {compound['launches'][n] / frames:.4f}"
+                      for n in ("tile_manifold", "tile_project",
+                                "tile_apply_compound", "owner_sum",
+                                "owner_velocity", "tile_frame")))
+
     # ---- 5. determinism ----------------------------------------------------
     a, _, da = rollout(10)
     b, _, db = rollout(10)
@@ -1385,13 +1960,15 @@ def main() -> int:
           "chunk, above)")
 
     # no single PyTorch call computes any of these kernels: library_ms null
+    print(f"wall time {time.perf_counter() - t_start:.1f} s")
+    ec = tuple((n, a, src, tpu) for n, a, _, src, tpu in EC_KERNELS)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
-        for name, _, src, tpu in KERNELS + TILE_KERNELS]}))
+        for name, _, src, tpu in KERNELS + TILE_KERNELS + ec]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ What is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 """
 
-from . import io, kernels, parallel, ropes, scenes, tiled
+from . import events, io, kernels, parallel, ropes, scenes, tiled
 from .config import Capacity, SolverConfig
 from .parallel import (
     batched_rollout,
@@ -33,7 +33,7 @@ from .tiled import tiled_rollout, tiled_step, use_tiled
 
 __all__ = [
     "Bodies", "Capacity", "Colliders", "Joints", "Shape", "SolverConfig",
-    "World", "WorldBuilder", "batched_rollout", "batched_step",
+    "World", "WorldBuilder", "batched_rollout", "batched_step", "events",
     "expand_capacity", "frame2_elig", "frame2_joint_slots", "frame2_step",
     "frame2_tables", "io", "kernels", "make_batched_rollout", "parallel",
     "replicate_world", "ropes", "scenes", "tiled", "tiled_rollout",

@@ -231,9 +231,14 @@ struct TileManifoldArgs {
   float* wake;              // [Nt, T]
   float* pen;
   float* npts;
+  // contact-event keys: null pointers for a frame without events
+  const int32_t* cid;       // [Nt, T] canonical collider id of each row
+  const int32_t* lcid;      // [L] canonical collider id of each large slot
+  int32_t* keyc;            // [Nt, Cs, T] min * n_colliders + max per slot
   int Nt, V, C, Cs;
   float margin, dt, sleep_v2;  // sleep_v2: squared wake speed
   int use_wake;
+  int n_colliders;
 };
 
 struct TileProjectArgs {
@@ -293,6 +298,10 @@ struct TileApplyArgs {
   float* o_vx;
   float* o_vy;
   float* o_om;
+  // compound rows (tile_substep.cu's compound instance only): the raw
+  // velocity-pass sums [4, Nt, T], which the caller owner-sums, normalises
+  // by the body's count and damps (owner_reduce.cu); null otherwise
+  float* accv;
   int Nt, Cs;
   float h, relaxation, max_dpos, rest_threshold;
   float lin_sdamp, ang_sdamp;  // 1 / (1 + h * damping)
@@ -312,6 +321,30 @@ struct TileFrameArgs {
   float* st_a[6];
   float* st_b[6];
   int substeps;
+};
+
+// The owner reductions of compound rows (owner_reduce.cu): rows of one body
+// are contiguous in the tile layout and share `ob`, the owner body id
+// (unique ids on padding rows), in blocks of at most `kc` rows.
+struct OwnerSumArgs {
+  const float* x[4];        // k per-row fields, [n] each
+  float* y[4];              // their owner sums, broadcast to every row
+  const int32_t* ob;        // [n]
+  int k, n, kc;
+};
+
+struct OwnerVelocityArgs {
+  const float* vx;          // [n] the apply phase's velocities
+  const float* vy;
+  const float* om;
+  const float* accv;        // [4, n] its raw velocity-pass sums
+  const int32_t* ob;        // [n]
+  float* o_vx;              // [n] the substep's end velocities
+  float* o_vy;
+  float* o_om;
+  int n, kc;
+  float lin_sdamp, ang_sdamp;  // 1 / (1 + h * damping)
+  int use_lin_damp, use_ang_damp;
 };
 
 // Candidate j of tile t: the flat row of a window candidate (j < 3T), or

@@ -1,0 +1,94 @@
+// Owner reductions of the tile engine's compound rows: a body with several
+// colliders has one row each, contiguous in the tile layout and sharing the
+// owner id `ob`. Once a substep the project phase's row sums (dxx, dxy, dth,
+// cnt) become per-body sums on every sibling row (`owner_sum`), and after
+// the apply phase the velocity pass's raw sums are owner-summed, normalised
+// by the body's count and damped (`owner_velocity`).
+//
+// Replaces starframe_tpu/pallas/tiles.py `_owner_shift_reduce` with `add`
+// (`_owner_sum3`, and the velocity pass of `run_tiled_frame`, :2046-2054 and
+// :2072-2086), which is XLA code, not a Pallas kernel: 2 * (kc - 1) masked
+// rolls of the row axis. Each row here adds the same terms in the same
+// order as the rolls do: itself, then rows i - 1, i + 1, i - 2, i + 2, ...
+// up to kc - 1 away, wrapping around the ends as a roll does, a row of
+// another owner adding +0. So a row's sum equals the plain twin's bitwise.
+//
+// What bounds it on an H100: bytes. Each row reads its k + 1 words (k
+// fields and its owner id) and writes k, ~0.7 MB for `owner_sum` at the
+// compound pile's 20,224 rows (~0.2 us at 3.35 TB/s); the neighbours'
+// words come from the same cache lines. One thread per row, 256 a block,
+// no shared memory, no atomics; a launch costs far more than its bytes.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// x's owner sum at row i: x[i], then the rows o = 1 .. kc-1 away, the one
+// before first (torch.roll(x, o)[i] = x[i - o], then roll(x, -o))
+__device__ __forceinline__ float owner_sum_row(const float* x,
+                                               const int32_t* ob, int i,
+                                               int n, int kc) {
+  const int own = ob[i];
+  float acc = x[i];
+  for (int o = 1; o < kc; ++o) {
+    const int step = o % n;
+    const int lo = i - step < 0 ? i - step + n : i - step;
+    const int hi = i + step >= n ? i + step - n : i + step;
+    acc = acc + (ob[lo] == own ? x[lo] : 0.f);
+    acc = acc + (ob[hi] == own ? x[hi] : 0.f);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads) owner_sum_kernel(OwnerSumArgs a) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  for (int q = 0; q < a.k; ++q)
+    a.y[q][i] = owner_sum_row(a.x[q], a.ob, i, a.n, a.kc);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    owner_velocity_kernel(OwnerVelocityArgs a) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  const size_t plane = (size_t)a.n;
+  const float ax = owner_sum_row(a.accv, a.ob, i, a.n, a.kc);
+  const float ay = owner_sum_row(a.accv + plane, a.ob, i, a.n, a.kc);
+  const float aw = owner_sum_row(a.accv + 2 * plane, a.ob, i, a.n, a.kc);
+  const float cnt = owner_sum_row(a.accv + 3 * plane, a.ob, i, a.n, a.kc);
+  const float cntv = fmaxf(cnt, 1.f);
+  float nvx = a.vx[i] + ax / cntv;
+  float nvy = a.vy[i] + ay / cntv;
+  float nom = a.om[i] + aw / cntv;
+  if (a.use_lin_damp) {
+    nvx = nvx * a.lin_sdamp;
+    nvy = nvy * a.lin_sdamp;
+  }
+  if (a.use_ang_damp) nom = nom * a.ang_sdamp;
+  a.o_vx[i] = nvx;
+  a.o_vy[i] = nvy;
+  a.o_om[i] = nom;
+}
+
+}  // namespace
+
+SF_EXPORT(sf_owner_sum, OwnerSumArgs)
+SF_EXPORT(sf_owner_velocity, OwnerVelocityArgs)
+
+extern "C" int sf_owner_sum(const OwnerSumArgs* a, void* stream) {
+  if (a->k < 1 || a->k > 4 || a->kc < 1) return (int)cudaErrorInvalidValue;
+  if (a->n > 0)
+    owner_sum_kernel<<<(a->n + kThreads - 1) / kThreads, kThreads, 0,
+                       (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sf_owner_velocity(const OwnerVelocityArgs* a, void* stream) {
+  if (a->kc < 1) return (int)cudaErrorInvalidValue;
+  if (a->n > 0)
+    owner_velocity_kernel<<<(a->n + kThreads - 1) / kThreads, kThreads, 0,
+                            (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}

@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(kRows) tile_frame_kernel(TileFrameArgs f) {
     a.o_an = state_out(f, odd, 2); a.o_vx = state_out(f, odd, 3);
     a.o_vy = state_out(f, odd, 4); a.o_om = state_out(f, odd, 5);
     for (int u = blockIdx.x; u < units; u += gridDim.x)
-      apply_row(a, u / kGroups, (u % kGroups) * kRows + threadIdx.x);
+      apply_row<false>(a, u / kGroups, (u % kGroups) * kRows + threadIdx.x);
     if (s + 1 < f.substeps) grid.sync();
   }
 }

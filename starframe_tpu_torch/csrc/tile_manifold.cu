@@ -5,7 +5,13 @@
 // the lower slot), fill the first Cs solve slots.
 //
 // Replaces starframe_tpu/pallas/tiles.py `_manifold_kernel` (launched by
-// `run_tiled_frame`), without the event keys (`with_keys`).
+// `run_tiled_frame`), with its contact-event keys (`with_keys`): given the
+// rows' and the large slots' canonical collider ids, each slot's pair key
+// min * n_colliders + max is written where its constants go (the raw key of
+// every table slot without compaction, zero in a solve slot no active slot
+// fills and in a skipped tile, as the TPU kernel writes them). The keys wrap
+// as int32 products do, unsigned here; the wrapper refuses a world whose
+// real pairs' keys would not fit.
 //
 // What bounds it on an H100: the manifold math, ~1-2k flops of scalar
 // SAT/clip code per slot (C = 16 slots x 10,240 rows = 1.6e5 manifolds a
@@ -57,6 +63,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int f = 0; f < TS_FIELDS; ++f) sol[f * splane + (size_t)c * kT] = 0.f;
       a.pidx_c[((size_t)t * Cs + c) * kT + i] = 0;
       a.src[((size_t)t * Cs + c) * kT + i] = 0;
+      if (a.keyc) a.keyc[((size_t)t * Cs + c) * kT + i] = 0;
     }
     if (valid && c == 0) {
       a.nact[((size_t)t * 2) * kT + i] = 0;
@@ -67,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float fld[TS_FIELDS];
-  int pc = 0;
+  int pc = 0, pkey = 0;
   if (valid) {
     // own row: pose, world vertices, speed bound
     const float o_px = a.px[row], o_py = a.py[row], o_an = a.an[row];
@@ -117,6 +124,12 @@ __global__ void __launch_bounds__(kThreads)
       pvlx = a.l_vlx + l;
       pvly = a.l_vly + l;
       vstride = TILE_L;
+    }
+    if (a.keyc) {
+      const int32_t oc = a.cid[row];
+      const int32_t qc = pr >= 0 ? a.cid[pr] : a.lcid[-1 - pr];
+      pkey = (int32_t)((uint32_t)min(oc, qc) * (uint32_t)a.n_colliders
+                       + (uint32_t)max(oc, qc));
     }
     const float p_ca = cosf(p_an), p_sa = sinf(p_an);
 #pragma unroll
@@ -199,12 +212,14 @@ __global__ void __launch_bounds__(kThreads)
       sol[f * splane + (size_t)slot * kT] = fld[f];
     a.pidx_c[((size_t)t * Cs + slot) * kT + i] = pc;
     a.src[((size_t)t * Cs + slot) * kT + i] = c;
+    if (a.keyc) a.keyc[((size_t)t * Cs + slot) * kT + i] = pkey;
   }
   if (Cs < C && c < Cs && c >= min(n_act, Cs)) {
     // a solve slot no active table slot fills
     for (int f = 0; f < TS_FIELDS; ++f) sol[f * splane + (size_t)c * kT] = 0.f;
     a.pidx_c[((size_t)t * Cs + c) * kT + i] = 0;
     a.src[((size_t)t * Cs + c) * kT + i] = 0;
+    if (a.keyc) a.keyc[((size_t)t * Cs + c) * kT + i] = 0;
   }
   if (c == 0) {
     int n_hard = 0;

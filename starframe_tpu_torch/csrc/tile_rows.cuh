@@ -11,6 +11,10 @@
 // friction velocity pass against each partner's post-apply state derived
 // from the correction windows; writes the row's new state. A tile whose
 // `tile_live` is 0 zeroes its corrections and passes its state through.
+// `apply_row<true>` is the compound rows' form (K9 with `compound`): it
+// writes the velocity pass's raw sums to `accv` instead of normalising and
+// damping, since a compound body's count is the sum over its rows (the
+// caller's owner reduction, owner_reduce.cu); K10 never runs it.
 #pragma once
 
 #include "common.cuh"
@@ -155,14 +159,18 @@ __device__ __forceinline__ float applied(float d, float cnt,
 }
 
 // own-row apply phase of row i of tile t
+template <bool kCompound = false>
 __device__ __forceinline__ void apply_row(const TileApplyArgs& a, int t,
                                           int i) {
   const int Cs = a.Cs;
   const size_t row = (size_t)t * kT + i;
+  const size_t plane = (size_t)a.Nt * kT;  // one accv field
   if (!(a.tile_live[t] > 0.f)) {
     // skipped tile: its bodies are frozen, the state passes through
     a.o_px[row] = a.px[row]; a.o_py[row] = a.py[row]; a.o_an[row] = a.an[row];
     a.o_vx[row] = a.vx[row]; a.o_vy[row] = a.vy[row]; a.o_om[row] = a.om[row];
+    if (kCompound)
+      for (int q = 0; q < 4; ++q) a.accv[q * plane + row] = 0.f;
     return;
   }
   const size_t splane = (size_t)Cs * kT;
@@ -247,15 +255,19 @@ __device__ __forceinline__ void apply_row(const TileApplyArgs& a, int t,
     acc[2] += -dng;
     acc[3] += nact;
   }
-  const float cntv = fmaxf(acc[3], 1.f);
-  nvx = nvx + acc[0] / cntv;
-  nvy = nvy + acc[1] / cntv;
-  nom = nom + acc[2] / cntv;
-  if (a.use_lin_damp) {
-    nvx = nvx * a.lin_sdamp;
-    nvy = nvy * a.lin_sdamp;
+  if (kCompound) {
+    for (int q = 0; q < 4; ++q) a.accv[q * plane + row] = acc[q];
+  } else {
+    const float cntv = fmaxf(acc[3], 1.f);
+    nvx = nvx + acc[0] / cntv;
+    nvy = nvy + acc[1] / cntv;
+    nom = nom + acc[2] / cntv;
+    if (a.use_lin_damp) {
+      nvx = nvx * a.lin_sdamp;
+      nvy = nvy * a.lin_sdamp;
+    }
+    if (a.use_ang_damp) nom = nom * a.ang_sdamp;
   }
-  if (a.use_ang_damp) nom = nom * a.ang_sdamp;
   a.o_px[row] = npx; a.o_py[row] = npy; a.o_an[row] = nan_;
   a.o_vx[row] = nvx; a.o_vy[row] = nvy; a.o_om[row] = nom;
 }

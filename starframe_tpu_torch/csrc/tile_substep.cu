@@ -10,7 +10,9 @@
 // `run_tiled_frame` launches with fuse=False; the fused whole-frame
 // `_mega_kernel`, tile_frame.cu here, is bitwise equal to this pair by
 // contract). The per-row bodies (`project_row`, `apply_row`) live in
-// tile_rows.cuh, which tile_frame.cu includes too.
+// tile_rows.cuh, which tile_frame.cu includes too. A non-null `accv` runs
+// the apply phase's compound form (`_apply_kernel(compound=True)`): the
+// velocity pass's raw sums go out for the caller's owner reduction.
 //
 // What bounds it on an H100: bytes. Each launch reads the solve tables
 // (22 floats x Cs slots a row: 7.2 MB at the 10k pile's 10,240 rows and
@@ -37,9 +39,10 @@ __global__ void __launch_bounds__(kRows) tile_project_kernel(
   if (i < kT) project_row(a, t, i);
 }
 
+template <bool kCompound>
 __global__ void __launch_bounds__(kRows) tile_apply_kernel(TileApplyArgs a) {
   const int t = blockIdx.y, i = blockIdx.x * kRows + threadIdx.x;
-  if (i < kT) apply_row(a, t, i);
+  if (i < kT) apply_row<kCompound>(a, t, i);
 }
 
 }  // namespace
@@ -56,7 +59,12 @@ extern "C" int sf_tile_project(const TileProjectArgs* a, void* stream) {
 
 extern "C" int sf_tile_apply(const TileApplyArgs* a, void* stream) {
   const dim3 grid(kT / kRows, a->Nt);
-  if (a->Nt > 0)
-    tile_apply_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(*a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a->Nt > 0) {
+    if (a->accv)
+      tile_apply_kernel<true><<<grid, kRows, 0, st>>>(*a);
+    else
+      tile_apply_kernel<false><<<grid, kRows, 0, st>>>(*a);
+  }
   return (int)cudaGetLastError();
 }

@@ -144,11 +144,12 @@ class TileManifoldArgs(ctypes.Structure):
         *((k, ctypes.c_void_p) for k in (
             "px py an vx vy om vlx vly rad nv fric rst sen invm invi l_px "
             "l_py l_an l_vlx l_vly l_rad l_nv l_fric l_rst l_sen pidx act "
-            "tile_live sol pidx_c src nact wake pen npts").split()),
+            "tile_live sol pidx_c src nact wake pen npts cid lcid keyc"
+        ).split()),
         ("Nt", ctypes.c_int), ("V", ctypes.c_int), ("C", ctypes.c_int),
         ("Cs", ctypes.c_int), ("margin", ctypes.c_float),
         ("dt", ctypes.c_float), ("sleep_v2", ctypes.c_float),
-        ("use_wake", ctypes.c_int),
+        ("use_wake", ctypes.c_int), ("n_colliders", ctypes.c_int),
     ]
 
 
@@ -164,7 +165,7 @@ class TileApplyArgs(ctypes.Structure):
         *((k, ctypes.c_void_p) for k in (
             "px py an vx vy om dxx dxy dth cnt invm invi dynb kin l_px l_py "
             "l_an pidx_c sol lam gravity tile_live o_px o_py o_an o_vx o_vy "
-            "o_om").split()),
+            "o_om accv").split()),
         ("Nt", ctypes.c_int), ("Cs", ctypes.c_int),
         *((k, ctypes.c_float) for k in (
             "h relaxation max_dpos rest_threshold lin_sdamp "
@@ -179,13 +180,31 @@ class TileFrameArgs(ctypes.Structure):
                 ("substeps", ctypes.c_int)]
 
 
+class OwnerSumArgs(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p * 4), ("y", ctypes.c_void_p * 4),
+                ("ob", ctypes.c_void_p), ("k", ctypes.c_int),
+                ("n", ctypes.c_int), ("kc", ctypes.c_int)]
+
+
+class OwnerVelocityArgs(ctypes.Structure):
+    _fields_ = [
+        *((k, ctypes.c_void_p) for k in
+          "vx vy om accv ob o_vx o_vy o_om".split()),
+        ("n", ctypes.c_int), ("kc", ctypes.c_int),
+        ("lin_sdamp", ctypes.c_float), ("ang_sdamp", ctypes.c_float),
+        ("use_lin_damp", ctypes.c_int), ("use_ang_damp", ctypes.c_int),
+    ]
+
+
 _ENTRY_POINTS = {"sf_elig": EligArgs, "sf_slots": SlotArgs,
                  "sf_joint_slots": JointSlotArgs, "sf_frame2": Frame2Args,
                  "sf_tile_tables": TileTablesArgs,
                  "sf_tile_manifold": TileManifoldArgs,
                  "sf_tile_project": TileProjectArgs,
                  "sf_tile_apply": TileApplyArgs,
-                 "sf_tile_frame": TileFrameArgs}
+                 "sf_tile_frame": TileFrameArgs,
+                 "sf_owner_sum": OwnerSumArgs,
+                 "sf_owner_velocity": OwnerVelocityArgs}
 
 
 def _sources():

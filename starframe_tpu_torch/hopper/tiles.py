@@ -6,14 +6,17 @@ Replaces ``starframe_tpu/pallas/tiles.py``'s ``_tables_kernel`` (via
 ``_project_kernel`` (:func:`tile_project`), ``_apply_kernel``
 (:func:`tile_apply`) and ``_mega_kernel`` (:func:`tile_frame`) with the
 CUDA kernels of ``csrc/tile_tables.cu``, ``csrc/tile_manifold.cu``,
-``csrc/tile_substep.cu`` and ``csrc/tile_frame.cu``;
+``csrc/tile_substep.cu`` and ``csrc/tile_frame.cu``, and the compound
+rows' owner reductions (``_owner_shift_reduce``, XLA code there) with
+``csrc/owner_reduce.cu`` (:func:`owner_sum`, :func:`owner_velocity`);
 :func:`run_tiled_frame` composes them into one frame (``fuse=True``: the
-substeps in one K10 launch; ``fuse=False``: one project and one apply
-launch per substep).
+substeps in one K10 launch; ``fuse=False`` or compound rows: one project
+and one apply launch per substep).
 Each wrapper checks its inputs, launches its kernel for CUDA tensors (and
 raises if that fails: there is no fallback) and runs its plain PyTorch twin
 for CPU tensors; ``plain=True`` runs the twin on CUDA tensors too, for
-timing. ``<wrapper>.launches`` counts kernel launches.
+timing. ``<wrapper>.launches`` counts kernel launches (K6 with event keys
+and K9's compound form in ``keys_launches`` and ``compound_launches``).
 
 Layout (the TPU's ``[Nt, 1, T]`` Mosaic rows and k-major lane packing are
 not kept): rows are colliders sorted along the sort axis and cut into
@@ -327,9 +330,30 @@ def _speed_rows(state, consts, large, idx):
     return spd, spd2, c_vlx, c_vly
 
 
+def check_event_keys(n_colliders: int) -> None:
+    """Refuse a world whose contact-event keys ``min * n_colliders + max``
+    would not fit int32 (past 46,340 colliders). The JAX package's keys
+    wrap silently there (ROADMAP.md C)."""
+    if n_colliders * n_colliders > 2 ** 31:
+        raise ValueError(
+            f"contact-event keys of {n_colliders} colliders overflow int32 "
+            f"(at most 46340 colliders)")
+
+
+def _slot_keys(cid, lcid, pidx, idx, n_colliders: int):
+    """Each table slot's pair key ``min * n_colliders + max`` of the row's
+    and its partner's canonical collider ids ``[Nt, C, T]`` i32 (int32
+    products, wrapping as the kernel's do)."""
+    c_cid = _cand(cid, lcid, idx)
+    own = _own(c_cid, pidx.shape[0])[:, None, :]
+    par = _slot_gather(c_cid, pidx)
+    return torch.minimum(own, par) * n_colliders + torch.maximum(own, par)
+
+
 def tile_manifold_plain(state, consts, large, pidx, act, tile_live, *,
                         Cs: int, margin: float, dt: float,
-                        sleep_velocity: float):
+                        sleep_velocity: float, event_ids=None,
+                        n_colliders: int = 0):
     """Plain PyTorch twin of :func:`tile_manifold`."""
     Nt, C, _ = pidx.shape
     dev = pidx.device
@@ -414,6 +438,9 @@ def tile_manifold_plain(state, consts, large, pidx, act, tile_live, *,
         wake = torch.zeros_like(npts)
     nact = torch.stack([act_m.sum(dim=1, dtype=i32),
                         hard.sum(dim=1, dtype=i32)], dim=1)
+    keys = (None if event_ids is None
+            else _slot_keys(*event_ids, pidx, idx, n_colliders))
+    keyc = keys
     if Cs >= C:  # no compaction: solve slots are the table slots
         sol, pidx_c = table, pidx
         src = torch.arange(C, dtype=i32, device=dev)[None, :, None].expand(
@@ -435,19 +462,23 @@ def tile_manifold_plain(state, consts, large, pidx, act, tile_live, *,
         sol = torch.where(found[:, None], torch.gather(
             table, 2, src.long()[:, None].expand(Nt, SOL_FIELDS, Cs, T)), 0.0)
         pidx_c = torch.where(found, torch.gather(pidx, 1, src.long()), 0)
+        if keys is not None:
+            keyc = torch.where(found, torch.gather(keys, 1, src.long()), 0)
     live = tile_live > 0
 
     def gate(x):  # skipped tiles (whole window asleep): zero outputs
         return torch.where(live.view((-1,) + (1,) * (x.dim() - 1)), x,
                            torch.zeros((), dtype=x.dtype, device=dev))
 
-    return (gate(sol).contiguous(), gate(pidx_c).contiguous(),
-            gate(src).contiguous(), gate(nact), gate(wake), gate(pen),
-            gate(npts))
+    out = (gate(sol).contiguous(), gate(pidx_c).contiguous(),
+           gate(src).contiguous(), gate(nact), gate(wake), gate(pen),
+           gate(npts))
+    return out if keys is None else out + (gate(keyc).contiguous(),)
 
 
 def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
                   margin: float, dt: float, sleep_velocity: float = 0.0,
+                  event_ids=None, n_colliders: int = 0,
                   plain: bool = False):
     """The frame's manifolds for the ``C``-slot tables, compacted into
     ``Cs`` solve slots.
@@ -463,7 +494,14 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
     Cs, T] i32 (the table slot of each solve slot), nact [Nt, 2, T] i32
     (active and imminent slots per row), wake, pen, npts [Nt, T] f32)``.
     ``sleep_velocity > 0`` computes ``wake`` (a fast dynamic partner inside
-    the margin); a tile whose ``tile_live [Nt]`` is 0 outputs zeros."""
+    the margin); a tile whose ``tile_live [Nt]`` is 0 outputs zeros.
+
+    ``event_ids = (cid [Nt, T], lcid [L])`` (i32: each row's and each
+    large slot's canonical collider id) adds an eighth output, ``keyc [Nt,
+    Cs, T]`` i32: each solve slot's contact-event key ``min(own, partner) *
+    n_colliders + max(...)``, selected with the slot (the raw key of every
+    table slot when ``Cs >= C``; 0 in a solve slot nothing fills and in a
+    skipped tile)."""
     dev = pidx.device
     V = consts["vlx"].shape[1]
     Nt = _check_tiles(state, consts, large,
@@ -474,7 +512,12 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
     _check("act", act, f32, (Nt, C, T), dev)
     _check("tile_live", tile_live, f32, (Nt,), dev)
     Cs = min(Cs, C)
-    kw = dict(Cs=Cs, margin=margin, dt=dt, sleep_velocity=sleep_velocity)
+    if event_ids is not None:
+        check_event_keys(n_colliders)
+        _check("cid", event_ids[0], i32, (Nt, T), dev)
+        _check("lcid", event_ids[1], i32, (L,), dev)
+    kw = dict(Cs=Cs, margin=margin, dt=dt, sleep_velocity=sleep_velocity,
+              event_ids=event_ids, n_colliders=n_colliders)
     if plain or not _route(dev):
         return tile_manifold_plain(state, consts, large, pidx, act,
                                    tile_live, **kw)
@@ -499,6 +542,11 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
                        for _ in range(3))
     p = _build.ptr
     s, c, lg = state, consts, large
+    if event_ids is None:
+        keyc, ev = None, (None, None, None)
+    else:
+        keyc = torch.empty((Nt, Cs, T), dtype=i32, device=dev)
+        ev = (p(event_ids[0]), p(event_ids[1]), p(keyc))
     args = _build.TileManifoldArgs(
         *(p(x) for x in (s["px"], s["py"], s["an"], s["vx"], s["vy"],
                          s["om"], vlx, vly, c["rad"], c["nv"], c["fric"],
@@ -506,15 +554,20 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
                          lg["py"], lg["an"], lvx, lvy, lg["rad"], lg["nv"],
                          lg["fric"], lg["rst"], lg["sen"], pidx, act,
                          tile_live, sol, pidx_c, src, nact, wake, pen,
-                         npts)),
+                         npts)), *ev,
         Nt, Vk, C, Cs, margin, dt, sleep_velocity * sleep_velocity,
-        int(sleep_velocity > 0.0))
+        int(sleep_velocity > 0.0), n_colliders)
     _build.launch("sf_tile_manifold", args, dev)
-    tile_manifold.launches += 1
-    return sol, pidx_c, src, nact, wake, pen, npts
+    out = (sol, pidx_c, src, nact, wake, pen, npts)
+    if keyc is None:
+        tile_manifold.launches += 1
+        return out
+    tile_manifold.keys_launches += 1
+    return out + (keyc,)
 
 
 tile_manifold.launches = 0
+tile_manifold.keys_launches = 0  # launches with event keys, counted apart
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +709,8 @@ tile_project.launches = 0
 def tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam, gravity,
                      tile_live, *, h: float, relaxation: float,
                      max_dpos: float, rest_threshold: float,
-                     lin_damp: float, ang_damp: float):
+                     lin_damp: float, ang_damp: float,
+                     compound: bool = False):
     """Plain PyTorch twin of :func:`tile_apply`."""
     Nt, Cs, _ = pidx_c.shape
     idx = _cand_index(Nt, pidx_c.device)
@@ -714,6 +768,24 @@ def tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam, gravity,
     cv_a, _ = velocity_contacts_b(pose_v, pvel, pvel0, pd, cb,
                                   lam.permute(1, 0, 2, 3), h_t, rest_threshold)
     accv = _slot_sum(cv_a)  # [4, Nt, T]
+    live = _live_rows(tile_live, npx)
+    if compound:
+        # the raw sums: a compound body normalises by its rows' summed count
+        accv = torch.where(live[None], accv, 0.0).contiguous()
+    else:
+        nvx, nvy, nom = _velocity_update(nvx, nvy, nom, accv, h=h,
+                                         lin_damp=lin_damp,
+                                         ang_damp=ang_damp)
+    # skipped tiles pass their state through (their bodies are frozen)
+    out = {k: torch.where(live, v, state[k]) for k, v in zip(
+        STATE_KEYS, (npx, npy, nan_, nvx, nvy, nom))}
+    return (out, accv) if compound else out
+
+
+def _velocity_update(nvx, nvy, nom, accv, *, h: float, lin_damp: float,
+                     ang_damp: float):
+    """The velocity pass's sums ``accv [4, ...]`` normalised by their count
+    and added, then damping."""
     cntv = torch.clamp(accv[3], min=1.0)
     nvx = nvx + accv[0] / cntv
     nvy = nvy + accv[1] / cntv
@@ -724,22 +796,25 @@ def tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam, gravity,
         nvy = nvy * sd
     if ang_damp > 0.0:
         nom = nom * (1.0 / (1.0 + h * ang_damp))
-    live = _live_rows(tile_live, npx)
-    # skipped tiles pass their state through (their bodies are frozen)
-    return {k: torch.where(live, v, state[k]) for k, v in zip(
-        STATE_KEYS, (npx, npy, nan_, nvx, nvy, nom))}
+    return nvx, nvy, nom
 
 
 def tile_apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
                tile_live, *, h: float, relaxation: float, max_dpos: float,
                rest_threshold: float, lin_damp: float, ang_damp: float,
-               plain: bool = False):
+               compound: bool = False, plain: bool = False):
     """One substep's apply phase: the count-normalised, clipped corrections
     ``corr = (dxx, dxy, dth, cnt)`` of :func:`tile_project` on the
     integrated pose, velocity reconstruction (kinematic rows keep their
     velocity), then the restitution/friction velocity pass against each
     partner's post-apply state derived from the correction windows, and
-    damping. Returns the new state dict (``[Nt, T]`` each)."""
+    damping. Returns the new state dict (``[Nt, T]`` each).
+
+    ``compound=True`` (``_apply_kernel(compound=True)``, for rows of
+    multi-collider bodies whose ``corr`` are already owner sums) returns
+    ``(state, accv [4, Nt, T])``: the state before the velocity pass is
+    added, and the pass's raw sums (x, y, angular, count; 0 in a skipped
+    tile), which :func:`owner_velocity` owner-sums, normalises and damps."""
     dev = pidx_c.device
     Nt = _check_tiles(state, consts, {}, ("invm", "invi", "dynb", "kin"),
                       dev)
@@ -758,11 +833,13 @@ def tile_apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
         _check(name, t, dtype, shape, dev)
     kw = dict(h=h, relaxation=relaxation, max_dpos=max_dpos,
               rest_threshold=rest_threshold, lin_damp=lin_damp,
-              ang_damp=ang_damp)
+              ang_damp=ang_damp, compound=compound)
     if plain or not _route(dev):
         return tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam,
                                 gravity, tile_live, **kw)
     out = {k: torch.empty((Nt, T), dtype=f32, device=dev) for k in STATE_KEYS}
+    accv = (torch.empty((4, Nt, T), dtype=f32, device=dev) if compound
+            else None)
     p = _build.ptr
     s, c = state, consts
     args = _build.TileApplyArgs(
@@ -771,15 +848,133 @@ def tile_apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
                          c["kin"], large["px"], large["py"], large["an"],
                          pidx_c, sol, lam, gravity, tile_live,
                          *(out[k] for k in STATE_KEYS))),
+        None if accv is None else p(accv),
         Nt, Cs, h, relaxation, max_dpos, rest_threshold,
         1.0 / (1.0 + h * lin_damp), 1.0 / (1.0 + h * ang_damp),
         int(lin_damp > 0.0), int(ang_damp > 0.0))
     _build.launch("sf_tile_apply", args, dev)
+    if compound:
+        tile_apply.compound_launches += 1
+        return out, accv
     tile_apply.launches += 1
     return out
 
 
 tile_apply.launches = 0
+tile_apply.compound_launches = 0  # the compound instance's, counted apart
+
+
+# ---------------------------------------------------------------------------
+# owner reductions of compound rows (XLA code in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def owner_reduce(vals, ob, kc: int, op, neutral):
+    """``vals [Mp, ...]`` reduced over each row's owner block (the rows
+    sharing ``ob [Mp]``, contiguous, at most ``kc``) and broadcast back to
+    every row of the block: ``_owner_shift_reduce`` (``pallas/tiles.py``),
+    ``2 (kc - 1)`` masked rolls in its order (row ``i - o`` before ``i +
+    o``, wrapping around the ends). ``op`` is elementwise and associative
+    (``torch.add``, ``torch.maximum``, ``torch.logical_or``), ``neutral``
+    its identity."""
+    out = vals
+    for o in range(1, kc):
+        for sgn in (1, -1):
+            sh = torch.roll(vals, sgn * o, dims=0)
+            m = torch.roll(ob, sgn * o, dims=0) == ob
+            if vals.dim() > 1:
+                m = m.reshape(m.shape + (1,) * (vals.dim() - 1))
+            out = op(out, torch.where(m, sh, neutral))
+    return out
+
+
+def _owner_rows(xs, ob, dev):
+    """Check ``k`` (1-4) per-row f32 fields of ``ob.numel()`` rows each."""
+    n = ob.shape[0]
+    _check("ob", ob, i32, (n,), dev)
+    if not 1 <= len(xs) <= 4:
+        raise ValueError(f"owner_sum takes 1 to 4 fields, got {len(xs)}")
+    for q, x in enumerate(xs):
+        if x.numel() != n:
+            raise ValueError(f"owner field {q}: {x.numel()} rows, expected "
+                             f"{n}")
+        _check(f"owner field {q}", x, f32, tuple(x.shape), dev)
+    return n
+
+
+def owner_sum_plain(xs, ob, kc: int):
+    """Plain PyTorch twin of :func:`owner_sum`."""
+    return [owner_reduce(x.reshape(-1), ob, kc, torch.add, 0.0).reshape(
+        x.shape) for x in xs]
+
+
+def owner_sum(xs, ob, kc: int, plain: bool = False):
+    """Per-body sums of ``k`` per-row fields ``xs`` (1-4 f32 tensors of
+    ``Mp`` rows each, any shape; K8's ``dxx, dxy, dth, cnt``) broadcast to
+    every row of the body, in one launch: each row adds itself, then the
+    rows ``1, 2, .. kc - 1`` before and after it that share its owner
+    ``ob [Mp]`` i32, in :func:`owner_reduce`'s order (bitwise equal to it).
+    Returns a list of ``k`` tensors shaped like ``xs``."""
+    dev = ob.device
+    n = _owner_rows(xs, ob, dev)
+    if plain or not _route(dev):
+        return owner_sum_plain(xs, ob, kc)
+    ys = [torch.empty_like(x) for x in xs]
+    four = ctypes.c_void_p * 4
+    pad = [None] * (4 - len(xs))
+    args = _build.OwnerSumArgs(
+        four(*(x.data_ptr() for x in xs), *pad),
+        four(*(y.data_ptr() for y in ys), *pad), ob.data_ptr(), len(xs), n,
+        kc)
+    _build.launch("sf_owner_sum", args, dev)
+    owner_sum.launches += 1
+    return ys
+
+
+owner_sum.launches = 0
+
+
+def owner_velocity_plain(state, accv, ob, kc: int, *, h: float,
+                         lin_damp: float, ang_damp: float):
+    """Plain PyTorch twin of :func:`owner_velocity`."""
+    shape = state["vx"].shape
+    av = torch.stack(owner_sum_plain(list(accv.reshape(4, -1)), ob, kc))
+    nvx, nvy, nom = _velocity_update(
+        state["vx"].reshape(-1), state["vy"].reshape(-1),
+        state["om"].reshape(-1), av, h=h, lin_damp=lin_damp,
+        ang_damp=ang_damp)
+    return dict(state, vx=nvx.reshape(shape), vy=nvy.reshape(shape),
+                om=nom.reshape(shape))
+
+
+def owner_velocity(state, accv, ob, kc: int, *, h: float, lin_damp: float,
+                   ang_damp: float, plain: bool = False):
+    """The velocity pass of compound rows (``pallas/tiles.py:2072-2086``),
+    in one launch: :func:`tile_apply`'s raw sums ``accv [4, Nt, T]`` summed
+    over each body's rows (as :func:`owner_sum`), normalised by the body's
+    count, added to the rows' velocities, then damping. Returns the state
+    dict with new ``vx, vy, om``."""
+    dev = ob.device
+    Nt = _check_tiles(state, {}, {}, (), dev)
+    n = _owner_rows([state["vx"]], ob, dev)
+    _check("accv", accv, f32, (4, Nt, T), dev)
+    kw = dict(h=h, lin_damp=lin_damp, ang_damp=ang_damp)
+    if plain or not _route(dev):
+        return owner_velocity_plain(state, accv, ob, kc, **kw)
+    out = {k: torch.empty((Nt, T), dtype=f32, device=dev)
+           for k in ("vx", "vy", "om")}
+    p = _build.ptr
+    args = _build.OwnerVelocityArgs(
+        *(p(x) for x in (state["vx"], state["vy"], state["om"], accv, ob,
+                         out["vx"], out["vy"], out["om"])),
+        n, kc, 1.0 / (1.0 + h * lin_damp), 1.0 / (1.0 + h * ang_damp),
+        int(lin_damp > 0.0), int(ang_damp > 0.0))
+    _build.launch("sf_owner_velocity", args, dev)
+    owner_velocity.launches += 1
+    return dict(state, **out)
+
+
+owner_velocity.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -789,17 +984,29 @@ tile_apply.launches = 0
 
 def substep_loop(project, apply, state, consts, large, pidx_c, sol,
                  gravity, tile_live, *, substeps: int, h: float,
-                 compliance: float, **apply_kw):
+                 compliance: float, owner=None, **apply_kw):
     """``substeps`` x (``project``, then ``apply``) over all tiles, as
     :func:`tile_project` and :func:`tile_apply` (or their twins) take
-    their arguments. Returns ``(new_state, touched)``."""
+    their arguments. ``owner = (owner_sum, owner_velocity, ob, kc)`` runs
+    compound rows as ``pallas/tiles.py:2046-2086`` does: the project sums
+    owner-summed before the apply, the apply's compound form, then the
+    owner velocity pass. Returns ``(new_state, touched)``."""
     touched = torch.zeros(pidx_c.shape, dtype=f32, device=pidx_c.device)
     for _ in range(substeps):
         *corr, lam, touched = project(state, consts, large, pidx_c, sol,
                                       gravity, touched, tile_live, h=h,
                                       compliance=compliance)
-        state = apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
-                      tile_live, h=h, **apply_kw)
+        if owner is None:
+            state = apply(state, corr, consts, large, pidx_c, sol, lam,
+                          gravity, tile_live, h=h, **apply_kw)
+            continue
+        osum, ovel, ob, kc = owner
+        corr = osum(corr, ob, kc)
+        state, accv = apply(state, corr, consts, large, pidx_c, sol, lam,
+                            gravity, tile_live, h=h, compound=True,
+                            **apply_kw)
+        state = ovel(state, accv, ob, kc, h=h, lin_damp=apply_kw["lin_damp"],
+                     ang_damp=apply_kw["ang_damp"])
     return state, touched
 
 
@@ -864,7 +1071,7 @@ def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
     apply = _build.TileApplyArgs(
         *st_in, *(p(x) for x in corr), p(c["invm"]), p(c["invi"]),
         p(c["dynb"]), p(c["kin"]), *large_pose, p(pidx_c), p(sol), p(lam),
-        p(gravity), p(tile_live), *(p(x) for x in bufs[1]),
+        p(gravity), p(tile_live), *(p(x) for x in bufs[1]), None,
         Nt, Cs, h, relaxation, max_dpos, rest_threshold,
         1.0 / (1.0 + h * lin_damp), 1.0 / (1.0 + h * ang_damp),
         int(lin_damp > 0.0), int(ang_damp > 0.0))
@@ -893,6 +1100,8 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
                     max_dpos: float, rest_threshold: float, lin_damp: float,
                     ang_damp: float, sleep_velocity: float = 0.0,
                     sort_axis: int = 0, fuse: bool = True,
+                    event_ids=None, n_colliders: int = 0,
+                    compound: bool = False, owner_kc: int = 1,
                     plain: bool = False):
     """One frame on the sorted-tile layout: slot tables (built here with
     one-frame sweeps unless ``tables = (pidx, act)`` reuses a K-frame
@@ -900,13 +1109,21 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
     default) all of them in one :func:`tile_frame` launch, else ``substeps``
     x (project, apply) launches, K10's bitwise reference.
 
+    ``compound``: rows of multi-collider bodies (``consts["obody"]`` their
+    owner, sibling blocks of at most ``owner_kc`` rows). Their substeps run
+    as the JAX package runs them, whatever ``fuse`` says (K10 has no owner
+    reductions, ``pallas/tiles.py:1937``): per substep the project launch,
+    :func:`owner_sum` of its four sums, the apply's compound form and
+    :func:`owner_velocity`. ``event_ids = (cid, lcid)`` (see
+    :func:`tile_manifold`) adds the solve slots' event keys.
+
     ``consts`` carries the per-row constants, ``edge_lo``/``edge_hi``
     ``[Nt]`` and ``tile_live`` ``[Nt]``. Returns ``(new_state, touched
     [Nt, Cs, T], (count, count_touch, count_close) [Nt, T], winover [Nt,
     T], wake, pen [Nt, T], pidx [Nt, C, T], pidx_c [Nt, Cs, T], act [Nt, C,
-    T], npts [Nt, T], src [Nt, Cs, T], nact [Nt, 2, T])``; the counts and
-    ``winover`` are None when ``tables`` is given (the caller keeps them
-    from its build)."""
+    T], npts [Nt, T], src [Nt, Cs, T], nact [Nt, 2, T], keyc [Nt, Cs, T]
+    or None)``; the counts and ``winover`` are None when ``tables`` is
+    given (the caller keeps them from its build)."""
     if tables is None:
         (pidx, act, count, count_touch, count_close, winover,
          _sweep) = build_tile_tables(
@@ -917,19 +1134,27 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
         pidx, act = tables
         count = count_touch = count_close = winover = None
     tile_live = consts["tile_live"]
-    sol, pidx_c, src, nact, wake, pen, npts = tile_manifold(
+    sol, pidx_c, src, nact, wake, pen, npts, *keyc = tile_manifold(
         state, consts, large, pidx, act, tile_live, Cs=Cs, margin=margin,
-        dt=dt, sleep_velocity=sleep_velocity, plain=plain)
+        dt=dt, sleep_velocity=sleep_velocity, event_ids=event_ids,
+        n_colliders=n_colliders, plain=plain)
     kw = dict(substeps=substeps, h=h, compliance=compliance,
               relaxation=relaxation, max_dpos=max_dpos,
               rest_threshold=rest_threshold, lin_damp=lin_damp,
               ang_damp=ang_damp)
     args = (state, consts, large, pidx_c, sol, gravity, tile_live)
-    if fuse:
+    owner = None
+    if compound:
+        owner = (functools.partial(owner_sum, plain=plain),
+                 functools.partial(owner_velocity, plain=plain),
+                 consts["obody"].reshape(-1), owner_kc)
+    if fuse and not compound:
         state, touched = tile_frame(*args, **kw, plain=plain)
     else:
         state, touched = substep_loop(
             functools.partial(tile_project, plain=plain),
-            functools.partial(tile_apply, plain=plain), *args, **kw)
+            functools.partial(tile_apply, plain=plain), *args, **kw,
+            owner=owner)
     return (state, touched, (count, count_touch, count_close), winover, wake,
-            pen, pidx, pidx_c, act, npts, src, nact)
+            pen, pidx, pidx_c, act, npts, src, nact,
+            keyc[0] if keyc else None)

@@ -1,12 +1,21 @@
 """The sorted-sweep tile engine's glue for one big world: the sort into tile
 layout, the large set, the per-frame kernels, sleep and the sort back.
 
-The PyTorch counterpart of ``starframe_tpu/tiled.py`` for the
-one-collider-per-body world without joints (the 10k-body pile,
-BASELINE.json:2, asleep or awake), on one device. Rows are colliders
-sorted along ``cfg.tile_sort_axis`` and cut into tiles of ``T`` rows;
-every contact partner is either in the row's 3-tile sort window or in the
-large set of static colliders (``hopper/tiles.py``).
+The PyTorch counterpart of ``starframe_tpu/tiled.py`` for one world
+without joints (the 10k-body pile, BASELINE.json:2, asleep or awake, and
+its compound variant), on one device. Rows are colliders sorted along
+``cfg.tile_sort_axis`` and cut into tiles of ``T`` rows; every contact
+partner is either in the row's 3-tile sort window or in the large set of
+static colliders (``hopper/tiles.py``).
+
+Compound worlds (more colliders than bodies) keep each body's collider
+rows contiguous: the sort groups rows by owner first, the owner's position
+is every sibling's key bit for bit, and the later sorts are stable. Each
+substep then sums the rows' corrections over their body with masked rolls
+of the row axis (``hopper.owner_sum``, ``hopper.owner_velocity``); the
+wake signal and the keep set are owner-reduced the same way, so sibling
+rows keep identical state and sleep counters. K10 does not run compound
+rows (as in the JAX package): their substeps are K8/K9 launches.
 
 - :func:`tiled_step`: one frame, sorted in and out (the World-API shape).
 - :func:`tiled_rollout`: N frames kept in tile layout, re-sorted every
@@ -31,6 +40,9 @@ windows sleep. The kernels always run over the full grid of tiles and let
 awake-prefix grid sizes (``_bucket_sizes``) are a TPU compile answer and
 are not kept (ROADMAP.md C).
 
+:func:`tiled_rollout` with ``with_events`` also returns each frame's
+contact-event keys (``events.py`` reads them), computed in K6.
+
 What the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item (:func:`use_tiled`).
 """
@@ -39,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .config import SolverConfig
@@ -47,6 +60,8 @@ from .hopper.tiles import (
     T,
     WIN,
     build_tile_tables,
+    check_event_keys,
+    owner_reduce,
     run_tiled_frame,
     win_start,
 )
@@ -63,17 +78,12 @@ _BIG = 1e30
 host_syncs = 0
 
 
-def _require_slice(world: World, cfg: SolverConfig, with_events=False,
-                   shard_axis=None) -> None:
+def _require_slice(world: World, cfg: SolverConfig, shard_axis=None) -> None:
     """Raise on what the port's tile engine does not run yet."""
     todo = [
         (world.joints.j > 0, "joints on the tile engine (_tile_joint_pass)",
          "A4.5"),
-        (world.colliders.m != world.bodies.n,
-         "compound bodies on the tile engine (owner reductions)", "A4.6"),
         (cfg.ccd, "CCD on the tile engine (K7 _ccd_kernel)", "A4.4"),
-        (with_events, "contact events on the tile engine (in-kernel keys)",
-         "A4.3"),
         (shard_axis is not None, "the sharded tile axis",
          "A4, with the multi-device work of A5"),
     ]
@@ -83,21 +93,69 @@ def _require_slice(world: World, cfg: SolverConfig, with_events=False,
                 f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def use_tiled(world: World, cfg: SolverConfig, with_events: bool = False,
-              shard_axis=None) -> bool:
+def _compound(world: World) -> bool:
+    return world.colliders.m != world.bodies.n
+
+
+def _compound_fits(world: World, cfg: SolverConfig) -> bool:
+    """The JAX package's value checks of a compound world (host numpy):
+    no joints, every moving body with an active collider, no inactive
+    collider on a moving body, and at most ``cfg.max_colliders_per_body``
+    colliders a body (the owner reductions' span)."""
+    if world.joints.j > 0:
+        return False
+    b, c = world.bodies, world.colliders
+    cb = c.body_idx.cpu().numpy()
+    act = (c.flags.cpu().numpy() & COL_ACTIVE) != 0
+    moves = ((b.inv_mass.cpu().numpy() > 0) | (b.inv_inertia.cpu().numpy() > 0)
+             | ((b.flags.cpu().numpy() & BODY_KINEMATIC) != 0))
+    has_row = np.zeros(b.n, bool)
+    has_row[cb[act]] = True
+    if (moves & ~has_row).any() or ((~act) & moves[cb]).any():
+        return False
+    return np.bincount(cb, minlength=b.n).max() <= cfg.max_colliders_per_body
+
+
+def use_tiled(world: World, cfg: SolverConfig, shard_axis=None) -> bool:
     """Shape/config gate of the tiled single-world path: False where the
     JAX package keeps a world on its other tiers (``use_pallas`` off,
     ``iterations != 1``, per-substep manifolds, fewer than four tiles of
-    colliders). A world that passes and needs a branch the port has not
-    ported raises ``NotImplementedError`` naming its ROADMAP.md item."""
+    colliders, a compound world its owner reductions cannot run: see
+    :func:`_compound_fits`). A world that passes and needs a branch the
+    port has not ported raises ``NotImplementedError`` naming its
+    ROADMAP.md item."""
     if cfg.use_pallas is False or cfg.iterations != 1:
         return False
     if cfg.manifold_refresh != "frame":
         return False
     if world.colliders.m < 4 * T:
         return False
-    _require_slice(world, cfg, with_events, shard_axis)
+    if _compound(world) and not _compound_fits(world, cfg):
+        return False
+    _require_slice(world, cfg, shard_axis)
     return True
+
+
+def _owner_width_overflow(world: World, cfg: SolverConfig):
+    """The HARD ``owner_overflow`` counter of a compound world (i32 device
+    scalar): colliders past ``cfg.max_colliders_per_body`` on any body
+    (their rows' corrections miss their siblings), moving bodies with no
+    active collider (no row, never integrated) and inactive colliders on
+    moving bodies (their rows sit in the frozen tail). :func:`use_tiled`
+    keeps such worlds off the tile engine; this counts them on a direct
+    call."""
+    b, c = world.bodies, world.colliders
+    cb = c.body_idx.long()
+    act = ((c.flags & COL_ACTIVE) != 0).to(i32)
+    moves = ((b.inv_mass > 0) | (b.inv_inertia > 0)
+             | ((b.flags & BODY_KINEMATIC) != 0))
+    cnt = torch.bincount(cb, minlength=b.n)
+    width = torch.clamp(cnt - cfg.max_colliders_per_body, min=0).sum()
+    act_rows = torch.zeros(b.n, dtype=i32, device=cb.device).scatter_reduce(
+        0, cb, act, reduce="amax")
+    no_row = (moves & (act_rows == 0)).sum()
+    inact = ((act == 0) & moves[cb]).sum()
+    return (width + no_row + inact).to(i32)
 
 
 def _solve_cap(cfg: SolverConfig) -> int:
@@ -150,9 +208,17 @@ def _enter_tiles(world: World, cfg: SolverConfig):
     col_active = ((c.flags & COL_ACTIVE) != 0).to(f32)
     sensor = ((c.flags & COL_SENSOR) != 0).to(f32)
 
+    # moving rows by their owner's position (the same for every sibling),
+    # statics, inactive rows and padding to the tail; a compound world
+    # first groups rows by owner, and the stable sort keeps each body's
+    # rows together
     axis = 0 if cfg.tile_sort_axis == "x" else 1
-    perm = torch.argsort(_sort_key(col_active, moves, b.pos[cb, axis]),
-                         stable=True)
+    key = _sort_key(col_active, moves, b.pos[cb, axis])
+    if b.n != M:
+        grp = torch.argsort(cb, stable=True)
+        perm = grp[torch.argsort(key[grp], stable=True)]
+    else:
+        perm = torch.argsort(key, stable=True)
     perm = torch.cat([perm, torch.arange(M, Mp, device=dev)])
     body_id = perm.to(i32)
 
@@ -308,7 +374,8 @@ def _keep_hop(boxes, flag, n_tiles: int):
     return (ov & fl).any(dim=1).reshape(n_tiles * T)
 
 
-def _partition_perm(key_x, boxes_x, mova_x, awake_x, n_tiles: int):
+def _partition_perm(key_x, boxes_x, mova_x, awake_x, n_tiles: int,
+                    ob_x=None, kc: int = 1):
     """The keep set and the partition permutation, computed in sorted row
     order (``*_x``). ``kept`` holds the awake rows, every moving row whose
     box an awake row's box overlaps (the contacts and wake signals awake
@@ -318,24 +385,28 @@ def _partition_perm(key_x, boxes_x, mova_x, awake_x, n_tiles: int):
     kept rows, moving rows not kept, statics, then inactive rows and
     padding, each class in sorted order (the sort is stable).
 
-    The JAX package widens the keep set to whole compound bodies and along
-    joints; worlds with either raise at :func:`_require_slice` (ROADMAP.md
-    A4.5, A4.6)."""
+    ``ob_x`` (compound rows: the owner of each sorted row, sibling blocks
+    of at most ``kc``) makes keeping a body property: one kept row keeps its
+    block, so the partition never splits a body. The JAX package also
+    widens the set along joints; jointed worlds raise at
+    :func:`_require_slice` (ROADMAP.md A4.5)."""
     kept = awake_x
     for _ in range(3):
         kept = kept | (mova_x & _keep_hop(boxes_x, kept, n_tiles))
     kept = torch.where(mova_x, kept, True)
+    if ob_x is not None:
+        kept = owner_reduce(kept, ob_x, kc, torch.logical_or, False)
     pclass = torch.where(mova_x, torch.where(kept, 0.0, 1.0),
                          torch.where(key_x >= 2 * _BIG, 3.0, 2.0))
     return torch.argsort(pclass, stable=True), kept
 
 
 def _compact_resort(state: dict, consts: dict, body_id, cfg: SolverConfig,
-                    gravity, axis_key: str):
+                    gravity, axis_key: str, compound: bool = False):
     """The compacting re-sort: one composed permutation (the sort along the
     sort axis, then the stable keep partition) and the new ``kept`` flags.
     The keep set is computed on the sorted layout, where the 3-tile window
-    test is exhaustive."""
+    test is exhaustive; ``compound`` keeps it whole per body."""
     Nt = state["px"].shape[0]
     key = _sort_key(consts["act"].reshape(-1), consts["mov"].reshape(-1),
                     state[axis_key].reshape(-1))
@@ -343,7 +414,9 @@ def _compact_resort(state: dict, consts: dict, body_id, cfg: SolverConfig,
     boxes, mova, awake = _keep_boxes(state, consts, cfg, gravity)
     perm_p, kept_x = _partition_perm(
         key[perm_x], tuple(b[perm_x] for b in boxes), mova[perm_x],
-        awake[perm_x], Nt)
+        awake[perm_x], Nt,
+        ob_x=consts["obody"].reshape(-1)[perm_x] if compound else None,
+        kc=cfg.max_colliders_per_body)
     state, consts, body_id = _apply_perm(state, consts, body_id,
                                          perm_x[perm_p])
     consts["kept"] = kept_x[perm_p].to(f32).reshape(Nt, T)
@@ -403,17 +476,22 @@ def _frame_consts(state, consts, cfg: SolverConfig, edges) -> dict:
 
 def _run_frame(state, consts, large, cfg: SolverConfig, gravity,
                tables=None, edges=None, fuse: bool = True,
-               plain: bool = False):
+               plain: bool = False, event_ids=None, n_colliders: int = 0,
+               compound: bool = False):
     """One frame on tile-layout state. Returns ``(state', consts', frame)``,
     with ``frame`` the rest of :func:`run_tiled_frame`'s outputs; ``tables =
-    (pidx, act)`` reuses a K-frame build, None builds one-frame tables.
+    (pidx, act)`` reuses a K-frame build, None builds one-frame tables;
+    ``event_ids``, ``n_colliders`` and ``compound`` go to
+    :func:`run_tiled_frame`.
 
     The kernels read :func:`_frame_consts`. With sleep on, after the frame
     each row's sleep counter counts up while it is slow (at the raw
     ``sleep_velocity``; the kernels take the wake threshold,
     ``sleep_velocity * wake_velocity_factor``) and resets when it is fast
-    or K6 saw a fast dynamic partner (``wake``); rows asleep after that have
-    their velocities zeroed (``consts'`` carries the new counters)."""
+    or K6 saw a fast dynamic partner (``wake``, on compound rows the
+    largest over the body's rows, so that siblings keep one counter); rows
+    asleep after that have their velocities zeroed (``consts'`` carries the
+    new counters)."""
     if edges is None:
         edges = _edge_rows(state, consts, cfg)[:2]
     new_state, *frame = run_tiled_frame(
@@ -425,12 +503,18 @@ def _run_frame(state, consts, large, cfg: SolverConfig, gravity,
         lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
         sleep_velocity=cfg.sleep_velocity * cfg.wake_velocity_factor,
         sort_axis=0 if cfg.tile_sort_axis == "x" else 1, fuse=fuse,
-        plain=plain)
+        event_ids=event_ids, n_colliders=n_colliders, compound=compound,
+        owner_kc=cfg.max_colliders_per_body, plain=plain)
     if cfg.sleep_velocity > 0.0:
         vx, vy, om = new_state["vx"], new_state["vy"], new_state["om"]
         slow = (vx * vx + vy * vy + om * om) < cfg.sleep_velocity ** 2
         sleep = torch.where(slow, consts["sleep"] + 1, 0)
         wake = frame[3]
+        if compound:
+            wake = owner_reduce(
+                wake.reshape(-1), consts["obody"].reshape(-1),
+                cfg.max_colliders_per_body, torch.maximum,
+                float("-inf")).reshape(wake.shape)
         sleep = torch.where(wake > 0, 0, sleep)
         consts = dict(consts, sleep=sleep)
         asleep = _asleep(consts, cfg)
@@ -452,22 +536,39 @@ def _solve_counts(nact, Csol: int):
 
 def _exit_tiles(world: World, state: dict, consts: dict, prev: dict,
                 body_id, n_frames: int) -> World:
-    """Tile-layout state -> canonical World (the inverse of the sort)."""
+    """Tile-layout state -> canonical World (the inverse of the sort). A
+    compound body reads back through its first collider's row (its
+    siblings hold the same state); a body with no collider keeps its
+    canonical values."""
     b = world.bodies
     M = world.colliders.m
     take = torch.argsort(body_id)  # canonical collider -> tile row
+    if b.n != M:
+        first = torch.full((b.n,), M, dtype=torch.long,
+                           device=take.device).scatter_reduce(
+            0, world.colliders.body_idx.long(),
+            torch.arange(M, device=take.device), reduce="amin")
+        has_row = first < M
+        take = take[torch.where(has_row, first, 0)]
 
-    def unsort(x):
-        return x.reshape(-1)[take][:M]
+        def unsort(x, orig):
+            return torch.where(has_row, x.reshape(-1)[take], orig)
+    else:
 
-    pos = torch.stack([unsort(state["px"]), unsort(state["py"])], dim=-1)
-    vel = torch.stack([unsort(state["vx"]), unsort(state["vy"])], dim=-1)
+        def unsort(x, orig):
+            return x.reshape(-1)[take][:M]
+
+    pos = torch.stack([unsort(state["px"], b.pos[:, 0]),
+                       unsort(state["py"], b.pos[:, 1])], dim=-1)
+    vel = torch.stack([unsort(state["vx"], b.vel[:, 0]),
+                       unsort(state["vy"], b.vel[:, 1])], dim=-1)
     new_bodies = dataclasses.replace(
-        b, pos=pos, angle=unsort(state["an"]), vel=vel,
-        ang_vel=unsort(state["om"]),
-        prev_pos=torch.stack([unsort(prev["px"]), unsort(prev["py"])],
-                             dim=-1),
-        prev_angle=unsort(prev["an"]), sleep_count=unsort(consts["sleep"]))
+        b, pos=pos, angle=unsort(state["an"], b.angle), vel=vel,
+        ang_vel=unsort(state["om"], b.ang_vel),
+        prev_pos=torch.stack([unsort(prev["px"], b.prev_pos[:, 0]),
+                              unsort(prev["py"], b.prev_pos[:, 1])], dim=-1),
+        prev_angle=unsort(prev["an"], b.prev_angle),
+        sleep_count=unsort(consts["sleep"], b.sleep_count))
     return dataclasses.replace(world, bodies=new_bodies,
                                step_count=world.step_count + n_frames)
 
@@ -501,15 +602,19 @@ def tiled_step(world: World, cfg: SolverConfig, fuse: bool = True,
     sleep on, the frame freezes sleepers and updates the sleep counters, on
     the unpartitioned layout (no awake-prefix compaction, as in the JAX
     package). ``fuse=False`` runs the substeps as per-substep project/apply
-    launches instead of the whole-frame kernel."""
+    launches instead of the whole-frame kernel (a compound world always
+    does). A compound world's diag adds the HARD ``owner_overflow``
+    (:func:`_owner_width_overflow`)."""
     _require_slice(world, cfg)
+    compound = _compound(world)
     g = world.gravity.to(f32).contiguous()
     state, consts, large, body_id, large_ovf = _enter_tiles(world, cfg)
     prev = {k: state[k] for k in ("px", "py", "an")}
     new_state, consts, frame = _run_frame(state, consts, large, cfg, g,
-                                          fuse=fuse, plain=plain)
+                                          fuse=fuse, plain=plain,
+                                          compound=compound)
     (touched, (count, count_touch, count_close), winover, _wake, pen, pidx,
-     pidx_c, act, npts, src, nact) = frame
+     pidx_c, act, npts, src, nact, _keyc) = frame
     C = _table_cap(cfg)
     solve_overflow, solve_dropped = _solve_counts(nact, _solve_cap(cfg))
     # undirected counts comparable with the XLA tier's diagnostics: window
@@ -531,15 +636,22 @@ def tiled_step(world: World, cfg: SolverConfig, fuse: bool = True,
         large_overflow=large_ovf,
         touch_keys=touch_keys(touched, pidx_c, body_id, large["cols"],
                               world.colliders.m))
+    if compound:
+        diag["owner_overflow"] = _owner_width_overflow(world, cfg)
     return _exit_tiles(world, new_state, consts, prev, body_id, 1), diag
 
 
 def _rollout_core(state, consts, large, body_id, gravity, *,
-                  cfg: SolverConfig, n_frames: int, fuse: bool, plain: bool):
+                  cfg: SolverConfig, n_frames: int, fuse: bool, plain: bool,
+                  with_events: bool = False, n_colliders: int = 0,
+                  compound: bool = False):
     """The tile-layout rollout: the initial table build, then per frame
     the staleness guard, a re-sort + build, a table rebuild or neither,
     and the frame, which a world with nothing awake skips. Returns
-    ``(state, consts, body_id, prev_last, counters)``."""
+    ``(state, consts, body_id, prev_last, counters, keys)``: ``keys
+    [n_frames, Nt, Csol, T]`` i32 with ``with_events`` (each frame's
+    touching solve slots' event keys, -1 elsewhere and in a skipped
+    frame), else None."""
     global host_syncs
     g = gravity
     K = max(cfg.frames_per_broadphase, 1)
@@ -586,7 +698,12 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
     age = 1 % K
     resorts = rebuilds = 0
     prev = None
-    for _ in range(n_frames):
+    keys = None
+    if with_events:  # one table a frame, written in place by each frame
+        keys = torch.full((n_frames, state["px"].shape[0], Csol, T), -1,
+                          dtype=i32, device=g.device)
+        no_key = torch.full((), -1, dtype=i32, device=g.device)
+    for f in range(n_frames):
         el, eh, stale = _edge_rows(state, consts, cfg)
         # the frame's verdicts, read in one host sync: the guard's (with
         # K > 1), and with sleep on whether any moving row is awake and
@@ -634,7 +751,7 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
         if do_sort:
             if compact_on:
                 state, consts, body_id = _compact_resort(
-                    state, consts, body_id, cfg, g, ak)
+                    state, consts, body_id, cfg, g, ak, compound=compound)
             else:
                 state, consts, body_id = _resort(state, consts, body_id, ak)
                 consts["kept"] = torch.ones_like(consts["kept"])
@@ -644,11 +761,18 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
             build_max = torch.maximum(build_max, counts)
         prev = {k: state[k] for k in ("px", "py", "an")}
         if awake:  # a world with nothing awake launches nothing
+            # each row's and large slot's canonical collider id, through
+            # the current sort, for K6's event keys
+            ev = ((body_id.reshape(-1, T), large["cols"]) if with_events
+                  else None)
             state, consts, frame = _run_frame(
                 state, consts, large, cfg, g, tables=tables, edges=(el, eh),
-                fuse=fuse, plain=plain)
+                fuse=fuse, plain=plain, event_ids=ev,
+                n_colliders=n_colliders, compound=compound)
             frame_max = torch.maximum(frame_max, torch.stack(
-                _solve_counts(frame[-1], Csol)))
+                _solve_counts(frame[10], Csol)))
+            if with_events:
+                torch.where(frame[0] > 0, frame[11], no_key, out=keys[f])
         resorts += int(do_sort and age != 0)
         rebuilds += int(esc and not do_sort)
         age = (1 if do_sort else age + 1) % K
@@ -666,11 +790,12 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
         # layout is not partitioned)
         compacted_rows=((consts["mov"] > 0) & (consts["act"] > 0)
                         & (consts["kept"] == 0)).sum(dtype=i32))
-    return state, consts, body_id, prev, counters
+    return state, consts, body_id, prev, counters, keys
 
 
 def tiled_rollout(world: World, cfg: SolverConfig, n_frames: int,
-                  fuse: bool = True, plain: bool = False):
+                  fuse: bool = True, plain: bool = False,
+                  with_events: bool = False):
     """N frames with the state kept in tile layout (one sort in, one sort
     out). Returns ``(final_world, diag)`` with the JAX package's scalar
     counters: ``slot_overflow`` (HARD: touching candidates truncated at a
@@ -680,15 +805,32 @@ def tiled_rollout(world: World, cfg: SolverConfig, n_frames: int,
     ``window_overflow`` (rows of the live partition whose margin box escaped
     the window's coverage), ``forced_resorts``, ``forced_rebuilds``,
     ``compacted_rows`` (moving rows in the final layout's sleeping tail),
-    ``large_overflow``; ``joint_shard_overflow`` is 0 on this slice.
+    ``large_overflow``; ``joint_shard_overflow`` is 0 on this slice. A
+    compound world adds the HARD ``owner_overflow``
+    (:func:`_owner_width_overflow`).
+
     ``fuse=False`` runs the substeps as per-substep project/apply launches
-    instead of the whole-frame kernel; ``plain=True`` runs the kernels'
-    twins."""
+    instead of the whole-frame kernel (a compound world always does: K10
+    has no owner reductions, as in the JAX package); ``plain=True`` runs
+    the kernels' twins. ``with_events=True`` returns ``(final_world, diag,
+    keys)``, ``keys [n_frames, Nt, Csol, T]`` i32 on the world's device:
+    each frame's touching solve slots' contact-event keys ``min(a, b) *
+    M + max(a, b)`` of their collider ids (-1 elsewhere and in a frame
+    skipped because nothing is awake; a dynamic pair appears in both rows,
+    and a compound pair once per touching collider pair); see
+    ``events.py``."""
     _require_slice(world, cfg)
+    compound = _compound(world)
+    if with_events:
+        check_event_keys(world.colliders.m)
     g = world.gravity.to(f32).contiguous()
     state, consts, large, body_id, large_ovf = _enter_tiles(world, cfg)
-    state, consts, body_id, prev, counters = _rollout_core(
+    state, consts, body_id, prev, counters, keys = _rollout_core(
         state, consts, large, body_id, g, cfg=cfg, n_frames=n_frames,
-        fuse=fuse, plain=plain)
+        fuse=fuse, plain=plain, with_events=with_events,
+        n_colliders=world.colliders.m, compound=compound)
     final = _exit_tiles(world, state, consts, prev, body_id, n_frames)
-    return final, dict(counters, large_overflow=large_ovf)
+    diag = dict(counters, large_overflow=large_ovf)
+    if compound:
+        diag["owner_overflow"] = _owner_width_overflow(world, cfg)
+    return (final, diag, keys) if with_events else (final, diag)

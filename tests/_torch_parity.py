@@ -149,12 +149,51 @@ def build_tiled(builder_cls, shape_cls, n=1024, seed=5):
 STATE_KEYS = ("px", "py", "an", "vx", "vy", "om")
 
 
+def build_compound(builder_cls, shape_cls, n_dyn=515, seed=7,
+                   l_shaped_every=3):
+    """Ground + walls + ``n_dyn`` two-collider bodies (dumbbells and
+    L-shapes) spread in x: the compound scene of tests/test_tiled_compound.py
+    (``_compound_scene``), described through either package's builder.
+    Returns the builder and its capacity's fields."""
+    rng = np.random.default_rng(seed)
+    b = builder_cls(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, shape_cls.box(400.0, 0.5), friction=0.5)
+    wl = b.add_static(pos=(-390.0, 10.0))
+    b.add_collider(wl, shape_cls.box(0.5, 12.0), friction=0.5)
+    wr = b.add_static(pos=(390.0, 10.0))
+    b.add_collider(wr, shape_cls.box(0.5, 12.0), friction=0.5)
+    cols = max(n_dyn // 4, 1)
+    for i in range(n_dyn):
+        row, col = divmod(i, cols)
+        x = -(cols - 1) * 1.1 + col * 2.2 + rng.uniform(-0.1, 0.1)
+        y = 0.8 + row * 1.6
+        body = b.add_body(pos=(x, y), vel=rng.normal(scale=0.2, size=2),
+                          ang_vel=float(rng.normal(scale=0.1)))
+        if i % l_shaped_every == 0:  # L-shape: two offset boxes
+            b.add_collider(body, shape_cls.box(0.55, 0.18), friction=0.5,
+                           offset=(0.0, -0.3))
+            b.add_collider(body, shape_cls.box(0.18, 0.3), friction=0.5,
+                           offset=(-0.37, 0.18))
+        else:  # dumbbell: two offset circles
+            b.add_collider(body, shape_cls.circle(0.28), friction=0.5,
+                           restitution=0.1, offset=(-0.3, 0.0))
+            b.add_collider(body, shape_cls.circle(0.28), friction=0.5,
+                           restitution=0.1, offset=(0.3, 0.0))
+    m = 3 + 2 * n_dyn
+    return b, dict(max_bodies=n_dyn + 3, max_colliders=m, max_pairs=12 * m,
+                   max_joints=0, max_verts=6)
+
+
 def jax_tile_manifold(state, kc, large, pidx, act, tile_live, *, Cs, V,
-                      margin, dt, sleep_velocity):
+                      margin, dt, sleep_velocity, event_ids=None,
+                      n_colliders=0):
     """``starframe_tpu/pallas/tiles.py``'s manifold kernel as
     ``run_tiled_frame`` calls it, in interpret mode, on a JAX tile layout
     (``[Nt, 1, T]`` rows, ``tile_live [Nt, 1, T]``). Returns its outputs
-    ``(cc, c2, pidx_c, src, nact, wake, pen, npts)``."""
+    ``(cc, c2, pidx_c, src, nact, wake, pen, npts)``, and ``keyc`` with
+    ``event_ids = (cid [Nt, 1, T], l_cid [1, L])`` (f32, as the rollout
+    passes them)."""
     import functools
 
     import jax.numpy as jnp
@@ -175,24 +214,131 @@ def jax_tile_manifold(state, kc, large, pidx, act, tile_live, *, Cs, V,
             + [large[k] for k in ("px", "py", "an", "vlx", "vly", "rad",
                                   "nv", "fric", "rst", "sen")]
             + [pidx, act, tile_live])
+    with_keys = event_ids is not None
+    if with_keys:
+        args = args + wrows(event_ids[0]) + [event_ids[1]]
     kernel = functools.partial(
         jpt._manifold_kernel, C=C, Cs=Cs, V=V, margin=margin, dt=dt,
-        n_tiles=Nt, sleep_velocity=sleep_velocity)
+        n_tiles=Nt, sleep_velocity=sleep_velocity, with_keys=with_keys,
+        n_colliders=n_colliders)
     f32, i32 = jnp.float32, jnp.int32
+    out_specs = (jpt._own3(Cs * jpt.KC), jpt._own3(Cs * jpt.K2),
+                 jpt._own3(Cs), jpt._own3(Cs), jpt._own3(2),
+                 jpt._own_spec(), jpt._own_spec(), jpt._own_spec())
+    out_shape = (jax.ShapeDtypeStruct((Nt, Cs * jpt.KC, T), f32),
+                 jax.ShapeDtypeStruct((Nt, Cs * jpt.K2, T), f32),
+                 jax.ShapeDtypeStruct((Nt, Cs, T), i32),
+                 jax.ShapeDtypeStruct((Nt, Cs, T), i32),
+                 jax.ShapeDtypeStruct((Nt, 2, T), i32),
+                 jax.ShapeDtypeStruct((Nt, 1, T), f32),
+                 jax.ShapeDtypeStruct((Nt, 1, T), f32),
+                 jax.ShapeDtypeStruct((Nt, 1, T), f32))
+    if with_keys:
+        out_specs += (jpt._own3(Cs),)
+        out_shape += (jax.ShapeDtypeStruct((Nt, Cs, T), i32),)
     return pl.pallas_call(
-        kernel, grid=(Nt,), in_specs=jpt._manifold_specs(Nt, C, V),
-        out_specs=(jpt._own3(Cs * jpt.KC), jpt._own3(Cs * jpt.K2),
-                   jpt._own3(Cs), jpt._own3(Cs), jpt._own3(2),
-                   jpt._own_spec(), jpt._own_spec(), jpt._own_spec()),
-        out_shape=(jax.ShapeDtypeStruct((Nt, Cs * jpt.KC, T), f32),
-                   jax.ShapeDtypeStruct((Nt, Cs * jpt.K2, T), f32),
-                   jax.ShapeDtypeStruct((Nt, Cs, T), i32),
-                   jax.ShapeDtypeStruct((Nt, Cs, T), i32),
-                   jax.ShapeDtypeStruct((Nt, 2, T), i32),
-                   jax.ShapeDtypeStruct((Nt, 1, T), f32),
-                   jax.ShapeDtypeStruct((Nt, 1, T), f32),
-                   jax.ShapeDtypeStruct((Nt, 1, T), f32)),
-        interpret=True)(*args)
+        kernel, grid=(Nt,),
+        in_specs=jpt._manifold_specs(Nt, C, V, with_keys=with_keys),
+        out_specs=out_specs, out_shape=out_shape, interpret=True)(*args)
+
+
+def jax_tile_apply(state, corr, kc, large, pidx_c, cc, c2, lam, tile_live,
+                   *, h, relaxation, max_dpos, rest_threshold, lin_damp,
+                   ang_damp, compound):
+    """``pallas/tiles.py``'s apply kernel as ``run_tiled_frame``'s substep
+    calls it, in interpret mode, on a JAX tile layout: ``corr`` the four
+    ``[Nt, 1, T]`` correction rows, ``lam [Nt, 2 Cs, T]``. Returns its six
+    state rows, and ``accv [Nt, 4, T]`` with ``compound``."""
+    import functools
+
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from starframe_tpu.pallas import tiles as jpt
+
+    Nt, Cs, T = pidx_c.shape[0], pidx_c.shape[1], jpt.T
+    f32 = jnp.float32
+
+    def w3s():
+        return list(jpt._window_specs(Nt))
+
+    def wrows(x):
+        return [x, x, x]
+
+    specs = (sum([w3s() for _ in range(10)], []) + [jpt._own_spec()] * 4
+             + [jpt._bcast((1, jpt.L))] * 3
+             + [jpt._own3(Cs), jpt._own3(Cs * jpt.KC), jpt._own3(Cs * jpt.K2),
+                jpt._own3(2 * Cs), jpt._bcast((1, 2)), jpt._own_spec()])
+    args = (sum([wrows(state[k]) for k in STATE_KEYS], [])
+            + sum([wrows(x) for x in corr], [])
+            + [kc[k] for k in ("invm", "invi", "dynb", "kin")]
+            + [large[k] for k in ("px", "py", "an")]
+            + [pidx_c, cc, c2, lam, jnp.asarray([[0.0, -9.81]], f32),
+               tile_live])
+    kernel = functools.partial(
+        jpt._apply_kernel, C=Cs, h=h, relaxation=relaxation,
+        max_dpos=max_dpos, rest_threshold=rest_threshold, lin_damp=lin_damp,
+        ang_damp=ang_damp, n_tiles=Nt, compound=compound)
+    out_specs = [jpt._own_spec()] * 6 + ([jpt._own3(4)] if compound else [])
+    out_shape = ([jax.ShapeDtypeStruct((Nt, 1, T), f32)] * 6
+                 + ([jax.ShapeDtypeStruct((Nt, 4, T), f32)] if compound
+                    else []))
+    return pl.pallas_call(
+        kernel, grid=(Nt,), in_specs=specs, out_specs=tuple(out_specs),
+        out_shape=tuple(out_shape), interpret=True)(*args)
+
+
+def compound_resting(frames=20):
+    """The compound scene of tests/test_tiled_compound.py ``frames`` frames
+    into a port rollout (its ``_cfg`` at 2 substeps, K = 2; it starts in
+    the air): ``(JAX world, port world, JAX config)``, the same arrays."""
+    import dataclasses
+
+    import starframe_tpu_torch as st
+    from starframe_tpu_torch import io as tio
+    from test_tiled_compound import _cfg, _compound_scene
+
+    jw, _ = _compound_scene()
+    tb, cap = build_compound(st.WorldBuilder, st.Shape)
+    tw, _ = tb.build(st.Capacity(**cap), device="cpu")
+    cfg = _cfg(substeps=2, frames_per_broadphase=2)
+    tw, _ = st.tiled_rollout(tw, st.SolverConfig(**dataclasses.asdict(cfg)),
+                             frames)
+    return numpy_to_jax(tio.world_to_numpy(tw), jw), tw, cfg
+
+
+def events_pile(frames=20):
+    """``pile(n_bodies=1021, sleep=False)`` (4 tiles) ``frames`` frames into
+    a port rollout at 2 substeps and K = 4: ``(JAX world, port world, port
+    config)``, the same arrays."""
+    import dataclasses
+
+    import starframe_tpu as sf
+    import starframe_tpu_torch as st
+    from starframe_tpu_torch import io as tio
+
+    jw = sf.scenes.pile(n_bodies=1021, sleep=False).world
+    sc = st.scenes.pile(n_bodies=1021, sleep=False, device="cpu")
+    cfg = dataclasses.replace(sc.config, substeps=2, frames_per_broadphase=4)
+    tw, _ = st.tiled_rollout(sc.world, cfg, frames)
+    return numpy_to_jax(tio.world_to_numpy(tw), jw), tw, cfg
+
+
+def sol_to_jax(sol, pidx_c):
+    """The JAX manifold kernel's ``cc [Nt, KC * Cs, T]`` and ``c2 [Nt, K2 *
+    Cs, T]`` of the port's solve tables and compacted partners (the
+    inverse of :func:`sol_from_jax`)."""
+    import jax.numpy as jnp
+
+    from starframe_tpu.pallas import tiles as jpt
+
+    sol = np.asarray(sol)
+    Nt, _, Cs, T = sol.shape
+    cc = np.concatenate([np.asarray(pidx_c, np.float32)[:, None]]
+                        + [sol[:, k - 1:k] for k in range(1, jpt.KC)], 1)
+    c2 = sol[:, jpt.KC - 1:]
+    return (jnp.asarray(cc.reshape(Nt, jpt.KC * Cs, T)),
+            jnp.asarray(c2.reshape(Nt, jpt.K2 * Cs, T)))
 
 
 def sol_from_jax(cc, c2, Cs):

@@ -385,3 +385,134 @@ def test_tile_frame_refuses_ccd(frame_inputs):
     args, kw = frame_inputs
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4.4"):
         hopper.tile_frame(*args, substeps=2, ccd=True, **kw)
+
+
+# ---- events and compound rows --------------------------------------------
+
+
+def test_tile_manifold_keys_match_twin(tile_layout):
+    """K6 with event keys, compacted (Cs = 8) and not (Cs = 16): ``keyc``
+    equal to the twin's, the other outputs those of the launch without
+    keys, counted apart."""
+    cfg, state, consts, large, _, _, tables = tile_layout
+    Nt = state["px"].shape[0]
+    live = torch.ones(Nt, device="cuda")
+    live[2] = 0.0
+    # the pile's rows: owner body = canonical collider (one a body)
+    ids = (consts["obody"], large["cols"])
+    M = 4093 + 3
+    for Cs in (8, 16):
+        kw = dict(Cs=Cs, margin=cfg.contact_margin, dt=cfg.dt)
+        n0, k0 = (hopper.tile_manifold.launches,
+                  hopper.tile_manifold.keys_launches)
+        got = hopper.tile_manifold(state, consts, large, *tables[:2], live,
+                                   **kw, event_ids=ids, n_colliders=M)
+        assert hopper.tile_manifold.keys_launches == k0 + 1
+        assert hopper.tile_manifold.launches == n0
+        ref = hopper.tile_manifold(state, consts, large, *tables[:2], live,
+                                   **kw, event_ids=ids, n_colliders=M,
+                                   plain=True)
+        assert torch.equal(got[7], ref[7])
+        assert int((got[7] > 0).sum()) > 1000, "few keys: vacuous"
+        assert not bool(got[7][2].any())
+        bare = hopper.tile_manifold(state, consts, large, *tables[:2], live,
+                                    **kw)
+        for a, b in zip(got[:7], bare):
+            assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def compound_layout():
+    """``pile_compound(n_bodies=2000)`` (16 tiles of collider rows) 60
+    frames in, in tile layout, with one substep's inputs: the K-frame
+    tables' manifolds and the project phase's sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from starframe_tpu_torch import tiled
+    from starframe_tpu_torch.scenes import pile_compound
+
+    sc = pile_compound(n_bodies=2000, device="cuda")
+    cfg = sc.config
+    w, d = tiled.tiled_rollout(sc.world, cfg, 60)
+    assert int(d["owner_overflow"]) == 0
+    state, consts, large, _, _ = tiled._enter_tiles(w, cfg)
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    g = w.gravity.contiguous()
+    tables = hopper.build_tile_tables(
+        state, consts, large, *edges, g, C=24, margin=cfg.contact_margin,
+        dt=cfg.dt, sweep_frames=8, sweep_floor=cfg.tile_sweep_floor,
+        sweep_cap=cfg.tile_sweep_cap)
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    live[1] = 0.0
+    sol, pidx_c = hopper.tile_manifold(state, consts, large, *tables[:2],
+                                       live, Cs=tiled._solve_cap(cfg),
+                                       margin=cfg.contact_margin,
+                                       dt=cfg.dt)[:2]
+    h = cfg.dt / cfg.substeps
+    *corr, lam, _ = hopper.tile_project(
+        state, consts, large, pidx_c, sol, g, torch.zeros_like(sol[:, 0]),
+        live, h=h, compliance=cfg.contact_compliance)
+    return dict(sc=sc, cfg=cfg, state=state, consts=consts, large=large,
+                g=g, live=live, sol=sol, pidx_c=pidx_c, corr=corr, lam=lam,
+                h=h, ob=consts["obody"].reshape(-1))
+
+
+def test_owner_kernels_equal_twins_bitwise(compound_layout):
+    """``owner_sum`` (K8's four sums) and ``owner_velocity`` bitwise equal
+    to their twins, which add in the JAX rolls' order."""
+    c = compound_layout
+    kc = c["cfg"].max_colliders_per_body
+    n0 = hopper.owner_sum.launches
+    got = hopper.owner_sum(c["corr"], c["ob"], kc)
+    assert hopper.owner_sum.launches == n0 + 1
+    ref = hopper.owner_sum(c["corr"], c["ob"], kc, plain=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[3], c["corr"][3]), "no sibling sum: vacuous"
+    accv = torch.randn((4,) + c["state"]["px"].shape, device="cuda")
+    kw = dict(h=c["h"], lin_damp=0.3, ang_damp=0.2)
+    n0 = hopper.owner_velocity.launches
+    got = hopper.owner_velocity(c["state"], accv, c["ob"], kc, **kw)
+    assert hopper.owner_velocity.launches == n0 + 1
+    ref = hopper.owner_velocity(c["state"], accv, c["ob"], kc, **kw,
+                                plain=True)
+    for k in ("vx", "vy", "om"):
+        assert torch.equal(got[k], ref[k]), k
+
+
+def test_tile_apply_compound_matches_twin(compound_layout):
+    """K9's compound form against its twin on owner-summed sums: the state
+    and the raw velocity sums to 1e-6, counted apart from K9's launches;
+    a skipped tile's sums zero."""
+    c = compound_layout
+    cfg = c["cfg"]
+    corr = hopper.owner_sum(c["corr"], c["ob"], cfg.max_colliders_per_body)
+    akw = dict(h=c["h"], relaxation=cfg.relaxation,
+               max_dpos=cfg.max_dpos_eff,
+               rest_threshold=cfg.restitution_threshold,
+               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
+    args = (c["state"], corr, c["consts"], c["large"], c["pidx_c"], c["sol"],
+            c["lam"], c["g"], c["live"])
+    n0, k0 = hopper.tile_apply.launches, hopper.tile_apply.compound_launches
+    got, accv = hopper.tile_apply(*args, **akw, compound=True)
+    assert hopper.tile_apply.compound_launches == k0 + 1
+    assert hopper.tile_apply.launches == n0
+    ref, ref_accv = hopper.tile_apply(*args, **akw, compound=True,
+                                      plain=True)
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=0, atol=1e-6)
+    torch.testing.assert_close(accv, ref_accv, rtol=0, atol=1e-6)
+    assert float(accv[3].sum()) > 100, "few velocity rows: vacuous"
+    assert not bool(accv[:, 1].any())
+
+
+def test_compound_rollout_is_bitwise_reproducible(compound_layout):
+    from starframe_tpu_torch import tiled
+
+    sc = compound_layout["sc"]
+    a, da = tiled.tiled_rollout(sc.world, sc.config, 10)
+    b, db = tiled.tiled_rollout(sc.world, sc.config, 10)
+    for f in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        assert torch.equal(getattr(a.bodies, f), getattr(b.bodies, f))
+    assert {k: int(v) for k, v in da.items()} == {
+        k: int(v) for k, v in db.items()}

@@ -2,8 +2,9 @@
 """Where the time goes in the PyTorch port's batched rollout, on one GPU.
 
     python3 tools/profile_torch_rollout.py
-        [--scene batched|mechanism|rope|pile|pile_sleep] [--worlds W]
-        [--bodies N] [--frames F] [--substeps 10] [--trace PATH]
+        [--scene batched|mechanism|rope|pile|pile_sleep|pile_events|
+                 pile_compound] [--worlds W] [--bodies N] [--frames F]
+        [--substeps 10] [--trace PATH]
 
 Runs one of the paths of ``chip_smoke.py`` (``batched``: the main path,
 ``parallel.batched_rollout`` over ``batched_worlds`` at 4096 worlds x
@@ -12,8 +13,11 @@ scene at 1024 worlds; ``pile``: ``tiled.tiled_rollout`` over
 ``scenes.pile(--bodies (10000), sleep=False)``, 240 frames; ``pile_sleep``:
 bench.py's ``pile`` config, ``scenes.pile(--bodies)`` with its default
 sleep, 240 frames from the state after SETTLE_FRAMES (960) frames, where
-~85% of the bodies sleep) once to warm up, three times unprofiled for wall
-times, then once under ``torch.profiler``, and prints:
+~85% of the bodies sleep; ``pile_events``: bench.py's ``pile_events``,
+``pile`` with ``with_events=True``; ``pile_compound``: bench.py's
+``pile_compound``, ``scenes.pile_compound(--bodies)``, 240 frames from the
+state after SETTLE_FRAMES frames) once to warm up, three times unprofiled
+for wall times, then once under ``torch.profiler``, and prints:
 
 - each device kernel's total time, call count and share of device time
   (the hand-written kernels by name, the small PyTorch ops together);
@@ -48,8 +52,12 @@ KERNELS = (("frame2_kernel", "K4 frame"), ("joint_slot_kernel", "K3 joint slots"
            ("tile_tables_kernel", "K5 tile tables"),
            ("tile_manifold_kernel", "K6 tile manifolds"),
            ("tile_project_kernel", "K8 tile project"),
+           ("tile_apply_kernel<true>", "K9 tile apply, compound form"),
            ("tile_apply_kernel", "K9 tile apply"),
-           ("tile_frame_kernel", "K10 tile frame"))
+           ("tile_frame_kernel", "K10 tile frame"),
+           ("owner_sum_kernel", "owner sums"),
+           ("owner_velocity_kernel", "owner velocity pass"))
+PILES = ("pile", "pile_sleep", "pile_events", "pile_compound")
 
 
 def busy_us(intervals) -> float:
@@ -87,9 +95,8 @@ def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scene", choices=("batched", "mechanism", "rope", "pile",
-                                        "pile_sleep"),
-                    default="batched")
+    ap.add_argument("--scene", choices=("batched", "mechanism", "rope")
+                    + PILES, default="batched")
     ap.add_argument("--worlds", type=int, default=None,
                     help="default 4096 for batched, 1024 for the jointed")
     ap.add_argument("--bodies", type=int, default=None,
@@ -111,8 +118,11 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    piles = ("pile", "pile_sleep")
-    if args.scene in piles:
+    if args.scene == "pile_compound":
+        args.worlds = 1
+        sc = scenes.pile_compound(n_bodies=args.bodies or 10_000,
+                                  substeps=args.substeps, device="cuda")
+    elif args.scene in PILES:
         args.worlds = 1
         sc = scenes.pile(n_bodies=args.bodies or 10_000, substeps=args.substeps,
                          sleep=args.scene == "pile_sleep", device="cuda")
@@ -128,11 +138,11 @@ def main() -> int:
         sc = scenes.batchify(make(substeps=args.substeps, device="cuda"),
                              args.worlds)
     cfg = sc.config
-    F = args.frames or (240 if args.scene in piles else 60)
+    F = args.frames or (240 if args.scene in PILES else 60)
     active = int(((sc.world.bodies.flags & 1) != 0).sum())
-    syncing = tiled if args.scene in piles else parallel
+    syncing = tiled if args.scene in PILES else parallel
     start = sc.world
-    if args.scene == "pile_sleep":
+    if args.scene in ("pile_sleep", "pile_compound"):
         start, _ = tiled.tiled_rollout(start, cfg, SETTLE_FRAMES)
         dyn = start.bodies.inv_mass > 0
         asleep = ((start.bodies.sleep_count >= cfg.sleep_frames) & dyn).sum()
@@ -140,8 +150,9 @@ def main() -> int:
               f"{float(asleep / dyn.sum()):.4f} of the dynamic bodies asleep")
 
     def rollout():
-        if args.scene in piles:
-            return tiled.tiled_rollout(start, cfg, F)
+        if args.scene in PILES:
+            return tiled.tiled_rollout(start, cfg, F,
+                                       with_events=args.scene == "pile_events")
         return parallel.batched_rollout(sc.world, cfg, 0, F,
                                         record=lambda _: None)
 
@@ -154,7 +165,7 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(f"card: {card}")
-    print(f"{sc.name}: {args.worlds} worlds x {sc.world.bodies.n} body slots "
+    print(f"{args.scene}: {args.worlds} worlds x {sc.world.bodies.n} body slots "
           f"({active} active bodies), {args.substeps} substeps, {F} frames; "
           f"unprofiled walls {', '.join(f'{w:.4f}' for w in walls)} s "
           f"({', '.join(f'{1e3 * w / F:.4f}' for w in walls)} ms/frame)")
@@ -201,7 +212,7 @@ def main() -> int:
           f"{syncs} ({syncs / F:.3f}/frame); peak device memory "
           f"{peak_gib:.3f} GiB")
 
-    if args.scene in piles:
+    if args.scene in PILES:
         return 0
     for name, w in (("starting batch", sc.world), (f"after {F} frames", final)):
         ms, per_world = frame_step_ms(parallel, hopper, w, cfg)

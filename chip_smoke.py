@@ -92,6 +92,28 @@ K6 with keys on the awake pile's final state and K9's compound form and
 the owner kernels on the compound pile's, against their twins, with their
 bounds, and the compound pile through its twins.
 
+Continuous collision (``cfg.ccd``, bullet bodies) runs through the same
+steps. Step 2 holds K7 and the CCD forms of K8 and K9 against their twins
+(1e-6) and K10's CCD form bitwise against K7 + K8 + K9 launched once a
+substep, on tests/test_ccd.py's tile-engine bullet world (4 tiles, the
+bullet 0.3 m from the wall at 200 and 1000 m/s, so its first substep
+clamps), K7, ``owner_min`` (bitwise) and K9's compound CCD form with a
+two-collider bullet, and K4's CCD form on ``_bullet_batch`` (4 worlds,
+frames 1 and 2). Step 3 runs the projectile batch (``_bullet_batch`` at
+4096 worlds: 30 frames at 200 and 1000 m/s, every bullet on the wall's
+near face; 10 frames at 1000 m/s with restitution 0.9, every world
+rebounding at 820-950 m/s), the main path with every dynamic body a
+bullet (60 frames in turns with the same scene without CCD, checked as the
+main path, a rerun bitwise equal), ``pile(10_000, sleep=False)`` with
+every body a bullet (240 frames fused and unfused in turns with the fused
+pile without CCD: bitwise equal, a rerun bitwise equal, hard counters 0,
+health at frame 240 within the awake pile's bounds, K7 once a substep
+unfused and never fused, and the rows K7 clamps in one frame at frames 30,
+60 and 120) and ``pile_compound(10_000)`` with bullets (60 frames: K7,
+``owner_min``, K8's and K9's compound CCD forms once a substep, a rerun
+bitwise equal). Step 4 times the CCD kernels at full size against their
+twins, with their bounds.
+
 Prints the run's wall time, a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
 two parity checks; ``frame2_joints`` is the frame kernel's joint
 instantiation, timed on the mechanism batch; ``bound_ms``: the least time
@@ -161,6 +183,7 @@ TILE_READS = {
                    ("px", "py", "an")),
     "tile_frame": (_STATE, ("invm", "invi", "dynb", "kin"),
                    ("px", "py", "an")),
+    "tile_ccd": (_STATE, ("dynb", "blt"), ("px", "py", "an")),
 }
 SOLVED_SLOT_WORDS = {
     # pidx_c; pdyn imb iib fric nax nay, 8 anchors, pm0 pm1
@@ -285,6 +308,45 @@ PILE_COMPOUND_HEALTH_REFERENCE = {
     "min_y": (0.262114, 0.257949, 0.260877),
     "max_speed": (6.351058, 15.461591, 12.796039),
     "mean_speed": (0.395540, 0.482502, 0.409107)}
+
+# CCD (bullet bodies, cfg.ccd): K7 and the CCD forms of K4, K8, K9 and K10
+# (each counted apart from its plain launches), and the compound rows'
+# owner minimum: name, wrapper, its launch counter, CUDA source, what it
+# replaces.
+CCD_KERNELS = (
+    ("tile_ccd", "tile_ccd", "launches",
+     "starframe_tpu_torch/csrc/tile_substep.cu",
+     "starframe_tpu/pallas/tiles.py:759"),
+    ("tile_project_ccd", "tile_project", "ccd_launches",
+     "starframe_tpu_torch/csrc/tile_substep.cu",
+     "starframe_tpu/pallas/tiles.py:943"),
+    ("tile_apply_ccd", "tile_apply", "ccd_launches",
+     "starframe_tpu_torch/csrc/tile_substep.cu",
+     "starframe_tpu/pallas/tiles.py:1004"),
+    ("tile_frame_ccd", "tile_frame", "ccd_launches",
+     "starframe_tpu_torch/csrc/tile_frame.cu",
+     "starframe_tpu/pallas/tiles.py:1220"),
+    ("owner_min", "owner_min", "launches",
+     "starframe_tpu_torch/csrc/owner_reduce.cu",
+     "starframe_tpu/pallas/tiles.py:1483 (_owner_min3: XLA code, not a "
+     "Pallas kernel)"),
+    ("frame2_ccd", "run_frame2", "ccd_launches",
+     "starframe_tpu_torch/csrc/frame2.cu",
+     "starframe_tpu/pallas/frame2.py:78"),
+)
+# tests/test_ccd.py: the wall's half-width 0.1 plus the bullet's radius 0.05;
+# a bullet rests on the near face within the contact margin and ccd_slop
+WALL_FACE = -0.15
+PROJECTILE_W, PROJECTILE_FRAMES = 4096, 30
+# One solved slot's TOI (K7, K4's CCD pass): two poses' anchor kinematics
+# (8 anchor rotations and 2 normals) and 4 sin/cos of the partner, counted
+# at ~20 operations each, and per point the closing, the allowed depth and
+# the fraction.
+CCD_FLOPS = 200
+# K7 reads, of a solved slot: pidx_c; pdyn nax nay, 8 anchors
+CCD_SLOT_WORDS = 12
+# the pile's CCD states the tile kernels are timed on: frames into the fall
+PILE_CCD_FRAMES = (30, 60, 120)
 
 
 def card_line() -> str:
@@ -822,7 +884,8 @@ def tile_calls(hopper, w, cfg):
 
 
 # the ``touched`` output of the kernels that return one (held equal)
-TOUCHED_OUTPUT = {("tile_project", 5), ("tile_frame", 6)}
+TOUCHED_OUTPUT = {("tile_project", 5), ("tile_frame", 6),
+                  ("tile_project_ccd", 5), ("tile_frame_ccd", 6)}
 
 
 def agree_tiles(name, k, p, spread=None) -> float:
@@ -935,11 +998,16 @@ def frame_inputs(hopper, tiled, w, cfg, dead_tile=None):
 
 
 def substep_pair(hopper, args, kw):
-    """The frame through the K8/K9 kernels, launched once a substep:
-    ``(state, touched)``."""
+    """The frame through the K8/K9 kernels, launched once a substep (with
+    ``kw["ccd"]``, K7 first): ``(state, touched)``."""
     from starframe_tpu_torch.hopper.tiles import substep_loop
 
-    return substep_loop(hopper.tile_project, hopper.tile_apply, *args, **kw)
+    kw = dict(kw)
+    toi = None
+    if kw.pop("ccd", False):
+        toi = (hopper.tile_ccd, hopper.owner_min, kw.pop("ccd_slop"))
+    return substep_loop(hopper.tile_project, hopper.tile_apply, *args,
+                        ccd=toi, **kw)
 
 
 def frame_outputs(state, touched) -> list:
@@ -947,26 +1015,28 @@ def frame_outputs(state, touched) -> list:
 
 
 def frame_agree(hopper, args, kw, what, spread=False) -> float:
-    """K10 against the K8/K9 kernels launched once a substep (bitwise
-    equal) and against its twin (``agree_tiles``; with ``spread``, a tenth
-    of float32's own spread there). Returns the max abs error against the
+    """K10 against the K8/K9 kernels launched once a substep (with
+    ``kw["ccd"]``: K10's CCD form against K7, K8 and K9) (bitwise equal)
+    and against its twin (``agree_tiles``; with ``spread``, a tenth of
+    float32's own spread there). Returns the max abs error against the
     twin."""
+    name = "tile_frame_ccd" if kw.get("ccd") else "tile_frame"
     import torch
 
     k = frame_outputs(*hopper.tile_frame(*args, **kw))
     ref = frame_outputs(*substep_pair(hopper, args, kw))
     for field, a, b in zip(_STATE + ("touched",), k, ref):
-        check(torch.equal(a, b), f"tile_frame {what}: {field} differs from "
-              f"the K8/K9 kernels")
-    check(float(k[6].sum()) > 0, f"tile_frame {what}: no contacts, vacuous")
+        check(torch.equal(a, b), f"{name} {what}: {field} differs from "
+              f"the per-substep kernels")
+    check(float(k[6].sum()) > 0, f"{name} {what}: no contacts, vacuous")
     p = frame_outputs(*hopper.tile_frame(*args, **kw, plain=True))
     spread_v = None
     if spread:
         p64 = frame_outputs(*hopper.tile_frame_plain(*to64(args), **kw))
         spread_v = [max_err(a, b) for a, b in zip(p, p64)]
-    err = agree_tiles("tile_frame", k, p, spread_v)
+    err = agree_tiles(name, k, p, spread_v)
     live = args[6]
-    print(f"parity tile_frame {what}: equal to the K8/K9 kernels in every "
+    print(f"parity {name} {what}: equal to the per-substep kernels in every "
           f"output ({int(k[6].sum())} touching slots, {int((live > 0).sum())}"
           f" of {live.numel()} tiles live); against its twin max abs err "
           f"{err:.3g}")
@@ -1274,7 +1344,9 @@ def counted(hopper) -> dict:
     pairs = {name: (getattr(hopper, attr), "launches")
              for name, attr, _, _ in TILE_KERNELS}
     pairs.update({name: (getattr(hopper, attr), cnt)
-                  for name, attr, cnt, _, _ in EC_KERNELS})
+                  for name, attr, cnt, _, _ in EC_KERNELS + CCD_KERNELS})
+    pairs["tile_apply_compound_ccd"] = (hopper.tile_apply,
+                                        "compound_ccd_launches")
     return pairs
 
 
@@ -1745,6 +1817,653 @@ def ec_turns(hopper, tiled, events, compound, errs, bounds, card) -> dict:
     return times
 
 
+# ---- CCD: bullet bodies on both engines ------------------------------------
+
+
+def bulleted(w):
+    """``w`` with every dynamic body flagged a bullet (``BODY_BULLET``), so
+    that CCD's TOI pass runs on every row."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch.state import BODY_BULLET
+
+    b = w.bodies
+    flags = torch.where(b.inv_mass > 0, b.flags | BODY_BULLET, b.flags)
+    return dataclasses.replace(w, bodies=dataclasses.replace(b, flags=flags))
+
+
+def bullet_batch(dev, speed, restitution=0.0, worlds=4, two_colliders=False):
+    """tests/test_ccd.py's ``_bullet_batch`` through the port's builder: a
+    thin wall, a 0.05 m bullet at ``speed`` towards it and far-away pads,
+    128 bodies, replicated ``worlds`` times; with ``two_colliders`` the
+    bullet is two circles side by side. Returns ``(worlds, cfg)`` with
+    test_ccd.py's ``KCFG`` (10 substeps, C = 8, ``ccd``)."""
+    from starframe_tpu_torch import (
+        Capacity,
+        Shape,
+        SolverConfig,
+        WorldBuilder,
+        parallel,
+    )
+
+    wb = WorldBuilder()
+    wb.gravity = (0.0, 0.0)
+    wall = wb.add_body(pos=(0.0, 0.0), body_type="static")
+    wb.add_collider(wall, Shape.box(0.1, 2.0), restitution=restitution)
+    b = wb.add_body(pos=(-3.0, 0.0), vel=(speed, 0.0), bullet=True)
+    offsets = ((0.0, -0.03), (0.0, 0.03)) if two_colliders else ((0.0, 0.0),)
+    for off in offsets:
+        wb.add_collider(b, Shape.circle(0.05), offset=off,
+                        restitution=restitution)
+    for i in range(126):
+        pad = wb.add_body(pos=(1000.0 + 10.0 * i, 0.0))
+        wb.add_collider(pad, Shape.circle(0.3))
+    w, _ = wb.build(Capacity(max_bodies=128, max_colliders=127 + len(offsets),
+                             max_pairs=512, max_joints=0, max_verts=4),
+                    device=dev)
+    cfg = SolverConfig(dt=1 / 60, substeps=10, ccd=True, slot_capacity=8)
+    return parallel.replicate_world(w, worlds), cfg
+
+
+def bullet_tiles(dev, speed, x0=-3.0, two_colliders=False):
+    """tests/test_ccd.py's tile-engine bullet world through the port's
+    builder: the wall, a bullet at ``x0`` flying at ``speed`` and 1022 pads
+    far away, 1024 bodies (4 tiles; 5 with ``two_colliders``). Returns
+    ``(world, cfg)``: ``KCFG`` with one-frame tables."""
+    from starframe_tpu_torch import (
+        Capacity,
+        Shape,
+        SolverConfig,
+        WorldBuilder,
+    )
+
+    wb = WorldBuilder()
+    wb.gravity = (0.0, 0.0)
+    wall = wb.add_body(pos=(0.0, 0.0), body_type="static")
+    wb.add_collider(wall, Shape.box(0.1, 2.0))
+    b = wb.add_body(pos=(x0, 0.0), vel=(speed, 0.0), bullet=True)
+    offsets = ((0.0, -0.03), (0.0, 0.03)) if two_colliders else ((0.0, 0.0),)
+    for off in offsets:
+        wb.add_collider(b, Shape.circle(0.05), offset=off)
+    for i in range(1022):
+        pad = wb.add_body(pos=(1000.0 + 2.0 * (i % 256), 5.0 * (i // 256)))
+        wb.add_collider(pad, Shape.circle(0.3))
+    w, _ = wb.build(Capacity(max_bodies=1024,
+                             max_colliders=1023 + len(offsets),
+                             max_pairs=8192, max_joints=0, max_verts=4),
+                    device=dev)
+    cfg = SolverConfig(dt=1 / 60, substeps=10, ccd=True, slot_capacity=8,
+                       frames_per_broadphase=1)
+    return w, cfg
+
+
+def ccd_tile_calls(hopper, tiled, w, cfg):
+    """K7 and the CCD forms of K8 and K9 on ``w``'s layout, chained as a
+    frame's first substep chains them (each on its predecessor's twin
+    outputs; on compound rows the factors owner-minimised), with what each
+    bound counts, their float64 twins, K10's arguments, and the factors:
+    ``(calls, plain64, (args, kw), f)``."""
+    import torch
+    from starframe_tpu_torch.hopper.tiles import SOL
+
+    args, kw = frame_inputs(hopper, tiled, w, cfg)
+    kw.update(ccd=True, ccd_slop=cfg.ccd_slop)
+    state, kc, large, pidx_c, sol, g, live = args
+    h = kw["h"]
+    compound = w.colliders.m != w.bodies.n
+    f = hopper.tile_ccd(*args, h=h, ccd_slop=cfg.ccd_slop, plain=True)
+    if compound:
+        f = hopper.owner_min([f], kc["obody"].reshape(-1),
+                             cfg.max_colliders_per_body, plain=True)[0]
+    touched = torch.zeros(pidx_c.shape, device=g.device)
+    pkw = dict(h=h, compliance=kw["compliance"])
+    proj = hopper.tile_project(state, kc, large, pidx_c, sol, g, touched,
+                               live, **pkw, f=f, plain=True)
+    akw = {x: v for x, v in kw.items()
+           if x not in ("substeps", "compliance", "ccd", "ccd_slop")}
+    on = live > 0
+    sm = sol[on][:, [SOL["sm0"], SOL["sm1"]]]
+    solved = int((sm != 0).any(dim=1).sum())
+    pargs = (state, kc, large, pidx_c, sol, g, touched, live)
+    aargs = (state, proj[:4], kc, large, pidx_c, sol, proj[4], g, live)
+
+    def reads(name, *more):
+        sk, ck, lk = TILE_READS[name]
+        return ([state[x] for x in sk], [kc[x] for x in ck],
+                [large[x] for x in lk], more)
+
+    calls = {
+        "tile_ccd": (
+            lambda p: hopper.tile_ccd(*args, h=h, ccd_slop=cfg.ccd_slop,
+                                      plain=p),
+            reads("tile_ccd", sm, g, live), 4 * CCD_SLOT_WORDS * solved,
+            solved * CCD_FLOPS),
+        "tile_project_ccd": (
+            lambda p: hopper.tile_project(*pargs, **pkw, f=f, plain=p),
+            reads("tile_project", sm, g, touched, live, f),
+            4 * SOLVED_SLOT_WORDS["tile_project"] * solved,
+            solved * PROJECT_FLOPS),
+        "tile_apply_ccd": (
+            lambda p: hopper.tile_apply(*aargs, **akw, f=f, plain=p),
+            reads("tile_apply", sm, proj[:4], g, live, f),
+            4 * SOLVED_SLOT_WORDS["tile_apply"] * solved,
+            solved * VELOCITY_FLOPS),
+    }
+    plain64 = {
+        "tile_ccd": lambda: hopper.tile_ccd_plain(
+            *to64(args), h=h, ccd_slop=cfg.ccd_slop),
+        "tile_project_ccd": lambda: hopper.tile_project_plain(
+            *to64(pargs), **pkw, f=f.double()),
+        "tile_apply_ccd": lambda: hopper.tile_apply_plain(
+            *to64(aargs), **akw, f=f.double()),
+    }
+    if compound:  # K9's compound form: the CCD instance of the compound rows
+        del calls["tile_apply_ccd"], plain64["tile_apply_ccd"]
+    return calls, plain64, (args, kw), f
+
+
+def ccd_agree(hopper, name, call, plain64=None):
+    """One CCD kernel against its twin (``agree_tiles``; with ``plain64``, to
+    a tenth of float32's own spread where that is larger)."""
+    k, p = call(False), call(True)
+    spread = None
+    if plain64 is not None:
+        p64 = plain64()
+        p64 = list(p64.values()) if isinstance(p64, dict) else (
+            [p64] if hasattr(p64, "dtype") else list(p64))
+        pl = list(p.values()) if isinstance(p, dict) else (
+            [p] if hasattr(p, "dtype") else list(p))
+        spread = [max_err(a, b) for a, b in zip(pl, p64)]
+    k = [k] if hasattr(k, "dtype") else k
+    p = [p] if hasattr(p, "dtype") else p
+    return agree_tiles(name, k, p, spread)
+
+
+def parity_ccd(dev, hopper, tiled, parallel) -> dict:
+    """The CCD kernels against their twins on tests/test_ccd.py's scenes,
+    built with the port's builder: K7, K8's and K9's CCD forms and K10's
+    CCD form (bitwise equal to K7 + K8 + K9) on the 4-tile bullet world at
+    200 and 1000 m/s, the bullet 0.3 m from the wall (its first substep
+    clamps); K7, ``owner_min`` (bitwise) and K9's compound CCD form on the
+    same world with a two-collider bullet; K4's CCD form on ``_bullet_batch``
+    at 4 worlds, one and two frames in (the frame of the impact)."""
+    import torch
+
+    errs = {n: 0.0 for n, *_ in CCD_KERNELS}
+    for speed in (200.0, 1000.0):
+        w, cfg = bullet_tiles(dev, speed, x0=-0.3)
+        calls, _, (args, kw), f = ccd_tile_calls(hopper, tiled, w, cfg)
+        check(int((f < 1.0).sum()) == 1, f"tile_ccd at {speed} m/s: the "
+              f"bullet did not clamp ({int((f < 1.0).sum())} rows)")
+        for name, (call, *_) in calls.items():
+            errs[name] = max(errs[name], ccd_agree(hopper, name, call))
+        errs["tile_frame_ccd"] = max(errs["tile_frame_ccd"], frame_agree(
+            hopper, args, kw, f"on the bullet world at {speed} m/s"))
+        print(f"parity ccd tiles at {speed} m/s: K7 clamps the bullet to f = "
+              f"{float(f[f < 1.0]):.6g}; max abs err "
+              + ", ".join(f"{n} {errs[n]:.3g}" for n in (
+                  "tile_ccd", "tile_project_ccd", "tile_apply_ccd",
+                  "tile_frame_ccd")))
+
+    w, cfg = bullet_tiles(dev, 1000.0, x0=-0.3, two_colliders=True)
+    calls, _, (args, kw), f = ccd_tile_calls(hopper, tiled, w, cfg)
+    errs["tile_ccd"] = max(errs["tile_ccd"],
+                           ccd_agree(hopper, "tile_ccd", calls["tile_ccd"][0]))
+    state, kc, large, pidx_c, sol, g, live = args
+    ob, oc = kc["obody"].reshape(-1), cfg.max_colliders_per_body
+    raw = hopper.tile_ccd(*args, h=kw["h"], ccd_slop=cfg.ccd_slop)
+    mk = hopper.owner_min([raw], ob, oc)[0]
+    mp = hopper.owner_min([raw], ob, oc, plain=True)[0]
+    check(torch.equal(mk, mp), "owner_min: kernel != twin")
+    check(int((mk < 1.0).sum()) == 2 and int((raw < 1.0).sum()) >= 1,
+          "owner_min: the bullet's two rows do not share its clamp")
+    proj = hopper.tile_project(
+        state, kc, large, pidx_c, sol, g, torch.zeros_like(sol[:, 0]), live,
+        h=kw["h"], compliance=kw["compliance"], f=mk, plain=True)
+    corr = hopper.owner_sum(proj[:4], ob, oc, plain=True)
+    akw = {x: v for x, v in kw.items()
+           if x not in ("substeps", "compliance", "ccd", "ccd_slop")}
+
+    def apply_cc(p):
+        out, accv = hopper.tile_apply(state, corr, kc, large, pidx_c, sol,
+                                      proj[4], g, live, **akw, compound=True,
+                                      f=mk, plain=p)
+        return list(out.values()) + [accv]
+
+    errs["tile_apply_ccd"] = max(errs["tile_apply_ccd"],
+                                 agree_tiles("tile_apply_ccd", apply_cc(False),
+                                             apply_cc(True)))
+    print("parity ccd tiles, two-collider bullet: K7 against its twin, "
+          "owner_min bitwise (both rows at the body's clamp), K9's compound "
+          "CCD form max abs err "
+          f"{errs['tile_apply_ccd']:.3g}")
+
+    for speed in (200.0, 1000.0):
+        bw, bcfg = bullet_batch(dev, speed)
+        for frames in (1, 2):
+            w = bw
+            if frames > 1:
+                w, _, _ = parallel.batched_rollout(bw, bcfg, 0, frames - 1,
+                                                   record=lambda _: None)
+            tables = parallel.frame2_tables(w, bcfg)
+            errs["frame2_ccd"] = max(errs["frame2_ccd"], frame_parity(
+                f"frame2_ccd at {speed} m/s, frame {frames}", parallel, w,
+                bcfg, tables))
+    return errs
+
+
+def run_projectile(dev, hopper, parallel, card) -> dict:
+    """The projectile batch at full width: ``_bullet_batch`` at 4096 worlds,
+    30 frames through ``batched_rollout`` at 200 and 1000 m/s (every
+    world's bullet on the wall's near face, hard counters 0, K4's CCD form
+    once a frame), and 10 frames at 1000 m/s with restitution 0.9 (every
+    world rebounding at 820-950 m/s)."""
+    import torch
+
+    out = {}
+    for speed, rest, frames in ((200.0, 0.0, PROJECTILE_FRAMES),
+                                (1000.0, 0.0, PROJECTILE_FRAMES),
+                                (1000.0, 0.9, 10)):
+        bw, cfg = bullet_batch(dev, speed, restitution=rest,
+                               worlds=PROJECTILE_W)
+        torch.cuda.synchronize()
+        reset_counts(hopper)
+        hopper.run_frame2.launches = 0
+        t0 = time.perf_counter()
+        final, _, diag = parallel.batched_rollout(bw, cfg, 0, frames,
+                                                  record=lambda _: None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        diag = {k: int(v) for k, v in diag.items()}
+        launches = hopper.run_frame2.ccd_launches
+        check(launches == frames and hopper.run_frame2.launches == 0,
+              f"projectile: K4's CCD form launched {launches} times")
+        for key in ("slot_overflow", "joint_overflow"):
+            check(diag[key] == 0, f"projectile: {key} {diag[key]}")
+        x = final.bodies.pos[:, 1, 0]
+        vx = final.bodies.vel[:, 1, 0]
+        check(bool(torch.isfinite(final.bodies.pos).all()),
+              "projectile: non-finite positions")
+        if rest == 0.0:
+            ok = (x > WALL_FACE - 0.06) & (x <= WALL_FACE + 0.01)
+            check(bool(ok.all()), f"projectile at {speed} m/s: "
+                  f"{int((~ok).sum())} of {PROJECTILE_W} bullets off the "
+                  f"face (x in [{float(x.min())}, {float(x.max())}])")
+        else:
+            ok = (vx > -950.0) & (vx < -820.0)
+            check(bool(ok.all()), f"projectile restitution: {int((~ok).sum())}"
+                  f" of {PROJECTILE_W} worlds outside (-950, -820) m/s "
+                  f"([{float(vx.min())}, {float(vx.max())}])")
+        ms = 1e3 * seconds / frames
+        key = f"{speed:g} m/s" + (f", restitution {rest:g}" if rest else "")
+        out[key] = ms
+        print(f"projectile batch ({PROJECTILE_W} worlds x 128 bodies, "
+              f"{key}, {frames} frames): {ms:.4f} ms/frame, "
+              f"{PROJECTILE_W * 128 * frames / seconds:.6g} body-steps/s; "
+              f"bullet x in [{float(x.min()):.6g}, {float(x.max()):.6g}], "
+              f"vx in [{float(vx.min()):.6g}, {float(vx.max()):.6g}]; "
+              f"counters {json.dumps(diag)}; K4 CCD launches {launches}; "
+              f"on {card}")
+    return out
+
+
+def run_main_ccd(dev, hopper, parallel, card) -> dict:
+    """The main path with CCD: ``batched_worlds(4096)`` with every dynamic
+    body a bullet (K4's TOI pass on every row), 60 frames, timed in turns
+    with the same scene and ``ccd=False`` (off, on, on, off), checked as the
+    main path is, and a 10-frame rerun bitwise equal."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch.scenes import batched_worlds
+
+    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
+                        device=dev)
+    w = bulleted(sc.world)
+    cfgs = {False: dataclasses.replace(sc.config, ccd=False),
+            True: dataclasses.replace(sc.config, ccd=True)}
+    active = int(((w.bodies.flags & 1) != 0).sum())
+
+    def rollout(ccd, n):
+        return parallel.batched_rollout(w, cfgs[ccd], 0, n,
+                                        record=lambda _: None)
+
+    for ccd in (False, True):  # warm-up
+        rollout(ccd, 10)
+    runs = {False: [], True: []}
+    for ccd in (False, True, True, False):
+        torch.cuda.synchronize()
+        reset_counts(hopper)
+        hopper.run_frame2.launches = 0
+        t0 = time.perf_counter()
+        final, _, diag = rollout(ccd, FRAMES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = (hopper.run_frame2.ccd_launches,
+                    hopper.run_frame2.launches)
+        check(launches == ((FRAMES, 0) if ccd else (0, FRAMES)),
+              f"main path ccd={ccd}: K4 launches (ccd, plain) {launches}")
+        runs[ccd].append((final, {k: int(v) for k, v in diag.items()},
+                          seconds))
+    final, diag, _ = runs[True][0]
+    check(torch.equal(final.bodies.pos, runs[True][1][0].bodies.pos),
+          "main path with CCD: the two timed runs differ")
+    b = final.bodies
+    dyn = b.inv_mass > 0
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(bool(torch.isfinite(getattr(b, field)).all()),
+              f"main path with CCD: non-finite {field}")
+    for key in ("slot_overflow", "joint_overflow"):
+        check(diag[key] == 0, f"main path with CCD: {key} {diag[key]}")
+    y_min = float(b.pos[..., 1][dyn].min())
+    check(y_min > 0.2, f"main path with CCD: a body sank (y = {y_min})")
+    a, _, da = rollout(True, 10)
+    c, _, dc = rollout(True, 10)
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(torch.equal(getattr(a.bodies, field), getattr(c.bodies, field)),
+              f"main path with CCD: rerun differs in {field}")
+    check({k: int(v) for k, v in da.items()}
+          == {k: int(v) for k, v in dc.items()},
+          "main path with CCD: rerun counters differ")
+    ms = {ccd: 1e3 * sum(r[2] for r in runs[ccd]) / (2 * FRAMES)
+          for ccd in runs}
+    moved = float((runs[True][0][0].bodies.pos
+                   - runs[False][0][0].bodies.pos).abs().max())
+    print(f"main path with CCD: {W_MAIN}x{N_BODIES} worlds, every dynamic "
+          f"body a bullet, {SUBSTEPS} substeps, {FRAMES} frames: "
+          f"{ms[True]:.4f} ms/frame, {active / ms[True] * 1e3:.6g} "
+          f"body-steps/s, against {ms[False]:.4f} ms/frame "
+          f"({active / ms[False] * 1e3:.6g}) without CCD in turns (off, on, "
+          f"on, off: " + ", ".join(
+              f"{1e3 * r[2] / FRAMES:.4f}" for r in (
+                  runs[False][0], runs[True][0], runs[True][1],
+                  runs[False][1]))
+          + f" ms/frame); counters {json.dumps(diag)}; min dynamic y "
+          f"{y_min:.4f}; largest pose difference from the run without CCD "
+          f"{moved:.4g} m; a 10-frame rerun bitwise equal; on {card}")
+    return dict(final=final, cfg=cfgs[True], ms=ms[True], ms_off=ms[False],
+                launches=FRAMES)
+
+
+def run_pile_ccd(dev, hopper, tiled, card) -> dict:
+    """``pile(10_000, sleep=False)`` with CCD and every body a bullet, 240
+    frames fused (K10's CCD form) and ``fuse=False`` (K7, K8, K9 once a
+    substep) in turns, beside the fused pile without CCD: bitwise equal
+    fused and unfused, a rerun bitwise equal, hard counters 0, inside the
+    container, health at frame 240 within the awake pile's bounds, K7 ten
+    times a frame unfused and never fused; then how many rows K7 clamps in
+    one frame at frames 30, 60 and 120 of the fall."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch import scenes
+    from starframe_tpu_torch.hopper.tiles import substep_loop
+
+    sc = scenes.pile(n_bodies=PILE_N, sleep=False, device=dev)
+    w = bulleted(sc.world)
+    cfg = dataclasses.replace(sc.config, ccd=True)
+    plain_cfg = dataclasses.replace(sc.config, ccd=False)
+    dyn = w.bodies.inv_mass > 0
+    dyn_n = int(dyn.sum())
+    wall = float(w.bodies.pos[2, 0]) - 0.5
+    configs = {"plain": (plain_cfg, True), "fused": (cfg, True),
+               "unfused": (cfg, False)}
+    for c, fuse in configs.values():  # warm-up
+        tiled.tiled_rollout(w, c, 10, fuse=fuse)
+    runs = {k: [] for k in configs}
+    for key in ("plain", "unfused", "fused", "fused", "unfused", "plain"):
+        c, fuse = configs[key]
+        torch.cuda.synchronize()
+        reset_counts(hopper)
+        t0 = time.perf_counter()
+        final, diag = tiled.tiled_rollout(w, c, PILE_FRAMES, fuse=fuse)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[key].append((final, {k: int(v) for k, v in diag.items()},
+                          seconds, read_counts(hopper)))
+    fused, fdiag, _, flaunch = runs["fused"][0]
+    unfused, udiag, _, ulaunch = runs["unfused"][0]
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(torch.equal(getattr(fused.bodies, field),
+                          getattr(unfused.bodies, field)),
+              f"pile_ccd: fused and unfused differ in {field}")
+        check(torch.equal(getattr(fused.bodies, field),
+                          getattr(runs["fused"][1][0].bodies, field)),
+              f"pile_ccd: the fused rerun differs in {field}")
+        check(bool(torch.isfinite(getattr(fused.bodies, field)).all()),
+              f"pile_ccd: non-finite {field}")
+    check(fdiag == udiag == runs["fused"][1][1],
+          "pile_ccd: counters differ between the runs")
+    for key in ("slot_overflow", "solve_overflow", "window_overflow",
+                "large_overflow"):
+        check(fdiag[key] == 0, f"pile_ccd: {key} {fdiag[key]}")
+    per_substep = PILE_FRAMES * cfg.substeps
+    check(flaunch["tile_frame_ccd"] == PILE_FRAMES
+          and flaunch["tile_ccd"] == 0 and flaunch["tile_frame"] == 0,
+          f"pile_ccd fused: launches {json.dumps(flaunch)}")
+    check(ulaunch["tile_ccd"] == per_substep
+          and ulaunch["tile_project_ccd"] == per_substep
+          and ulaunch["tile_apply_ccd"] == per_substep
+          and ulaunch["tile_frame_ccd"] == 0 and ulaunch["tile_project"] == 0,
+          f"pile_ccd unfused: launches {json.dumps(ulaunch)}")
+    b = fused.bodies
+    x, y = b.pos[dyn, 0], b.pos[dyn, 1]
+    check(float(x.abs().max()) < wall and float(y.min()) > 0.0,
+          "pile_ccd: a body left the container")
+    health = pile_health(b.pos.cpu().numpy(), b.vel.cpu().numpy(),
+                         dyn.cpu().numpy())
+    print(f"pile_ccd health at frame {PILE_FRAMES}: {json.dumps(health)}")
+    check_pile_health(health, PILE_HEALTH_REFERENCE, PILE_FRAMES)
+    ms = {k: 1e3 * sum(r[2] for r in v) / (len(v) * PILE_FRAMES)
+          for k, v in runs.items()}
+
+    # rows K7 clamps in one frame of the fall, at a few frames in
+    states, clamped = {}, {}
+    cur, done = w, 0
+    for at in PILE_CCD_FRAMES:
+        cur, _ = tiled.tiled_rollout(cur, cfg, at - done)
+        done = at
+        states[at] = cur
+        args, kw = frame_inputs(hopper, tiled, cur, cfg)
+        counts = []
+
+        def toi(*a, **k):
+            f = hopper.tile_ccd(*a, **k)
+            counts.append(int((f < 1.0).sum()))
+            return f
+
+        substep_loop(hopper.tile_project, hopper.tile_apply, *args,
+                     ccd=(toi, hopper.owner_min, cfg.ccd_slop), **kw)
+        clamped[at] = counts
+    print(f"pile_ccd: pile({PILE_N}, sleep=False), every body a bullet, "
+          f"{cfg.substeps} substeps, {PILE_FRAMES} frames: fused (K10's CCD "
+          f"form) {ms['fused']:.4f} ms/frame, "
+          f"{dyn_n / ms['fused'] * 1e3:.6g} body-steps/s; fuse=False (K7, "
+          f"K8, K9) {ms['unfused']:.4f} ms/frame, "
+          f"{dyn_n / ms['unfused'] * 1e3:.6g}; the fused pile without CCD "
+          f"{ms['plain']:.4f} ms/frame, {dyn_n / ms['plain'] * 1e3:.6g} "
+          f"(turns: plain, unfused, fused, fused, unfused, plain: "
+          + ", ".join(f"{1e3 * r[2] / PILE_FRAMES:.4f}" for k in (
+              "plain", "unfused", "fused") for r in runs[k])
+          + f" ms/frame by kind); fused and unfused and a rerun bitwise "
+          f"equal; counters {json.dumps(fdiag)}; launches fused "
+          f"{json.dumps({k: v for k, v in flaunch.items() if v})}, unfused "
+          f"{json.dumps({k: v for k, v in ulaunch.items() if v})}; rows "
+          f"clamped (f < 1) per substep of one frame: "
+          + "; ".join(f"frame {at}: {c}" for at, c in clamped.items())
+          + f"; on {card}")
+    return dict(final=fused, cfg=cfg, states=states, ms=ms["fused"],
+                ms_unfused=ms["unfused"], ms_plain=ms["plain"],
+                launches=ulaunch, flaunches=flaunch, clamped=clamped)
+
+
+def run_compound_ccd(dev, hopper, tiled, card) -> dict:
+    """``pile_compound(10_000)`` (sleep on) with CCD and every body a
+    bullet, 60 frames from the start: K7, ``owner_min``, K8's CCD form and
+    K9's compound CCD form once a substep, hard counters 0, inside the
+    container, a rerun bitwise equal."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch import scenes
+
+    sc = scenes.pile_compound(n_bodies=PILE_N, device=dev)
+    w = bulleted(sc.world)
+    cfg = dataclasses.replace(sc.config, ccd=True)
+    check(tiled.use_tiled(w, cfg), "compound pile with CCD: off the tile "
+          "engine")
+    frames = 60
+    tiled.tiled_rollout(w, cfg, 5)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(hopper)
+    t0 = time.perf_counter()
+    final, diag = tiled.tiled_rollout(w, cfg, frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(hopper)
+    diag = {k: int(v) for k, v in diag.items()}
+    for key in ("slot_overflow", "solve_overflow", "window_overflow",
+                "large_overflow", "owner_overflow"):
+        check(diag[key] == 0, f"compound pile with CCD: {key} {diag[key]}")
+    b = final.bodies
+    dyn = b.inv_mass > 0
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(bool(torch.isfinite(getattr(b, field)).all()),
+              f"compound pile with CCD: non-finite {field}")
+    wall = float(w.bodies.pos[2, 0]) - 0.5
+    check(float(b.pos[dyn, 0].abs().max()) < wall
+          and float(b.pos[dyn, 1].min()) > 0.0,
+          "compound pile with CCD: a body left the container")
+    ran = launches["tile_manifold"] * cfg.substeps
+    for name in ("tile_ccd", "owner_min", "tile_project_ccd",
+                 "tile_apply_compound_ccd"):
+        check(launches[name] == ran and ran > 0,
+              f"compound pile with CCD: {name} launched {launches[name]} "
+              f"times, {ran} substeps ran")
+    check(launches["tile_frame_ccd"] == launches["tile_apply_ccd"] == 0,
+          "compound pile with CCD: K10 or the non-compound K9 ran")
+    again, dagain = tiled.tiled_rollout(w, cfg, frames)
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(again.bodies, field), getattr(b, field)),
+              f"compound pile with CCD: rerun differs in {field}")
+    ms = 1e3 * seconds / frames
+    dyn_n = int(dyn.sum())
+    print(f"compound pile with CCD: pile_compound({PILE_N}), every body a "
+          f"bullet, {frames} frames: {ms:.4f} ms/frame, "
+          f"{dyn_n / ms * 1e3:.6g} body-steps/s; counters {json.dumps(diag)}"
+          f"; launches {json.dumps({k: v for k, v in launches.items() if v})}"
+          f"; a rerun bitwise equal; on {card}")
+    return dict(final=final, cfg=cfg, ms=ms, launches=launches)
+
+
+def ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs, bounds,
+              card) -> dict:
+    """The CCD kernels at full size against their twins, timed in turns,
+    with their bounds: K7 and the CCD forms of K8, K9 and K10 on the CCD
+    pile at frame 60 of its fall (every row a bullet), ``owner_min`` on the
+    compound CCD pile's final state, K4's CCD form at 4096 worlds from the
+    main path with CCD's final state."""
+    import torch
+    from starframe_tpu_torch.hopper.tiles import SOL
+
+    times = {}
+    at = PILE_CCD_FRAMES[1]
+    w, cfg = pccd["states"][at], pccd["cfg"]
+    calls, plain64, (args, kw), f = ccd_tile_calls(hopper, tiled, w, cfg)
+    where = (f" (the CCD pile at frame {at}, every row a bullet, "
+             f"{int((f < 1.0).sum())} rows clamped in the first substep)")
+    for name, (call, inputs, extra, flops) in calls.items():
+        errs[name] = max(errs[name], ccd_agree(hopper, name, call,
+                                               plain64[name]))
+        k = call(False)
+        bounds[name] = bound(inputs, k, flops, extra)
+        del k
+        times[name] = turns(call)
+        print(f"time {name} at {PILE_N} bodies{where}: kernel "
+              f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), max abs "
+              f"err {errs[name]:.3g}, on {card}")
+
+    errs["tile_frame_ccd"] = max(errs["tile_frame_ccd"], frame_agree(
+        hopper, args, kw, f"at {PILE_N} bodies{where}", spread=True))
+    state, kc, large, pidx_c, sol, g, live = args
+    sm = sol[live > 0][:, [SOL["sm0"], SOL["sm1"]]]
+    solved = int((sm != 0).any(dim=1).sum())
+    n = kw["substeps"]
+    sk, ck, lk = TILE_READS["tile_frame"]
+    k = hopper.tile_frame(*args, **kw)
+    bounds["tile_frame_ccd"] = bound(
+        ([state[x] for x in sk], [kc[x] for x in ck + ("blt",)],
+         [large[x] for x in lk], sm, g, live), k,
+        n * solved * (PROJECT_FLOPS + VELOCITY_FLOPS + CCD_FLOPS),
+        4 * SOLVED_SLOT_WORDS["tile_frame"] * solved)
+    del k
+    plain_kw = {x: v for x, v in kw.items() if x not in ("ccd", "ccd_slop")}
+    p1 = cuda_ms(lambda: substep_pair(hopper, args, kw), 3)
+    times["tile_frame_ccd"] = turns(
+        lambda p: hopper.tile_frame(*args, **kw, plain=p))
+    p2 = cuda_ms(lambda: substep_pair(hopper, args, kw), 3)
+    no_ccd = cuda_ms(lambda: hopper.tile_frame(*args, **plain_kw), 5)
+    print(f"time tile_frame_ccd at {PILE_N} bodies{where}: kernel "
+          f"{times['tile_frame_ccd'][0]:.4f} ms, plain twin "
+          f"{times['tile_frame_ccd'][1]:.4f} ms, K7 + K8 + K9 once a "
+          f"substep {(p1 + p2) / 2:.4f} ms, the non-CCD K10 on the same "
+          f"inputs {no_ccd:.4f} ms; bound "
+          f"{bounds['tile_frame_ccd'][0]:.4f} ms "
+          f"({bounds['tile_frame_ccd'][1]}), max abs err against the twin "
+          f"{errs['tile_frame_ccd']:.3g}, on {card}")
+
+    cw, ccfg = cccd["final"], cccd["cfg"]
+    cargs, ckw = frame_inputs(hopper, tiled, cw, ccfg)
+    ob, oc = cargs[1]["obody"].reshape(-1), ccfg.max_colliders_per_body
+    fr = hopper.tile_ccd(*cargs, h=ckw["h"], ccd_slop=ccfg.ccd_slop)
+
+    def omin(p):
+        return hopper.owner_min([fr], ob, oc, plain=p)
+
+    check(torch.equal(omin(False)[0], omin(True)[0]),
+          "owner_min at 10k: kernel != twin")
+    bounds["owner_min"] = bound((fr, ob), omin(False), ob.numel() * 2 * (oc - 1))
+    times["owner_min"] = turns(omin)
+    print(f"time owner_min at {PILE_N} bodies (the compound CCD pile's final "
+          f"state, {ob.numel()} rows): kernel {times['owner_min'][0]:.4f} ms, "
+          f"plain twin {times['owner_min'][1]:.4f} ms, bound "
+          f"{bounds['owner_min'][0]:.4f} ms ({bounds['owner_min'][1]}), "
+          f"bitwise equal to the twin, on {card}")
+
+    mw, mcfg = mccd["final"], mccd["cfg"]
+    elig = parallel.frame2_elig(mw, mcfg)
+    tables = parallel.frame2_tables(mw, mcfg,
+                                    frames=mcfg.frames_per_broadphase,
+                                    elig=elig)
+    fargs, fkw = frame_call(hopper, parallel, mw, mcfg, tables)
+    body, _ = parallel._frame2_arrays(mw, mcfg)
+    fkw.update(bullet=body["bullet"], ccd=True, ccd_slop=mcfg.ccd_slop)
+
+    def call(p):
+        return hopper.run_frame2(*fargs, **fkw, plain=p)
+
+    kk, pp = call(False), call(True)
+    spread = f32_spread(hopper, fargs, fkw, pp)
+    errs["frame2_ccd"] = max(errs["frame2_ccd"],
+                             agree("frame2_ccd", kk, pp, spread))
+    entries = int(tables[1].sum())
+    bounds["frame2_ccd"] = bound(
+        (fargs, fkw), kk, entries * (MANIFOLD_FLOPS + mcfg.substeps
+                                     * mcfg.iterations
+                                     * (PROJECT_FLOPS + VELOCITY_FLOPS
+                                        + CCD_FLOPS)))
+    del kk, pp
+    times["frame2_ccd"] = turns(call)
+    print(f"time frame2_ccd at {W_MAIN}x{N_BODIES} (every dynamic body a "
+          f"bullet): kernel {times['frame2_ccd'][0]:.4f} ms, plain twin "
+          f"{times['frame2_ccd'][1]:.4f} ms, bound "
+          f"{bounds['frame2_ccd'][0]:.4f} ms ({bounds['frame2_ccd'][1]}), max "
+          f"abs err {errs['frame2_ccd']:.3g}, on {card}")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -1780,6 +2499,7 @@ def main() -> int:
     cerrs = parity_compound(dev, hopper, tiled)
     errs["tile_tables"] = max(errs["tile_tables"], cerrs.pop("tile_tables"))
     errs.update(cerrs)
+    errs.update(parity_ccd(dev, hopper, tiled, parallel))
 
     # ---- 3. the main path at full width ------------------------------------
     sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
@@ -1840,6 +2560,16 @@ def main() -> int:
     compound = run_pile_compound(dev, hopper, tiled, card)
     for name in ("tile_apply_compound", "owner_sum", "owner_velocity"):
         launches[name] = compound["launches"][name]
+    # CCD: the projectile batch, the main path and the piles with bullets
+    projectile = run_projectile(dev, hopper, parallel, card)
+    mccd = run_main_ccd(dev, hopper, parallel, card)
+    pccd = run_pile_ccd(dev, hopper, tiled, card)
+    cccd = run_compound_ccd(dev, hopper, tiled, card)
+    for name in ("tile_ccd", "tile_project_ccd", "tile_apply_ccd"):
+        launches[name] = pccd["launches"][name]
+    launches["tile_frame_ccd"] = pccd["flaunches"]["tile_frame_ccd"]
+    launches["owner_min"] = cccd["launches"]["owner_min"]
+    launches["frame2_ccd"] = mccd["launches"]
 
     # ---- 4. kernel vs twin, and their times, at the main path's shapes ---
     body, col = parallel._frame2_arrays(final, cfg)
@@ -1935,6 +2665,19 @@ def main() -> int:
                                 "tile_apply_compound", "owner_sum",
                                 "owner_velocity", "tile_frame")))
 
+    # the CCD kernels at full size
+    times.update(ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs,
+                           bounds, card))
+    print("ccd launches a frame: pile_ccd unfused K7 "
+          f"{pccd['launches']['tile_ccd'] / PILE_FRAMES:.4f}, K8 "
+          f"{pccd['launches']['tile_project_ccd'] / PILE_FRAMES:.4f}, K9 "
+          f"{pccd['launches']['tile_apply_ccd'] / PILE_FRAMES:.4f}; fused "
+          f"K10 {pccd['flaunches']['tile_frame_ccd'] / PILE_FRAMES:.4f}, K7 "
+          f"{pccd['flaunches']['tile_ccd'] / PILE_FRAMES:.4f}; compound "
+          f"owner_min {cccd['launches']['owner_min'] / 60:.4f}; main path K4 "
+          f"CCD {mccd['launches'] / FRAMES:.4f}; projectile ms/frame "
+          f"{json.dumps(projectile)}")
+
     # ---- 5. determinism ----------------------------------------------------
     a, _, da = rollout(10)
     b, _, db = rollout(10)
@@ -1961,7 +2704,8 @@ def main() -> int:
 
     # no single PyTorch call computes any of these kernels: library_ms null
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
-    ec = tuple((n, a, src, tpu) for n, a, _, src, tpu in EC_KERNELS)
+    ec = tuple((n, a, src, tpu)
+               for n, a, _, src, tpu in EC_KERNELS + CCD_KERNELS)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -118,6 +118,11 @@ struct Frame2Args {
   int n_colors;
   float max_dpos_joint;     // clip of a coloured pass (the raw max_dpos)
   float hh;                 // h * h, rounded once (joint compliance scale)
+  // CCD (the kCcd instantiation): null pointers and ccd = 0 without it
+  const float* bullet;      // [W, N] 1 on a bullet body
+  float* ccd_scratch;       // [W, 2, C, M] the carried world normal per slot
+  int ccd;
+  float ccd_slop;
 };
 
 // Per-slot fields the frame kernel keeps in global scratch, each a [C, M]
@@ -235,10 +240,12 @@ struct TileManifoldArgs {
   const int32_t* cid;       // [Nt, T] canonical collider id of each row
   const int32_t* lcid;      // [L] canonical collider id of each large slot
   int32_t* keyc;            // [Nt, Cs, T] min * n_colliders + max per slot
+  const float* kin;         // [Nt, T] 1 on a kinematic row (the wake rule)
   int Nt, V, C, Cs;
   float margin, dt, sleep_v2;  // sleep_v2: squared wake speed
   int use_wake;
   int n_colliders;
+  float kin_v2;             // squared speed of a kinematic partner that wakes
 };
 
 struct TileProjectArgs {
@@ -265,6 +272,7 @@ struct TileProjectArgs {
   float* cnt;
   float* lam;               // [Nt, 2, Cs, T]
   float* touched;           // [Nt, Cs, T]
+  const float* f;           // [Nt, T] TOI factors (the kCcd form), or null
   int Nt, Cs;
   float h, alpha_t;
 };
@@ -302,10 +310,34 @@ struct TileApplyArgs {
   // velocity-pass sums [4, Nt, T], which the caller owner-sums, normalises
   // by the body's count and damps (owner_reduce.cu); null otherwise
   float* accv;
+  const float* f;           // [Nt, T] TOI factors (the kCcd form), or null
   int Nt, Cs;
   float h, relaxation, max_dpos, rest_threshold;
   float lin_sdamp, ang_sdamp;  // 1 / (1 + h * damping)
   int use_lin_damp, use_ang_damp;
+};
+
+// The TOI factors of a substep (tile_substep.cu's K7, and K10's CCD
+// phase): each bullet row's advance clamp over its solve slots.
+struct TileCcdArgs {
+  const float* px;          // [Nt, T] state at the substep's start
+  const float* py;
+  const float* an;
+  const float* vx;
+  const float* vy;
+  const float* om;
+  const float* dynb;        // [Nt, T] consts
+  const float* blt;         // 1 on a bullet row
+  const float* l_px;        // [L] large-set pose
+  const float* l_py;
+  const float* l_an;
+  const int32_t* pidx_c;    // [Nt, Cs, T]
+  const float* sol;         // [Nt, TS_FIELDS, Cs, T]
+  const float* gravity;     // [2]
+  const float* tile_live;   // [Nt]
+  float* f;                 // [Nt, T] the factors, 1 where nothing clamps
+  int Nt, Cs;
+  float h, ccd_slop;
 };
 
 // The whole frame's substeps (tile_frame.cu). `project` and `apply` hold
@@ -315,12 +347,15 @@ struct TileApplyArgs {
 // substeps swap in the ping-pong buffers: substep s reads the input (s = 0),
 // else `st_b` (s odd) or `st_a` (s even), and writes `st_b` (s even) or
 // `st_a` (s odd). Each buffer is px, py, an, vx, vy, om, [Nt, T] each.
+// With CCD (`ccd.f` not null, and `project.f == apply.f == ccd.f`) each
+// substep first writes the TOI factors into that scratch.
 struct TileFrameArgs {
   TileProjectArgs project;
   TileApplyArgs apply;
   float* st_a[6];
   float* st_b[6];
   int substeps;
+  TileCcdArgs ccd;
 };
 
 // The owner reductions of compound rows (owner_reduce.cu): rows of one body

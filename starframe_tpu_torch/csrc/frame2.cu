@@ -3,10 +3,10 @@
 // -> velocity reconstruction -> restitution/friction velocity pass].
 //
 // Replaces starframe_tpu/pallas/frame2.py `_frame2_kernel` (launched by
-// `run_frame2`) for its uniform-topology, no-CCD, uncompacted (Cs = 0)
-// configuration, contact-only or with joints (both joint tiers). CCD,
-// solve-slot compaction and per-world owner tables are ROADMAP.md work and
-// are refused by the wrapper.
+// `run_frame2`) for its uniform-topology, uncompacted (Cs = 0)
+// configuration, contact-only or with joints (both joint tiers), with or
+// without CCD. Solve-slot compaction, per-world owner tables and sleep are
+// ROADMAP.md work and are refused by the wrapper.
 //
 // What bounds it on an H100: the per-slot frame constants. Each slot of
 // each row carries ~28 floats through the frame (normal, anchors, masks,
@@ -48,6 +48,18 @@
 // __syncthreads(), applies, so same-colour joints (which share no dynamic
 // body) apply exactly; the last pass takes every colour >= its own. Motors
 // and joint damping join the velocity pass the same way as the Jacobi sum.
+//
+// CCD (the kCcd instantiation, frame2.py:464-514, 621-631): after the
+// integrate phase a row phase takes each bullet-owned row's TOI factor,
+// the min over its slots' solved points of the fraction of the substep's
+// closing along the frame-start normal that lands the pair at ccd_slop of
+// penetration (anchors at the substep-start pose, carried like the
+// static-friction reference, and at the integrated one); then a body phase
+// sums (1 - f) over the body's colliders (the same owner lists as the row
+// sums) and pulls the integrated pose back to p0 + f (p - p0) where f < 1.
+// The substep-start pose waits in dxx/dxy/dth (zeroed after the clamp) and
+// the carried world normal in `ccd_scratch`, so the shared-memory layout is
+// the non-CCD one.
 
 #include "common.cuh"
 #include "contact.cuh"
@@ -300,7 +312,56 @@ __device__ __forceinline__ void to_body(const Shared& s, int M, int n,
   }
 }
 
-template <int V, bool kJ>
+// K4's TOI factor of row i (kCcd): 1 unless its body is a bullet and a
+// solved point of one of its slots would close past ccd_slop this substep
+// (frame2.py:482-504). The pose is integrated and cab/sab are its own.
+__device__ __forceinline__ float ccd_row_factor(const Shared& s,
+                                                const Frame2Args& a,
+                                                const float* scr,
+                                                const float* cscr,
+                                                long long w, int i,
+                                                size_t plane) {
+  const int ob = s.cbody[i];
+  if (!(a.bullet[w * a.N + ob] > 0.f)) return 1.f;
+  const float o_px = s.px[ob], o_py = s.py[ob];
+  const float o_ca = s.cab[ob], o_sa = s.sab[ob];
+  float f_col = 1.f;
+  for (int c = 0; c < a.C; ++c) {
+    const size_t t = (size_t)c * a.M + i;
+    const float* f = scr + t;
+    const float sm[2] = {f[F2_SM0 * plane], f[F2_SM1 * plane]};
+    if (!(sm[0] > 0.f) && !(sm[1] > 0.f)) continue;
+    const int pb = s.cbody[a.partner[(size_t)w * plane + t]];
+    const float p_px = s.px[pb], p_py = s.py[pb];
+    const float p_ca = s.cab[pb], p_sa = s.sab[pb];
+    const float nx0 = cscr[t], ny0 = cscr[plane + t];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (!(sm[p] > 0.f)) continue;
+      const float a_ax = f[(F2_AAX0 + p) * plane];
+      const float a_ay = f[(F2_AAY0 + p) * plane];
+      const float b_ax = f[(F2_BAX0 + p) * plane];
+      const float b_ay = f[(F2_BAY0 + p) * plane];
+      const float wax0 = f[(F2_WAX0 + p) * plane];
+      const float way0 = f[(F2_WAY0 + p) * plane];
+      const float wbx0 = f[(F2_WBX0 + p) * plane];
+      const float wby0 = f[(F2_WBY0 + p) * plane];
+      const float wax1 = o_px + (o_ca * a_ax - o_sa * a_ay);
+      const float way1 = o_py + (o_sa * a_ax + o_ca * a_ay);
+      const float wbx1 = p_px + (p_ca * b_ax - p_sa * b_ay);
+      const float wby1 = p_py + (p_sa * b_ax + p_ca * b_ay);
+      const float c0 = (wbx0 - wax0) * nx0 + (wby0 - way0) * ny0;
+      const float c1 = (wbx1 - wax1) * nx0 + (wby1 - way1) * ny0;
+      const float advance = c0 - c1;
+      const float allowed = fmaxf(c0, 0.f) + a.ccd_slop;
+      if (advance > allowed)
+        f_col = fminf(f_col, allowed / fmaxf(advance, 1e-10f));
+    }
+  }
+  return f_col;
+}
+
+template <int V, bool kJ, bool kCcd>
 __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   extern __shared__ float smem[];
   const int N = a.N, M = a.M, C = a.C;
@@ -308,6 +369,8 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   const Shared s = carve<kJ>(smem, N, M, V, a.J);
   const size_t plane = (size_t)C * M;  // one scratch field of one world
   float* scr = a.scratch + (size_t)w * F2_FIELDS * plane;
+  // kCcd: the carried world normal [2, C, M] of this world
+  float* cscr = kCcd ? a.ccd_scratch + (size_t)w * 2 * plane : nullptr;
   const float gx = a.gravity[2 * w], gy = a.gravity[2 * w + 1];
   const float h = a.h;
 
@@ -399,6 +462,10 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       const float n_ay = -o_sa * m.nx + o_ca * m.ny;
       f[F2_NAX * plane] = n_ax;
       f[F2_NAY * plane] = n_ay;
+      if constexpr (kCcd) {  // the normal at the frame-start pose (kin00)
+        cscr[t] = o_ca * n_ax - o_sa * n_ay;
+        cscr[plane + t] = o_sa * n_ax + o_ca * n_ay;
+      }
       float touch0 = 0.f;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
@@ -439,12 +506,39 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       const float dyn = s.dyn[n];
       const float vx = s.vx[n] + gx * h * dyn;
       const float vy = s.vy[n] + gy * h * dyn;
+      if constexpr (kCcd) {  // the substep-start pose, for the TOI clamp
+        s.dxx[n] = s.px[n]; s.dxy[n] = s.py[n]; s.dth[n] = s.an[n];
+      }
       s.vx[n] = vx; s.vy[n] = vy;
       s.px[n] = s.px[n] + vx * h;
       s.py[n] = s.py[n] + vy * h;
       s.an[n] = s.an[n] + s.om[n] * h;
       s.vtx[n] = vx; s.vty[n] = vy; s.vtom[n] = s.om[n];
-      s.dxx[n] = 0.f; s.dxy[n] = 0.f; s.dth[n] = 0.f;
+      if constexpr (kCcd) {
+        s.cab[n] = cosf(s.an[n]);
+        s.sab[n] = sinf(s.an[n]);
+      } else {
+        s.dxx[n] = 0.f; s.dxy[n] = 0.f; s.dth[n] = 0.f;
+      }
+    }
+    if constexpr (kCcd) {
+      // TOI clamp: each row's factor, then each body's over its colliders
+      __syncthreads();
+      for (int i = threadIdx.x; i < M; i += blockDim.x)
+        s.row[i] = 1.f - ccd_row_factor(s, a, scr, cscr, w, i, plane);
+      __syncthreads();
+      for (int n = threadIdx.x; n < N; n += blockDim.x) {
+        float neg = 0.f;
+        for (int k = s.ostart[n]; k < s.ostart[n + 1]; ++k)
+          neg += s.row[s.oidx[k]];
+        const float fb = fminf(fmaxf(1.f - neg, 0.f), 1.f);
+        if (fb < 1.f) {  // unclamped bodies keep their pose bitwise
+          s.px[n] = s.dxx[n] + fb * (s.px[n] - s.dxx[n]);
+          s.py[n] = s.dxy[n] + fb * (s.py[n] - s.dxy[n]);
+          s.an[n] = s.dth[n] + fb * (s.an[n] - s.dth[n]);
+        }
+        s.dxx[n] = 0.f; s.dxy[n] = 0.f; s.dth[n] = 0.f;
+      }
     }
     for (int it = 0; it < a.iterations; ++it) {
       __syncthreads();
@@ -624,6 +718,12 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
           f[(F2_WAY0 + p) * plane] = o_py + ray;
           f[(F2_WBX0 + p) * plane] = p_px + rbx;
           f[(F2_WBY0 + p) * plane] = p_py + rby;
+          if constexpr (kCcd) {  // and the TOI's frame-start normal
+            if (p == 0) {
+              cscr[t] = nx;
+              cscr[plane + t] = ny;
+            }
+          }
           float impx, impy, dd;
           bool active;
           const float* lamp = f + (F2_LAM0 + p) * plane;
@@ -682,15 +782,21 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   }
 }
 
-template <int V, bool kJ>
+template <int V, bool kJ, bool kCcd>
 int launch(const Frame2Args& a, cudaStream_t stream) {
   const size_t shmem = shared_bytes(a.N, a.M, V, kJ ? a.J : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      frame2_kernel<V, kJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      frame2_kernel<V, kJ, kCcd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)shmem);
   if (err != cudaSuccess) return (int)err;
-  if (a.W > 0) frame2_kernel<V, kJ><<<a.W, kThreads, shmem, stream>>>(a);
+  if (a.W > 0)
+    frame2_kernel<V, kJ, kCcd><<<a.W, kThreads, shmem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int V, bool kJ>
+int launch_ccd(const Frame2Args& a, cudaStream_t stream) {
+  return a.ccd ? launch<V, kJ, true>(a, stream) : launch<V, kJ, false>(a, stream);
 }
 
 }  // namespace
@@ -709,8 +815,10 @@ extern "C" int sf_frame2(const Frame2Args* a, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bool joints = a->J > 0;
   switch (a->V) {
-    case 4: return joints ? launch<4, true>(*a, st) : launch<4, false>(*a, st);
-    case 8: return joints ? launch<8, true>(*a, st) : launch<8, false>(*a, st);
+    case 4:
+      return joints ? launch_ccd<4, true>(*a, st) : launch_ccd<4, false>(*a, st);
+    case 8:
+      return joints ? launch_ccd<8, true>(*a, st) : launch_ccd<8, false>(*a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,6 +16,13 @@
 // its own row only. Integer barriers, no atomics on floats: reruns are
 // bitwise equal.
 //
+// With CCD (the kCcd instance, tiles.py `_mega_kernel` with `ccd`: three
+// phases a substep) each substep starts with K7's row body (`ccd_row`)
+// writing every row's TOI factor into the `ccd.f` scratch (1 on a skipped
+// tile and a row that is not a bullet, as `_run_mega`'s ones), then a
+// barrier, then the project and apply phases' kCcd forms read it: bitwise
+// equal to K7, K8 and K9 launched once a substep.
+//
 // What bounds it on an H100: bytes, as K8/K9. Each substep reads the solve
 // tables (7.2 MB at the 10k pile) and the state and correction windows; the
 // frame's working set (~10 MB) sits in the 50 MB L2. The design is the
@@ -49,6 +56,7 @@ __device__ __forceinline__ float* state_out(const TileFrameArgs& f, int odd,
   return odd ? f.st_a[k] : f.st_b[k];
 }
 
+template <bool kCcd>
 __global__ void __launch_bounds__(kRows) tile_frame_kernel(TileFrameArgs f) {
   cg::grid_group grid = cg::this_grid();
   const int units = f.project.Nt * kGroups;
@@ -59,8 +67,16 @@ __global__ void __launch_bounds__(kRows) tile_frame_kernel(TileFrameArgs f) {
     p.px = state_in(f, src, 0); p.py = state_in(f, src, 1);
     p.an = state_in(f, src, 2); p.vx = state_in(f, src, 3);
     p.vy = state_in(f, src, 4); p.om = state_in(f, src, 5);
+    if constexpr (kCcd) {
+      TileCcdArgs c = f.ccd;
+      c.px = p.px; c.py = p.py; c.an = p.an;
+      c.vx = p.vx; c.vy = p.vy; c.om = p.om;
+      for (int u = blockIdx.x; u < units; u += gridDim.x)
+        ccd_row(c, u / kGroups, (u % kGroups) * kRows + threadIdx.x);
+      grid.sync();
+    }
     for (int u = blockIdx.x; u < units; u += gridDim.x)
-      project_row(p, u / kGroups, (u % kGroups) * kRows + threadIdx.x);
+      project_row<kCcd>(p, u / kGroups, (u % kGroups) * kRows + threadIdx.x);
     grid.sync();
     TileApplyArgs a = f.apply;
     a.px = p.px; a.py = p.py; a.an = p.an;
@@ -69,7 +85,8 @@ __global__ void __launch_bounds__(kRows) tile_frame_kernel(TileFrameArgs f) {
     a.o_an = state_out(f, odd, 2); a.o_vx = state_out(f, odd, 3);
     a.o_vy = state_out(f, odd, 4); a.o_om = state_out(f, odd, 5);
     for (int u = blockIdx.x; u < units; u += gridDim.x)
-      apply_row<false>(a, u / kGroups, (u % kGroups) * kRows + threadIdx.x);
+      apply_row<false, kCcd>(a, u / kGroups,
+                             (u % kGroups) * kRows + threadIdx.x);
     if (s + 1 < f.substeps) grid.sync();
   }
 }
@@ -78,12 +95,13 @@ __global__ void __launch_bounds__(kRows) tile_frame_kernel(TileFrameArgs f) {
 
 SF_EXPORT(sf_tile_frame, TileFrameArgs)
 
-// The most blocks of tile_frame_kernel resident on device `dev` at once
-// (occupancy x SM count), or the error that refuses a cooperative launch
-// there. Queried once per device and kept: the values are fixed for the
-// process, and the frame loop is host-bound.
+// The most blocks of tile_frame_kernel<kCcd> resident on device `dev` at
+// once (occupancy x SM count), or the error that refuses a cooperative
+// launch there. Queried once per device and instance and kept: the values
+// are fixed for the process, and the frame loop is host-bound.
 static constexpr int kMaxDevices = 64;
 
+template <bool kCcd>
 static cudaError_t resident_blocks(int dev, int* blocks) {
   static int cached[kMaxDevices] = {0};  // 0: not queried yet
   if (dev < kMaxDevices && cached[dev] > 0) {
@@ -98,7 +116,7 @@ static cudaError_t resident_blocks(int dev, int* blocks) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, tile_frame_kernel, kRows, 0);
+        &per_sm, tile_frame_kernel<kCcd>, kRows, 0);
   if (err == cudaSuccess && per_sm < 1)
     err = cudaErrorCooperativeLaunchTooLarge;
   if (err != cudaSuccess) return err;
@@ -113,16 +131,20 @@ static cudaError_t resident_blocks(int dev, int* blocks) {
 extern "C" int sf_tile_frame(const TileFrameArgs* a, void* stream) {
   const int units = a->project.Nt * kGroups;
   if (units == 0 || a->substeps <= 0) return (int)cudaGetLastError();
+  const bool ccd = a->ccd.f != nullptr;
   int dev = 0, resident = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = resident_blocks(dev, &resident);
+  if (err == cudaSuccess)
+    err = ccd ? resident_blocks<true>(dev, &resident)
+              : resident_blocks<false>(dev, &resident);
   if (err != cudaSuccess) return (int)err;
   const int blocks = resident < units ? resident : units;
   TileFrameArgs args = *a;
   void* params[] = {&args};
-  err = cudaLaunchCooperativeKernel((const void*)tile_frame_kernel,
-                                    dim3(blocks), dim3(kRows), params, 0,
-                                    (cudaStream_t)stream);
+  const void* kernel = ccd ? (const void*)tile_frame_kernel<true>
+                           : (const void*)tile_frame_kernel<false>;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kRows),
+                                    params, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,11 @@
 // as int32 products do, unsigned here; the wrapper refuses a world whose
 // real pairs' keys would not fit.
 //
+// The wake signal adds one rule to the TPU kernel's: a sleeper inside the
+// margin of a kinematic partner moving at `sleep_velocity` or faster wakes
+// too (the reference wakes only on fast dynamic partners, so a moving
+// platform slid out from under a frozen body; ROADMAP.md C).
+//
 // What bounds it on an H100: the manifold math, ~1-2k flops of scalar
 // SAT/clip code per slot (C = 16 slots x 10,240 rows = 1.6e5 manifolds a
 // frame at the 10k pile); the bytes (tables in, ~7 MB of solve tables out)
@@ -100,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
     const float act = a.act[g];
     const int pr = tile_candidate(t, Nt, pc);
     float p_px, p_py, p_an, pvx, pvy, pom, p_rad, p_fric, p_rst, p_sen;
-    float p_invm, p_invi;
+    float p_invm, p_invi, p_kin;
     int p_nv;
     float vbx[V], vby[V], p_ext = 0.f;
     const float *pvlx, *pvly;
@@ -110,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
       pvx = a.vx[pr]; pvy = a.vy[pr]; pom = a.om[pr];
       p_rad = a.rad[pr]; p_nv = a.nv[pr]; p_fric = a.fric[pr];
       p_rst = a.rst[pr]; p_sen = a.sen[pr];
-      p_invm = a.invm[pr]; p_invi = a.invi[pr];
+      p_invm = a.invm[pr]; p_invi = a.invi[pr]; p_kin = a.kin[pr];
       pvlx = a.vlx + (size_t)(pr / kT) * V * kT + pr % kT;
       pvly = a.vly + (size_t)(pr / kT) * V * kT + pr % kT;
       vstride = kT;
@@ -121,6 +126,7 @@ __global__ void __launch_bounds__(kThreads)
       p_rad = a.l_rad[l]; p_nv = a.l_nv[l]; p_fric = a.l_fric[l];
       p_rst = a.l_rst[l]; p_sen = a.l_sen[l];
       p_invm = 0.f; p_invi = 0.f;
+      p_kin = 0.f;  // the large set holds statics only (moves == 0)
       pvlx = a.l_vlx + l;
       pvly = a.l_vly + l;
       vstride = TILE_L;
@@ -184,9 +190,12 @@ __global__ void __launch_bounds__(kThreads)
     pen[rc] = pen_c;
     float w = 0.f;
     if (a.use_wake) {
-      // wake on a fast dynamic partner inside the speculative margin
+      // wake on a fast dynamic partner inside the speculative margin, or
+      // on a kinematic one moving at the sleep speed or faster
       const float spd2 = pvx * pvx + pvy * pvy + pom * pom;
-      const float fast = (spd2 >= a.sleep_v2 && p_invm > 0.f) ? 1.f : 0.f;
+      const bool fast_dyn = spd2 >= a.sleep_v2 && p_invm > 0.f;
+      const bool fast_kin = spd2 >= a.kin_v2 && p_kin > 0.f;
+      const float fast = (fast_dyn || fast_kin) ? 1.f : 0.f;
       w = fmaxf(pm0, pm1) * fast;
     }
     wk[rc] = w;

@@ -15,6 +15,13 @@
 // writes the velocity pass's raw sums to `accv` instead of normalising and
 // damping, since a compound body's count is the sum over its rows (the
 // caller's owner reduction, owner_reduce.cu); K10 never runs it.
+//
+// CCD (the `kCcd` forms, cfg.ccd): `ccd_row` is K7, a bullet row's TOI
+// factor f in [0, 1] over its solve slots for this substep; the `kCcd`
+// forms of `project_row` and `apply_row` scale the own and each window
+// partner's pose advance by their f (a large-set static's is 1), while the
+// velocities keep full speed. f = 1 scales by an exact 1, so a world with
+// no bullet takes the same values as the non-CCD forms.
 #pragma once
 
 #include "common.cuh"
@@ -51,7 +58,79 @@ __device__ __forceinline__ Partner partner(const float* px, const float* py,
   return p;
 }
 
+// K7: the TOI factor of row i of tile t for this substep (tiles.py
+// `_ccd_math`). Own and partner poses are integrated one substep without
+// clamping (large-set partners do not move); for each point of a solved
+// slot, the pair's closing along the frame-start normal is c0 - c1 with the
+// anchors at the substep's start and end poses, and where it would carry
+// the pair past ccd_slop of penetration the factor that lands it there is
+// taken. The row's f is the min over points and slots; 1 on a row that is
+// not a bullet and in a skipped tile.
+__device__ __forceinline__ void ccd_row(const TileCcdArgs& a, int t, int i) {
+  const size_t row = (size_t)t * kT + i;
+  if (!(a.tile_live[t] > 0.f) || !(a.blt[row] > 0.f)) {
+    a.f[row] = 1.f;
+    return;
+  }
+  const int Cs = a.Cs;
+  const size_t splane = (size_t)Cs * kT;
+  const float* sol = a.sol + (size_t)t * TS_FIELDS * splane + i;
+  const size_t sbase = (size_t)t * Cs * kT + i;
+  const float h = a.h, gx = a.gravity[0], gy = a.gravity[1];
+  const float o_px = a.px[row], o_py = a.py[row], o_an = a.an[row];
+  const float dyn = a.dynb[row];
+  // the unclamped integrated own pose
+  const float opx_t = o_px + (a.vx[row] + gx * h * dyn) * h;
+  const float opy_t = o_py + (a.vy[row] + gy * h * dyn) * h;
+  const float oa_t = o_an + a.om[row] * h;
+  const float oca0 = cosf(o_an), osa0 = sinf(o_an);
+  const float oca1 = cosf(oa_t), osa1 = sinf(oa_t);
+  float f_acc = 1.f;
+  for (int s = 0; s < Cs; ++s) {
+    const float* f = sol + (size_t)s * kT;
+    const float sm[2] = {f[TS_SM0 * splane], f[TS_SM1 * splane]};
+    if (!(sm[0] > 0.f) && !(sm[1] > 0.f)) continue;
+    const Partner p = partner(a.px, a.py, a.an, a.vx, a.vy, a.om, a.l_px,
+                              a.l_py, a.l_an, t, a.Nt,
+                              a.pidx_c[sbase + (size_t)s * kT]);
+    const float p_dyn = f[TS_PDYN * splane];
+    const float ppx_t = p.px + (p.vx + gx * h * p_dyn) * h;
+    const float ppy_t = p.py + (p.vy + gy * h * p_dyn) * h;
+    const float pa_t = p.an + p.om * h;
+    const float pca0 = cosf(p.an), psa0 = sinf(p.an);
+    const float pca1 = cosf(pa_t), psa1 = sinf(pa_t);
+    const float n_ax = f[TS_NAX * splane], n_ay = f[TS_NAY * splane];
+    // the frame-start normal, at the substep's start pose
+    const float nx0 = oca0 * n_ax - osa0 * n_ay;
+    const float ny0 = osa0 * n_ax + oca0 * n_ay;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (!(sm[q] > 0.f)) continue;
+      const float a_ax = f[(TS_AAX0 + q) * splane];
+      const float a_ay = f[(TS_AAY0 + q) * splane];
+      const float b_ax = f[(TS_BAX0 + q) * splane];
+      const float b_ay = f[(TS_BAY0 + q) * splane];
+      const float wax0 = o_px + (oca0 * a_ax - osa0 * a_ay);
+      const float way0 = o_py + (osa0 * a_ax + oca0 * a_ay);
+      const float wbx0 = p.px + (pca0 * b_ax - psa0 * b_ay);
+      const float wby0 = p.py + (psa0 * b_ax + pca0 * b_ay);
+      const float wax1 = opx_t + (oca1 * a_ax - osa1 * a_ay);
+      const float way1 = opy_t + (osa1 * a_ax + oca1 * a_ay);
+      const float wbx1 = ppx_t + (pca1 * b_ax - psa1 * b_ay);
+      const float wby1 = ppy_t + (psa1 * b_ax + pca1 * b_ay);
+      const float c0 = (wbx0 - wax0) * nx0 + (wby0 - way0) * ny0;
+      const float c1 = (wbx1 - wax1) * nx0 + (wby1 - way1) * ny0;
+      const float advance = c0 - c1;
+      const float allowed = fmaxf(c0, 0.f) + a.ccd_slop;
+      if (advance > allowed)
+        f_acc = fminf(f_acc, allowed / fmaxf(advance, 1e-10f));
+    }
+  }
+  a.f[row] = f_acc;
+}
+
 // own-row project phase of row i of tile t
+template <bool kCcd = false>
 __device__ __forceinline__ void project_row(const TileProjectArgs& a, int t,
                                             int i) {
   const int Cs = a.Cs;
@@ -76,9 +155,17 @@ __device__ __forceinline__ void project_row(const TileProjectArgs& a, int t,
   // integrated own state (v_tilde + pose), derived algebraically
   const float ovx_t = o_vx + gx * h * dyn;
   const float ovy_t = o_vy + gy * h * dyn;
-  const float opx_t = o_px + ovx_t * h;
-  const float opy_t = o_py + ovy_t * h;
-  const float oa_t = o_an + o_om * h;
+  float opx_t, opy_t, oa_t;
+  if constexpr (kCcd) {  // the pose advance TOI-clamped, velocities not
+    const float o_f = a.f[row];
+    opx_t = o_px + ovx_t * h * o_f;
+    opy_t = o_py + ovy_t * h * o_f;
+    oa_t = o_an + o_om * h * o_f;
+  } else {
+    opx_t = o_px + ovx_t * h;
+    opy_t = o_py + ovy_t * h;
+    oa_t = o_an + o_om * h;
+  }
   const float oca0 = cosf(o_an), osa0 = sinf(o_an);
   const float oca = cosf(oa_t), osa = sinf(oa_t);
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -99,9 +186,17 @@ __device__ __forceinline__ void project_row(const TileProjectArgs& a, int t,
     const float p_dyn = f[TS_PDYN * splane];
     const float pvx_t = p.vx + gx * h * p_dyn;
     const float pvy_t = p.vy + gy * h * p_dyn;
-    const float ppx_t = p.px + pvx_t * h;
-    const float ppy_t = p.py + pvy_t * h;
-    const float pa_t = p.an + p.om * h;
+    float ppx_t, ppy_t, pa_t;
+    if constexpr (kCcd) {
+      const float p_f = p.row >= 0 ? a.f[p.row] : 1.f;
+      ppx_t = p.px + pvx_t * h * p_f;
+      ppy_t = p.py + pvy_t * h * p_f;
+      pa_t = p.an + p.om * h * p_f;
+    } else {
+      ppx_t = p.px + pvx_t * h;
+      ppy_t = p.py + pvy_t * h;
+      pa_t = p.an + p.om * h;
+    }
     const float pca0 = cosf(p.an), psa0 = sinf(p.an);
     const float pca = cosf(pa_t), psa = sinf(pa_t);
     const float imb = f[TS_IMB * splane], iib = f[TS_IIB * splane];
@@ -159,7 +254,7 @@ __device__ __forceinline__ float applied(float d, float cnt,
 }
 
 // own-row apply phase of row i of tile t
-template <bool kCompound = false>
+template <bool kCompound = false, bool kCcd = false>
 __device__ __forceinline__ void apply_row(const TileApplyArgs& a, int t,
                                           int i) {
   const int Cs = a.Cs;
@@ -186,9 +281,17 @@ __device__ __forceinline__ void apply_row(const TileApplyArgs& a, int t,
   const float o_om = a.om[row];
   const float ovx_t = a.vx[row] + gx * h * dyn;
   const float ovy_t = a.vy[row] + gy * h * dyn;
-  const float npx = a.px[row] + ovx_t * h + o_ddx;
-  const float npy = a.py[row] + ovy_t * h + o_ddy;
-  const float nan_ = a.an[row] + o_om * h + o_dda;
+  float npx, npy, nan_;
+  if constexpr (kCcd) {  // the pose advance TOI-clamped, velocities not
+    const float o_f = a.f[row];
+    npx = a.px[row] + ovx_t * h * o_f + o_ddx;
+    npy = a.py[row] + ovy_t * h * o_f + o_ddy;
+    nan_ = a.an[row] + o_om * h * o_f + o_dda;
+  } else {
+    npx = a.px[row] + ovx_t * h + o_ddx;
+    npy = a.py[row] + ovy_t * h + o_ddy;
+    nan_ = a.an[row] + o_om * h + o_dda;
+  }
   // velocity reconstruction (kinematic rows keep their velocity)
   const float nk = 1.f - kin;
   float nvx = kin * ovx_t + nk * (ovx_t + o_ddx / h);
@@ -214,9 +317,17 @@ __device__ __forceinline__ void apply_row(const TileApplyArgs& a, int t,
       p_dda = applied(a.dth[p.row], pcnt, a);
     }
     // the partner's post-apply pose and velocity, as its own row makes them
-    const float ppx = p.px + pvx_t * h + p_ddx;
-    const float ppy = p.py + pvy_t * h + p_ddy;
-    const float pan = p.an + p.om * h + p_dda;
+    float ppx, ppy, pan;
+    if constexpr (kCcd) {
+      const float p_f = p.row >= 0 ? a.f[p.row] : 1.f;
+      ppx = p.px + pvx_t * h * p_f + p_ddx;
+      ppy = p.py + pvy_t * h * p_f + p_ddy;
+      pan = p.an + p.om * h * p_f + p_dda;
+    } else {
+      ppx = p.px + pvx_t * h + p_ddx;
+      ppy = p.py + pvy_t * h + p_ddy;
+      pan = p.an + p.om * h + p_dda;
+    }
     const float pnvx = pvx_t + p_ddx / h;
     const float pnvy = pvy_t + p_ddy / h;
     const float pnom = p.om + p_dda / h;

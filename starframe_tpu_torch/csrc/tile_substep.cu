@@ -14,6 +14,14 @@
 // the apply phase's compound form (`_apply_kernel(compound=True)`): the
 // velocity pass's raw sums go out for the caller's owner reduction.
 //
+// With CCD (cfg.ccd) a third launch comes first: K7 (`sf_tile_ccd`,
+// replacing tiles.py `_ccd_kernel` + `_ccd_math`) writes each row's TOI
+// factor f, and a non-null `f` in the project and apply arguments runs
+// their `kCcd` forms, which scale the pose advance by it. K7 reads what
+// K8 reads of a row (its solve slots' masks, anchors and normal, the
+// window state) and writes one float a row: bytes again, ~8 MB at the 10k
+// pile; one thread per row, 64 a block, as K8.
+//
 // What bounds it on an H100: bytes. Each launch reads the solve tables
 // (22 floats x Cs slots a row: 7.2 MB at the 10k pile's 10,240 rows and
 // Cs = 8) plus the state windows and writes ~1 MB: ~9-10 MB, ~3 us at
@@ -33,27 +41,47 @@ namespace {
 
 constexpr int kRows = 64;  // rows (threads) per block
 
+template <bool kCcd>
 __global__ void __launch_bounds__(kRows) tile_project_kernel(
     TileProjectArgs a) {
   const int t = blockIdx.y, i = blockIdx.x * kRows + threadIdx.x;
-  if (i < kT) project_row(a, t, i);
+  if (i < kT) project_row<kCcd>(a, t, i);
+}
+
+template <bool kCompound, bool kCcd>
+__global__ void __launch_bounds__(kRows) tile_apply_kernel(TileApplyArgs a) {
+  const int t = blockIdx.y, i = blockIdx.x * kRows + threadIdx.x;
+  if (i < kT) apply_row<kCompound, kCcd>(a, t, i);
+}
+
+__global__ void __launch_bounds__(kRows) tile_ccd_kernel(TileCcdArgs a) {
+  const int t = blockIdx.y, i = blockIdx.x * kRows + threadIdx.x;
+  if (i < kT) ccd_row(a, t, i);
 }
 
 template <bool kCompound>
-__global__ void __launch_bounds__(kRows) tile_apply_kernel(TileApplyArgs a) {
-  const int t = blockIdx.y, i = blockIdx.x * kRows + threadIdx.x;
-  if (i < kT) apply_row<kCompound>(a, t, i);
+void apply_launch(const TileApplyArgs& a, dim3 grid, cudaStream_t st) {
+  if (a.f)
+    tile_apply_kernel<kCompound, true><<<grid, kRows, 0, st>>>(a);
+  else
+    tile_apply_kernel<kCompound, false><<<grid, kRows, 0, st>>>(a);
 }
 
 }  // namespace
 
 SF_EXPORT(sf_tile_project, TileProjectArgs)
 SF_EXPORT(sf_tile_apply, TileApplyArgs)
+SF_EXPORT(sf_tile_ccd, TileCcdArgs)
 
 extern "C" int sf_tile_project(const TileProjectArgs* a, void* stream) {
   const dim3 grid(kT / kRows, a->Nt);
-  if (a->Nt > 0)
-    tile_project_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(*a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a->Nt > 0) {
+    if (a->f)
+      tile_project_kernel<true><<<grid, kRows, 0, st>>>(*a);
+    else
+      tile_project_kernel<false><<<grid, kRows, 0, st>>>(*a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -62,9 +90,16 @@ extern "C" int sf_tile_apply(const TileApplyArgs* a, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (a->Nt > 0) {
     if (a->accv)
-      tile_apply_kernel<true><<<grid, kRows, 0, st>>>(*a);
+      apply_launch<true>(*a, grid, st);
     else
-      tile_apply_kernel<false><<<grid, kRows, 0, st>>>(*a);
+      apply_launch<false>(*a, grid, st);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sf_tile_ccd(const TileCcdArgs* a, void* stream) {
+  const dim3 grid(kT / kRows, a->Nt);
+  if (a->Nt > 0)
+    tile_ccd_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -107,6 +107,8 @@ class Frame2Args(ctypes.Structure):
         ("J", ctypes.c_int), ("JC", ctypes.c_int),
         ("joint_colored", ctypes.c_int), ("n_colors", ctypes.c_int),
         ("max_dpos_joint", ctypes.c_float), ("hh", ctypes.c_float),
+        ("bullet", ctypes.c_void_p), ("ccd_scratch", ctypes.c_void_p),
+        ("ccd", ctypes.c_int), ("ccd_slop", ctypes.c_float),
     ]
 
 
@@ -144,19 +146,20 @@ class TileManifoldArgs(ctypes.Structure):
         *((k, ctypes.c_void_p) for k in (
             "px py an vx vy om vlx vly rad nv fric rst sen invm invi l_px "
             "l_py l_an l_vlx l_vly l_rad l_nv l_fric l_rst l_sen pidx act "
-            "tile_live sol pidx_c src nact wake pen npts cid lcid keyc"
+            "tile_live sol pidx_c src nact wake pen npts cid lcid keyc kin"
         ).split()),
         ("Nt", ctypes.c_int), ("V", ctypes.c_int), ("C", ctypes.c_int),
         ("Cs", ctypes.c_int), ("margin", ctypes.c_float),
         ("dt", ctypes.c_float), ("sleep_v2", ctypes.c_float),
         ("use_wake", ctypes.c_int), ("n_colliders", ctypes.c_int),
+        ("kin_v2", ctypes.c_float),
     ]
 
 
 TileProjectArgs = _struct(
     "TileProjectArgs",
     "px py an vx vy om invm invi dynb l_px l_py l_an pidx_c sol gravity "
-    "touched_in tile_live dxx dxy dth cnt lam touched",
+    "touched_in tile_live dxx dxy dth cnt lam touched f",
     "Nt Cs", "h alpha_t")
 
 
@@ -165,7 +168,7 @@ class TileApplyArgs(ctypes.Structure):
         *((k, ctypes.c_void_p) for k in (
             "px py an vx vy om dxx dxy dth cnt invm invi dynb kin l_px l_py "
             "l_an pidx_c sol lam gravity tile_live o_px o_py o_an o_vx o_vy "
-            "o_om accv").split()),
+            "o_om accv f").split()),
         ("Nt", ctypes.c_int), ("Cs", ctypes.c_int),
         *((k, ctypes.c_float) for k in (
             "h relaxation max_dpos rest_threshold lin_sdamp "
@@ -174,10 +177,16 @@ class TileApplyArgs(ctypes.Structure):
     ]
 
 
+TileCcdArgs = _struct(
+    "TileCcdArgs",
+    "px py an vx vy om dynb blt l_px l_py l_an pidx_c sol gravity tile_live f",
+    "Nt Cs", "h ccd_slop")
+
+
 class TileFrameArgs(ctypes.Structure):
     _fields_ = [("project", TileProjectArgs), ("apply", TileApplyArgs),
                 ("st_a", ctypes.c_void_p * 6), ("st_b", ctypes.c_void_p * 6),
-                ("substeps", ctypes.c_int)]
+                ("substeps", ctypes.c_int), ("ccd", TileCcdArgs)]
 
 
 class OwnerSumArgs(ctypes.Structure):
@@ -203,7 +212,9 @@ _ENTRY_POINTS = {"sf_elig": EligArgs, "sf_slots": SlotArgs,
                  "sf_tile_project": TileProjectArgs,
                  "sf_tile_apply": TileApplyArgs,
                  "sf_tile_frame": TileFrameArgs,
+                 "sf_tile_ccd": TileCcdArgs,
                  "sf_owner_sum": OwnerSumArgs,
+                 "sf_owner_min": OwnerSumArgs,
                  "sf_owner_velocity": OwnerVelocityArgs}
 
 

@@ -2,8 +2,8 @@
 
 Replaces ``starframe_tpu/pallas/frame2.py``'s ``_frame2_kernel`` (via
 ``run_frame2``) with the CUDA kernel in ``csrc/frame2.cu``, for the
-uniform-topology, no-CCD, uncompacted configuration, contact-only or with
-joints. :func:`run_frame2` launches it for CUDA tensors and runs
+uniform-topology, uncompacted configuration, contact-only or with joints,
+with or without CCD. :func:`run_frame2` launches it for CUDA tensors and runs
 :func:`frame2_plain`, the plain PyTorch twin, for CPU tensors.
 ``run_frame2.launches`` counts kernel launches.
 
@@ -17,6 +17,9 @@ dynamic collider owns its slot row, so corrections reach bodies by summing
 rows (a body's colliders come from world 0's ``cbody`` through
 :func:`owner_csr`: the batch shares one topology, so a rollout builds it
 once); every body owns its joint slots (``hopper.build_joint_slots``).
+With CCD each substep's integrated pose of a bullet body is pulled back to
+its earliest time of impact against the frame's manifolds before the
+solve (``ccd=True``).
 """
 
 from __future__ import annotations
@@ -128,7 +131,8 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                  partner, slot_act, gravity, owners, *, C, substeps,
                  iterations, h, dt, margin, compliance, relaxation, max_dpos,
                  rest_threshold, lin_damp, ang_damp, joints=None,
-                 joint_solver="jacobi", n_colors=1, max_dpos_joint=1e3):
+                 joint_solver="jacobi", n_colors=1, max_dpos_joint=1e3,
+                 bullet=None, ccd=False, ccd_slop=0.005):
     """Plain PyTorch twin of :func:`run_frame2`: the TPU kernel's sequence
     of array operations, with ``torch.gather`` in place of its lane gathers
     and the slots of a row packed on one axis ``[W, C * M]`` (slot-major),
@@ -148,6 +152,12 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         acc = x[..., 0:M]
         for c in range(1, C):
             acc = acc + x[..., c * M:(c + 1) * M]
+        return acc
+
+    def min_c(x):  # [..., C*M] -> [..., M]: row minima over the slots
+        acc = x[..., 0:M]
+        for c in range(1, C):
+            acc = torch.minimum(acc, x[..., c * M:(c + 1) * M])
         return acc
 
     oidx, omask = _owner_table(*owners)
@@ -260,16 +270,46 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                                         tile_j(an), gat(an, pb_j), jd_, h))
 
     # the static-friction reference is carried from the previous substep's
-    # velocity-pass kinematics, starting at the frame-start pose
-    kin0 = _pair_kinematics(
-        cb_, slot_pose(torch.cos(an), torch.sin(an), px, py))[6:10]
+    # velocity-pass kinematics, starting at the frame-start pose; with CCD
+    # so is the world normal (the TOI's frame-start side)
+    kin00 = _pair_kinematics(
+        cb_, slot_pose(torch.cos(an), torch.sin(an), px, py))
+    kin0, n0 = kin00[6:10], kin00[0:2]
+    blt_t = tile_c(gat(bullet, cbl)) if ccd else None
     for _ in range(substeps):
+        px0, py0, an0 = px, py, an
         vx = vx + gx * h * dyn
         vy = vy + gy * h * dyn
         px = px + vx * h
         py = py + vy * h
         an = an + om * h
         vtx, vty, vtom = vx, vy, om
+
+        if ccd:
+            # continuous collision: clamp bullets' integrated advance at
+            # their earliest TOI against the frame manifolds; velocities
+            # are not scaled (restitution sees the true approach speed)
+            wax1, way1, wbx1, wby1 = _pair_kinematics(
+                cb_, slot_pose(torch.cos(an), torch.sin(an), px, py))[6:10]
+            wax0, way0, wbx0, wby0 = kin0
+            nxp, nyp = n0[0][None], n0[1][None]
+            c0 = (wbx0 - wax0) * nxp + (wby0 - way0) * nyp
+            c1 = (wbx1 - wax1) * nxp + (wby1 - way1) * nyp
+            advance = c0 - c1
+            allowed = torch.clamp(c0, min=0.0) + ccd_slop
+            need = (advance > allowed) & (cb_.solve_mask > 0.0)
+            f_pt = torch.where(need, allowed / torch.clamp(advance, min=1e-10),
+                               1.0)
+            f_slot = torch.where(blt_t > 0, torch.minimum(f_pt[0], f_pt[1]),
+                                 1.0)
+            # collider -> body: 1 - sum(1 - f), exact for one-collider
+            # bullets and conservative for compound ones
+            neg = to_bodies((1.0 - min_c(f_slot))[None])[0]
+            f_body = torch.clamp(1.0 - neg, 0.0, 1.0)
+            hit = f_body < 1.0  # unclamped bodies keep their pose bitwise
+            px = torch.where(hit, px0 + f_body * (px - px0), px)
+            py = torch.where(hit, py0 + f_body * (py - py0), py)
+            an = torch.where(hit, an0 + f_body * (an - an0), an)
 
         dxx = torch.zeros_like(px)
         dxy = torch.zeros_like(py)
@@ -351,7 +391,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             vy = vy * sdamp
         if ang_damp > 0.0:
             om = om * (1.0 / (1.0 + h * ang_damp))
-        kin0 = kin_v[6:10]
+        kin0, n0 = kin_v[6:10], kin_v[0:2]
     return px, py, an, vx, vy, om, touched.reshape(W, C, M)
 
 
@@ -361,7 +401,8 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                margin, compliance, relaxation, max_dpos, rest_threshold,
                lin_damp, ang_damp, owners=None, joints=None, JC: int = 0,
                joint_solver: str = "jacobi", n_colors: int = 1,
-               max_dpos_joint: float = 1e3, plain: bool = False):
+               max_dpos_joint: float = 1e3, bullet=None, ccd: bool = False,
+               ccd_slop: float = 0.005, plain: bool = False):
     """Run one frame's XPBD substeps for a world batch.
 
     Body arrays are ``[W, N]`` f32, collider arrays ``[W, M]`` (``cbody``,
@@ -374,7 +415,10 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     joint slots ``jslot``/``jside``/``jact`` ``[W, JC, N]`` of
     ``build_joint_slots``; ``joint_solver`` is ``"colored"`` (``n_colors``
     Gauss-Seidel passes, clipped by ``max_dpos_joint``) or ``"jacobi"``.
-    Returns ``(posx, posy, ang, velx, vely, angvel, touched [W, C, M])``.
+    ``ccd=True`` (``bullet [W, N]`` f32, 1 on a bullet body) clamps each
+    substep's integrated advance of a bullet at the earliest time of impact
+    over its colliders' slots, landing it at ``ccd_slop`` of penetration
+    (counted in ``run_frame2.ccd_launches``). Returns ``(posx, posy, ang, velx, vely, angvel, touched [W, C, M])``.
     ``plain=True`` runs the twin even on CUDA tensors (for timing the kernel
     against it)."""
     W, N = posx.shape
@@ -407,6 +451,10 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                    for k in _build.JOINT_KEYS]
         checks += [(k, joints[k], i32 if k in ints else f32, (W, JC, N))
                    for k in JOINT_SLOT_KEYS]
+    if ccd:
+        if bullet is None:
+            raise ValueError("ccd=True needs the bodies' bullet flags")
+        checks.append(("bullet", bullet, f32, (W, N)))
     for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, dev)
     params = dict(C=C, substeps=substeps, iterations=iterations, h=h, dt=dt,
@@ -420,6 +468,7 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                             rest, sensor, partner, slot_act, gravity, owners,
                             joints=joints, joint_solver=joint_solver,
                             n_colors=n_colors, max_dpos_joint=max_dpos_joint,
+                            bullet=bullet, ccd=ccd, ccd_slop=ccd_slop,
                             **params)
 
     lib = _build.library()
@@ -445,6 +494,9 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     scratch = torch.empty((W, SCRATCH_FIELDS, C, M), dtype=f32, device=dev)
     outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
     touched = torch.empty((W, C, M), dtype=f32, device=dev)
+    # CCD: the world normal of each slot, carried between substeps
+    ccd_scratch = (torch.empty((W, 2, C, M), dtype=f32, device=dev) if ccd
+                   else None)
     p = _build.ptr
     jptrs = [p(joints[k]) if joints is not None else None
              for k in _build.JOINT_KEYS + JOINT_SLOT_KEYS]
@@ -458,10 +510,16 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         rest_threshold, 1.0 / (1.0 + h * lin_damp),
         1.0 / (1.0 + h * ang_damp), int(lin_damp > 0.0),
         int(ang_damp > 0.0), *jptrs, J, JC if joints is not None else 0,
-        int(joint_solver == "colored"), n_colors, max_dpos_joint, h * h)
+        int(joint_solver == "colored"), n_colors, max_dpos_joint, h * h,
+        p(bullet) if ccd else None,
+        p(ccd_scratch) if ccd else None, int(ccd), ccd_slop)
     _build.launch("sf_frame2", args, dev)
-    run_frame2.launches += 1
+    if ccd:
+        run_frame2.ccd_launches += 1
+    else:
+        run_frame2.launches += 1
     return (*outs, touched)
 
 
 run_frame2.launches = 0
+run_frame2.ccd_launches = 0  # the ccd instances', counted apart

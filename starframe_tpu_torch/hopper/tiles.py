@@ -3,20 +3,24 @@ manifolds, the per-substep project/apply pair and the whole-frame kernel.
 
 Replaces ``starframe_tpu/pallas/tiles.py``'s ``_tables_kernel`` (via
 :func:`build_tile_tables`), ``_manifold_kernel`` (:func:`tile_manifold`),
-``_project_kernel`` (:func:`tile_project`), ``_apply_kernel``
-(:func:`tile_apply`) and ``_mega_kernel`` (:func:`tile_frame`) with the
-CUDA kernels of ``csrc/tile_tables.cu``, ``csrc/tile_manifold.cu``,
-``csrc/tile_substep.cu`` and ``csrc/tile_frame.cu``, and the compound
-rows' owner reductions (``_owner_shift_reduce``, XLA code there) with
-``csrc/owner_reduce.cu`` (:func:`owner_sum`, :func:`owner_velocity`);
-:func:`run_tiled_frame` composes them into one frame (``fuse=True``: the
-substeps in one K10 launch; ``fuse=False`` or compound rows: one project
-and one apply launch per substep).
+``_ccd_kernel`` (:func:`tile_ccd`), ``_project_kernel``
+(:func:`tile_project`), ``_apply_kernel`` (:func:`tile_apply`) and
+``_mega_kernel`` (:func:`tile_frame`) with the CUDA kernels of
+``csrc/tile_tables.cu``, ``csrc/tile_manifold.cu``, ``csrc/tile_substep.cu``
+and ``csrc/tile_frame.cu``, and the compound rows' owner reductions
+(``_owner_shift_reduce`` and ``_owner_min3``, XLA code there) with
+``csrc/owner_reduce.cu`` (:func:`owner_sum`, :func:`owner_velocity`,
+:func:`owner_min`); :func:`run_tiled_frame` composes them into one frame
+(``fuse=True``: the substeps in one K10 launch; ``fuse=False`` or compound
+rows: one project and one apply launch per substep, after one CCD launch
+with ``ccd``).
 Each wrapper checks its inputs, launches its kernel for CUDA tensors (and
 raises if that fails: there is no fallback) and runs its plain PyTorch twin
 for CPU tensors; ``plain=True`` runs the twin on CUDA tensors too, for
-timing. ``<wrapper>.launches`` counts kernel launches (K6 with event keys
-and K9's compound form in ``keys_launches`` and ``compound_launches``).
+timing. ``<wrapper>.launches`` counts kernel launches (K6 with event keys,
+K9's compound form and the CCD forms of K8, K9 and K10 in
+``keys_launches``, ``compound_launches``, ``ccd_launches`` and
+``compound_ccd_launches``).
 
 Layout (the TPU's ``[Nt, 1, T]`` Mosaic rows and k-major lane packing are
 not kept): rows are colliders sorted along the sort axis and cut into
@@ -42,6 +46,7 @@ from ..kernels import (
     PairPose,
     PairVel,
     _div,
+    _pair_kinematics,
     manifold_batch,
     solve_contacts_b,
     velocity_contacts_b,
@@ -352,8 +357,8 @@ def _slot_keys(cid, lcid, pidx, idx, n_colliders: int):
 
 def tile_manifold_plain(state, consts, large, pidx, act, tile_live, *,
                         Cs: int, margin: float, dt: float,
-                        sleep_velocity: float, event_ids=None,
-                        n_colliders: int = 0):
+                        sleep_velocity: float, kin_velocity: float = 0.0,
+                        event_ids=None, n_colliders: int = 0):
     """Plain PyTorch twin of :func:`tile_manifold`."""
     Nt, C, _ = pidx.shape
     dev = pidx.device
@@ -429,10 +434,15 @@ def tile_manifold_plain(state, consts, large, pidx, act, tile_live, *,
     for c in range(1, C):
         npts = npts + pts[:, c]
     if sleep_velocity > 0.0:
-        # wake on a fast dynamic partner inside the speculative margin
+        # wake on a fast dynamic partner inside the speculative margin, or
+        # on a kinematic one moving at kin_velocity or faster (the large
+        # set holds statics only)
         prox = torch.maximum(pmask[0], pmask[1])
-        fast = ((g(spd2) >= sleep_velocity * sleep_velocity)
-                & (p_invm > 0)).to(f32)
+        p_spd2 = g(spd2)
+        p_kin = g(_cand(consts["kin"], zl, idx))
+        fast = (((p_spd2 >= sleep_velocity * sleep_velocity) & (p_invm > 0))
+                | ((p_spd2 >= kin_velocity * kin_velocity)
+                   & (p_kin > 0))).to(f32)
         wake = torch.clamp((prox * fast).amax(dim=1), min=0.0)
     else:
         wake = torch.zeros_like(npts)
@@ -478,8 +488,8 @@ def tile_manifold_plain(state, consts, large, pidx, act, tile_live, *,
 
 def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
                   margin: float, dt: float, sleep_velocity: float = 0.0,
-                  event_ids=None, n_colliders: int = 0,
-                  plain: bool = False):
+                  kin_velocity: float = 0.0, event_ids=None,
+                  n_colliders: int = 0, plain: bool = False):
     """The frame's manifolds for the ``C``-slot tables, compacted into
     ``Cs`` solve slots.
 
@@ -493,8 +503,11 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
     ``(sol [Nt, SOL_FIELDS, Cs, T] f32, pidx_c [Nt, Cs, T] i32, src [Nt,
     Cs, T] i32 (the table slot of each solve slot), nact [Nt, 2, T] i32
     (active and imminent slots per row), wake, pen, npts [Nt, T] f32)``.
-    ``sleep_velocity > 0`` computes ``wake`` (a fast dynamic partner inside
-    the margin); a tile whose ``tile_live [Nt]`` is 0 outputs zeros.
+    ``sleep_velocity > 0`` computes ``wake``: a dynamic partner at
+    ``sleep_velocity`` or faster inside the margin, or a kinematic one
+    (``consts["kin"]``) at ``kin_velocity`` or faster (a rule the JAX
+    package lacks: its kinematic movers never wake a sleeper, ROADMAP.md
+    C); a tile whose ``tile_live [Nt]`` is 0 outputs zeros.
 
     ``event_ids = (cid [Nt, T], lcid [L])`` (i32: each row's and each
     large slot's canonical collider id) adds an eighth output, ``keyc [Nt,
@@ -506,7 +519,7 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
     V = consts["vlx"].shape[1]
     Nt = _check_tiles(state, consts, large,
                       ("rad", "nv", "fric", "rst", "sen", "invm", "invi",
-                       "vlx", "vly"), dev, V)
+                       "kin", "vlx", "vly"), dev, V)
     C = pidx.shape[1]
     _check("pidx", pidx, i32, (Nt, C, T), dev)
     _check("act", act, f32, (Nt, C, T), dev)
@@ -517,7 +530,8 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
         _check("cid", event_ids[0], i32, (Nt, T), dev)
         _check("lcid", event_ids[1], i32, (L,), dev)
     kw = dict(Cs=Cs, margin=margin, dt=dt, sleep_velocity=sleep_velocity,
-              event_ids=event_ids, n_colliders=n_colliders)
+              kin_velocity=kin_velocity, event_ids=event_ids,
+              n_colliders=n_colliders)
     if plain or not _route(dev):
         return tile_manifold_plain(state, consts, large, pidx, act,
                                    tile_live, **kw)
@@ -554,9 +568,9 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
                          lg["py"], lg["an"], lvx, lvy, lg["rad"], lg["nv"],
                          lg["fric"], lg["rst"], lg["sen"], pidx, act,
                          tile_live, sol, pidx_c, src, nact, wake, pen,
-                         npts)), *ev,
+                         npts)), *ev, p(c["kin"]),
         Nt, Vk, C, Cs, margin, dt, sleep_velocity * sleep_velocity,
-        int(sleep_velocity > 0.0), n_colliders)
+        int(sleep_velocity > 0.0), n_colliders, kin_velocity * kin_velocity)
     _build.launch("sf_tile_manifold", args, dev)
     out = (sol, pidx_c, src, nact, wake, pen, npts)
     if keyc is None:
@@ -568,6 +582,108 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
 
 tile_manifold.launches = 0
 tile_manifold.keys_launches = 0  # launches with event keys, counted apart
+
+
+# ---------------------------------------------------------------------------
+# K7: the per-substep TOI factors of bullet rows (CCD)
+# ---------------------------------------------------------------------------
+
+
+def tile_ccd_plain(state, consts, large, pidx_c, sol, gravity, tile_live, *,
+                   h: float, ccd_slop: float):
+    """Plain PyTorch twin of :func:`tile_ccd`."""
+    Nt, Cs, _ = pidx_c.shape
+    idx = _cand_index(Nt, pidx_c.device)
+    zl = torch.zeros_like(large["px"])
+    gx, gy = gravity[0], gravity[1]
+
+    def g(x, xl):
+        return _slot_gather(_cand(x, xl, idx), pidx_c)
+
+    dyn = consts["dynb"]
+    o_px, o_py, o_an = state["px"], state["py"], state["an"]
+    # the unclamped integrated own and partner poses
+    opx_t = o_px + (state["vx"] + gx * h * dyn) * h
+    opy_t = o_py + (state["vy"] + gy * h * dyn) * h
+    oa_t = o_an + state["om"] * h
+    _, cb, p_dyn = _solve_slots(sol, consts["invm"][:, None],
+                                consts["invi"][:, None])
+    p_px0, p_py0 = g(state["px"], large["px"]), g(state["py"], large["py"])
+    p_an0 = g(state["an"], large["an"])
+    p_px_t = p_px0 + (g(state["vx"], zl) + gx * h * p_dyn) * h
+    p_py_t = p_py0 + (g(state["vy"], zl) + gy * h * p_dyn) * h
+    p_an_t = p_an0 + g(state["om"], zl) * h
+    shape = pidx_c.shape
+
+    def own(x):
+        return x[:, None].expand(shape)
+
+    pose0 = PairPose(own(o_px), own(o_py), own(torch.cos(o_an)),
+                     own(torch.sin(o_an)), p_px0, p_py0, torch.cos(p_an0),
+                     torch.sin(p_an0))
+    pose1 = PairPose(own(opx_t), own(opy_t), own(torch.cos(oa_t)),
+                     own(torch.sin(oa_t)), p_px_t, p_py_t, torch.cos(p_an_t),
+                     torch.sin(p_an_t))
+    nx0, ny0, *_, wax0, way0, wbx0, wby0 = _pair_kinematics(cb, pose0)
+    *_, wax1, way1, wbx1, wby1 = _pair_kinematics(cb, pose1)
+    c0 = (wbx0 - wax0) * nx0[None] + (wby0 - way0) * ny0[None]  # [2, ...]
+    c1 = (wbx1 - wax1) * nx0[None] + (wby1 - way1) * ny0[None]
+    advance = c0 - c1
+    allowed = torch.clamp(c0, min=0.0) + ccd_slop
+    need = (advance > allowed) & (cb.solve_mask > 0.0)
+    f_pt = torch.where(need, allowed / torch.clamp(advance, min=1e-10), 1.0)
+    f = f_pt.amin(dim=(0, 2))
+    return torch.where((tile_live > 0)[:, None] & (consts["blt"] > 0), f,
+                       1.0).contiguous()
+
+
+def tile_ccd(state, consts, large, pidx_c, sol, gravity, tile_live, *,
+             h: float, ccd_slop: float, plain: bool = False):
+    """Each row's TOI factor ``f [Nt, T]`` in ``[0, 1]`` for one substep
+    (CCD, ``cfg.ccd``): the own and partner poses are integrated one
+    substep without clamping (large-set partners do not move); for each
+    solved point of a row's solve slots, the pair's closing along the
+    frame-start normal is ``c0 - c1``, the anchors' separation at the
+    substep's start and end poses; where it is more than ``max(c0, 0) +
+    ccd_slop``, the point allows the fraction ``(max(c0, 0) + ccd_slop) /
+    closing``. ``f`` is the least over the row's points, 1 on a row whose
+    body is not a bullet (``consts["blt"]``) and in a skipped tile. The
+    project and apply phases take it as their ``f``."""
+    dev = pidx_c.device
+    Nt = _check_tiles(state, consts, {}, ("invm", "invi", "dynb", "blt"),
+                      dev)
+    Cs = pidx_c.shape[1]
+    for name, t, dtype, shape in (
+            ("large px", large["px"], f32, (L,)),
+            ("large py", large["py"], f32, (L,)),
+            ("large an", large["an"], f32, (L,)),
+            ("pidx_c", pidx_c, i32, (Nt, Cs, T)),
+            ("sol", sol, f32, (Nt, SOL_FIELDS, Cs, T)),
+            ("gravity", gravity, f32, (2,)),
+            ("tile_live", tile_live, f32, (Nt,))):
+        _check(name, t, dtype, shape, dev)
+    if plain or not _route(dev):
+        return tile_ccd_plain(state, consts, large, pidx_c, sol, gravity,
+                              tile_live, h=h, ccd_slop=ccd_slop)
+    f = torch.empty((Nt, T), dtype=f32, device=dev)
+    args = _ccd_args(state, consts, large, pidx_c, sol, gravity, tile_live,
+                     f, h, ccd_slop)
+    _build.launch("sf_tile_ccd", args, dev)
+    tile_ccd.launches += 1
+    return f
+
+
+tile_ccd.launches = 0
+
+
+def _ccd_args(state, consts, large, pidx_c, sol, gravity, tile_live, f, h,
+              ccd_slop):
+    p = _build.ptr
+    return _build.TileCcdArgs(
+        *(p(state[k]) for k in STATE_KEYS), p(consts["dynb"]),
+        p(consts["blt"]), *(p(large[k]) for k in ("px", "py", "an")),
+        p(pidx_c), p(sol), p(gravity), p(tile_live), p(f),
+        pidx_c.shape[0], pidx_c.shape[1], h, ccd_slop)
 
 
 # ---------------------------------------------------------------------------
@@ -610,7 +726,7 @@ def _live_rows(tile_live, x):
 
 
 def tile_project_plain(state, consts, large, pidx_c, sol, gravity, touched,
-                       tile_live, *, h: float, compliance: float):
+                       tile_live, *, h: float, compliance: float, f=None):
     """Plain PyTorch twin of :func:`tile_project`."""
     Nt, Cs, _ = pidx_c.shape
     idx = _cand_index(Nt, pidx_c.device)
@@ -625,9 +741,12 @@ def tile_project_plain(state, consts, large, pidx_c, sol, gravity, touched,
     # integrated own state (v_tilde + pose), derived algebraically
     ovx_t = o["vx"] + gx * h * dyn
     ovy_t = o["vy"] + gy * h * dyn
-    opx_t = o["px"] + ovx_t * h
-    opy_t = o["py"] + ovy_t * h
-    oa_t = o["an"] + o["om"] * h
+    # CCD clamps the pose advance by f, not the velocities; without it the
+    # factor is an exact 1
+    o_f = 1.0 if f is None else f[:, None]
+    opx_t = o["px"] + ovx_t * h * o_f
+    opy_t = o["py"] + ovy_t * h * o_f
+    oa_t = o["an"] + o["om"] * h * o_f
     pd, cb, p_dyn = _solve_slots(sol, consts["invm"][:, None],
                                  consts["invi"][:, None])
     p_px0, p_py0 = g(state["px"], large["px"]), g(state["py"], large["py"])
@@ -644,10 +763,13 @@ def tile_project_plain(state, consts, large, pidx_c, sol, gravity, touched,
                      torch.sin(p_an0))
     pvx_t = p_vx0 + gx * h * p_dyn
     pvy_t = p_vy0 + gy * h * p_dyn
-    p_an_t = p_an0 + p_om0 * h
+    # a large-set partner's factor is 1
+    p_f = 1.0 if f is None else g(f, torch.ones_like(large["px"]))
+    p_an_t = p_an0 + p_om0 * h * p_f
     pose = PairPose(own(opx_t), own(opy_t), own(torch.cos(oa_t)),
-                    own(torch.sin(oa_t)), p_px0 + pvx_t * h,
-                    p_py0 + pvy_t * h, torch.cos(p_an_t), torch.sin(p_an_t))
+                    own(torch.sin(oa_t)), p_px0 + pvx_t * h * p_f,
+                    p_py0 + pvy_t * h * p_f, torch.cos(p_an_t),
+                    torch.sin(p_an_t))
     vals_a, _, lam = solve_contacts_b(pose, pose0, pd, cb, h, compliance)
     acc = _slot_sum(vals_a)  # [4, Nt, T]
     touch_new = ((lam > 0.0).to(f32) * cb.pmask).amax(dim=0)
@@ -660,14 +782,16 @@ def tile_project_plain(state, consts, large, pidx_c, sol, gravity, touched,
 
 
 def tile_project(state, consts, large, pidx_c, sol, gravity, touched,
-                 tile_live, *, h: float, compliance: float,
+                 tile_live, *, h: float, compliance: float, f=None,
                  plain: bool = False):
     """One substep's project phase: integrate (derived: the state is not
     written), then XPBD contact projection over each row's solve slots
     against its partners' integrated poses, the static-friction reference
     at the substep-start pose. Returns the own-row Jacobi sums ``(dxx, dxy,
     dth, cnt [Nt, T], lam [Nt, 2, Cs, T], touched [Nt, Cs, T])``, the slots
-    added in order and ``touched`` max-accumulated."""
+    added in order and ``touched`` max-accumulated. ``f [Nt, T]`` (CCD,
+    :func:`tile_ccd`) scales the own and each window partner's pose advance
+    (the ``ccd`` branch, counted in ``ccd_launches``)."""
     dev = pidx_c.device
     Nt = _check_tiles(state, consts, {}, ("invm", "invi", "dynb"), dev)
     Cs = pidx_c.shape[1]
@@ -681,10 +805,12 @@ def tile_project(state, consts, large, pidx_c, sol, gravity, touched,
             ("touched", touched, f32, (Nt, Cs, T)),
             ("tile_live", tile_live, f32, (Nt,))):
         _check(name, t, dtype, shape, dev)
+    if f is not None:
+        _check("f", f, f32, (Nt, T), dev)
     if plain or not _route(dev):
         return tile_project_plain(state, consts, large, pidx_c, sol, gravity,
                                   touched, tile_live, h=h,
-                                  compliance=compliance)
+                                  compliance=compliance, f=f)
     dxx, dxy, dth, cnt = (torch.empty((Nt, T), dtype=f32, device=dev)
                           for _ in range(4))
     lam = torch.empty((Nt, 2, Cs, T), dtype=f32, device=dev)
@@ -696,21 +822,25 @@ def tile_project(state, consts, large, pidx_c, sol, gravity, touched,
                          s["om"], c["invm"], c["invi"], c["dynb"],
                          large["px"], large["py"], large["an"], pidx_c, sol,
                          gravity, touched, tile_live, dxx, dxy, dth, cnt,
-                         lam, touched_o)),
+                         lam, touched_o)), None if f is None else p(f),
         Nt, Cs, h, compliance / (h * h))
     _build.launch("sf_tile_project", args, dev)
-    tile_project.launches += 1
+    if f is None:
+        tile_project.launches += 1
+    else:
+        tile_project.ccd_launches += 1
     return dxx, dxy, dth, cnt, lam, touched_o
 
 
 tile_project.launches = 0
+tile_project.ccd_launches = 0  # the ccd instance's, counted apart
 
 
 def tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam, gravity,
                      tile_live, *, h: float, relaxation: float,
                      max_dpos: float, rest_threshold: float,
                      lin_damp: float, ang_damp: float,
-                     compound: bool = False):
+                     compound: bool = False, f=None):
     """Plain PyTorch twin of :func:`tile_apply`."""
     Nt, Cs, _ = pidx_c.shape
     idx = _cand_index(Nt, pidx_c.device)
@@ -733,9 +863,12 @@ def tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam, gravity,
     ovx_t = state["vx"] + gx * h * dyn
     ovy_t = state["vy"] + gy * h * dyn
     o_om = state["om"]
-    npx = state["px"] + ovx_t * h + ddx
-    npy = state["py"] + ovy_t * h + ddy
-    nan_ = state["an"] + o_om * h + dda
+    # CCD clamps the pose advance by f, not the velocities; without it the
+    # factor is an exact 1
+    o_f = 1.0 if f is None else f
+    npx = state["px"] + ovx_t * h * o_f + ddx
+    npy = state["py"] + ovy_t * h * o_f + ddy
+    nan_ = state["an"] + o_om * h * o_f + dda
     nk = 1.0 - kin
     nvx = kin * ovx_t + nk * (ovx_t + _div(ddx, h))
     nvy = kin * ovy_t + nk * (ovy_t + _div(ddy, h))
@@ -747,9 +880,10 @@ def tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam, gravity,
     pvy_t = g(state["vy"], zl) + gy * h * p_dyn
     p_om0 = g(state["om"], zl)
     p_ddx, p_ddy, p_dda = g(ddx, zl), g(ddy, zl), g(dda, zl)
-    p_px_n = g(state["px"], large["px"]) + pvx_t * h + p_ddx
-    p_py_n = g(state["py"], large["py"]) + pvy_t * h + p_ddy
-    p_an_n = g(state["an"], large["an"]) + p_om0 * h + p_dda
+    p_f = 1.0 if f is None else g(f, torch.ones_like(large["px"]))
+    p_px_n = g(state["px"], large["px"]) + pvx_t * h * p_f + p_ddx
+    p_py_n = g(state["py"], large["py"]) + pvy_t * h * p_f + p_ddy
+    p_an_n = g(state["an"], large["an"]) + p_om0 * h * p_f + p_dda
     shape = pidx_c.shape
 
     def own(x):
@@ -802,7 +936,7 @@ def _velocity_update(nvx, nvy, nom, accv, *, h: float, lin_damp: float,
 def tile_apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
                tile_live, *, h: float, relaxation: float, max_dpos: float,
                rest_threshold: float, lin_damp: float, ang_damp: float,
-               compound: bool = False, plain: bool = False):
+               compound: bool = False, f=None, plain: bool = False):
     """One substep's apply phase: the count-normalised, clipped corrections
     ``corr = (dxx, dxy, dth, cnt)`` of :func:`tile_project` on the
     integrated pose, velocity reconstruction (kinematic rows keep their
@@ -814,7 +948,10 @@ def tile_apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
     multi-collider bodies whose ``corr`` are already owner sums) returns
     ``(state, accv [4, Nt, T])``: the state before the velocity pass is
     added, and the pass's raw sums (x, y, angular, count; 0 in a skipped
-    tile), which :func:`owner_velocity` owner-sums, normalises and damps."""
+    tile), which :func:`owner_velocity` owner-sums, normalises and damps.
+    ``f [Nt, T]`` (CCD) scales the own and the partners' pose advance as in
+    :func:`tile_project` (counted in ``ccd_launches``, or
+    ``compound_ccd_launches`` with ``compound``)."""
     dev = pidx_c.device
     Nt = _check_tiles(state, consts, {}, ("invm", "invi", "dynb", "kin"),
                       dev)
@@ -829,11 +966,13 @@ def tile_apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
                ("lam", lam, f32, (Nt, 2, Cs, T)),
                ("gravity", gravity, f32, (2,)),
                ("tile_live", tile_live, f32, (Nt,))]
+    if f is not None:
+        checks.append(("f", f, f32, (Nt, T)))
     for name, t, dtype, shape in checks:
         _check(name, t, dtype, shape, dev)
     kw = dict(h=h, relaxation=relaxation, max_dpos=max_dpos,
               rest_threshold=rest_threshold, lin_damp=lin_damp,
-              ang_damp=ang_damp, compound=compound)
+              ang_damp=ang_damp, compound=compound, f=f)
     if plain or not _route(dev):
         return tile_apply_plain(state, corr, consts, large, pidx_c, sol, lam,
                                 gravity, tile_live, **kw)
@@ -848,20 +987,22 @@ def tile_apply(state, corr, consts, large, pidx_c, sol, lam, gravity,
                          c["kin"], large["px"], large["py"], large["an"],
                          pidx_c, sol, lam, gravity, tile_live,
                          *(out[k] for k in STATE_KEYS))),
-        None if accv is None else p(accv),
+        None if accv is None else p(accv), None if f is None else p(f),
         Nt, Cs, h, relaxation, max_dpos, rest_threshold,
         1.0 / (1.0 + h * lin_damp), 1.0 / (1.0 + h * ang_damp),
         int(lin_damp > 0.0), int(ang_damp > 0.0))
     _build.launch("sf_tile_apply", args, dev)
-    if compound:
-        tile_apply.compound_launches += 1
-        return out, accv
-    tile_apply.launches += 1
-    return out
+    counter = (("compound_" if compound else "")
+               + ("ccd_launches" if f is not None else "launches"))
+    setattr(tile_apply, counter, getattr(tile_apply, counter) + 1)
+    return (out, accv) if compound else out
 
 
+# each instance's launches, counted apart
 tile_apply.launches = 0
-tile_apply.compound_launches = 0  # the compound instance's, counted apart
+tile_apply.compound_launches = 0
+tile_apply.ccd_launches = 0
+tile_apply.compound_ccd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -977,6 +1118,37 @@ def owner_velocity(state, accv, ob, kc: int, *, h: float, lin_damp: float,
 owner_velocity.launches = 0
 
 
+def owner_min_plain(xs, ob, kc: int):
+    """Plain PyTorch twin of :func:`owner_min`."""
+    return [owner_reduce(x.reshape(-1), ob, kc, torch.minimum,
+                         float("inf")).reshape(x.shape) for x in xs]
+
+
+def owner_min(xs, ob, kc: int, plain: bool = False):
+    """Per-body minima of ``k`` per-row fields ``xs`` (1-4 f32 tensors of
+    ``Mp`` rows each; the TOI factors of :func:`tile_ccd`) broadcast to
+    every row of the body, in one launch, as :func:`owner_sum` sums
+    (``_owner_min3``; a minimum is exact, so bitwise equal to the twin).
+    Returns a list of ``k`` tensors shaped like ``xs``."""
+    dev = ob.device
+    n = _owner_rows(xs, ob, dev)
+    if plain or not _route(dev):
+        return owner_min_plain(xs, ob, kc)
+    ys = [torch.empty_like(x) for x in xs]
+    four = ctypes.c_void_p * 4
+    pad = [None] * (4 - len(xs))
+    args = _build.OwnerSumArgs(
+        four(*(x.data_ptr() for x in xs), *pad),
+        four(*(y.data_ptr() for y in ys), *pad), ob.data_ptr(), len(xs), n,
+        kc)
+    _build.launch("sf_owner_min", args, dev)
+    owner_min.launches += 1
+    return ys
+
+
+owner_min.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # K10: the whole frame's substeps
 # ---------------------------------------------------------------------------
@@ -984,26 +1156,36 @@ owner_velocity.launches = 0
 
 def substep_loop(project, apply, state, consts, large, pidx_c, sol,
                  gravity, tile_live, *, substeps: int, h: float,
-                 compliance: float, owner=None, **apply_kw):
+                 compliance: float, owner=None, ccd=None, **apply_kw):
     """``substeps`` x (``project``, then ``apply``) over all tiles, as
     :func:`tile_project` and :func:`tile_apply` (or their twins) take
     their arguments. ``owner = (owner_sum, owner_velocity, ob, kc)`` runs
     compound rows as ``pallas/tiles.py:2046-2086`` does: the project sums
     owner-summed before the apply, the apply's compound form, then the
-    owner velocity pass. Returns ``(new_state, touched)``."""
+    owner velocity pass. ``ccd = (tile_ccd, owner_min, ccd_slop)`` first
+    takes each substep's TOI factors (``pallas/tiles.py:2010-2030``; with
+    ``owner``, each body's least over its rows) and passes them to both
+    phases. Returns ``(new_state, touched)``."""
     touched = torch.zeros(pidx_c.shape, dtype=f32, device=pidx_c.device)
     for _ in range(substeps):
+        f = None
+        if ccd is not None:
+            toi, omin, ccd_slop = ccd
+            f = toi(state, consts, large, pidx_c, sol, gravity, tile_live,
+                    h=h, ccd_slop=ccd_slop)
+            if owner is not None:  # a compound advances by its earliest row
+                f = omin([f], owner[2], owner[3])[0]
         *corr, lam, touched = project(state, consts, large, pidx_c, sol,
                                       gravity, touched, tile_live, h=h,
-                                      compliance=compliance)
+                                      compliance=compliance, f=f)
         if owner is None:
             state = apply(state, corr, consts, large, pidx_c, sol, lam,
-                          gravity, tile_live, h=h, **apply_kw)
+                          gravity, tile_live, h=h, f=f, **apply_kw)
             continue
         osum, ovel, ob, kc = owner
         corr = osum(corr, ob, kc)
         state, accv = apply(state, corr, consts, large, pidx_c, sol, lam,
-                            gravity, tile_live, h=h, compound=True,
+                            gravity, tile_live, h=h, compound=True, f=f,
                             **apply_kw)
         state = ovel(state, accv, ob, kc, h=h, lin_damp=apply_kw["lin_damp"],
                      ang_damp=apply_kw["ang_damp"])
@@ -1011,33 +1193,36 @@ def substep_loop(project, apply, state, consts, large, pidx_c, sol,
 
 
 def tile_frame_plain(state, consts, large, pidx_c, sol, gravity, tile_live,
-                     **kw):
-    """Plain PyTorch twin of :func:`tile_frame`: the K8/K9 twins, looped
-    over the substeps."""
-    return substep_loop(tile_project_plain, tile_apply_plain, state, consts,
-                        large, pidx_c, sol, gravity, tile_live, **kw)
+                     *, ccd: bool = False, ccd_slop: float = 0.005, **kw):
+    """Plain PyTorch twin of :func:`tile_frame`: the K7, K8 and K9 twins,
+    looped over the substeps."""
+    return substep_loop(
+        tile_project_plain, tile_apply_plain, state, consts, large, pidx_c,
+        sol, gravity, tile_live,
+        ccd=(tile_ccd_plain, owner_min_plain, ccd_slop) if ccd else None,
+        **kw)
 
 
 def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
                substeps: int, h: float, compliance: float, relaxation: float,
                max_dpos: float, rest_threshold: float, lin_damp: float,
-               ang_damp: float, ccd: bool = False, plain: bool = False):
+               ang_damp: float, ccd: bool = False, ccd_slop: float = 0.005,
+               plain: bool = False):
     """Every substep of a frame in one launch: ``substeps`` x
     (:func:`tile_project` over all tiles, then :func:`tile_apply` over all
     tiles), bitwise equal to that pair launched once a substep. Returns
     ``(new_state, touched [Nt, Cs, T])``, ``touched`` max-accumulated over
     the substeps. The corrections, ``lam`` and the two state buffers the
-    substeps ping-pong between are allocated here, once a frame."""
-    if ccd:
-        raise NotImplementedError(
-            "CCD on the tile engine (K7 _ccd_kernel and K10's CCD phase) is "
-            "not ported yet (ROADMAP.md A4.4)")
+    substeps ping-pong between are allocated here, once a frame. ``ccd``
+    (``consts["blt"]`` flags the bullet rows) runs three phases a substep,
+    :func:`tile_ccd` into a TOI scratch first, bitwise equal to K7, K8 and
+    K9 launched once a substep (counted in ``ccd_launches``)."""
     if substeps < 1:
         raise ValueError(f"a frame needs at least one substep, got "
                          f"{substeps}")
     dev = pidx_c.device
-    Nt = _check_tiles(state, consts, {}, ("invm", "invi", "dynb", "kin"),
-                      dev)
+    Nt = _check_tiles(state, consts, {}, ("invm", "invi", "dynb", "kin")
+                      + (("blt",) if ccd else ()), dev)
     Cs = pidx_c.shape[1]
     for name, t, dtype, shape in (
             ("large px", large["px"], f32, (L,)),
@@ -1054,7 +1239,7 @@ def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
               ang_damp=ang_damp)
     if plain or not _route(dev):
         return tile_frame_plain(state, consts, large, pidx_c, sol, gravity,
-                                tile_live, **kw)
+                                tile_live, ccd=ccd, ccd_slop=ccd_slop, **kw)
     corr = torch.empty((4, Nt, T), dtype=f32, device=dev)
     lam = torch.empty((Nt, 2, Cs, T), dtype=f32, device=dev)
     touched = torch.zeros((Nt, Cs, T), dtype=f32, device=dev)
@@ -1063,30 +1248,41 @@ def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
     s, c = state, consts
     st_in = [p(s[k]) for k in STATE_KEYS]
     large_pose = [p(large[k]) for k in ("px", "py", "an")]
+    if ccd:  # the TOI scratch, written by each substep's first phase
+        f = torch.empty((Nt, T), dtype=f32, device=dev)
+        ccd_args = _ccd_args(state, consts, large, pidx_c, sol, gravity,
+                             tile_live, f, h, ccd_slop)
+        fp = p(f)
+    else:
+        ccd_args, fp = _build.TileCcdArgs(), None
     project = _build.TileProjectArgs(
         *st_in, p(c["invm"]), p(c["invi"]), p(c["dynb"]), *large_pose,
         p(pidx_c), p(sol), p(gravity), p(touched), p(tile_live),
-        *(p(x) for x in corr), p(lam), p(touched),
+        *(p(x) for x in corr), p(lam), p(touched), fp,
         Nt, Cs, h, compliance / (h * h))
     apply = _build.TileApplyArgs(
         *st_in, *(p(x) for x in corr), p(c["invm"]), p(c["invi"]),
         p(c["dynb"]), p(c["kin"]), *large_pose, p(pidx_c), p(sol), p(lam),
-        p(gravity), p(tile_live), *(p(x) for x in bufs[1]), None,
+        p(gravity), p(tile_live), *(p(x) for x in bufs[1]), None, fp,
         Nt, Cs, h, relaxation, max_dpos, rest_threshold,
         1.0 / (1.0 + h * lin_damp), 1.0 / (1.0 + h * ang_damp),
         int(lin_damp > 0.0), int(ang_damp > 0.0))
     six = ctypes.c_void_p * len(STATE_KEYS)
     args = _build.TileFrameArgs(
         project, apply, six(*(p(x) for x in bufs[0])),
-        six(*(p(x) for x in bufs[1])), substeps)
+        six(*(p(x) for x in bufs[1])), substeps, ccd_args)
     _build.launch("sf_tile_frame", args, dev)
-    tile_frame.launches += 1
+    if ccd:
+        tile_frame.ccd_launches += 1
+    else:
+        tile_frame.launches += 1
     # substep s writes the second buffer when s is even, the first when odd
     out = bufs[1] if substeps % 2 else bufs[0]
     return dict(zip(STATE_KEYS, out)), touched
 
 
 tile_frame.launches = 0
+tile_frame.ccd_launches = 0  # the ccd instance's, counted apart
 
 
 # ---------------------------------------------------------------------------
@@ -1102,7 +1298,8 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
                     sort_axis: int = 0, fuse: bool = True,
                     event_ids=None, n_colliders: int = 0,
                     compound: bool = False, owner_kc: int = 1,
-                    plain: bool = False):
+                    kin_velocity: float = 0.0, ccd: bool = False,
+                    ccd_slop: float = 0.005, plain: bool = False):
     """One frame on the sorted-tile layout: slot tables (built here with
     one-frame sweeps unless ``tables = (pidx, act)`` reuses a K-frame
     build), the manifold kernel, then the substeps: with ``fuse`` (the
@@ -1115,7 +1312,12 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
     reductions, ``pallas/tiles.py:1937``): per substep the project launch,
     :func:`owner_sum` of its four sums, the apply's compound form and
     :func:`owner_velocity`. ``event_ids = (cid, lcid)`` (see
-    :func:`tile_manifold`) adds the solve slots' event keys.
+    :func:`tile_manifold`) adds the solve slots' event keys;
+    ``kin_velocity`` is K6's wake speed of a kinematic partner. ``ccd``
+    (``consts["blt"]`` the bullet rows) clamps each substep's pose advance
+    at the TOI factors of :func:`tile_ccd`: K10's CCD form when fused, else
+    one K7 launch before each project launch (on compound rows, through
+    :func:`owner_min`).
 
     ``consts`` carries the per-row constants, ``edge_lo``/``edge_hi``
     ``[Nt]`` and ``tile_live`` ``[Nt]``. Returns ``(new_state, touched
@@ -1136,8 +1338,8 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
     tile_live = consts["tile_live"]
     sol, pidx_c, src, nact, wake, pen, npts, *keyc = tile_manifold(
         state, consts, large, pidx, act, tile_live, Cs=Cs, margin=margin,
-        dt=dt, sleep_velocity=sleep_velocity, event_ids=event_ids,
-        n_colliders=n_colliders, plain=plain)
+        dt=dt, sleep_velocity=sleep_velocity, kin_velocity=kin_velocity,
+        event_ids=event_ids, n_colliders=n_colliders, plain=plain)
     kw = dict(substeps=substeps, h=h, compliance=compliance,
               relaxation=relaxation, max_dpos=max_dpos,
               rest_threshold=rest_threshold, lin_damp=lin_damp,
@@ -1149,12 +1351,17 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
                  functools.partial(owner_velocity, plain=plain),
                  consts["obody"].reshape(-1), owner_kc)
     if fuse and not compound:
-        state, touched = tile_frame(*args, **kw, plain=plain)
+        state, touched = tile_frame(*args, **kw, ccd=ccd, ccd_slop=ccd_slop,
+                                    plain=plain)
     else:
+        toi = None
+        if ccd:
+            toi = (functools.partial(tile_ccd, plain=plain),
+                   functools.partial(owner_min, plain=plain), ccd_slop)
         state, touched = substep_loop(
             functools.partial(tile_project, plain=plain),
             functools.partial(tile_apply, plain=plain), *args, **kw,
-            owner=owner)
+            owner=owner, ccd=toi)
     return (state, touched, (count, count_touch, count_close), winover, wake,
             pen, pidx, pidx_c, act, npts, src, nact,
             keyc[0] if keyc else None)

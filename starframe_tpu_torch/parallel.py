@@ -11,10 +11,12 @@ PyTorch twins even on a card (for timing against the kernels), as the JAX
 package's ``interpret=True`` runs Pallas in interpret mode.
 
 What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: CCD, solve-slot compaction, per-world owner tables and
+ROADMAP.md item: solve-slot compaction, per-world owner tables and
 sleeping (A1), and the single-world ``vmap(step)`` tier the JAX package
 falls back to (A3), which is also where batches past the kernels' bounds
-would go.
+would go. CCD (``cfg.ccd``, bodies flagged ``bullet=True``) runs in the
+frame kernel: each substep clamps a bullet's advance at its time of
+impact against the frame's manifolds.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from .hopper.frame2 import (
 )
 from .hopper.slots import build_elig_mask, build_joint_slots, build_slot_tables
 from .state import (
+    BODY_BULLET,
     BODY_KINEMATIC,
     COL_ACTIVE,
     COL_SENSOR,
@@ -81,7 +84,6 @@ def _require_slice(worlds: World, cfg: SolverConfig) -> None:
             f"J = {worlds.joints.j}) and the single-world vmap(step) tier "
             "is not ported yet (ROADMAP.md A3)")
     todo = [
-        (cfg.ccd, "CCD (the TOI clamp in the frame kernel)"),
         (0 < cfg.batch_solve_capacity < cfg.slot_capacity,
          "solve-slot compaction (batch_solve_capacity)"),
         (not cfg.batch_uniform_topology,
@@ -108,6 +110,7 @@ def _frame2_arrays(worlds: World, cfg: SolverConfig):
         invm=b.inv_mass, invi=b.inv_inertia,
         dyn=(b.inv_mass > 0).to(f), kin=kin,
         responds=responds, moves=moves,
+        bullet=((b.flags & BODY_BULLET) != 0).to(f),
     )
     col = dict(
         cbody=c.body_idx,
@@ -245,7 +248,8 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
         owners=owners, joints=joints, JC=cfg.joint_slot_capacity,
         joint_solver=cfg.joint_solver, n_colors=cfg.max_joint_colors,
         # joints are constraint upkeep: the raw clip, not max_dpos_eff
-        max_dpos_joint=cfg.max_dpos, plain=plain)
+        max_dpos_joint=cfg.max_dpos, bullet=body["bullet"], ccd=cfg.ccd,
+        ccd_slop=cfg.ccd_slop, plain=plain)
     b = worlds.bodies
     new_bodies = dataclasses.replace(
         b, pos=torch.stack([posx, posy], dim=-1), angle=ang,

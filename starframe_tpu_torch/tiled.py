@@ -15,7 +15,14 @@ substep then sums the rows' corrections over their body with masked rolls
 of the row axis (``hopper.owner_sum``, ``hopper.owner_velocity``); the
 wake signal and the keep set are owner-reduced the same way, so sibling
 rows keep identical state and sleep counters. K10 does not run compound
-rows (as in the JAX package): their substeps are K8/K9 launches.
+rows' owner reductions: their substeps are K8/K9 launches.
+
+CCD (``cfg.ccd``, bodies flagged ``bullet=True``): once a substep each
+bullet row's pose advance is clamped at its time of impact against the
+frame's manifolds (``hopper.tile_ccd``, K7; in K10 its first phase), so a
+bullet stops on the surface it would cross; velocities keep full speed.
+The consts carry the rows' bullet flags (``blt``); a compound body
+advances by its earliest row's clamp (``hopper.owner_min``).
 
 - :func:`tiled_step`: one frame, sorted in and out (the World-API shape).
 - :func:`tiled_rollout`: N frames kept in tile layout, re-sorted every
@@ -30,8 +37,12 @@ Sleep (``cfg.sleep_velocity > 0``) is the JAX package's: a body whose
 speed stays under ``sleep_velocity`` for ``sleep_frames`` frames is frozen
 (its inverse masses are zeroed for the frame, so awake partners solve
 against it as static) and wakes when a fast dynamic partner comes inside
-its margin. A tile whose 3-tile window holds no awake body skips its
-kernel work (``tile_live``); a frame with nothing awake launches nothing.
+its margin. One rule is the port's own: a kinematic partner moving at
+``sleep_velocity`` or faster inside a sleeper's margin wakes it too (the
+JAX package never lets a kinematic mover wake a sleeper, so a moving
+platform slides out from under a frozen body; ROADMAP.md C). A tile
+whose 3-tile window holds no awake body skips its kernel work
+(``tile_live``); a frame with nothing awake launches nothing.
 With ``cfg.tile_awake_compaction`` the rollout's re-sorts partition the
 layout: awake bodies and every row they can reach first, in sort order,
 then the sleepers nothing awake can reach, which fill trailing tiles whose
@@ -65,7 +76,7 @@ from .hopper.tiles import (
     run_tiled_frame,
     win_start,
 )
-from .state import BODY_KINEMATIC, COL_ACTIVE, COL_SENSOR, World
+from .state import BODY_BULLET, BODY_KINEMATIC, COL_ACTIVE, COL_SENSOR, World
 
 f32 = torch.float32
 i32 = torch.int32
@@ -83,7 +94,6 @@ def _require_slice(world: World, cfg: SolverConfig, shard_axis=None) -> None:
     todo = [
         (world.joints.j > 0, "joints on the tile engine (_tile_joint_pass)",
          "A4.5"),
-        (cfg.ccd, "CCD on the tile engine (K7 _ccd_kernel)", "A4.4"),
         (shard_axis is not None, "the sharded tile axis",
          "A4, with the multi-device work of A5"),
     ]
@@ -119,7 +129,8 @@ def _compound_fits(world: World, cfg: SolverConfig) -> bool:
 def use_tiled(world: World, cfg: SolverConfig, shard_axis=None) -> bool:
     """Shape/config gate of the tiled single-world path: False where the
     JAX package keeps a world on its other tiers (``use_pallas`` off,
-    ``iterations != 1``, per-substep manifolds, fewer than four tiles of
+    ``iterations != 1``, per-substep manifolds (which CCD also rules
+    out: its clamp trusts the frame-start normals), fewer than four tiles of
     colliders, a compound world its owner reductions cannot run: see
     :func:`_compound_fits`). A world that passes and needs a branch the
     port has not ported raises ``NotImplementedError`` naming its
@@ -256,8 +267,10 @@ def _enter_tiles(world: World, cfg: SolverConfig):
         invi=tiled(b.inv_inertia[cb]), lay=tiled(c.layer),
         msk=tiled(c.mask), responds=tiled(responds),
         dynb=tiled((b.inv_mass[cb] > 0).to(f32)), kin=tiled(kin),
-        ext=tiled(ext), sleep=tiled(b.sleep_count[cb]), obody=tile2(obody), kept=torch.ones((n_tiles, T), dtype=f32,
-                                            device=dev),
+        ext=tiled(ext), sleep=tiled(b.sleep_count[cb]),
+        blt=tiled(((b.flags[cb] & BODY_BULLET) != 0).to(f32)),
+        obody=tile2(obody),
+        kept=torch.ones((n_tiles, T), dtype=f32, device=dev),
         vlx=verts(0), vly=verts(1))
 
     # large set: the static active colliders, broadcast to every tile
@@ -284,7 +297,7 @@ def _enter_tiles(world: World, cfg: SolverConfig):
 
 _RESORT_KEYS = ("rad", "nv", "fric", "rst", "sen", "act", "mov", "invm",
                 "invi", "lay", "msk", "responds", "dynb", "kin", "ext",
-                "sleep", "kept", "obody")
+                "sleep", "blt", "kept", "obody")
 
 
 def _resort(state: dict, consts: dict, body_id, axis_key: str = "px"):
@@ -488,10 +501,11 @@ def _run_frame(state, consts, large, cfg: SolverConfig, gravity,
     each row's sleep counter counts up while it is slow (at the raw
     ``sleep_velocity``; the kernels take the wake threshold,
     ``sleep_velocity * wake_velocity_factor``) and resets when it is fast
-    or K6 saw a fast dynamic partner (``wake``, on compound rows the
-    largest over the body's rows, so that siblings keep one counter); rows
-    asleep after that have their velocities zeroed (``consts'`` carries the
-    new counters)."""
+    or K6 saw a fast dynamic partner or a kinematic one at ``sleep_velocity``
+    or faster (``wake``, on compound rows the largest over the body's rows,
+    so that siblings keep one counter); rows asleep after that have their
+    velocities zeroed (``consts'`` carries the new counters). ``cfg.ccd``
+    runs the substeps' TOI clamp."""
     if edges is None:
         edges = _edge_rows(state, consts, cfg)[:2]
     new_state, *frame = run_tiled_frame(
@@ -504,7 +518,8 @@ def _run_frame(state, consts, large, cfg: SolverConfig, gravity,
         sleep_velocity=cfg.sleep_velocity * cfg.wake_velocity_factor,
         sort_axis=0 if cfg.tile_sort_axis == "x" else 1, fuse=fuse,
         event_ids=event_ids, n_colliders=n_colliders, compound=compound,
-        owner_kc=cfg.max_colliders_per_body, plain=plain)
+        owner_kc=cfg.max_colliders_per_body, kin_velocity=cfg.sleep_velocity,
+        ccd=cfg.ccd, ccd_slop=cfg.ccd_slop, plain=plain)
     if cfg.sleep_velocity > 0.0:
         vx, vy, om = new_state["vx"], new_state["vy"], new_state["om"]
         slow = (vx * vx + vy * vy + om * om) < cfg.sleep_velocity ** 2
@@ -818,7 +833,13 @@ def tiled_rollout(world: World, cfg: SolverConfig, n_frames: int,
     M + max(a, b)`` of their collider ids (-1 elsewhere and in a frame
     skipped because nothing is awake; a dynamic pair appears in both rows,
     and a compound pair once per touching collider pair); see
-    ``events.py``."""
+    ``events.py``. With sleep on (``cfg.sleep_velocity > 0``) the keys
+    cover the awake set only: a touching pair whose rows both sleep gives
+    -1 (both bodies are frozen for the frame, so the pair's contact
+    solves nothing, and a tile whose window sleeps runs nothing), as in the
+    JAX package's tile engine; its XLA tier also reports sleeping pairs.
+    ``cfg.ccd`` clamps bullet bodies' advance at their time of impact (see
+    the module's docstring)."""
     _require_slice(world, cfg)
     compound = _compound(world)
     if with_events:

@@ -4,6 +4,13 @@ scenes both are held to."""
 
 import jax
 import numpy as np
+import torch
+
+# One intra-op thread per test process: the suite runs several pytest
+# workers on a few cores, and the twins' OpenMP threads would otherwise
+# oversubscribe them (six workers at eight threads each ran a port test
+# ~4x slower than at one thread each).
+torch.set_num_threads(1)
 
 
 def jax_to_numpy(world) -> dict:

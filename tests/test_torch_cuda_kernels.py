@@ -33,7 +33,7 @@ from starframe_tpu_torch.scenes import (  # noqa: E402
     rope_bridge,
 )
 from starframe_tpu_torch.shapes import Shape  # noqa: E402
-from starframe_tpu_torch.state import WorldBuilder  # noqa: E402
+from starframe_tpu_torch.state import BODY_BULLET, WorldBuilder  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -77,13 +77,22 @@ def test_slot_kernel_matches_twin(scene, frames):
     assert int(got[3].max()) > 0, "no touching candidates: vacuous"
 
 
+def _bulleted(w):
+    """``w`` with every dynamic body flagged a bullet (CCD's TOI pass then
+    runs on every row)."""
+    b = w.bodies
+    flags = torch.where(b.inv_mass > 0, b.flags | BODY_BULLET, b.flags)
+    return dataclasses.replace(w, bodies=dataclasses.replace(b, flags=flags))
+
+
 def _frame_kernel_matches_twin(cfg, w):
     tables = parallel.frame2_tables(w, cfg,
                                     frames=max(cfg.frames_per_broadphase, 1),
                                     elig=parallel.frame2_elig(w, cfg))
-    n0 = hopper.run_frame2.launches
+    counter = "ccd_launches" if cfg.ccd else "launches"
+    n0 = getattr(hopper.run_frame2, counter)
     wk, tk, *_ = parallel.frame2_step(w, cfg, tables=tables)
-    assert hopper.run_frame2.launches == n0 + 1
+    assert getattr(hopper.run_frame2, counter) == n0 + 1
     wp, tp, *_ = parallel.frame2_step(w, cfg, tables=tables, plain=True)
     assert torch.equal(tk, tp)
     assert float(tk.sum()) > 0, "no touching contacts: vacuous"
@@ -96,6 +105,31 @@ def _frame_kernel_matches_twin(cfg, w):
 
 def test_frame_kernel_matches_twin(scene):
     _frame_kernel_matches_twin(*scene)
+
+
+def test_frame_kernel_ccd_matches_twin(scene):
+    """K4's CCD instance on the settled batch with every dynamic body a
+    bullet, and on tests/test_ccd.py's bullet batch mid-impact (1000 m/s,
+    the third frame): the non-CCD bounds."""
+    cfg, w = scene
+    _frame_kernel_matches_twin(dataclasses.replace(cfg, ccd=True),
+                               _bulleted(w))
+    b = WorldBuilder()
+    b.gravity = (0.0, 0.0)
+    wall = b.add_static(pos=(0.0, 0.0))
+    b.add_collider(wall, Shape.box(0.1, 2.0))
+    bullet = b.add_body(pos=(-3.0, 0.0), vel=(1000.0, 0.0), bullet=True)
+    b.add_collider(bullet, Shape.circle(0.05))
+    for i in range(126):
+        pad = b.add_body(pos=(1000.0 + 10.0 * i, 0.0))
+        b.add_collider(pad, Shape.circle(0.3))
+    world, _ = b.build(Capacity(max_bodies=128, max_colliders=128,
+                                max_pairs=512, max_joints=0, max_verts=4),
+                       device="cuda")
+    bw = parallel.replicate_world(world, 4)
+    bcfg = SolverConfig(substeps=10, slot_capacity=8, ccd=True)
+    bw, _, _ = parallel.batched_rollout(bw, bcfg, 0, 2, record=lambda _: None)
+    _frame_kernel_matches_twin(bcfg, bw)
 
 
 # vertex capacity -> the shapes of a pile that fills it (on a capsule
@@ -196,6 +230,40 @@ def test_frame_kernel_with_joints_matches_twin(jointed, name, solver):
         dataclasses.replace(cfg, joint_solver=solver), w)
 
 
+@pytest.mark.parametrize("name", sorted(JOINTED))
+def test_frame_kernel_with_joints_and_ccd_matches_twin(jointed, name):
+    """K4's joint and CCD instance (``<V, true, true>``), every dynamic
+    body a bullet, against its twin: ``touched`` equal, poses to 1e-4 and
+    velocities to 1e-3 times the world's fastest body speed (at least 1
+    m/s). The mechanism's pendulum blows up (bodies near 90 m/s in the JAX
+    package too, ROADMAP.md C), so its bullets clamp, and there a velocity
+    is a pose difference over the substep: one float32 rounding of a pose
+    (~5e-6 m) is ~1e-3 m/s at h = 1/240 s; ``chip_smoke.agree_worlds``
+    holds the full-width jointed frames to the same scale."""
+    cfg, w = jointed[name]
+    cfg = dataclasses.replace(cfg, ccd=True)
+    w = _bulleted(w)
+    tables = parallel.frame2_tables(w, cfg,
+                                    frames=max(cfg.frames_per_broadphase, 1),
+                                    elig=parallel.frame2_elig(w, cfg))
+    n0 = hopper.run_frame2.ccd_launches
+    wk, tk, *_ = parallel.frame2_step(w, cfg, tables=tables)
+    assert hopper.run_frame2.ccd_launches == n0 + 1
+    wp, tp, *_ = parallel.frame2_step(w, cfg, tables=tables, plain=True)
+    assert torch.equal(tk, tp)
+    assert float(tk.sum()) > 0, "no touching contacts: vacuous"
+    bk, bp = wk.bodies, wp.bodies
+    torch.testing.assert_close(bk.pos, bp.pos, rtol=0, atol=1e-4)
+    torch.testing.assert_close(bk.angle, bp.angle, rtol=0, atol=1e-4)
+    speed = torch.clamp(bp.vel.norm(dim=-1).amax(dim=1), min=1.0)
+    for a, b in ((bk.vel.norm(dim=-1), bp.vel.norm(dim=-1)),
+                 (bk.vel[..., 0], bp.vel[..., 0]),
+                 (bk.vel[..., 1], bp.vel[..., 1]),
+                 (bk.ang_vel, bp.ang_vel)):
+        err = (a - b).abs().amax(dim=1)
+        assert bool((err <= 1e-3 * speed).all()), (err / speed).max()
+
+
 # ---- the tile engine (K5, K6, K8, K9) ---------------------------------------
 
 
@@ -243,11 +311,15 @@ def test_tile_manifold_kernel_matches_twin(tile_layout, case):
     sums to 1e-6 (the same float32 code: bitwise in practice)."""
     cfg, state, consts, large, _, _, tables = tile_layout
     live = torch.ones(state["px"].shape[0], device="cuda")
-    sv = 0.0
+    sv = kv = 0.0
     if case != "awake":
         live[2] = 0.0
-        sv = 0.2
-    kw = dict(Cs=8, margin=cfg.contact_margin, dt=cfg.dt, sleep_velocity=sv)
+        sv, kv = 0.2, 0.1
+        # every seventh row kinematic, for the kinematic wake rule
+        rows = torch.arange(live.numel() * 256, device="cuda").reshape(-1, 256)
+        consts = dict(consts, kin=(rows % 7 == 0).float())
+    kw = dict(Cs=8, margin=cfg.contact_margin, dt=cfg.dt, sleep_velocity=sv,
+              kin_velocity=kv)
     n0 = hopper.tile_manifold.launches
     got = hopper.tile_manifold(state, consts, large, *tables[:2], live, **kw)
     assert hopper.tile_manifold.launches == n0 + 1
@@ -382,9 +454,122 @@ def test_tile_frame_kernel_matches_twin(frame_inputs):
 
 
 def test_tile_frame_refuses_ccd(frame_inputs):
+    """K10 no longer refuses CCD: with every row a bullet its CCD form is
+    bitwise equal to K7, K8 and K9 launched once a substep (the skipped
+    tile's state passed through), counted apart from its plain launches."""
     args, kw = frame_inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4.4"):
-        hopper.tile_frame(*args, substeps=2, ccd=True, **kw)
+    state, consts, large, pidx_c, sol, g, live = args
+    consts = dict(consts, blt=(consts["invm"] > 0).float())
+    args = (state, consts) + args[2:]
+    n0, c0 = hopper.tile_frame.launches, hopper.tile_frame.ccd_launches
+    got, touched = hopper.tile_frame(*args, substeps=10, ccd=True, **kw)
+    assert hopper.tile_frame.ccd_launches == c0 + 1
+    assert hopper.tile_frame.launches == n0
+    ref, ref_t = hopper.tiles.substep_loop(
+        hopper.tile_project, hopper.tile_apply, *args, substeps=10,
+        ccd=(hopper.tile_ccd, hopper.owner_min, 0.005), **kw)
+    assert torch.equal(touched, ref_t)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k][1], state[k][1]), k
+    twin, twin_t = hopper.tile_frame(*args, substeps=10, ccd=True, **kw,
+                                     plain=True)
+    assert torch.equal(touched, twin_t)
+    for k in twin:
+        torch.testing.assert_close(got[k], twin[k], rtol=0, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def bullet_tiles():
+    """tests/test_ccd.py's tile-engine bullet world (4 tiles) with the
+    bullet 0.3 m from the wall at 1000 m/s, in tile layout: the frame's
+    solve tables and the arguments of one substep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from starframe_tpu_torch import tiled
+
+    b = WorldBuilder()
+    b.gravity = (0.0, 0.0)
+    wall = b.add_static(pos=(0.0, 0.0))
+    b.add_collider(wall, Shape.box(0.1, 2.0))
+    bullet = b.add_body(pos=(-0.3, 0.0), vel=(1000.0, 0.0), bullet=True)
+    b.add_collider(bullet, Shape.circle(0.05))
+    for i in range(1022):
+        pad = b.add_body(pos=(1000.0 + 2.0 * (i % 256), 5.0 * (i // 256)))
+        b.add_collider(pad, Shape.circle(0.3))
+    w, _ = b.build(Capacity(max_bodies=1024, max_colliders=1024,
+                            max_pairs=8192, max_joints=0, max_verts=4),
+                   device="cuda")
+    cfg = SolverConfig(substeps=10, slot_capacity=8, ccd=True,
+                       frames_per_broadphase=1)
+    state, consts, large, _, _ = tiled._enter_tiles(w, cfg)
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    g = w.gravity.contiguous()
+    tables = hopper.build_tile_tables(state, consts, large, *edges, g, C=8,
+                                      margin=cfg.contact_margin, dt=cfg.dt)
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    sol, pidx_c = hopper.tile_manifold(state, consts, large, *tables[:2],
+                                       live, Cs=8, margin=cfg.contact_margin,
+                                       dt=cfg.dt)[:2]
+    return cfg, (state, consts, large, pidx_c, sol, g, live)
+
+
+def test_tile_ccd_kernel_matches_twin(bullet_tiles, frame_inputs):
+    """K7 against its twin: the bullet world (its row clamped) and the
+    pile with every row a bullet and tile 1 skipped, to 1e-6."""
+    cfg, args = bullet_tiles
+    h = cfg.dt / cfg.substeps
+    n0 = hopper.tile_ccd.launches
+    got = hopper.tile_ccd(*args, h=h, ccd_slop=cfg.ccd_slop)
+    assert hopper.tile_ccd.launches == n0 + 1
+    ref = hopper.tile_ccd(*args, h=h, ccd_slop=cfg.ccd_slop, plain=True)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    assert int((got < 1.0).sum()) == 1, "the bullet did not clamp"
+    pargs, kw = frame_inputs
+    consts = dict(pargs[1], blt=(pargs[1]["invm"] > 0).float())
+    pargs = (pargs[0], consts) + pargs[2:]
+    got = hopper.tile_ccd(*pargs, h=kw["h"], ccd_slop=0.005)
+    ref = hopper.tile_ccd(*pargs, h=kw["h"], ccd_slop=0.005, plain=True)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    assert bool((got[1] == 1.0).all())
+
+
+def test_tile_substep_ccd_kernels_match_twins(bullet_tiles):
+    """K8's and K9's CCD forms on K7's factors against their twins:
+    ``touched`` equal, the rest to 1e-6 and the state to 1e-5 (as the
+    non-CCD pair), each counted apart from the plain launches."""
+    cfg, args = bullet_tiles
+    state, consts, large, pidx_c, sol, g, live = args
+    h = cfg.dt / cfg.substeps
+    f = hopper.tile_ccd(*args, h=h, ccd_slop=cfg.ccd_slop)
+    touched = torch.zeros(pidx_c.shape, device="cuda")
+    pkw = dict(h=h, compliance=cfg.contact_compliance, f=f)
+    n0, c0 = hopper.tile_project.launches, hopper.tile_project.ccd_launches
+    got = hopper.tile_project(state, consts, large, pidx_c, sol, g, touched,
+                              live, **pkw)
+    assert hopper.tile_project.ccd_launches == c0 + 1
+    assert hopper.tile_project.launches == n0
+    ref = hopper.tile_project(state, consts, large, pidx_c, sol, g, touched,
+                              live, **pkw, plain=True)
+    assert torch.equal(got[5], ref[5])
+    for a, b in zip(got[:5], ref[:5]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    akw = dict(h=h, relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+               rest_threshold=cfg.restitution_threshold,
+               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
+               f=f)
+    c0 = hopper.tile_apply.ccd_launches
+    got_s = hopper.tile_apply(state, ref[:4], consts, large, pidx_c, sol,
+                              ref[4], g, live, **akw)
+    assert hopper.tile_apply.ccd_launches == c0 + 1
+    ref_s = hopper.tile_apply(state, ref[:4], consts, large, pidx_c, sol,
+                              ref[4], g, live, **akw, plain=True)
+    for k in got_s:
+        torch.testing.assert_close(got_s[k], ref_s[k], rtol=0, atol=1e-5)
+    # the clamp held the bullet short of its full substep advance
+    row = consts["blt"] > 0
+    full = state["px"][row] + state["vx"][row] * h
+    assert float(got_s["px"][row]) < float(full)
 
 
 # ---- events and compound rows --------------------------------------------
@@ -478,6 +663,20 @@ def test_owner_kernels_equal_twins_bitwise(compound_layout):
                                 plain=True)
     for k in ("vx", "vy", "om"):
         assert torch.equal(got[k], ref[k]), k
+
+
+def test_owner_min_kernel_equals_twin_bitwise(compound_layout):
+    """``owner_min`` bitwise equal to its twin (the JAX rolls with
+    ``minimum`` and +inf), sibling rows holding their body's minimum."""
+    c = compound_layout
+    kc = c["cfg"].max_colliders_per_body
+    x = torch.rand(c["state"]["px"].shape, device="cuda")
+    n0 = hopper.owner_min.launches
+    got = hopper.owner_min([x], c["ob"], kc)[0]
+    assert hopper.owner_min.launches == n0 + 1
+    ref = hopper.owner_min([x], c["ob"], kc, plain=True)[0]
+    assert torch.equal(got, ref)
+    assert not torch.equal(got, x), "no sibling minimum: vacuous"
 
 
 def test_tile_apply_compound_matches_twin(compound_layout):

@@ -89,11 +89,13 @@ def test_off_slice_configs_raise():
                                   device="cpu")
     import dataclasses
 
-    for kw, what in ((dict(ccd=True), "CCD"),
-                     (dict(batch_solve_capacity=4), "compaction"),
+    for kw, what in ((dict(batch_solve_capacity=4), "compaction"),
                      (dict(batch_uniform_topology=False), "owner tables"),
                      (dict(sleep_velocity=0.1), "sleeping"),
                      (dict(use_pallas=False), "A3")):
         cfg = dataclasses.replace(sc.config, **kw)
         with pytest.raises(NotImplementedError, match=what):
             parallel.frame2_step(sc.world, cfg)
+    # CCD is on the slice now (tests/test_torch_frame2_ccd.py)
+    cfg = dataclasses.replace(sc.config, ccd=True)
+    assert int(parallel.frame2_step(sc.world, cfg)[0].step_count) == 1

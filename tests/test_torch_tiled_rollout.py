@@ -128,7 +128,6 @@ def _tiled_world(joint=False, compound=False):
 
 GATES = {
     "joints": (lambda: _tiled_world(joint=True), {}, {}),
-    "ccd": (lambda: _tiled_world(), dict(ccd=True), {}),
     "sharded": (lambda: _tiled_world(), {}, dict(shard_axis="tiles")),
 }
 
@@ -155,7 +154,18 @@ def _events_return_keys():
     assert int(diag["slot_overflow"]) == 0
 
 
-PORTED = {"compound": _compound_joint_kept_off,
+def _ccd_runs():
+    """``cfg.ccd`` no longer raises: the tile engine takes the world
+    (tests/test_torch_tiled_ccd.py holds it against the JAX package)."""
+    world = _tiled_world()
+    cfg = st.SolverConfig(substeps=2, ccd=True)
+    assert st.use_tiled(world, cfg)
+    final, diag = st.tiled_rollout(world, cfg, 1)
+    assert int(final.step_count) == int(world.step_count) + 1
+    assert int(diag["slot_overflow"]) == 0
+
+
+PORTED = {"ccd": _ccd_runs, "compound": _compound_joint_kept_off,
           "events": _events_return_keys}
 
 

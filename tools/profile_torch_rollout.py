@@ -2,8 +2,9 @@
 """Where the time goes in the PyTorch port's batched rollout, on one GPU.
 
     python3 tools/profile_torch_rollout.py
-        [--scene batched|mechanism|rope|pile|pile_sleep|pile_events|
-                 pile_compound] [--worlds W] [--bodies N] [--frames F]
+        [--scene batched|batched_ccd|mechanism|rope|pile|pile_sleep|
+                 pile_events|pile_compound|pile_ccd] [--worlds W]
+        [--bodies N] [--frames F]
         [--substeps 10] [--trace PATH]
 
 Runs one of the paths of ``chip_smoke.py`` (``batched``: the main path,
@@ -16,8 +17,10 @@ sleep, 240 frames from the state after SETTLE_FRAMES (960) frames, where
 ~85% of the bodies sleep; ``pile_events``: bench.py's ``pile_events``,
 ``pile`` with ``with_events=True``; ``pile_compound``: bench.py's
 ``pile_compound``, ``scenes.pile_compound(--bodies)``, 240 frames from the
-state after SETTLE_FRAMES frames) once to warm up, three times unprofiled
-for wall times, then once under ``torch.profiler``, and prints:
+state after SETTLE_FRAMES frames; ``batched_ccd`` and ``pile_ccd``:
+``batched`` and ``pile`` with ``ccd=True`` and every dynamic body a bullet)
+once to warm up, three times unprofiled for wall times, then once under
+``torch.profiler``, and prints:
 
 - each device kernel's total time, call count and share of device time
   (the hand-written kernels by name, the small PyTorch ops together);
@@ -47,17 +50,43 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SETTLE_FRAMES = 960  # pile_sleep: frames run before the measured ones
-KERNELS = (("frame2_kernel", "K4 frame"), ("joint_slot_kernel", "K3 joint slots"),
+# (a substring of the kernel's name, its row), the first match wins
+KERNELS = (("frame2_kernel<4, false, true>", "K4 frame, CCD form"),
+           ("frame2_kernel", "K4 frame"),
+           ("joint_slot_kernel", "K3 joint slots"),
            ("slot_kernel", "K2 slot tables"), ("elig_kernel", "K1 eligibility"),
            ("tile_tables_kernel", "K5 tile tables"),
            ("tile_manifold_kernel", "K6 tile manifolds"),
+           ("tile_ccd_kernel", "K7 tile TOI factors"),
+           ("tile_project_kernel<true>", "K8 tile project, CCD form"),
            ("tile_project_kernel", "K8 tile project"),
-           ("tile_apply_kernel<true>", "K9 tile apply, compound form"),
+           ("tile_apply_kernel<true, false>", "K9 tile apply, compound form"),
+           ("tile_apply_kernel<true, true>",
+            "K9 tile apply, compound CCD form"),
+           ("tile_apply_kernel<false, true>", "K9 tile apply, CCD form"),
            ("tile_apply_kernel", "K9 tile apply"),
+           ("tile_frame_kernel<true>", "K10 tile frame, CCD form"),
            ("tile_frame_kernel", "K10 tile frame"),
            ("owner_sum_kernel", "owner sums"),
+           ("owner_min_kernel", "owner minima"),
            ("owner_velocity_kernel", "owner velocity pass"))
-PILES = ("pile", "pile_sleep", "pile_events", "pile_compound")
+PILES = ("pile", "pile_sleep", "pile_events", "pile_compound", "pile_ccd")
+BATCHED = ("batched", "batched_ccd")
+
+
+def bulleted(sc):
+    """``sc`` with ``ccd`` on and every dynamic body flagged a bullet."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch.state import BODY_BULLET
+
+    b = sc.world.bodies
+    flags = torch.where(b.inv_mass > 0, b.flags | BODY_BULLET, b.flags)
+    world = dataclasses.replace(sc.world,
+                                bodies=dataclasses.replace(b, flags=flags))
+    return dataclasses.replace(sc, world=world, config=dataclasses.replace(
+        sc.config, ccd=True))
 
 
 def busy_us(intervals) -> float:
@@ -95,7 +124,7 @@ def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scene", choices=("batched", "mechanism", "rope")
+    ap.add_argument("--scene", choices=BATCHED + ("mechanism", "rope")
                     + PILES, default="batched")
     ap.add_argument("--worlds", type=int, default=None,
                     help="default 4096 for batched, 1024 for the jointed")
@@ -126,7 +155,7 @@ def main() -> int:
         args.worlds = 1
         sc = scenes.pile(n_bodies=args.bodies or 10_000, substeps=args.substeps,
                          sleep=args.scene == "pile_sleep", device="cuda")
-    elif args.scene == "batched":
+    elif args.scene in BATCHED:
         args.worlds = args.worlds or 4096
         sc = scenes.batched_worlds(n_worlds=args.worlds,
                                    n_bodies=args.bodies or 256,
@@ -137,6 +166,8 @@ def main() -> int:
                 else scenes.rope_bridge)
         sc = scenes.batchify(make(substeps=args.substeps, device="cuda"),
                              args.worlds)
+    if args.scene.endswith("_ccd"):
+        sc = bulleted(sc)
     cfg = sc.config
     F = args.frames or (240 if args.scene in PILES else 60)
     active = int(((sc.world.bodies.flags & 1) != 0).sum())

@@ -114,6 +114,28 @@ unfused and never fused, and the rows K7 clamps in one frame at frames 30,
 bitwise equal). Step 4 times the CCD kernels at full size against their
 twins, with their bounds.
 
+K4's last three branches (solve-slot compaction, per-world owner tables,
+sleep) and the batched contact keys run in step 3 on the main path's
+scene: ``batched_compact`` (``batch_solve_capacity`` 4 of C = 8; while a
+width drops an imminent slot, the next of ``COMPACT_WIDTHS``, down to the
+tile engine's 8 of 16, saying so; 60 frames in turns with compaction off,
+``solve_overflow`` 0, K4's ``Cs`` form once a frame, a rerun bitwise),
+``batched_compact_ccd`` (the same with every dynamic body a bullet) and
+the escorted projectile batch (``_bullet_batch`` with 4 static escorts
+beside each bullet and 4 solve slots: the wall is dropped from the solve
+and every bullet still rests on its face), ``batched_owners``
+(``batch_uniform_topology=False``: bitwise the uniform run, in turns; then
+a 4096-world batch of tests/test_frame2.py's ``_scene`` and
+``_compound_scene`` alternating, 30 frames, ``owner_overflow`` 0),
+``batched_sleep`` (the pile's sleep, 240 frames in turns with it off, the
+asleep share, no asleep body moving, a rerun bitwise) and
+``batched_events`` (``batched_rollout(with_keys=True)`` in turns with the
+run without, bitwise the same state; 10 frames at K = 1 equal to a
+``batched_step_events`` loop). Step 4 holds K4's ``Cs`` forms and its
+per-world form against their twins at 4096 worlds (``touched``,
+``partner_solve`` and ``nact`` equal, poses as ``agree_worlds``) and times
+them.
+
 Prints the run's wall time, a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
 two parity checks; ``frame2_joints`` is the frame kernel's joint
 instantiation, timed on the mechanism batch; ``bound_ms``: the least time
@@ -334,6 +356,25 @@ CCD_KERNELS = (
      "starframe_tpu_torch/csrc/frame2.cu",
      "starframe_tpu/pallas/frame2.py:78"),
 )
+# K4's last three branches: per-frame solve-slot compaction (``Cs``), per
+# world owner tables, and sleep (the frozen frame, no kernel of its own):
+# name, the counter of run_frame2 that counts the form, the TPU kernel
+A1_KERNELS = (
+    ("frame2_compact", "compact_launches",
+     "starframe_tpu/pallas/frame2.py:97 (Cs, :361-426)"),
+    ("frame2_compact_ccd", "compact_launches",
+     "starframe_tpu/pallas/frame2.py:97 (Cs with CCD, :361-426, 464-514)"),
+    ("frame2_owners", "owner_launches",
+     "starframe_tpu/pallas/frame2.py:98 (per-world owner tables, :178-190)"),
+)
+# (table width C, solve width Cs) to try, in order; a hard drop takes the
+# next: the settled main path has rows with 8 imminent slots, so at its
+# C = 8 every Cs drops some, and compaction then runs at the tile engine's
+# widths, 8 of 16 (PERF.md §6)
+COMPACT_WIDTHS = ((8, 4), (8, 6), (16, 8))
+# the pile's sleep (starframe_tpu/scenes/pile.py:76-77) on the main path
+SLEEP_VELOCITY, SLEEP_FRAMES, SLEEP_RUN = 0.1, 30, 240
+HET_FRAMES = 30  # the alternating-topology batch: frames into contact
 # tests/test_ccd.py: the wall's half-width 0.1 plus the bullet's radius 0.05;
 # a bullet rests on the near face within the contact margin and ccd_slop
 WALL_FACE = -0.15
@@ -1347,6 +1388,8 @@ def counted(hopper) -> dict:
                   for name, attr, cnt, _, _ in EC_KERNELS + CCD_KERNELS})
     pairs["tile_apply_compound_ccd"] = (hopper.tile_apply,
                                         "compound_ccd_launches")
+    pairs.update({name: (hopper.run_frame2, cnt)
+                  for name, cnt, _ in A1_KERNELS})
     return pairs
 
 
@@ -2464,6 +2507,503 @@ def ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs, bounds,
     return times
 
 
+def escorted_batch(dev, escorts, worlds, speed=1000.0):
+    """tests/test_ccd.py's ``_bullet_batch`` with ``escorts`` static circles
+    0.02 m from the bullet, behind and beside it
+    (tests/test_torch_frame2_compact.py): their slots rank before the
+    wall's, so a row that solves ``escorts`` slots drops the wall from its
+    solve. Returns ``(worlds, cfg)``: C = 8, ``Cs = escorts``, CCD."""
+    import math
+
+    from starframe_tpu_torch import (
+        Capacity,
+        Shape,
+        SolverConfig,
+        WorldBuilder,
+        parallel,
+    )
+
+    wb = WorldBuilder()
+    wb.gravity = (0.0, 0.0)
+    wall = wb.add_body(pos=(0.0, 0.0), body_type="static")
+    wb.add_collider(wall, Shape.box(0.1, 2.0))
+    b = wb.add_body(pos=(-3.0, 0.0), vel=(speed, 0.0), bullet=True)
+    wb.add_collider(b, Shape.circle(0.05))
+    for k in range(escorts):
+        th = math.pi / 2 + math.pi * k / max(escorts - 1, 1)
+        e = wb.add_body(pos=(-3.0 + 0.12 * math.cos(th), 0.12 * math.sin(th)),
+                        body_type="static")
+        wb.add_collider(e, Shape.circle(0.05))
+    for i in range(126 - escorts):
+        pad = wb.add_body(pos=(1000.0 + 10.0 * i, 0.0))
+        wb.add_collider(pad, Shape.circle(0.3))
+    w, _ = wb.build(Capacity(max_bodies=128, max_colliders=128, max_pairs=512,
+                             max_joints=0, max_verts=4), device=dev)
+    cfg = SolverConfig(dt=1 / 60, substeps=10, ccd=True, slot_capacity=8,
+                       batch_solve_capacity=escorts)
+    return parallel.replicate_world(w, worlds), cfg
+
+
+def run_batched_compact(dev, hopper, parallel, card, ccd=False,
+                        widths=COMPACT_WIDTHS) -> dict:
+    """``batched_compact`` (with ``ccd``: ``batched_compact_ccd``, every
+    dynamic body a bullet): the main path with ``batch_solve_capacity`` 4 of
+    C = 8 (the next of ``widths`` while one drops an imminent slot, which
+    is then said), 60 frames in turns with compaction off at the same C
+    (off, on, on, off), checked as the main path is, ``solve_overflow`` 0
+    and ``solve_dropped`` reported, K4's ``Cs`` form once a frame, the two
+    timed runs and a 10-frame rerun bitwise equal."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch.scenes import batched_worlds
+
+    tag = "batched_compact_ccd" if ccd else "batched_compact"
+    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
+                        device=dev)
+    w = bulleted(sc.world) if ccd else sc.world
+    base = dataclasses.replace(sc.config, ccd=ccd)
+    active = int(((w.bodies.flags & 1) != 0).sum())
+    cfgs = {False: base}
+
+    def rollout(on, n):
+        return parallel.batched_rollout(w, cfgs[on], 0, n,
+                                        record=lambda _: None)
+
+    for k, (C, Cs) in enumerate(widths):  # each first run also warms up
+        cfgs[True] = dataclasses.replace(base, slot_capacity=C,
+                                         batch_solve_capacity=Cs)
+        hard = int(rollout(True, FRAMES)[2]["solve_overflow"])
+        if hard == 0:
+            break
+        print(f"{tag}: solve_overflow {hard} at Cs = {Cs} of C = {C}; the "
+              f"phase takes the next widths")
+    check(hard == 0, f"{tag}: solve_overflow {hard} at every width")
+    cfgs[False] = dataclasses.replace(base, slot_capacity=C)
+    rollout(False, 10)
+    counter = "ccd_launches" if ccd else "launches"
+    runs = {False: [], True: []}
+    for on in (False, True, True, False):
+        torch.cuda.synchronize()
+        reset_counts(hopper)
+        hopper.run_frame2.launches = 0
+        t0 = time.perf_counter()
+        final, _, diag = rollout(on, FRAMES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_form = getattr(hopper.run_frame2, counter)
+        n_cs = hopper.run_frame2.compact_launches
+        check(n_form == FRAMES and n_cs == (FRAMES if on else 0),
+              f"{tag} Cs={on}: K4 launches {n_form}, Cs form {n_cs}")
+        runs[on].append((final, {k: int(v) for k, v in diag.items()},
+                         seconds, n_cs))
+    final, diag, _, launches = runs[True][0]
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(torch.equal(getattr(final.bodies, field),
+                          getattr(runs[True][1][0].bodies, field)),
+              f"{tag}: the two timed runs differ in {field}")
+        check(bool(torch.isfinite(getattr(final.bodies, field)).all()),
+              f"{tag}: non-finite {field}")
+    for key in ("slot_overflow", "joint_overflow", "solve_overflow",
+                "owner_overflow"):
+        check(diag[key] == 0, f"{tag}: {key} {diag[key]}")
+    b = final.bodies
+    y_min = float(b.pos[..., 1][b.inv_mass > 0].min())
+    check(y_min > 0.2, f"{tag}: a body sank (y = {y_min})")
+    a, _, da = rollout(True, 10)
+    c, _, dc = rollout(True, 10)
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(torch.equal(getattr(a.bodies, field), getattr(c.bodies, field)),
+              f"{tag}: rerun differs in {field}")
+    check({k: int(v) for k, v in da.items()}
+          == {k: int(v) for k, v in dc.items()}, f"{tag}: rerun counters")
+    ms = {on: 1e3 * sum(r[2] for r in runs[on]) / (2 * FRAMES) for on in runs}
+    moved = float((final.bodies.pos - runs[False][0][0].bodies.pos).abs().max())
+    print(f"{tag}: {W_MAIN}x{N_BODIES} worlds, {SUBSTEPS} substeps, "
+          f"{'every dynamic body a bullet, ' if ccd else ''}{Cs} solve slots "
+          f"of {C}, {FRAMES} frames: {ms[True]:.4f} ms/frame "
+          f"({active / ms[True] * 1e3:.6g} body-steps/s) against "
+          f"{ms[False]:.4f} without compaction, in turns (off, on, on, off: "
+          + ", ".join(f"{1e3 * r[2] / FRAMES:.4f}" for r in (
+              runs[False][0], runs[True][0], runs[True][1], runs[False][1]))
+          + f" ms/frame); counters {json.dumps(diag)}; min dynamic y "
+          f"{y_min:.4f}; largest pose difference from the run without "
+          f"{moved:.4g} m; K4's Cs form {launches} launches; a 10-frame rerun "
+          f"bitwise equal; on {card}")
+    return dict(final=final, cfg=cfgs[True], ms=ms[True], ms_off=ms[False],
+                launches=launches, widths=widths[k:])
+
+
+def run_compact_projectile(dev, hopper, parallel, card) -> dict:
+    """The projectile batch with compaction below each bullet row's
+    candidate count: ``escorted_batch`` at 4096 worlds, 4 escorts and 4
+    solve slots, 1000 m/s, 30 frames. The wall's slot is dropped from the
+    solve in the impact frame (``solve_dropped``); the time of impact still
+    takes it (over all C slots), so every bullet rests on the wall's near
+    face, as PERF.md §2's CCD bound requires."""
+    import torch
+
+    bw, cfg = escorted_batch(dev, 4, PROJECTILE_W)
+    torch.cuda.synchronize()
+    reset_counts(hopper)
+    t0 = time.perf_counter()
+    final, _, diag = parallel.batched_rollout(bw, cfg, 0, PROJECTILE_FRAMES,
+                                              record=lambda _: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    diag = {k: int(v) for k, v in diag.items()}
+    n_cs = hopper.run_frame2.compact_launches
+    check(n_cs == PROJECTILE_FRAMES
+          and hopper.run_frame2.ccd_launches == PROJECTILE_FRAMES,
+          f"escorted projectile: K4's Cs CCD form launched {n_cs} times")
+    for key in ("slot_overflow", "solve_overflow"):
+        check(diag[key] == 0, f"escorted projectile: {key} {diag[key]}")
+    check(diag["solve_dropped"] >= PROJECTILE_W, "escorted projectile: the "
+          f"wall was not dropped from the solve ({diag['solve_dropped']})")
+    x = final.bodies.pos[:, 1, 0]
+    ok = (x > WALL_FACE - 0.06) & (x <= WALL_FACE + 0.01)
+    check(bool(ok.all()), f"escorted projectile: {int((~ok).sum())} of "
+          f"{PROJECTILE_W} bullets off the face (x in [{float(x.min())}, "
+          f"{float(x.max())}])")
+    ms = 1e3 * seconds / PROJECTILE_FRAMES
+    print(f"escorted projectile batch ({PROJECTILE_W} worlds x 128 bodies, 4 "
+          f"escorts, Cs = 4 of 8, 1000 m/s, {PROJECTILE_FRAMES} frames): "
+          f"{ms:.4f} ms/frame; bullet x in [{float(x.min()):.6g}, "
+          f"{float(x.max()):.6g}]; counters {json.dumps(diag)}; on {card}")
+    return dict(ms=ms)
+
+
+def scene_world(dev, compound, n=128):
+    """tests/test_frame2.py's ``_scene`` (seed 0) or, with ``compound``, its
+    ``_compound_scene`` (seed 3: every 4th dynamic body owns three
+    colliders), through the port's builder."""
+    import numpy as np
+    from starframe_tpu_torch import Capacity, Shape, WorldBuilder
+
+    rng = np.random.default_rng(3 if compound else 0)
+    b = WorldBuilder(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, Shape.box(40.0, 0.5), friction=0.5)
+    cols = 12 if compound else int(np.ceil(np.sqrt((n - 1) * 2)))
+    n_col = n_bod = 1
+    i = 0
+    while n_bod < n:
+        many = compound and i % 4 == 0
+        if n_col + (3 if many else 1) > n:
+            break
+        row, col = divmod(i, cols)
+        body = b.add_body(pos=(-(cols - 1) * 0.55 + col * 1.1
+                               + rng.uniform(-0.05, 0.05), 0.7 + row * 1.1),
+                          vel=rng.normal(scale=0.3, size=2),
+                          ang_vel=float(rng.normal(scale=0.2)))
+        if many:
+            b.add_collider(body, Shape.box(0.3, 0.12), friction=0.5,
+                           restitution=0.2)
+            b.add_collider(body, Shape.box(0.12, 0.3), friction=0.5,
+                           restitution=0.2, offset=(0.18, 0.2))
+            b.add_collider(body, Shape.circle(0.14), friction=0.5,
+                           restitution=0.2, offset=(-0.25, 0.0))
+        elif compound:
+            b.add_collider(body, Shape.circle(0.4) if i % 2 else
+                           Shape.box(0.35, 0.3), friction=0.5,
+                           restitution=0.2)
+        else:
+            b.add_collider(body, Shape.circle(0.45) if i % 2 == 0 else
+                           Shape.box(0.4, 0.35), friction=0.5,
+                           restitution=0.2)
+        n_col += 3 if many else 1
+        n_bod += 1
+        i += 1
+    w, _ = b.build(Capacity(max_bodies=n, max_colliders=n, max_pairs=8 * n,
+                            max_joints=0, max_verts=4), device=dev)
+    return w
+
+
+def run_batched_owners(dev, hopper, parallel, card) -> dict:
+    """``batched_owners``: the main path with per-world owner tables
+    (``batch_uniform_topology=False``), 60 frames in turns with world 0's
+    lists (uniform, per world, per world, uniform): bitwise the same state
+    and counters, K4's per-world form once a frame; then a 4096-world batch
+    of two alternating topologies (tests/test_frame2.py's ``_scene`` and
+    ``_compound_scene``, 128 bodies) for ``HET_FRAMES`` frames into contact,
+    ``owner_overflow`` and every hard counter 0."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch import SolverConfig
+    from starframe_tpu_torch.scenes import batched_worlds
+
+    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
+                        device=dev)
+    cfgs = {False: sc.config, True: dataclasses.replace(
+        sc.config, batch_uniform_topology=False)}
+
+    def rollout(per_world, n):
+        return parallel.batched_rollout(sc.world, cfgs[per_world], 0, n,
+                                        record=lambda _: None)
+
+    for pw in (False, True):
+        rollout(pw, 10)
+    runs = {False: [], True: []}
+    for pw in (False, True, True, False):
+        torch.cuda.synchronize()
+        reset_counts(hopper)
+        hopper.run_frame2.launches = 0
+        t0 = time.perf_counter()
+        final, _, diag = rollout(pw, FRAMES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_ow = hopper.run_frame2.owner_launches
+        check(hopper.run_frame2.launches == FRAMES
+              and n_ow == (FRAMES if pw else 0),
+              f"batched_owners per_world={pw}: per-world form {n_ow}")
+        runs[pw].append((final, {k: int(v) for k, v in diag.items()},
+                         seconds, n_ow))
+    uni, per = runs[False][0], runs[True][0]
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(torch.equal(getattr(uni[0].bodies, field),
+                          getattr(per[0].bodies, field)),
+              f"batched_owners: per-world tables differ in {field}")
+    check(uni[1] == per[1], f"batched_owners: counters {uni[1]} {per[1]}")
+    ms = {pw: 1e3 * sum(r[2] for r in runs[pw]) / (2 * FRAMES) for pw in runs}
+
+    pair = [scene_world(dev, compound) for compound in (False, True)]
+    hw = parallel.stack_worlds(pair * (W_MAIN // 2))
+    hcfg = SolverConfig(dt=1 / 60, substeps=SUBSTEPS, slot_capacity=8,
+                        batch_uniform_topology=False, max_colliders_per_body=3)
+    parallel.batched_rollout(hw, hcfg, 0, 2, record=lambda _: None)
+    torch.cuda.synchronize()
+    reset_counts(hopper)
+    t0 = time.perf_counter()
+    hfinal, _, hdiag = parallel.batched_rollout(hw, hcfg, 0, HET_FRAMES,
+                                                record=lambda _: None)
+    torch.cuda.synchronize()
+    hms = 1e3 * (time.perf_counter() - t0) / HET_FRAMES
+    hdiag = {k: int(v) for k, v in hdiag.items()}
+    check(hopper.run_frame2.owner_launches == HET_FRAMES,
+          "alternating topologies: per-world form launches "
+          f"{hopper.run_frame2.owner_launches}")
+    for key in ("slot_overflow", "owner_overflow", "joint_overflow"):
+        check(hdiag[key] == 0, f"alternating topologies: {key} {hdiag[key]}")
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(bool(torch.isfinite(getattr(hfinal.bodies, field)).all()),
+              f"alternating topologies: non-finite {field}")
+    print(f"batched_owners: {W_MAIN}x{N_BODIES} worlds, per-world owner "
+          f"tables, {FRAMES} frames: {ms[True]:.4f} ms/frame against "
+          f"{ms[False]:.4f} with world 0's lists, in turns (uniform, per "
+          f"world, per world, uniform: " + ", ".join(
+              f"{1e3 * r[2] / FRAMES:.4f}" for r in (
+                  runs[False][0], runs[True][0], runs[True][1],
+                  runs[False][1]))
+          + f" ms/frame), bitwise the same state and counters; the "
+          f"alternating batch ({W_MAIN} worlds of 128 bodies, 1 and 3 "
+          f"colliders a body, {HET_FRAMES} frames): {hms:.4f} ms/frame, "
+          f"counters {json.dumps(hdiag)}; on {card}")
+    return dict(final=hfinal, cfg=hcfg, launches=per[3], ms=ms[True],
+                ms_off=ms[False])
+
+
+def run_batched_sleep(dev, hopper, parallel, card) -> dict:
+    """``batched_sleep``: the main path with the pile's sleep
+    (``SLEEP_VELOCITY``, ``SLEEP_FRAMES``) for ``SLEEP_RUN`` frames, timed
+    in turns with the run without sleep (off, on, on, off; the second run
+    with sleep holds every body asleep before and after a frame bitwise
+    where it was, and is bitwise the first), hard counters 0, K4 once a
+    frame; reports the asleep share."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch.scenes import batched_worlds
+
+    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
+                        device=dev)
+    cfgs = {False: sc.config, True: dataclasses.replace(
+        sc.config, sleep_velocity=SLEEP_VELOCITY, sleep_frames=SLEEP_FRAMES)}
+    moved = []
+    prev = [sc.world]
+
+    def frozen(w):
+        # bodies asleep before and after the frame (not woken): unmoved
+        p = prev[0]
+        keep = (parallel._asleep(p.bodies, cfgs[True])
+                & parallel._asleep(w.bodies, cfgs[True]))
+        move = ((w.bodies.pos != p.bodies.pos).any(dim=-1)
+                | (w.bodies.angle != p.bodies.angle))
+        moved.append((keep & move).sum())
+        prev[0] = w
+        return None
+
+    def rollout(on, n, record=lambda _: None):
+        return parallel.batched_rollout(sc.world, cfgs[on], 0, n,
+                                        record=record)
+
+    for on in (False, True):
+        rollout(on, 10)
+    runs = {False: [], True: []}
+    for k, on in enumerate((False, True, True, False)):
+        torch.cuda.synchronize()
+        hopper.run_frame2.launches = 0
+        t0 = time.perf_counter()
+        final, _, diag = rollout(on, SLEEP_RUN,
+                                 frozen if k == 2 else (lambda _: None))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check(hopper.run_frame2.launches == SLEEP_RUN,
+              f"batched_sleep: K4 launched {hopper.run_frame2.launches} times")
+        runs[on].append((final, {k: int(v) for k, v in diag.items()},
+                         seconds))
+    final, diag, _ = runs[True][0]
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(final.bodies, field),
+                          getattr(runs[True][1][0].bodies, field)),
+              f"batched_sleep: the rerun differs in {field}")
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(bool(torch.isfinite(getattr(final.bodies, field)).all()),
+              f"batched_sleep: non-finite {field}")
+    for key in ("slot_overflow", "joint_overflow"):
+        check(diag[key] == 0, f"batched_sleep: {key} {diag[key]}")
+    n_moved = int(torch.stack(moved).sum())
+    check(n_moved == 0, f"batched_sleep: {n_moved} asleep body-frames moved")
+    b = final.bodies
+    dyn = b.inv_mass > 0
+    share = float(parallel._asleep(b, cfgs[True]).sum() / dyn.sum())
+    check(share > 0, "batched_sleep: nothing fell asleep")
+    y_min = float(b.pos[..., 1][dyn].min())
+    check(y_min > 0.2, f"batched_sleep: a body sank (y = {y_min})")
+    ms = {on: 1e3 * sum(r[2] for r in runs[on]) / (2 * SLEEP_RUN)
+          for on in runs}
+    print(f"batched_sleep: {W_MAIN}x{N_BODIES} worlds, sleep velocity "
+          f"{SLEEP_VELOCITY} for {SLEEP_FRAMES} frames, {SLEEP_RUN} frames: "
+          f"{ms[True]:.4f} ms/frame against {ms[False]:.4f} without sleep, in "
+          f"turns (off, on, on, off: " + ", ".join(
+              f"{1e3 * r[2] / SLEEP_RUN:.4f}" for r in (
+                  runs[False][0], runs[True][0], runs[True][1],
+                  runs[False][1]))
+          + f" ms/frame); {100 * share:.2f}% of the dynamic bodies asleep at "
+          f"frame {SLEEP_RUN}; no asleep body moved; the rerun bitwise equal; "
+          f"counters {json.dumps(diag)}; min dynamic y {y_min:.4f}; on {card}")
+    return dict(ms=ms[True], ms_off=ms[False], share=share)
+
+
+def run_batched_events(dev, hopper, parallel, card) -> dict:
+    """``batched_events``: ``batched_rollout(with_keys=True)`` on the main
+    path for 60 frames in turns with the same rollout without keys
+    (bitwise the same state, every key -1 or a pair a < b < M); then 10
+    frames at K = 1 with keys against a loop of ``batched_step_events``:
+    the keys equal frame by frame."""
+    import dataclasses
+
+    import torch
+    from starframe_tpu_torch.scenes import batched_worlds
+
+    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
+                        device=dev)
+    cfg, M = sc.config, sc.world.colliders.m
+
+    def rollout(keys, n, c=cfg):
+        return parallel.batched_rollout(sc.world, c, 0, n,
+                                        record=lambda _: None, with_keys=keys)
+
+    for keys in (False, True):
+        rollout(keys, 10)
+    runs = {False: [], True: []}
+    for keys in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, traj, diag = rollout(keys, FRAMES)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n_touch = 0
+        if keys:
+            k = traj[1]
+            check(tuple(k.shape) == (FRAMES, W_MAIN, cfg.slot_capacity, M),
+                  f"batched_events: keys shape {tuple(k.shape)}")
+            live = k[k >= 0]
+            n_touch = int(live.numel())
+            check(n_touch > 0 and bool(((live // M) < (live % M)).all()),
+                  "batched_events: a key is not a pair a < b < M")
+            table_mb = k[0].numel() * k.element_size() / 1e6
+            del traj, k, live
+        runs[keys].append((final, {k: int(v) for k, v in diag.items()},
+                           seconds, n_touch))
+    a, b = runs[False][0], runs[True][0]
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        check(torch.equal(getattr(a[0].bodies, field),
+                          getattr(b[0].bodies, field)),
+              f"batched_events: keys change {field}")
+    check(a[1] == b[1], "batched_events: keys change the counters")
+    c1 = dataclasses.replace(cfg, frames_per_broadphase=1)
+    _, (_, keys), _ = rollout(True, 10, c1)
+    w = sc.world
+    for f in range(10):
+        w, kf, _ = parallel.batched_step_events(w, c1)
+        check(torch.equal(keys[f], kf),
+              f"batched_events: frame {f} keys differ from batched_step_events")
+    ms = {k: 1e3 * sum(r[2] for r in runs[k]) / (2 * FRAMES) for k in runs}
+    print(f"batched_events: {W_MAIN}x{N_BODIES} worlds, with_keys=True, "
+          f"{FRAMES} frames: {ms[True]:.4f} ms/frame against {ms[False]:.4f} "
+          f"without keys, in turns (off, on, on, off: " + ", ".join(
+              f"{1e3 * r[2] / FRAMES:.4f}" for r in (
+                  runs[False][0], runs[True][0], runs[True][1],
+                  runs[False][1]))
+          + f" ms/frame), bitwise the same state; a key table is "
+          f"{table_mb:.1f} MB a frame ({FRAMES * table_mb / 1e3:.2f} GB over "
+          f"the run), {b[3]} touching slot-keys over it; 10 frames at K = 1 "
+          f"equal to batched_step_events; on {card}")
+    return dict(ms=ms[True], ms_off=ms[False], table_mb=table_mb)
+
+
+def a1_turns(hopper, parallel, phases, errs, bounds, card) -> dict:
+    """K4's ``Cs`` form (with and without CCD) and its per-world form at
+    4096 worlds against their twins, from each phase's final state, timed
+    in turns, with their bounds: ``touched`` equal, poses and velocities as
+    ``agree_worlds`` holds the joint form, ``partner_solve`` and ``nact``
+    equal."""
+    import torch
+
+    times = {}
+    for name, ph in phases.items():
+        w, cfg = ph["final"], ph["cfg"]
+        elig = parallel.frame2_elig(w, cfg)
+        tables = parallel.frame2_tables(w, cfg,
+                                        frames=cfg.frames_per_broadphase,
+                                        elig=elig)
+        fargs, fkw = frame_call(hopper, parallel, w, cfg, tables)
+        fkw["owners"] = parallel.frame2_owners(w, cfg)[0]
+        Cs = parallel._batch_solve_cap(cfg)
+        if cfg.ccd:
+            body, _ = parallel._frame2_arrays(w, cfg)
+            fkw.update(bullet=body["bullet"], ccd=True, ccd_slop=cfg.ccd_slop)
+        if Cs:
+            fkw["Cs"] = Cs
+
+        def call(p):
+            return hopper.run_frame2(*fargs, **fkw, plain=p)
+
+        k, p = call(False), call(True)
+        errs[name] = agree_worlds(name, k, p)
+        C, W, M = cfg.slot_capacity, w.bodies.pos.shape[0], w.colliders.m
+        entries = int(tables[1].sum())
+        solved = entries
+        if Cs:
+            check(torch.equal(k[7], p[7]), f"{name}: partner_solve differs")
+            check(torch.equal(k[8], p[8]), f"{name}: nact differs")
+            solved = int(torch.clamp(k[8][:, 1], max=Cs).sum())
+        steps = cfg.substeps * cfg.iterations
+        flops = (entries * MANIFOLD_FLOPS
+                 + solved * steps * (PROJECT_FLOPS + VELOCITY_FLOPS)
+                 + (entries * cfg.substeps * CCD_FLOPS if cfg.ccd else 0)
+                 + (W * M * C * C if Cs else 0))
+        bounds[name] = bound((fargs, fkw), k, flops)
+        del k, p
+        times[name] = turns(call)
+        print(f"time {name} at {W}x{w.bodies.n} ({entries} table entries, "
+              f"{solved} solved): kernel {times[name][0]:.4f} ms, plain twin "
+              f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}), max abs err {errs[name]:.3g}, on {card}")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -2570,6 +3110,18 @@ def main() -> int:
     launches["tile_frame_ccd"] = pccd["flaunches"]["tile_frame_ccd"]
     launches["owner_min"] = cccd["launches"]["owner_min"]
     launches["frame2_ccd"] = mccd["launches"]
+    # K4's last branches: compaction (with CCD too), per-world owner
+    # tables, sleep and the contact keys on the main path
+    a1 = {"frame2_compact": run_batched_compact(dev, hopper, parallel, card)}
+    a1["frame2_compact_ccd"] = run_batched_compact(
+        dev, hopper, parallel, card, ccd=True,
+        widths=a1["frame2_compact"]["widths"])
+    eproj = run_compact_projectile(dev, hopper, parallel, card)
+    a1["frame2_owners"] = run_batched_owners(dev, hopper, parallel, card)
+    bsleep = run_batched_sleep(dev, hopper, parallel, card)
+    bevents = run_batched_events(dev, hopper, parallel, card)
+    for name in a1:
+        launches[name] = a1[name]["launches"]
 
     # ---- 4. kernel vs twin, and their times, at the main path's shapes ---
     body, col = parallel._frame2_arrays(final, cfg)
@@ -2678,6 +3230,20 @@ def main() -> int:
           f"CCD {mccd['launches'] / FRAMES:.4f}; projectile ms/frame "
           f"{json.dumps(projectile)}")
 
+    # K4's Cs and per-world forms at full size
+    times.update(a1_turns(hopper, parallel, a1, errs, bounds, card))
+    print("a1 launches a frame: " + ", ".join(
+        f"{n} {a1[n]['launches'] / FRAMES:.4f}" for n in a1)
+        + f"; ms/frame: compacted {a1['frame2_compact']['ms']:.4f} (off "
+        f"{a1['frame2_compact']['ms_off']:.4f}), compacted with CCD "
+        f"{a1['frame2_compact_ccd']['ms']:.4f} (off "
+        f"{a1['frame2_compact_ccd']['ms_off']:.4f}), per-world owners "
+        f"{a1['frame2_owners']['ms']:.4f} (uniform "
+        f"{a1['frame2_owners']['ms_off']:.4f}), sleep {bsleep['ms']:.4f} (off "
+        f"{bsleep['ms_off']:.4f}, {100 * bsleep['share']:.2f}% asleep), keys "
+        f"{bevents['ms']:.4f} (off {bevents['ms_off']:.4f}), escorted "
+        f"projectile {eproj['ms']:.4f}")
+
     # ---- 5. determinism ----------------------------------------------------
     a, _, da = rollout(10)
     b, _, db = rollout(10)
@@ -2706,6 +3272,8 @@ def main() -> int:
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     ec = tuple((n, a, src, tpu)
                for n, a, _, src, tpu in EC_KERNELS + CCD_KERNELS)
+    ec += tuple((n, "run_frame2", "starframe_tpu_torch/csrc/frame2.cu", tpu)
+                for n, _, tpu in A1_KERNELS)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -7,7 +7,8 @@ and numpy and never jax. It keeps the reference's ``World`` arrays, its
 ``SolverConfig``/``Capacity`` knobs, its snapshot keys and its overflow
 counters. Kernels: ``hopper/slots.py`` (pair eligibility, contact slot
 tables and joint slots), ``hopper/frame2.py`` (the whole batched frame,
-with or without joints) and ``hopper/tiles.py`` (the tile engine's tables,
+joints, CCD, solve-slot compaction, per-world owner tables and the
+frozen sleepers included) and ``hopper/tiles.py`` (the tile engine's tables,
 manifolds and per-substep project/apply pair, behind ``tiled.py``), each
 with a plain PyTorch twin that CPU tensors take. Entry points run on the
 card unless the caller passes ``device="cpu"``.
@@ -15,11 +16,13 @@ What is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 """
 
-from . import events, io, kernels, parallel, ropes, scenes, tiled
+from . import entry, events, io, kernels, parallel, ropes, scenes, step, tiled
 from .config import Capacity, SolverConfig
 from .parallel import (
     batched_rollout,
     batched_step,
+    batched_step_events,
+    collider_owner_tables,
     frame2_elig,
     frame2_joint_slots,
     frame2_step,
@@ -33,9 +36,10 @@ from .tiled import tiled_rollout, tiled_step, use_tiled
 
 __all__ = [
     "Bodies", "Capacity", "Colliders", "Joints", "Shape", "SolverConfig",
-    "World", "WorldBuilder", "batched_rollout", "batched_step", "events",
+    "World", "WorldBuilder", "batched_rollout", "batched_step",
+    "batched_step_events", "collider_owner_tables", "entry", "events",
     "expand_capacity", "frame2_elig", "frame2_joint_slots", "frame2_step",
     "frame2_tables", "io", "kernels", "make_batched_rollout", "parallel",
-    "replicate_world", "ropes", "scenes", "tiled", "tiled_rollout",
+    "replicate_world", "ropes", "scenes", "step", "tiled", "tiled_rollout",
     "tiled_step", "use_tiled",
 ]

@@ -79,8 +79,8 @@ struct Frame2Args {
   const int32_t* partner;   // [W, C, M]
   const float* slot_act;    // [W, C, M]
   const float* gravity;     // [W, 2]
-  const int32_t* owner_start;  // [N + 1] world 0's collider->body CSR
-  const int32_t* owner_idx;    // [M] colliders by body, ascending index
+  const int32_t* owner_start;  // [N + 1] collider->body CSR (world 0's, or
+  const int32_t* owner_idx;    // [M]  [W, N + 1] / [W, M] per world), ascending
   float* scratch;           // [W, F2_FIELDS, C, M] per-slot frame constants
   float* o_posx;            // [W, N] outputs
   float* o_posy;
@@ -123,6 +123,11 @@ struct Frame2Args {
   float* ccd_scratch;       // [W, 2, C, M] the carried world normal per slot
   int ccd;
   float ccd_slop;
+  int owner_per_world;      // 1: owner_start/idx hold one CSR per world
+  // per-frame solve-slot compaction: Cs = 0 for none, else the solve width
+  int Cs;
+  int32_t* o_partner;       // [W, C, M] the partner table in rank order
+  float* o_nact;            // [W, 2, M] imminent / pmask-active slot counts
 };
 
 // Per-slot fields the frame kernel keeps in global scratch, each a [C, M]

@@ -3,10 +3,11 @@
 // -> velocity reconstruction -> restitution/friction velocity pass].
 //
 // Replaces starframe_tpu/pallas/frame2.py `_frame2_kernel` (launched by
-// `run_frame2`) for its uniform-topology, uncompacted (Cs = 0)
-// configuration, contact-only or with joints (both joint tiers), with or
-// without CCD. Solve-slot compaction, per-world owner tables and sleep are
-// ROADMAP.md work and are refused by the wrapper.
+// `run_frame2`) in every configuration it has: contact-only or with joints
+// (both joint tiers), with or without CCD, with one collider->body list for
+// the batch or one per world, and with or without per-frame solve-slot
+// compaction (Cs, compact_row below). Sleep needs no kernel change: the
+// wrapper's caller zeroes a sleeper's inverse masses for the frame.
 //
 // What bounds it on an H100: the per-slot frame constants. Each slot of
 // each row carries ~28 floats through the frame (normal, anchors, masks,
@@ -25,10 +26,12 @@
 // sum to shared memory, __syncthreads(), and only then do bodies apply the
 // count-normalised, clipped corrections. A row sums its C slots in order
 // c = 0..C-1 (frame2.py `_sum_w`), and a body sums its colliders' rows in
-// ascending collider order from a CSR built off world 0's topology (what
-// the TPU's one-hot dot computes). No float atomics: the frame is bitwise
-// reproducible. Slots whose manifold has no active point are skipped in
-// the substep loop; they contribute exact zeros in the reference. The
+// ascending collider order from a CSR, world 0's for a batch of one
+// topology (what the TPU's one-hot dot computes) or each world's own (the
+// TPU's per-world owner tables, summed k = 0..Kc-1). No float atomics:
+// the frame is bitwise reproducible. Slots whose manifold has no active
+// point are skipped in the substep loop; they contribute exact zeros in
+// the reference. The
 // static-friction reference is carried from the previous substep's
 // velocity-pass kinematics, starting from the frame-start pose (kin00).
 // The manifold and the per-point contact solves are the shared
@@ -70,6 +73,7 @@ constexpr int kThreads = 256;
 constexpr float kPi = 3.14159265358979323846f;  // pi and 2 pi rounded to f32
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr int kJointFields = 15;  // Frame2Args jtype .. jcolor
+constexpr int kMaxC = 32;  // table width compact_row ranks (MAX_COMPACT_C)
 enum JointType { kDistance = 1, kPin = 2, kAngleRange = 3, kMotor = 4,
                  kWeld = 5 };  // state.py JOINT_*
 
@@ -314,13 +318,19 @@ __device__ __forceinline__ void to_body(const Shared& s, int M, int n,
 
 // K4's TOI factor of row i (kCcd): 1 unless its body is a bullet and a
 // solved point of one of its slots would close past ccd_slop this substep
-// (frame2.py:482-504). The pose is integrated and cab/sab are its own.
+// (frame2.py:482-504). The pose is integrated and cab/sab are its own; the
+// substep-start pose waits in dxx/dxy/dth. It walks all C slots of the
+// table: the first `Csol` (the solved ones) carry their substep-start
+// anchors and normal from the last velocity pass; a slot that compaction
+// dropped carries nothing, so its are computed here from the substep-start
+// pose with the velocity pass's formula (the same values it would carry).
 __device__ __forceinline__ float ccd_row_factor(const Shared& s,
                                                 const Frame2Args& a,
                                                 const float* scr,
                                                 const float* cscr,
-                                                long long w, int i,
-                                                size_t plane) {
+                                                const int32_t* ptab, int i,
+                                                size_t plane, int Csol) {
+  const long long w = blockIdx.x;
   const int ob = s.cbody[i];
   if (!(a.bullet[w * a.N + ob] > 0.f)) return 1.f;
   const float o_px = s.px[ob], o_py = s.py[ob];
@@ -331,10 +341,24 @@ __device__ __forceinline__ float ccd_row_factor(const Shared& s,
     const float* f = scr + t;
     const float sm[2] = {f[F2_SM0 * plane], f[F2_SM1 * plane]};
     if (!(sm[0] > 0.f) && !(sm[1] > 0.f)) continue;
-    const int pb = s.cbody[a.partner[(size_t)w * plane + t]];
+    const int pb = s.cbody[ptab[t]];
     const float p_px = s.px[pb], p_py = s.py[pb];
     const float p_ca = s.cab[pb], p_sa = s.sab[pb];
-    const float nx0 = cscr[t], ny0 = cscr[plane + t];
+    const bool carried = c < Csol;
+    float q_ca = 0.f, q_sa = 0.f, r_ca = 0.f, r_sa = 0.f;
+    float nx0, ny0;
+    if (carried) {
+      nx0 = cscr[t];
+      ny0 = cscr[plane + t];
+    } else {  // own and partner pose at the substep start
+      q_ca = cosf(s.dth[ob]);
+      q_sa = sinf(s.dth[ob]);
+      r_ca = cosf(s.dth[pb]);
+      r_sa = sinf(s.dth[pb]);
+      const float n_ax = f[F2_NAX * plane], n_ay = f[F2_NAY * plane];
+      nx0 = q_ca * n_ax - q_sa * n_ay;
+      ny0 = q_sa * n_ax + q_ca * n_ay;
+    }
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
       if (!(sm[p] > 0.f)) continue;
@@ -342,10 +366,18 @@ __device__ __forceinline__ float ccd_row_factor(const Shared& s,
       const float a_ay = f[(F2_AAY0 + p) * plane];
       const float b_ax = f[(F2_BAX0 + p) * plane];
       const float b_ay = f[(F2_BAY0 + p) * plane];
-      const float wax0 = f[(F2_WAX0 + p) * plane];
-      const float way0 = f[(F2_WAY0 + p) * plane];
-      const float wbx0 = f[(F2_WBX0 + p) * plane];
-      const float wby0 = f[(F2_WBY0 + p) * plane];
+      float wax0, way0, wbx0, wby0;
+      if (carried) {
+        wax0 = f[(F2_WAX0 + p) * plane];
+        way0 = f[(F2_WAY0 + p) * plane];
+        wbx0 = f[(F2_WBX0 + p) * plane];
+        wby0 = f[(F2_WBY0 + p) * plane];
+      } else {
+        wax0 = s.dxx[ob] + (q_ca * a_ax - q_sa * a_ay);
+        way0 = s.dxy[ob] + (q_sa * a_ax + q_ca * a_ay);
+        wbx0 = s.dxx[pb] + (r_ca * b_ax - r_sa * b_ay);
+        wby0 = s.dxy[pb] + (r_sa * b_ax + r_ca * b_ay);
+      }
       const float wax1 = o_px + (o_ca * a_ax - o_sa * a_ay);
       const float way1 = o_py + (o_sa * a_ax + o_ca * a_ay);
       const float wbx1 = p_px + (p_ca * b_ax - p_sa * b_ay);
@@ -361,6 +393,72 @@ __device__ __forceinline__ float ccd_row_factor(const Shared& s,
   return f_col;
 }
 
+// Per-frame solve-slot compaction of row i (frame2.py:361-426), run by
+// the thread that owns the row once its C slots are set up: each slot's
+// tier (0 touching, 1 imminent sep < margin, 2 speculative-active, 3
+// empty) and smallest active separation (left in the F2_LAM0 plane by the
+// set-up), the rank of every slot in the exact total order (tier, sep,
+// slot index), then every per-slot plane of the row (the scratch fields,
+// `touched`, the CCD normal) permuted in place into rank order, and the
+// partner table written in rank order to o_partner. The row counts go to
+// o_nact. A phase of its own after the set-up, its arrays in local memory.
+__device__ __forceinline__ void compact_row(const Frame2Args& a, float* scr,
+                                            float* cscr, int i,
+                                            size_t plane) {
+  const long long w = blockIdx.x;
+  const int C = a.C, M = a.M;
+  float* touched = a.o_touched + w * plane;
+  float key[kMaxC];
+  int tier[kMaxC], perm[kMaxC];
+  float n_imm = 0.f, n_act = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const size_t t = (size_t)c * M + i;
+    const bool pm_any =
+        fmaxf(scr[F2_PM0 * plane + t], scr[F2_PM1 * plane + t]) > 0.f;
+    key[c] = pm_any ? scr[F2_LAM0 * plane + t] : 1e9f;
+    tier[c] = touched[t] > 0.f                 ? 0
+              : (key[c] < a.margin && pm_any) ? 1
+              : pm_any                         ? 2
+                                               : 3;
+    n_imm += tier[c] <= 1 ? 1.f : 0.f;
+    n_act += tier[c] <= 2 ? 1.f : 0.f;
+  }
+  for (int c = 0; c < C; ++c) {
+    int r = 0;
+    for (int c2 = 0; c2 < C; ++c2) {
+      const bool before =
+          tier[c2] < tier[c] ||
+          (tier[c2] == tier[c] &&
+           (key[c2] < key[c] || (key[c2] == key[c] && c2 < c)));
+      r += (c2 != c && before) ? 1 : 0;
+    }
+    perm[r] = c;
+  }
+  a.o_nact[(w * 2) * M + i] = n_imm;
+  a.o_nact[(w * 2 + 1) * M + i] = n_act;
+  float tmp[kMaxC];
+  auto permute = [&](float* base) {
+    for (int c = 0; c < C; ++c) tmp[c] = base[(size_t)c * M + i];
+    for (int r = 0; r < C; ++r) base[(size_t)r * M + i] = tmp[perm[r]];
+  };
+  for (int q = 0; q < F2_FIELDS; ++q) {
+    if (q == F2_LAM0 || q == F2_LAM1) continue;
+    permute(scr + q * plane);
+  }
+  permute(touched);
+  if (cscr != nullptr) {
+    permute(cscr);
+    permute(cscr + plane);
+  }
+  const int32_t* partner = a.partner + w * plane;
+  for (int r = 0; r < C; ++r) {
+    a.o_partner[w * plane + (size_t)r * M + i] =
+        partner[(size_t)perm[r] * M + i];
+    scr[F2_LAM0 * plane + (size_t)r * M + i] = 0.f;
+    scr[F2_LAM1 * plane + (size_t)r * M + i] = 0.f;
+  }
+}
+
 template <int V, bool kJ, bool kCcd>
 __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   extern __shared__ float smem[];
@@ -373,6 +471,12 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   float* cscr = kCcd ? a.ccd_scratch + (size_t)w * 2 * plane : nullptr;
   const float gx = a.gravity[2 * w], gy = a.gravity[2 * w + 1];
   const float h = a.h;
+  // with compaction the substeps solve the first Cs slots of the ranked
+  // table, whose partners are in o_partner
+  const bool compact = a.Cs > 0;
+  const int Csol = compact ? a.Cs : C;
+  const int32_t* ptab = (compact ? a.o_partner : a.partner) + w * plane;
+  const long long ow = a.owner_per_world ? w : 0;
 
   // ---- load the world ----------------------------------------------------
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
@@ -384,12 +488,13 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
     s.cab[n] = cosf(s.an[n]); s.sab[n] = sinf(s.an[n]);
     s.spd[n] = sqrtf(s.vx[n] * s.vx[n] + s.vy[n] * s.vy[n]);
   }
-  for (int n = threadIdx.x; n <= N; n += blockDim.x) s.ostart[n] = a.owner_start[n];
+  for (int n = threadIdx.x; n <= N; n += blockDim.x)
+    s.ostart[n] = a.owner_start[ow * (N + 1) + n];
   for (int i = threadIdx.x; i < M; i += blockDim.x) {
     const long long g = w * M + i;
     s.cbody[i] = a.cbody[g]; s.nv[i] = a.nverts[g]; s.rad[i] = a.radius[g];
     s.fric[i] = a.fric[g]; s.rest[i] = a.rest[g]; s.sens[i] = a.sensor[g];
-    s.oidx[i] = a.owner_idx[i];
+    s.oidx[i] = a.owner_idx[ow * M + i];
     float ext = 0.f;
     for (int v = 0; v < V; ++v) {
       const float x = a.vlx[(w * V + v) * M + i];
@@ -466,7 +571,7 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
         cscr[t] = o_ca * n_ax - o_sa * n_ay;
         cscr[plane + t] = o_sa * n_ax + o_ca * n_ay;
       }
-      float touch0 = 0.f;
+      float touch0 = 0.f, sep_min = 1e9f;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         const float dxa = m.wax[p] - o_px, dya = m.way[p] - o_py;
@@ -483,6 +588,7 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
         f[(F2_PM0 + p) * plane] = pm;
         f[(F2_SM0 + p) * plane] = pm * solvable;
         touch0 = fmaxf(touch0, (m.sep[p] < kTouchSlop ? 1.f : 0.f) * pm);
+        if (pm > 0.f) sep_min = fminf(sep_min, m.sep[p]);
         // kin00: anchor world positions at the frame-start pose
         f[(F2_WAX0 + p) * plane] = o_px + (o_ca * a_ax - o_sa * a_ay);
         f[(F2_WAY0 + p) * plane] = o_py + (o_sa * a_ax + o_ca * a_ay);
@@ -490,12 +596,18 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
         f[(F2_WBY0 + p) * plane] = p_py + (p_sa * b_ax + p_ca * b_ay);
       }
       f[F2_FRIC * plane] = sqrtf(s.fric[i] * s.fric[pc]);
-      f[F2_LAM0 * plane] = f[F2_LAM1 * plane] = 0.f;
+      // compact_row reads the slot's separation here and zeroes both
+      f[F2_LAM0 * plane] = compact ? sep_min : 0.f;
+      f[F2_LAM1 * plane] = 0.f;
       f[F2_REST * plane] = fmaxf(s.rest[i], s.rest[pc]);
       f[F2_IMB * plane] = s.invm[pb];
       f[F2_IIB * plane] = s.invi[pb];
       a.o_touched[g] = touch0;
     }
+  }
+  if (compact) {  // each thread ranks the rows it set up: no barrier needed
+    for (int i = threadIdx.x; i < M; i += blockDim.x)
+      compact_row(a, scr, cscr, i, plane);
   }
   __syncthreads();
 
@@ -525,7 +637,7 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       // TOI clamp: each row's factor, then each body's over its colliders
       __syncthreads();
       for (int i = threadIdx.x; i < M; i += blockDim.x)
-        s.row[i] = 1.f - ccd_row_factor(s, a, scr, cscr, w, i, plane);
+        s.row[i] = 1.f - ccd_row_factor(s, a, scr, cscr, ptab, i, plane, Csol);
       __syncthreads();
       for (int n = threadIdx.x; n < N; n += blockDim.x) {
         float neg = 0.f;
@@ -554,12 +666,12 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
         const float o_px = s.px[ob], o_py = s.py[ob];
         const float o_ca = s.cab[ob], o_sa = s.sab[ob];
         float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int c = 0; c < C; ++c) {
+        for (int c = 0; c < Csol; ++c) {
           const size_t t = (size_t)c * M + i;
           float* f = scr + t;
           const float pm0 = f[F2_PM0 * plane], pm1 = f[F2_PM1 * plane];
           if (pm0 == 0.f && pm1 == 0.f) continue;
-          const int pb = s.cbody[a.partner[(size_t)w * plane + t]];
+          const int pb = s.cbody[ptab[t]];
           const float p_px = s.px[pb], p_py = s.py[pb];
           const float p_ca = s.cab[pb], p_sa = s.sab[pb];
           const float imb = f[F2_IMB * plane], iib = f[F2_IIB * plane];
@@ -685,13 +797,13 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       const float vax = s.vx[ob], vay = s.vy[ob], oa = s.om[ob];
       const float v0ax = s.vtx[ob], v0ay = s.vty[ob], o0a = s.vtom[ob];
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c = 0; c < C; ++c) {
+      for (int c = 0; c < Csol; ++c) {
         const size_t t = (size_t)c * M + i;
         float* f = scr + t;
         const float pm[2] = {f[F2_PM0 * plane], f[F2_PM1 * plane]};
         if (pm[0] == 0.f && pm[1] == 0.f) continue;
         const size_t g = (size_t)w * plane + t;
-        const int pb = s.cbody[a.partner[g]];
+        const int pb = s.cbody[ptab[t]];
         const float p_px = s.px[pb], p_py = s.py[pb];
         const float p_ca = s.cab[pb], p_sa = s.sab[pb];
         const float vbx = s.vx[pb], vby = s.vy[pb], ob_ = s.om[pb];

@@ -1,7 +1,12 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their wrappers and
 their plain PyTorch twins."""
 
-from .frame2 import frame2_plain, owner_csr, run_frame2
+from .frame2 import (
+    frame2_plain,
+    owner_csr,
+    owner_csr_tables,
+    run_frame2,
+)
 from .slots import (
     build_elig_mask,
     build_joint_slots,
@@ -34,7 +39,7 @@ from .tiles import (
 
 __all__ = ["build_elig_mask", "build_joint_slots", "build_slot_tables",
            "build_tile_tables", "elig_mask_plain", "frame2_plain",
-           "joint_slots_plain", "owner_csr", "owner_min", "owner_min_plain",
+           "joint_slots_plain", "owner_csr", "owner_csr_tables", "owner_min", "owner_min_plain",
            "owner_sum", "owner_sum_plain", "owner_velocity",
            "owner_velocity_plain", "run_frame2", "run_tiled_frame",
            "slot_tables_plain", "tile_apply", "tile_apply_plain", "tile_ccd",

@@ -109,6 +109,8 @@ class Frame2Args(ctypes.Structure):
         ("max_dpos_joint", ctypes.c_float), ("hh", ctypes.c_float),
         ("bullet", ctypes.c_void_p), ("ccd_scratch", ctypes.c_void_p),
         ("ccd", ctypes.c_int), ("ccd_slop", ctypes.c_float),
+        ("owner_per_world", ctypes.c_int), ("Cs", ctypes.c_int),
+        ("o_partner", ctypes.c_void_p), ("o_nact", ctypes.c_void_p),
     ]
 
 

@@ -1,11 +1,13 @@
 """Whole-frame XPBD solve for a world batch.
 
 Replaces ``starframe_tpu/pallas/frame2.py``'s ``_frame2_kernel`` (via
-``run_frame2``) with the CUDA kernel in ``csrc/frame2.cu``, for the
-uniform-topology, uncompacted configuration, contact-only or with joints,
-with or without CCD. :func:`run_frame2` launches it for CUDA tensors and runs
-:func:`frame2_plain`, the plain PyTorch twin, for CPU tensors.
-``run_frame2.launches`` counts kernel launches.
+``run_frame2``) with the CUDA kernel in ``csrc/frame2.cu``, in every
+configuration the reference has: contact-only or with joints, with or
+without CCD, with or without per-frame solve-slot compaction (``Cs``), with
+one collider -> body list for the batch or one per world. :func:`run_frame2`
+launches it for CUDA tensors and runs :func:`frame2_plain`, the plain
+PyTorch twin, for CPU tensors. ``run_frame2.launches`` counts kernel
+launches.
 
 The frame: manifolds once at the frame-start pose (with a velocity-expanded
 speculative margin, anchors kept body-local), then ``substeps`` x
@@ -14,12 +16,14 @@ slots, count-normalised and clipped; joints fused into it, or one coloured
 Gauss-Seidel pass per joint colour after it) -> velocity reconstruction ->
 restitution/friction velocity pass with motors and joint damping]. Every
 dynamic collider owns its slot row, so corrections reach bodies by summing
-rows (a body's colliders come from world 0's ``cbody`` through
-:func:`owner_csr`: the batch shares one topology, so a rollout builds it
-once); every body owns its joint slots (``hopper.build_joint_slots``).
-With CCD each substep's integrated pose of a bullet body is pulled back to
-its earliest time of impact against the frame's manifolds before the
-solve (``ccd=True``).
+rows (a body's colliders come from a CSR: world 0's ``cbody`` through
+:func:`owner_csr` when the batch shares one topology, each world's own
+through :func:`owner_csr_tables` when not; rollouts build it once); every
+body owns its joint slots (``hopper.build_joint_slots``). With ``Cs`` each
+row ranks its C slots once a frame (:func:`solve_order`) and the substeps
+solve the first ``Cs``. With CCD each substep's integrated pose of a bullet
+body is pulled back to its earliest time of impact against the frame's
+manifolds before the solve (``ccd=True``), over every slot of the table.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ i32 = torch.int32
 SCRATCH_FIELDS = 28  # csrc/common.cuh F2_FIELDS
 _KERNEL_V = (4, 8)  # vertex widths the kernel is compiled for
 SHARED_LIMIT = 232448  # bytes of shared memory one H100 block may use
+MAX_COMPACT_C = 32  # csrc/frame2.cu kMaxC: table width a row can rank
 # the joint tables run_frame2 takes: parameters [W, J], then slots [W, JC, N]
 JOINT_SLOT_KEYS = ("jslot", "jside", "jact")
 
@@ -69,8 +74,9 @@ def frame2_shared_bytes(N: int, M: int, V: int, J: int) -> int:
 
 def owner_csr(cbody0, n_bodies: int):
     """``(start [N + 1] i32, idx [M] i32)``: body n owns colliders
-    ``idx[start[n]:start[n + 1]]``, ascending. Built on the device, with no
-    host round trip."""
+    ``idx[start[n]:start[n + 1]]``, ascending, in every world of a batch
+    that shares world 0's topology. Built on the device, with no host
+    round trip."""
     cb = cbody0.long()
     order = torch.argsort(cb, stable=True).to(i32)
     counts = torch.bincount(cb, minlength=n_bodies)
@@ -79,15 +85,39 @@ def owner_csr(cbody0, n_bodies: int):
     return start, order
 
 
+def owner_csr_tables(bcol, bmask, n_colliders: int):
+    """The per-world form of :func:`owner_csr`: ``(start [W, N + 1] i32,
+    idx [W, M] i32)`` listing, for each world, body n's colliders of the
+    owner tables ``bcol``/``bmask [W, Kc, N]`` (``parallel.
+    collider_owner_tables``: active colliders only, ascending, at most Kc a
+    body). Entries of ``idx`` past ``start[:, N]`` are unused."""
+    W, Kc, N = bcol.shape
+    dev = bcol.device
+    on = bmask > 0
+    counts = on.sum(dim=1)  # [W, N]
+    start = torch.zeros((W, N + 1), dtype=i32, device=dev)
+    start[:, 1:] = torch.cumsum(counts, 1).to(i32)
+    k = torch.arange(Kc, device=dev)[None, :, None]
+    # masked-off entries go to a spare column, dropped below
+    at = torch.where(on, start[:, None, :-1].long() + k, n_colliders)
+    idx = torch.zeros((W, n_colliders + 1), dtype=i32, device=dev)
+    idx.scatter_(1, at.reshape(W, -1), bcol.reshape(W, -1).to(i32))
+    return start, idx[:, :n_colliders].contiguous()
+
+
 def _owner_table(start, order):
-    """An :func:`owner_csr` padded to ``(idx [K, N] long, mask [K, N] f32)``:
-    row k holds each body's k-th collider (ascending), mask 0 past its
-    count."""
-    counts = start[1:] - start[:-1]
-    k = torch.arange(max(int(counts.max()), 1), device=order.device)[:, None]
-    mask = k < counts[None]
-    at = torch.clamp(start[:-1][None] + k, max=order.shape[0] - 1)
-    return torch.where(mask, order.long()[at], 0), mask.to(f32)
+    """An :func:`owner_csr` or :func:`owner_csr_tables` padded to ``(idx
+    [W or 1, K, N] long, mask [W or 1, K, N] f32)``: row k holds each
+    body's k-th collider (ascending), mask 0 past its count."""
+    if start.dim() == 1:
+        start, order = start[None], order[None]
+    counts = start[:, 1:] - start[:, :-1]
+    k = torch.arange(max(int(counts.max()), 1),
+                     device=order.device)[None, :, None]
+    mask = k < counts[:, None]
+    at = torch.clamp(start[:, None, :-1] + k, max=order.shape[1] - 1).long()
+    idx = torch.gather(order.long(), 1, at.reshape(at.shape[0], -1))
+    return (torch.where(mask, idx.reshape(at.shape), 0), mask.to(f32))
 
 
 def _joint_pack(joints, invm, invi):
@@ -126,17 +156,50 @@ def _joint_pack(joints, invm, invi):
     return pb, jd, jg("jcolor")
 
 
+def solve_order(sep, pmask, touch0, margin: float, C: int):
+    """The per-frame solve-slot ranking of ``pallas/frame2.py:361-407``:
+    each slot's tier (0 touching, 1 imminent ``sep < margin``, 2
+    speculative-active, 3 empty), ranked by the exact total order (tier,
+    ``sep_min``, slot index). ``sep``/``pmask [2, W, C * M]``, ``touch0 [W,
+    C * M]``. Returns ``(order [W, C, M] long, nact [W, 2, M] f32)``:
+    ``order[:, s]`` is the slot of rank s; ``nact`` counts the imminent
+    (tier <= 1) and pmask-active (tier <= 2) slots of each row."""
+    W, CM = touch0.shape
+    M = CM // C
+    pm_any = pmask.amax(dim=0)
+    sep_min = torch.where(pmask > 0, sep, 1e9).amin(dim=0)
+    tier = torch.where(
+        touch0 > 0, 0.0, torch.where((sep_min < margin) & (pm_any > 0), 1.0,
+                                     torch.where(pm_any > 0, 2.0, 3.0)))
+    t = tier.reshape(W, C, M)
+    sm = sep_min.reshape(W, C, M)
+    tc, sc = t[:, :, None], sm[:, :, None]  # slot c
+    t2, s2 = t[:, None], sm[:, None]  # slot c2
+    lower = (torch.arange(C, device=t.device)[None, :]
+             < torch.arange(C, device=t.device)[:, None])[None, :, :, None]
+    before = (t2 < tc) | ((t2 == tc) & ((s2 < sc) | ((s2 == sc) & lower)))
+    rank = before.sum(dim=2)  # [W, C, M], a permutation of 0..C-1
+    slots = torch.arange(C, device=t.device)[None, :, None].expand(W, C, M)
+    order = torch.empty_like(rank).scatter_(1, rank, slots)
+    nact = torch.stack([(t <= 1.0).to(f32).sum(dim=1),
+                        (t <= 2.0).to(f32).sum(dim=1)], dim=1)
+    return order, nact
+
+
 def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                  cbody, vlx, vly, nverts, radius, fric, rest, sensor,
                  partner, slot_act, gravity, owners, *, C, substeps,
                  iterations, h, dt, margin, compliance, relaxation, max_dpos,
                  rest_threshold, lin_damp, ang_damp, joints=None,
                  joint_solver="jacobi", n_colors=1, max_dpos_joint=1e3,
-                 bullet=None, ccd=False, ccd_slop=0.005):
+                 bullet=None, ccd=False, ccd_slop=0.005, Cs: int = 0):
     """Plain PyTorch twin of :func:`run_frame2`: the TPU kernel's sequence
     of array operations, with ``torch.gather`` in place of its lane gathers
     and the slots of a row packed on one axis ``[W, C * M]`` (slot-major),
-    the joint slots of a body on ``[W, JC * N]``."""
+    the joint slots of a body on ``[W, JC * N]``. With ``0 < Cs < C`` the
+    slots are ranked once (:func:`solve_order`) and the substeps run on the
+    first ``Cs``; with CCD too, the TOI minimum still runs over all C
+    slots, each at its substep-start anchors."""
     W, N = posx.shape
     M = cbody.shape[1]
     V = vlx.shape[1]
@@ -145,27 +208,31 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     def gat(x, idx):
         return torch.gather(x, 1, idx)
 
-    def tile_c(x):  # [W, M] -> [W, C*M]: own-side quantity per slot
-        return x.repeat(1, C)
+    def tile_w(x, k):  # [W, M] -> [W, k*M]: own-side quantity per slot
+        return x.repeat(1, k)
 
-    def sum_c(x):  # [..., C*M] -> [..., M]: row sums in slot order
+    def sum_w(x, k):  # [..., k*M] -> [..., M]: row sums in slot order
         acc = x[..., 0:M]
-        for c in range(1, C):
+        for c in range(1, k):
             acc = acc + x[..., c * M:(c + 1) * M]
         return acc
 
-    def min_c(x):  # [..., C*M] -> [..., M]: row minima over the slots
+    def min_w(x, k):  # [..., k*M] -> [..., M]: row minima over the slots
         acc = x[..., 0:M]
-        for c in range(1, C):
+        for c in range(1, k):
             acc = torch.minimum(acc, x[..., c * M:(c + 1) * M])
         return acc
 
+    def tile_c(x):
+        return tile_w(x, C)
+
     oidx, omask = _owner_table(*owners)
 
-    def to_bodies(vals):  # [4, W, M] row sums -> [4, W, N] body sums
+    def to_bodies(vals):  # [Q, W, M] row sums -> [Q, W, N] body sums
         acc = None
-        for k in range(oidx.shape[0]):
-            g = vals[..., oidx[k]] * omask[k]
+        for k in range(oidx.shape[1]):
+            idx = oidx[:, k].expand(W, N)[None].expand(vals.shape[0], W, N)
+            g = torch.gather(vals, 2, idx) * omask[:, k]
             acc = g if acc is None else acc + g
         return acc
 
@@ -234,15 +301,40 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     )
     touched = ((m.sep < TOUCH_SLOP).to(f32) * pmask).amax(dim=0)
 
-    def slot_pose(cab, sab, px, py):
+    # per-frame solve-slot compaction: gather every per-slot array into
+    # rank order and keep the first Cs; the full table stays for the TOI
+    Cp, compact = C, 0 < Cs < C
+    full_cb, full_pb = cb_, pb
+    if compact:
+        order, nact = solve_order(m.sep, pmask, touched, margin, C)
+        src = (order[:, :Cs] * M
+               + torch.arange(M, device=order.device)).reshape(W, Cs * M)
+
+        def cpk(x):  # [..., W, C*M] -> [..., W, Cs*M]
+            return torch.gather(x, -1, src.expand(x.shape[:-1] + src.shape[1:]))
+
+        cb_ = SimpleNamespace(**{k: cpk(v) for k, v in vars(cb_).items()})
+        pd_ = SimpleNamespace(**{k: cpk(v) for k, v in vars(pd_).items()})
+        pc, pb, touched = cpk(pc), cpk(pb), cpk(touched)
+        Cp = Cs
+
+    def tile_cp(x):
+        return tile_w(x, Cp)
+
+    def sum_cp(x):
+        return sum_w(x, Cp)
+
+    def slot_pose(cab, sab, px, py, pb_=None, k=None):
+        pb_ = pb if pb_ is None else pb_
+        k = Cp if k is None else k
         return PairPose(
-            tile_c(gat(px, cbl)), tile_c(gat(py, cbl)),
-            tile_c(gat(cab, cbl)), tile_c(gat(sab, cbl)),
-            gat(px, pb), gat(py, pb), gat(cab, pb), gat(sab, pb))
+            tile_w(gat(px, cbl), k), tile_w(gat(py, cbl), k),
+            tile_w(gat(cab, cbl), k), tile_w(gat(sab, cbl), k),
+            gat(px, pb_), gat(py, pb_), gat(cab, pb_), gat(sab, pb_))
 
     def slot_vel(vx, vy, om):
         return PairVel(
-            tile_c(gat(vx, cbl)), tile_c(gat(vy, cbl)), tile_c(gat(om, cbl)),
+            tile_cp(gat(vx, cbl)), tile_cp(gat(vy, cbl)), tile_cp(gat(om, cbl)),
             gat(vx, pb), gat(vy, pb), gat(om, pb))
 
     jd = None
@@ -275,6 +367,9 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     kin00 = _pair_kinematics(
         cb_, slot_pose(torch.cos(an), torch.sin(an), px, py))
     kin0, n0 = kin00[6:10], kin00[0:2]
+    # the TOI walks every slot of the table: with compaction the dropped
+    # slots' substep-start anchors and normal are not carried, so it takes
+    # all C slots' at the substep-start pose (the same formula)
     blt_t = tile_c(gat(bullet, cbl)) if ccd else None
     for _ in range(substeps):
         px0, py0, an0 = px, py, an
@@ -289,22 +384,28 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             # continuous collision: clamp bullets' integrated advance at
             # their earliest TOI against the frame manifolds; velocities
             # are not scaled (restitution sees the true approach speed)
-            wax1, way1, wbx1, wby1 = _pair_kinematics(
-                cb_, slot_pose(torch.cos(an), torch.sin(an), px, py))[6:10]
-            wax0, way0, wbx0, wby0 = kin0
-            nxp, nyp = n0[0][None], n0[1][None]
+            if compact:
+                k_0 = _pair_kinematics(full_cb, slot_pose(
+                    torch.cos(an0), torch.sin(an0), px0, py0, full_pb, C))
+                kin0_t, n0_t = k_0[6:10], k_0[0:2]
+            else:
+                kin0_t, n0_t = kin0, n0
+            wax1, way1, wbx1, wby1 = _pair_kinematics(full_cb, slot_pose(
+                torch.cos(an), torch.sin(an), px, py, full_pb, C))[6:10]
+            wax0, way0, wbx0, wby0 = kin0_t
+            nxp, nyp = n0_t[0][None], n0_t[1][None]
             c0 = (wbx0 - wax0) * nxp + (wby0 - way0) * nyp
             c1 = (wbx1 - wax1) * nxp + (wby1 - way1) * nyp
             advance = c0 - c1
             allowed = torch.clamp(c0, min=0.0) + ccd_slop
-            need = (advance > allowed) & (cb_.solve_mask > 0.0)
+            need = (advance > allowed) & (full_cb.solve_mask > 0.0)
             f_pt = torch.where(need, allowed / torch.clamp(advance, min=1e-10),
                                1.0)
             f_slot = torch.where(blt_t > 0, torch.minimum(f_pt[0], f_pt[1]),
                                  1.0)
             # collider -> body: 1 - sum(1 - f), exact for one-collider
             # bullets and conservative for compound ones
-            neg = to_bodies((1.0 - min_c(f_slot))[None])[0]
+            neg = to_bodies((1.0 - min_w(f_slot, C))[None])[0]
             f_body = torch.clamp(1.0 - neg, 0.0, 1.0)
             hit = f_body < 1.0  # unclamped bodies keep their pose bitwise
             px = torch.where(hit, px0 + f_body * (px - px0), px)
@@ -321,7 +422,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             vals_a, _, lam_i = solve_contacts_b(
                 pose, None, pd_, cb_, h, compliance, kin0=kin0)
             lam_n = lam_n + lam_i
-            ab = to_bodies(sum_c(vals_a))
+            ab = to_bodies(sum_cp(vals_a))
             if jd is not None and joint_solver == "jacobi":
                 # joints: averaged Jacobi fused with the contact apply
                 ab = ab + joint_rows(jd, cab, sab, px, py, an)
@@ -373,7 +474,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         cv_a, _ = velocity_contacts_b(
             pose_v, slot_vel(vx, vy, om), slot_vel(vtx, vty, vtom), pd_, cb_,
             lam_n, h, rest_threshold, kin=kin_v)
-        abv = to_bodies(sum_c(cv_a))
+        abv = to_bodies(sum_cp(cv_a))
         tk = ((lam_n > 0.0).to(f32) * cb_.pmask).amax(dim=0)
         touched = torch.maximum(touched, tk)
         if jd is not None:
@@ -392,7 +493,10 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         if ang_damp > 0.0:
             om = om * (1.0 / (1.0 + h * ang_damp))
         kin0, n0 = kin_v[6:10], kin_v[0:2]
-    return px, py, an, vx, vy, om, touched.reshape(W, C, M)
+    out = (px, py, an, vx, vy, om, touched.reshape(W, Cp, M))
+    if compact:
+        return (*out, pc.reshape(W, Cs, M).to(i32), nact)
+    return out
 
 
 def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
@@ -402,13 +506,14 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                lin_damp, ang_damp, owners=None, joints=None, JC: int = 0,
                joint_solver: str = "jacobi", n_colors: int = 1,
                max_dpos_joint: float = 1e3, bullet=None, ccd: bool = False,
-               ccd_slop: float = 0.005, plain: bool = False):
+               ccd_slop: float = 0.005, Cs: int = 0, plain: bool = False):
     """Run one frame's XPBD substeps for a world batch.
 
     Body arrays are ``[W, N]`` f32, collider arrays ``[W, M]`` (``cbody``,
     ``nverts`` i32; verts ``vlx``/``vly`` ``[W, V, M]``), slot tables
     ``[W, C, M]`` and ``gravity`` ``[W, 2]``. ``owners`` is
-    :func:`owner_csr` of ``cbody[0]``, built here when not given.
+    :func:`owner_csr` of ``cbody[0]`` (built here when not given) or, for a
+    batch whose worlds differ in topology, :func:`owner_csr_tables`.
     ``joints`` (or None: contact-only) is a dict of the joint parameters
     ``[W, J]`` under ``_build.JOINT_KEYS`` (``jtype``, ``jba``, ``jbb``,
     ``jcolor`` i32, the rest f32, ``jmm`` with +inf as 3.4e38) and the
@@ -418,7 +523,16 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     ``ccd=True`` (``bullet [W, N]`` f32, 1 on a bullet body) clamps each
     substep's integrated advance of a bullet at the earliest time of impact
     over its colliders' slots, landing it at ``ccd_slop`` of penetration
-    (counted in ``run_frame2.ccd_launches``). Returns ``(posx, posy, ang, velx, vely, angvel, touched [W, C, M])``.
+    (counted in ``run_frame2.ccd_launches``). With ``0 < Cs < C`` each row
+    keeps its ``Cs`` closest slots for the frame (per-frame solve-slot
+    compaction, :func:`solve_order`), the TOI still over all C. Returns
+    ``(posx, posy, ang, velx, vely, angvel, touched [W, Cp, M])`` with ``Cp
+    = Cs`` when compacting, else C; compacting, two more follow:
+    ``partner_solve [W, Cs, M]`` i32 (the partner table ``touched``
+    indexes) and ``nact [W, 2, M]`` f32 (each row's imminent and
+    pmask-active slot counts). Compacted launches count in
+    ``run_frame2.compact_launches``, per-world owner tables in
+    ``run_frame2.owner_launches`` (besides the counter of the form).
     ``plain=True`` runs the twin even on CUDA tensors (for timing the kernel
     against it)."""
     W, N = posx.shape
@@ -439,8 +553,14 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         ("gravity", gravity, f32, (W, 2))]
     if owners is None:
         owners = owner_csr(cbody[0], N)
-    checks += [("owner start", owners[0], i32, (N + 1,)),
-               ("owner idx", owners[1], i32, (M,))]
+    per_world = owners[0].dim() == 2
+    lead = (W,) if per_world else ()
+    checks += [("owner start", owners[0], i32, lead + (N + 1,)),
+               ("owner idx", owners[1], i32, lead + (M,))]
+    compact = 0 < Cs < C
+    if compact and C > MAX_COMPACT_C:
+        raise ValueError(f"solve-slot compaction ranks at most "
+                         f"{MAX_COMPACT_C} slots a row, got C = {C}")
     J = 0
     if joints is not None:
         if joint_solver not in ("colored", "jacobi"):
@@ -469,7 +589,7 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                             joints=joints, joint_solver=joint_solver,
                             n_colors=n_colors, max_dpos_joint=max_dpos_joint,
                             bullet=bullet, ccd=ccd, ccd_slop=ccd_slop,
-                            **params)
+                            Cs=Cs if compact else 0, **params)
 
     lib = _build.library()
     if lib.sf_frame2_fields() != SCRATCH_FIELDS:
@@ -493,10 +613,14 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     ostart, oidx = owners
     scratch = torch.empty((W, SCRATCH_FIELDS, C, M), dtype=f32, device=dev)
     outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
+    # compacting: the whole table in rank order, the first Cs returned
     touched = torch.empty((W, C, M), dtype=f32, device=dev)
     # CCD: the world normal of each slot, carried between substeps
     ccd_scratch = (torch.empty((W, 2, C, M), dtype=f32, device=dev) if ccd
                    else None)
+    o_partner = (torch.empty((W, C, M), dtype=i32, device=dev) if compact
+                 else None)
+    nact = torch.empty((W, 2, M), dtype=f32, device=dev) if compact else None
     p = _build.ptr
     jptrs = [p(joints[k]) if joints is not None else None
              for k in _build.JOINT_KEYS + JOINT_SLOT_KEYS]
@@ -512,14 +636,24 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         int(ang_damp > 0.0), *jptrs, J, JC if joints is not None else 0,
         int(joint_solver == "colored"), n_colors, max_dpos_joint, h * h,
         p(bullet) if ccd else None,
-        p(ccd_scratch) if ccd else None, int(ccd), ccd_slop)
+        p(ccd_scratch) if ccd else None, int(ccd), ccd_slop,
+        int(per_world), Cs if compact else 0,
+        p(o_partner) if compact else None, p(nact) if compact else None)
     _build.launch("sf_frame2", args, dev)
     if ccd:
         run_frame2.ccd_launches += 1
     else:
         run_frame2.launches += 1
-    return (*outs, touched)
+    if per_world:
+        run_frame2.owner_launches += 1
+    if not compact:
+        return (*outs, touched)
+    run_frame2.compact_launches += 1
+    return (*outs, touched[:, :Cs].contiguous(),
+            o_partner[:, :Cs].contiguous(), nact)
 
 
 run_frame2.launches = 0
 run_frame2.ccd_launches = 0  # the ccd instances', counted apart
+run_frame2.compact_launches = 0  # launches with Cs (also in one above)
+run_frame2.owner_launches = 0  # launches with per-world owner tables

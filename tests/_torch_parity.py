@@ -1,8 +1,8 @@
 """Helpers shared by the ``test_torch_*`` parity tests: carrying a world
 between the JAX package and the PyTorch port as numpy arrays, and the small
-scenes both are held to."""
+scenes both are held to. JAX is imported where it is used, so the scene
+builders also serve the card-only tests, whose machine has no JAX."""
 
-import jax
 import numpy as np
 import torch
 
@@ -15,6 +15,8 @@ torch.set_num_threads(1)
 
 def jax_to_numpy(world) -> dict:
     """A JAX world as ``{"bodies/pos": ndarray, ...}`` (the snapshot keys)."""
+    import jax
+
     flat, _ = jax.tree_util.tree_flatten_with_path(world)
     return {"/".join(p.name for p in path): np.asarray(leaf)
             for path, leaf in flat}
@@ -22,6 +24,7 @@ def jax_to_numpy(world) -> dict:
 
 def numpy_to_jax(arrays: dict, like):
     """The inverse of :func:`jax_to_numpy`, shaped like ``like``."""
+    import jax
     import jax.numpy as jnp
 
     flat, treedef = jax.tree_util.tree_flatten_with_path(like)
@@ -203,6 +206,7 @@ def jax_tile_manifold(state, kc, large, pidx, act, tile_live, *, Cs, V,
     passes them)."""
     import functools
 
+    import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
 
@@ -258,6 +262,7 @@ def jax_tile_apply(state, corr, kc, large, pidx_c, cc, c2, lam, tile_live,
     state rows, and ``accv [Nt, 4, T]`` with ``compound``."""
     import functools
 
+    import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
 
@@ -357,3 +362,152 @@ def sol_from_jax(cc, c2, Cs):
     cc, c2 = np.asarray(cc), np.asarray(c2)
     return np.stack([cc[:, k * Cs:(k + 1) * Cs] for k in range(1, jpt.KC)]
                     + [c2[:, q * Cs:(q + 1) * Cs] for q in range(jpt.K2)], 1)
+
+
+def build_ring(builder_cls, shape_cls, gap, comoving=(0.0, 0.0), n_ring=12,
+               R=1.5, r=0.25, n=128):
+    """tests/test_solve_compaction.py's ``_ring_scene`` at ``n`` bodies: one
+    central circle with ``n_ring`` small circles at surface gap ``gap``, the
+    whole formation moving rigidly at ``comoving``, and far-away pads.
+    Returns the builder and its capacity's fields."""
+    b = builder_cls(gravity=(0.0, 0.0))
+    c = b.add_body(pos=(0.0, 0.0), vel=comoving)
+    b.add_collider(c, shape_cls.circle(R), friction=0.0, restitution=0.0)
+    for i in range(n_ring):
+        th = 2 * np.pi * i / n_ring
+        d = R + r + gap
+        body = b.add_body(pos=(d * np.cos(th), d * np.sin(th)), vel=comoving)
+        b.add_collider(body, shape_cls.circle(r), friction=0.0,
+                       restitution=0.0)
+    for i in range(n - n_ring - 1):
+        body = b.add_body(pos=(300.0 + 10.0 * i, 0.0))
+        b.add_collider(body, shape_cls.circle(0.3))
+    return b, dict(max_bodies=n, max_colliders=n, max_pairs=8 * n,
+                   max_joints=0, max_verts=4)
+
+
+def build_escorted(builder_cls, shape_cls, escorts, speed=1000.0):
+    """tests/test_ccd.py's ``_bullet_batch`` with ``escorts`` small static
+    circles 0.02 m from the bullet, behind and beside it: each slot of
+    theirs ranks before the wall's (imminent against speculative), so a
+    row solving ``escorts`` slots drops the wall. Returns the builder and
+    its capacity's fields."""
+    wb = builder_cls()
+    wb.gravity = (0.0, 0.0)
+    wall = wb.add_body(pos=(0.0, 0.0), body_type="static")
+    wb.add_collider(wall, shape_cls.box(0.1, 2.0))
+    b = wb.add_body(pos=(-3.0, 0.0), vel=(speed, 0.0), bullet=True)
+    wb.add_collider(b, shape_cls.circle(0.05))
+    d = 0.05 + 0.02 + 0.05
+    for k in range(escorts):
+        th = np.pi / 2 + np.pi * k / max(escorts - 1, 1)
+        e = wb.add_body(pos=(-3.0 + d * np.cos(th), d * np.sin(th)),
+                        body_type="static")
+        wb.add_collider(e, shape_cls.circle(0.05))
+    for i in range(128 - 2 - escorts):
+        pad = wb.add_body(pos=(1000.0 + 10.0 * i, 0.0))
+        wb.add_collider(pad, shape_cls.circle(0.3))
+    return wb, dict(max_bodies=128, max_colliders=128, max_pairs=512,
+                    max_joints=0, max_verts=4)
+
+
+def build_compound128(builder_cls, shape_cls, n=128, seed=3):
+    """tests/test_frame2.py's ``_compound_scene``: ``_scene``'s capacity,
+    every 4th dynamic body a compound of 3 colliders (an L of boxes and a
+    circle cap), through either package's builder. Returns the builder and
+    its capacity's fields."""
+    rng = np.random.default_rng(seed)
+    b = builder_cls(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, shape_cls.box(40.0, 0.5), friction=0.5)
+    n_col, n_bod, cols, i = 1, 1, 12, 0
+    while True:
+        compound = i % 4 == 0
+        need = 3 if compound else 1
+        if n_col + need > n or n_bod + 1 > n:
+            break
+        row, col = divmod(i, cols)
+        pos = (-(cols - 1) * 0.55 + col * 1.1 + rng.uniform(-0.05, 0.05),
+               0.7 + row * 1.1)
+        body = b.add_body(pos=pos, vel=rng.normal(scale=0.3, size=2),
+                          ang_vel=float(rng.normal(scale=0.2)))
+        if compound:
+            b.add_collider(body, shape_cls.box(0.3, 0.12), friction=0.5,
+                           restitution=0.2)
+            b.add_collider(body, shape_cls.box(0.12, 0.3), friction=0.5,
+                           restitution=0.2, offset=(0.18, 0.2))
+            b.add_collider(body, shape_cls.circle(0.14), friction=0.5,
+                           restitution=0.2, offset=(-0.25, 0.0))
+        else:
+            b.add_collider(body, shape_cls.circle(0.4) if i % 2 else
+                           shape_cls.box(0.35, 0.3), friction=0.5,
+                           restitution=0.2)
+        n_col += need
+        n_bod += 1
+        i += 1
+    return b, dict(max_bodies=n, max_colliders=n, max_pairs=8 * n,
+                   max_joints=0, max_verts=4)
+
+
+def to_jax_tables(tables):
+    """The port's slot tables ``(partner, slot_act, count, count_touch,
+    count_close)`` as JAX arrays, for ``frame2_step(..., tables=)``."""
+    import jax.numpy as jnp
+
+    return tuple(jnp.asarray(t.numpy()) for t in tables)
+
+
+# starframe_tpu/pallas/frame2.py:414 gathers the per-slot normal (2-D,
+# [Wb, C * M]) with the per-point helper, whose loop runs over a leading
+# point axis: tracing the kernel with 0 < Cs < C raises, so the JAX
+# package's batched compaction never runs (ROADMAP.md C). The parity tests
+# hold the port against a copy of that module with the one call repaired.
+_FRAME2_FAULT = "n_ax=cpk2(cb_.n_ax), n_ay=cpk2(cb_.n_ay),"
+_FRAME2_FIX = "n_ax=cpk(cb_.n_ax), n_ay=cpk(cb_.n_ay),"
+
+
+def repaired_run_frame2():
+    """``run_frame2`` of a copy of ``starframe_tpu/pallas/frame2.py`` with
+    the compaction's normal gather repaired (the file is not touched)."""
+    import importlib.util
+    import inspect
+
+    from starframe_tpu.pallas import frame2 as jf2
+
+    src = inspect.getsource(jf2)
+    assert src.count(_FRAME2_FAULT) == 1, "the reference changed"
+    spec = importlib.util.spec_from_loader(
+        "starframe_tpu.pallas._frame2_repaired", loader=None)
+    mod = importlib.util.module_from_spec(spec)
+    mod.__package__ = "starframe_tpu.pallas"
+    exec(compile(src.replace(_FRAME2_FAULT, _FRAME2_FIX), jf2.__file__,
+                 "exec"), mod.__dict__)
+    return mod.run_frame2
+
+
+class repaired_reference:
+    """Context in which ``starframe_tpu.parallel``'s kernel path calls
+    :func:`repaired_run_frame2` (it imports ``run_frame2`` at call time);
+    the module attribute is restored on exit. ``outputs`` holds each call's
+    outputs (``nact`` is the ninth with compaction)."""
+
+    def __enter__(self):
+        from starframe_tpu.pallas import frame2 as jf2
+
+        run = repaired_run_frame2()
+        self.outputs = []
+
+        def recorded(*args, **kw):
+            out = run(*args, **kw)
+            self.outputs.append(out)
+            return out
+
+        self._saved = jf2.run_frame2
+        jf2.run_frame2 = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from starframe_tpu.pallas import frame2 as jf2
+
+        jf2.run_frame2 = self._saved
+        return False

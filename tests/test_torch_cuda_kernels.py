@@ -85,22 +85,34 @@ def _bulleted(w):
     return dataclasses.replace(w, bodies=dataclasses.replace(b, flags=flags))
 
 
-def _frame_kernel_matches_twin(cfg, w):
+def _frame_kernel_matches_twin(cfg, w, touching=True):
     tables = parallel.frame2_tables(w, cfg,
                                     frames=max(cfg.frames_per_broadphase, 1),
                                     elig=parallel.frame2_elig(w, cfg))
     counter = "ccd_launches" if cfg.ccd else "launches"
     n0 = getattr(hopper.run_frame2, counter)
-    wk, tk, *_ = parallel.frame2_step(w, cfg, tables=tables)
+    c0 = hopper.run_frame2.compact_launches
+    o0 = hopper.run_frame2.owner_launches
+    wk, tk, pk, _, ak = parallel.frame2_step(w, cfg, tables=tables)
     assert getattr(hopper.run_frame2, counter) == n0 + 1
-    wp, tp, *_ = parallel.frame2_step(w, cfg, tables=tables, plain=True)
+    compact = 0 < cfg.batch_solve_capacity < cfg.slot_capacity
+    assert hopper.run_frame2.compact_launches == c0 + compact
+    assert hopper.run_frame2.owner_launches == o0 + (
+        not cfg.batch_uniform_topology)
+    wp, tp, pp, _, ap = parallel.frame2_step(w, cfg, tables=tables,
+                                             plain=True)
     assert torch.equal(tk, tp)
-    assert float(tk.sum()) > 0, "no touching contacts: vacuous"
+    assert torch.equal(pk, pp)  # partner_solve when compacting
+    assert {k: int(v) for k, v in ak.items()} == {
+        k: int(v) for k, v in ap.items()}
+    assert not touching or float(tk.sum()) > 0, "no touching contacts: vacuous"
     bk, bp = wk.bodies, wp.bodies
     torch.testing.assert_close(bk.pos, bp.pos, rtol=0, atol=1e-4)
     torch.testing.assert_close(bk.angle, bp.angle, rtol=0, atol=1e-4)
     torch.testing.assert_close(bk.vel, bp.vel, rtol=0, atol=1e-3)
     torch.testing.assert_close(bk.ang_vel, bp.ang_vel, rtol=0, atol=1e-3)
+    assert torch.equal(bk.sleep_count, bp.sleep_count)
+    return ak
 
 
 def test_frame_kernel_matches_twin(scene):
@@ -130,6 +142,115 @@ def test_frame_kernel_ccd_matches_twin(scene):
     bcfg = SolverConfig(substeps=10, slot_capacity=8, ccd=True)
     bw, _, _ = parallel.batched_rollout(bw, bcfg, 0, 2, record=lambda _: None)
     _frame_kernel_matches_twin(bcfg, bw)
+
+
+@pytest.mark.parametrize("ccd", [False, True])
+def test_frame_kernel_compact_matches_twin(scene, ccd):
+    """K4's ``Cs`` form (C = 8, Cs = 4) on the settled batch, without and
+    with CCD (every dynamic body a bullet): ``touched``, ``partner_solve``
+    and the solve counters equal, ``nact`` equal on a direct call, poses
+    and velocities to the non-compacted bounds."""
+    cfg, w = scene
+    cfg = dataclasses.replace(cfg, batch_solve_capacity=4, ccd=ccd)
+    if ccd:
+        w = _bulleted(w)
+    _frame_kernel_matches_twin(cfg, w)
+    body, col = parallel._frame2_arrays(w, cfg)
+    tables = parallel.frame2_tables(w, cfg)
+    args = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
+                              "angvel", "invm", "invi", "dyn", "kin")]
+    args += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
+                              "fric", "rest", "sensor")]
+    args += [tables[0], tables[1], w.gravity.expand(w.bodies.pos.shape[0],
+                                                    2).contiguous()]
+    kw = dict(C=8, substeps=cfg.substeps, iterations=cfg.iterations,
+              h=cfg.dt / cfg.substeps, dt=cfg.dt, margin=cfg.contact_margin,
+              compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
+              max_dpos=cfg.max_dpos_eff,
+              rest_threshold=cfg.restitution_threshold,
+              lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
+              bullet=body["bullet"], ccd=ccd, Cs=4)
+    k = hopper.run_frame2(*args, **kw)
+    p = hopper.run_frame2(*args, **kw, plain=True)
+    assert torch.equal(k[7], p[7]) and torch.equal(k[8], p[8])
+    assert int(k[8][:, 1].max()) > 4, "no row has more than Cs: vacuous"
+
+
+def _escorted(escorts, worlds=4):
+    """The escorted bullet batch of ``_torch_parity.build_escorted`` on the
+    card: a bullet at 1000 m/s, ``escorts`` static circles 0.02 m from it
+    and a thin wall 3 m ahead, which ranks after every escort."""
+    from _torch_parity import build_escorted
+
+    b, cap = build_escorted(WorldBuilder, Shape, escorts)
+    world, _ = b.build(Capacity(**cap), device="cuda")
+    return parallel.replicate_world(world, worlds)
+
+
+def test_frame_kernel_compact_ccd_takes_the_whole_table():
+    """The bullet's wall slot ranks past Cs and is dropped from the solve;
+    the kernel's TOI still sees it (the dropped slots' anchors computed at
+    the substep-start pose), as the twin's does: equal to the twin in the
+    impact frame, and the bullet on the wall's face after three frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cfg = SolverConfig(substeps=10, slot_capacity=8, ccd=True,
+                       batch_solve_capacity=4)
+    w = _escorted(4)
+    # no solved slot touches: the wall's is dropped, the escorts' do not
+    aux = _frame_kernel_matches_twin(cfg, w, touching=False)
+    assert int(aux["solve_dropped"]) == 4  # the wall, in each world
+    w, _, _ = parallel.batched_rollout(w, cfg, 0, 3, record=lambda _: None)
+    x = w.bodies.pos[:, 1, 0]
+    assert bool(((x > -0.21) & (x <= -0.14)).all()), x
+
+
+def test_frame_kernel_per_world_owners_matches_twin(scene):
+    """K4 with per-world owner tables: bitwise the uniform kernel on a
+    batch of one topology, and against its twin on two alternating
+    topologies (one-collider bodies and 3-collider compounds)."""
+    cfg, w = scene
+    het = dataclasses.replace(cfg, batch_uniform_topology=False)
+    tables = parallel.frame2_tables(w, cfg)
+    a = parallel.frame2_step(w, cfg, tables=tables)[0].bodies
+    b = parallel.frame2_step(w, het, tables=tables)[0].bodies
+    for f in ("pos", "angle", "vel", "ang_vel"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    from _torch_parity import build_compound128, build_pile
+
+    worlds = []
+    for make in (build_pile, build_compound128):
+        out = make(WorldBuilder, Shape)
+        builder = out[0] if isinstance(out, tuple) else out
+        world, _ = builder.build(Capacity(
+            max_bodies=128, max_colliders=128, max_pairs=1024, max_joints=0,
+            max_verts=4), device="cuda")
+        worlds.append(world)
+    batch = parallel.stack_worlds(worlds * 16)
+    hcfg = SolverConfig(substeps=4, slot_capacity=8,
+                        batch_uniform_topology=False,
+                        max_colliders_per_body=3)
+    batch, _, diag = parallel.batched_rollout(batch, hcfg, 0, 12,
+                                              record=lambda _: None)
+    assert int(diag["owner_overflow"]) == 0
+    _frame_kernel_matches_twin(hcfg, batch)
+
+
+def test_sleeping_rollout_is_bitwise_reproducible(scene):
+    """Sleep on (``sleep_velocity`` 0.1, 5 frames): a rerun is bitwise the
+    same, and an asleep body's pose stays bitwise unchanged."""
+    cfg, w = scene
+    cfg = dataclasses.replace(cfg, sleep_velocity=0.1, sleep_frames=5)
+    a, _, _ = parallel.batched_rollout(w, cfg, 0, 12, record=lambda _: None)
+    b, _, _ = parallel.batched_rollout(w, cfg, 0, 12, record=lambda _: None)
+    for f in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        assert torch.equal(getattr(a.bodies, f), getattr(b.bodies, f)), f
+    asleep = parallel._asleep(a.bodies, cfg)
+    assert bool(asleep.any()), "nothing fell asleep: vacuous"
+    c = parallel.frame2_step(a, cfg)[0]
+    still = asleep & parallel._asleep(c.bodies, cfg)
+    assert torch.equal(c.bodies.pos[still], a.bodies.pos[still])
+    _frame_kernel_matches_twin(cfg, a)
 
 
 # vertex capacity -> the shapes of a pile that fills it (on a capsule

@@ -85,17 +85,23 @@ def test_frame_twin_matches_pallas(case):
 
 
 def test_off_slice_configs_raise():
+    """The three branches ported last (compaction, per-world owner tables,
+    sleep) step once and return their counters; only a batch the kernels
+    cannot hold still raises, naming the single-world tier (A3)."""
     sc = st.scenes.batched_worlds(n_worlds=1, n_bodies=256, substeps=2,
                                   device="cpu")
     import dataclasses
 
-    for kw, what in ((dict(batch_solve_capacity=4), "compaction"),
-                     (dict(batch_uniform_topology=False), "owner tables"),
-                     (dict(sleep_velocity=0.1), "sleeping"),
-                     (dict(use_pallas=False), "A3")):
+    for kw in (dict(batch_solve_capacity=4),
+               dict(batch_uniform_topology=False), dict(sleep_velocity=0.1),
+               dict(ccd=True)):
         cfg = dataclasses.replace(sc.config, **kw)
-        with pytest.raises(NotImplementedError, match=what):
-            parallel.frame2_step(sc.world, cfg)
-    # CCD is on the slice now (tests/test_torch_frame2_ccd.py)
-    cfg = dataclasses.replace(sc.config, ccd=True)
-    assert int(parallel.frame2_step(sc.world, cfg)[0].step_count) == 1
+        w, touched, _, _, aux = parallel.frame2_step(sc.world, cfg)
+        assert int(w.step_count) == 1
+        assert touched.shape[1] == (parallel._batch_solve_cap(cfg) or 8)
+        assert {k: int(v) for k, v in aux.items()} == dict(
+            joint_overflow=0, owner_overflow=0, solve_overflow=0,
+            solve_dropped=0)
+    cfg = dataclasses.replace(sc.config, use_pallas=False)
+    with pytest.raises(NotImplementedError, match="A3"):
+        parallel.frame2_step(sc.world, cfg)

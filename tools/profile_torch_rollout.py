@@ -2,8 +2,9 @@
 """Where the time goes in the PyTorch port's batched rollout, on one GPU.
 
     python3 tools/profile_torch_rollout.py
-        [--scene batched|batched_ccd|mechanism|rope|pile|pile_sleep|
-                 pile_events|pile_compound|pile_ccd] [--worlds W]
+        [--scene batched|batched_ccd|batched_compact|batched_owners|
+                 batched_sleep|batched_events|mechanism|rope|pile|
+                 pile_sleep|pile_events|pile_compound|pile_ccd] [--worlds W]
         [--bodies N] [--frames F]
         [--substeps 10] [--trace PATH]
 
@@ -18,8 +19,14 @@ sleep, 240 frames from the state after SETTLE_FRAMES (960) frames, where
 ``pile`` with ``with_events=True``; ``pile_compound``: bench.py's
 ``pile_compound``, ``scenes.pile_compound(--bodies)``, 240 frames from the
 state after SETTLE_FRAMES frames; ``batched_ccd`` and ``pile_ccd``:
-``batched`` and ``pile`` with ``ccd=True`` and every dynamic body a bullet)
-once to warm up, three times unprofiled for wall times, then once under
+``batched`` and ``pile`` with ``ccd=True`` and every dynamic body a bullet;
+``batched_compact``: ``batched`` with 16 table slots and 8 solve slots
+(``batch_solve_capacity``; at the main path's 8, every solve width drops
+imminent slots); ``batched_owners``: with per-world owner
+tables (``batch_uniform_topology=False``); ``batched_sleep``: with the
+pile's sleep (``sleep_velocity`` 0.1, 30 frames), 240 frames from the
+start; ``batched_events``: ``batched_rollout(with_keys=True)``) once to
+warm up, three times unprofiled for wall times, then once under
 ``torch.profiler``, and prints:
 
 - each device kernel's total time, call count and share of device time
@@ -71,7 +78,13 @@ KERNELS = (("frame2_kernel<4, false, true>", "K4 frame, CCD form"),
            ("owner_min_kernel", "owner minima"),
            ("owner_velocity_kernel", "owner velocity pass"))
 PILES = ("pile", "pile_sleep", "pile_events", "pile_compound", "pile_ccd")
-BATCHED = ("batched", "batched_ccd")
+BATCHED = ("batched", "batched_ccd", "batched_compact", "batched_owners",
+           "batched_sleep", "batched_events")
+# each batched scene's changes to the main path's config
+BATCHED_CFG = {"batched_compact": dict(slot_capacity=16,
+                                      batch_solve_capacity=8),
+               "batched_owners": dict(batch_uniform_topology=False),
+               "batched_sleep": dict(sleep_velocity=0.1, sleep_frames=30)}
 
 
 def bulleted(sc):
@@ -102,13 +115,13 @@ def busy_us(intervals) -> float:
     return total
 
 
-def frame_step_ms(parallel, hopper, w, cfg, reps: int = 5):
+def frame_step_ms(parallel, w, cfg, reps: int = 5):
     """CUDA-event time of one ``frame2_step`` on ``w``, and the slot-table
     entries per world it solves over."""
     import torch
 
     tables = parallel.frame2_tables(w, cfg, frames=cfg.frames_per_broadphase)
-    kw = dict(owners=hopper.owner_csr(w.colliders.body_idx[0], w.bodies.n),
+    kw = dict(owners=parallel.frame2_owners(w, cfg),
               joint_slots=(parallel.frame2_joint_slots(w, cfg)
                            if w.joints.j > 0 else None))
     parallel.frame2_step(w, cfg, tables=tables, **kw)
@@ -142,7 +155,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_rollout: needs a CUDA device", file=sys.stderr)
         return 2
-    from starframe_tpu_torch import hopper, parallel, scenes, tiled
+    from starframe_tpu_torch import parallel, scenes, tiled
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -168,8 +181,14 @@ def main() -> int:
                              args.worlds)
     if args.scene.endswith("_ccd"):
         sc = bulleted(sc)
+    if args.scene in BATCHED_CFG:
+        import dataclasses
+
+        sc = dataclasses.replace(sc, config=dataclasses.replace(
+            sc.config, **BATCHED_CFG[args.scene]))
     cfg = sc.config
-    F = args.frames or (240 if args.scene in PILES else 60)
+    F = args.frames or (240 if args.scene in PILES + ("batched_sleep",)
+                        else 60)
     active = int(((sc.world.bodies.flags & 1) != 0).sum())
     syncing = tiled if args.scene in PILES else parallel
     start = sc.world
@@ -184,8 +203,9 @@ def main() -> int:
         if args.scene in PILES:
             return tiled.tiled_rollout(start, cfg, F,
                                        with_events=args.scene == "pile_events")
-        return parallel.batched_rollout(sc.world, cfg, 0, F,
-                                        record=lambda _: None)
+        return parallel.batched_rollout(
+            sc.world, cfg, 0, F, record=lambda _: None,
+            with_keys=args.scene == "batched_events")
 
     rollout()
     torch.cuda.synchronize()
@@ -245,8 +265,13 @@ def main() -> int:
 
     if args.scene in PILES:
         return 0
+    if cfg.sleep_velocity > 0.0:
+        dyn = final.bodies.inv_mass > 0
+        asleep = parallel._asleep(final.bodies, cfg).sum()
+        print(f"after {F} frames: {float(asleep / dyn.sum()):.4f} of the "
+              f"dynamic bodies asleep")
     for name, w in (("starting batch", sc.world), (f"after {F} frames", final)):
-        ms, per_world = frame_step_ms(parallel, hopper, w, cfg)
+        ms, per_world = frame_step_ms(parallel, w, cfg)
         print(f"frame2_step on the {name}: {ms:.4f} ms "
               f"({per_world:.1f} slot-table entries per world)")
     return 0

@@ -136,6 +136,19 @@ per-world form against their twins at 4096 worlds (``touched``,
 ``partner_solve`` and ``nact`` equal, poses as ``agree_worlds``) and times
 them.
 
+K4 keeps each world's slot table in shared memory (``hopper.
+frame2_table_rows``): step 1 prints ptxas's registers, stack and spills of
+every K4 instance beside its shared bytes and resident blocks an SM at its
+phase's shapes; step 3 checks that the main path counted one
+``run_frame2.shared_table_launches`` a frame and prints its peak device
+memory; step 6 checks that every K4 phase places all M rows there (``R =
+M``) but the 16-slot uncompacted runs that ``batched_compact`` times its
+compacted ones against, which keep some rows in K4's global table (``R <
+M``), and prints a SHA-256 digest of each K4 phase's final state. Each K4
+phase's start batch, config and frames come from ``tools/frame2_digests.py``
+``phase``, which computes the same digests for any checkout, to compare a
+change with its parent.
+
 Prints the run's wall time, a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
 two parity checks; ``frame2_joints`` is the frame kernel's joint
 instantiation, timed on the mechanism batch; ``bound_ms``: the least time
@@ -143,7 +156,10 @@ for each call's bytes or operations, see ``bound``), then the card line,
 then ``{"ok": true, "device": {...}}`` last. Any failed check raises.
 """
 
+import functools
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -402,6 +418,80 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+# each K4 phase's final-state digest, (R, M) and frame count
+DIGESTS, TABLE_ROWS, PHASE_FRAMES = {}, {}, {}
+
+
+@functools.lru_cache(maxsize=None)
+def digests_tool():
+    """``tools/frame2_digests.py`` of this checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "_frame2_digests", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "frame2_digests.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def table_rows(w, cfg) -> tuple:
+    """``(R, M)``: the rows of ``w``'s slot table that K4 keeps in shared
+    memory under ``cfg``, and all of them."""
+    from starframe_tpu_torch import hopper, parallel
+
+    csol = parallel._batch_solve_cap(cfg) or cfg.slot_capacity
+    m, v = w.colliders.m, w.colliders.max_verts
+    r = hopper.frame2_table_rows(w.bodies.n, m,
+                                 hopper.frame2.kernel_verts(v), w.joints.j,
+                                 csol)
+    return r, m
+
+
+def k4_phase(name, dev) -> tuple:
+    """``(world, cfg, frames)`` of K4 phase ``name``: its start batch,
+    config and frame count from ``tools/frame2_digests.py`` ``phase``, the
+    one definition this script, that tool and ``tools/frame2_times.py``
+    run."""
+    w, cfg, frames = digests_tool().phase(sys.modules[__name__], name, dev)
+    PHASE_FRAMES[name] = frames
+    return w, cfg, frames
+
+
+def record_phase(name, w, cfg, frames, final, keys=None) -> None:
+    """Keep a K4 phase's final-state digest (with its keys) and its form's
+    ``(R, M)``; ``frames`` is what the run took, held to the phase's."""
+    check(frames == PHASE_FRAMES[name],
+          f"{name}: ran {frames} frames, the phase has {PHASE_FRAMES[name]}")
+    tool = digests_tool()
+    DIGESTS[name] = (tool.digest(final) if keys is None
+                     else tool.keys_digest(final, keys))
+    TABLE_ROWS[name] = table_rows(w, cfg)
+
+
+def ptxas_k4(log: str) -> dict:
+    """``{"<V,kJ,kCcd>": (registers, stack bytes, spill stores, spill
+    loads)}`` of every K4 instance, from the build's ptxas report."""
+    import re
+
+    out, inst = {}, None
+    for line in log.splitlines():
+        m = re.search(r"frame2_kernelILi(\d+)ELb(\d)ELb(\d)E", line)
+        if m and "Function properties" in line:
+            inst = "<{},{},{}>".format(
+                m.group(1), *("true" if b == "1" else "false"
+                              for b in m.group(2, 3)))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if inst and m:
+            out[inst] = [int(m.group(1)), int(m.group(2)), int(m.group(3))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if inst and m:
+            out[inst].insert(0, int(m.group(1)))
+            inst = None
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -562,7 +652,7 @@ def frame_call(hopper, parallel, w, cfg, tables, joint_slots=None):
                relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
                rest_threshold=cfg.restitution_threshold,
                lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-               owners=hopper.owner_csr(col["cbody"][0], w.bodies.n))
+               owners=parallel.frame2_owners(w, cfg)[0])
     if joint_slots is not None:
         fkw.update(joints=parallel._frame2_joints(w, cfg, joint_slots)[0],
                    JC=cfg.joint_slot_capacity, joint_solver=cfg.joint_solver,
@@ -687,13 +777,11 @@ def run_jointed(name, dev, wrappers, parallel, card) -> dict:
     needs."""
     import torch
 
-    sc, base = jointed_scene(name, W_JOINTED, dev)
-    cfg = sc.config
-    active = int(((sc.world.bodies.flags & 1) != 0).sum())
+    w0, cfg, _ = k4_phase(name, dev)
+    active = int(((w0.bodies.flags & 1) != 0).sum())
 
     def rollout(n):
-        return parallel.batched_rollout(sc.world, cfg, 0, n,
-                                        record=lambda _: None)
+        return parallel.batched_rollout(w0, cfg, 0, n, record=lambda _: None)
 
     rollout(FRAMES)  # warm-up
     torch.cuda.synchronize()
@@ -707,9 +795,10 @@ def run_jointed(name, dev, wrappers, parallel, card) -> dict:
                 "frame2_joints": wrappers["frame2_joints"].launches}
     slot_builds = wrappers["slots"].launches
     diag = {k: int(v) for k, v in diag.items()}
+    record_phase(name, w0, cfg, FRAMES, final)
 
     b = final.bodies
-    check(tuple(b.pos.shape) == (W_JOINTED, sc.world.bodies.n, 2),
+    check(tuple(b.pos.shape) == (W_JOINTED, w0.bodies.n, 2),
           f"{name}: pos shape {b.pos.shape}")
     for field in ("pos", "angle", "vel", "ang_vel"):
         check(bool(torch.isfinite(getattr(b, field)).all()),
@@ -729,8 +818,8 @@ def run_jointed(name, dev, wrappers, parallel, card) -> dict:
             "jtype", "body_a", "body_b", "anchor_a", "anchor_b", "lo",
             "hi")})
     if name == "mechanism":
-        wl = base.wheel
-        mean = (b.angle[:, wl] - sc.world.bodies.angle[:, wl]) / (
+        wl = jointed_scene(name, 1, dev)[1].wheel
+        mean = (b.angle[:, wl] - w0.bodies.angle[:, wl]) / (
             FRAMES * cfg.dt)
         per_world["wheel_mean_err"] = (mean - MOTOR_SPEED).abs().cpu().numpy()
         per_world["wheel_final_err"] = (
@@ -743,7 +832,7 @@ def run_jointed(name, dev, wrappers, parallel, card) -> dict:
             check(got <= bound, f"{name}: {key} {q} over worlds {got} past "
                   f"its bound {bound}")
     ms_frame = 1e3 * seconds / FRAMES
-    print(f"jointed path {name}: {W_JOINTED} worlds x {sc.world.bodies.n} "
+    print(f"jointed path {name}: {W_JOINTED} worlds x {w0.bodies.n} "
           f"bodies ({active // W_JOINTED} active each), {cfg.substeps} "
           f"substeps, {cfg.joint_solver} joints ({cfg.max_joint_colors} "
           f"colours), {FRAMES} frames in {seconds:.4f} s = {ms_frame:.4f} "
@@ -753,7 +842,7 @@ def run_jointed(name, dev, wrappers, parallel, card) -> dict:
           f"{json.dumps(launches)}, slots {slot_builds}; joint health "
           f"(median, 99th percentile, max over worlds) {json.dumps(health)}")
     return dict(final=final, cfg=cfg, launches=launches, ms=ms_frame,
-                sc=sc)
+                world=w0)
 
 
 def jointed_turns(hopper, parallel, jointed, errs, bounds, card) -> dict:
@@ -2105,11 +2194,10 @@ def run_projectile(dev, hopper, parallel, card) -> dict:
     import torch
 
     out = {}
-    for speed, rest, frames in ((200.0, 0.0, PROJECTILE_FRAMES),
-                                (1000.0, 0.0, PROJECTILE_FRAMES),
-                                (1000.0, 0.9, 10)):
-        bw, cfg = bullet_batch(dev, speed, restitution=rest,
-                               worlds=PROJECTILE_W)
+    for name in ("projectile_200", "projectile_1000", "projectile_1000_rest"):
+        bw, cfg, frames = k4_phase(name, dev)
+        speed = float(name.split("_")[1])
+        rest = 0.9 if name.endswith("_rest") else 0.0
         torch.cuda.synchronize()
         reset_counts(hopper)
         hopper.run_frame2.launches = 0
@@ -2122,6 +2210,7 @@ def run_projectile(dev, hopper, parallel, card) -> dict:
         launches = hopper.run_frame2.ccd_launches
         check(launches == frames and hopper.run_frame2.launches == 0,
               f"projectile: K4's CCD form launched {launches} times")
+        record_phase(name, bw, cfg, frames, final)
         for key in ("slot_overflow", "joint_overflow"):
             check(diag[key] == 0, f"projectile: {key} {diag[key]}")
         x = final.bodies.pos[:, 1, 0]
@@ -2159,13 +2248,9 @@ def run_main_ccd(dev, hopper, parallel, card) -> dict:
     import dataclasses
 
     import torch
-    from starframe_tpu_torch.scenes import batched_worlds
 
-    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
-                        device=dev)
-    w = bulleted(sc.world)
-    cfgs = {False: dataclasses.replace(sc.config, ccd=False),
-            True: dataclasses.replace(sc.config, ccd=True)}
+    w, cfg, _ = k4_phase("main_ccd", dev)
+    cfgs = {False: dataclasses.replace(cfg, ccd=False), True: cfg}
     active = int(((w.bodies.flags & 1) != 0).sum())
 
     def rollout(ccd, n):
@@ -2192,6 +2277,7 @@ def run_main_ccd(dev, hopper, parallel, card) -> dict:
     final, diag, _ = runs[True][0]
     check(torch.equal(final.bodies.pos, runs[True][1][0].bodies.pos),
           "main path with CCD: the two timed runs differ")
+    record_phase("main_ccd", w, cfgs[True], FRAMES, final)
     b = final.bodies
     dyn = b.inv_mass > 0
     for field in ("pos", "angle", "vel", "ang_vel"):
@@ -2544,42 +2630,27 @@ def escorted_batch(dev, escorts, worlds, speed=1000.0):
     return parallel.replicate_world(w, worlds), cfg
 
 
-def run_batched_compact(dev, hopper, parallel, card, ccd=False,
-                        widths=COMPACT_WIDTHS) -> dict:
+def run_batched_compact(dev, hopper, parallel, card, ccd=False) -> dict:
     """``batched_compact`` (with ``ccd``: ``batched_compact_ccd``, every
     dynamic body a bullet): the main path with ``batch_solve_capacity`` 4 of
-    C = 8 (the next of ``widths`` while one drops an imminent slot, which
-    is then said), 60 frames in turns with compaction off at the same C
-    (off, on, on, off), checked as the main path is, ``solve_overflow`` 0
-    and ``solve_dropped`` reported, K4's ``Cs`` form once a frame, the two
-    timed runs and a 10-frame rerun bitwise equal."""
-    import dataclasses
-
+    C = 8 (the next of ``COMPACT_WIDTHS`` while one drops an imminent slot,
+    which the phase's search says), 60 frames in turns with compaction off
+    at the same C (off, on, on, off), checked as the main path is,
+    ``solve_overflow`` 0 and ``solve_dropped`` reported, K4's ``Cs`` form
+    once a frame, the two timed runs and a 10-frame rerun bitwise equal."""
     import torch
-    from starframe_tpu_torch.scenes import batched_worlds
 
     tag = "batched_compact_ccd" if ccd else "batched_compact"
-    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
-                        device=dev)
-    w = bulleted(sc.world) if ccd else sc.world
-    base = dataclasses.replace(sc.config, ccd=ccd)
+    name = "compact_ccd" if ccd else "compact"
+    w, on_cfg, _ = k4_phase(name, dev)  # the width search warms up
+    cfgs = {True: on_cfg, False: k4_phase(name + "_off", dev)[1]}
+    C, Cs = on_cfg.slot_capacity, on_cfg.batch_solve_capacity
     active = int(((w.bodies.flags & 1) != 0).sum())
-    cfgs = {False: base}
 
     def rollout(on, n):
         return parallel.batched_rollout(w, cfgs[on], 0, n,
                                         record=lambda _: None)
 
-    for k, (C, Cs) in enumerate(widths):  # each first run also warms up
-        cfgs[True] = dataclasses.replace(base, slot_capacity=C,
-                                         batch_solve_capacity=Cs)
-        hard = int(rollout(True, FRAMES)[2]["solve_overflow"])
-        if hard == 0:
-            break
-        print(f"{tag}: solve_overflow {hard} at Cs = {Cs} of C = {C}; the "
-              f"phase takes the next widths")
-    check(hard == 0, f"{tag}: solve_overflow {hard} at every width")
-    cfgs[False] = dataclasses.replace(base, slot_capacity=C)
     rollout(False, 10)
     counter = "ccd_launches" if ccd else "launches"
     runs = {False: [], True: []}
@@ -2598,6 +2669,8 @@ def run_batched_compact(dev, hopper, parallel, card, ccd=False,
         runs[on].append((final, {k: int(v) for k, v in diag.items()},
                          seconds, n_cs))
     final, diag, _, launches = runs[True][0]
+    record_phase(name, w, cfgs[True], FRAMES, final)
+    record_phase(name + "_off", w, cfgs[False], FRAMES, runs[False][0][0])
     for field in ("pos", "angle", "vel", "ang_vel"):
         check(torch.equal(getattr(final.bodies, field),
                           getattr(runs[True][1][0].bodies, field)),
@@ -2631,7 +2704,7 @@ def run_batched_compact(dev, hopper, parallel, card, ccd=False,
           f"{moved:.4g} m; K4's Cs form {launches} launches; a 10-frame rerun "
           f"bitwise equal; on {card}")
     return dict(final=final, cfg=cfgs[True], ms=ms[True], ms_off=ms[False],
-                launches=launches, widths=widths[k:])
+                launches=launches)
 
 
 def run_compact_projectile(dev, hopper, parallel, card) -> dict:
@@ -2643,7 +2716,7 @@ def run_compact_projectile(dev, hopper, parallel, card) -> dict:
     face, as PERF.md §2's CCD bound requires."""
     import torch
 
-    bw, cfg = escorted_batch(dev, 4, PROJECTILE_W)
+    bw, cfg, _ = k4_phase("escorted", dev)
     torch.cuda.synchronize()
     reset_counts(hopper)
     t0 = time.perf_counter()
@@ -2656,6 +2729,7 @@ def run_compact_projectile(dev, hopper, parallel, card) -> dict:
     check(n_cs == PROJECTILE_FRAMES
           and hopper.run_frame2.ccd_launches == PROJECTILE_FRAMES,
           f"escorted projectile: K4's Cs CCD form launched {n_cs} times")
+    record_phase("escorted", bw, cfg, PROJECTILE_FRAMES, final)
     for key in ("slot_overflow", "solve_overflow"):
         check(diag[key] == 0, f"escorted projectile: {key} {diag[key]}")
     check(diag["solve_dropped"] >= PROJECTILE_W, "escorted projectile: the "
@@ -2730,16 +2804,13 @@ def run_batched_owners(dev, hopper, parallel, card) -> dict:
     import dataclasses
 
     import torch
-    from starframe_tpu_torch import SolverConfig
-    from starframe_tpu_torch.scenes import batched_worlds
 
-    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
-                        device=dev)
-    cfgs = {False: sc.config, True: dataclasses.replace(
-        sc.config, batch_uniform_topology=False)}
+    w0, cfg, _ = k4_phase("owners", dev)
+    cfgs = {False: dataclasses.replace(cfg, batch_uniform_topology=True),
+            True: cfg}
 
     def rollout(per_world, n):
-        return parallel.batched_rollout(sc.world, cfgs[per_world], 0, n,
+        return parallel.batched_rollout(w0, cfgs[per_world], 0, n,
                                         record=lambda _: None)
 
     for pw in (False, True):
@@ -2760,6 +2831,7 @@ def run_batched_owners(dev, hopper, parallel, card) -> dict:
         runs[pw].append((final, {k: int(v) for k, v in diag.items()},
                          seconds, n_ow))
     uni, per = runs[False][0], runs[True][0]
+    record_phase("owners", w0, cfgs[True], FRAMES, per[0])
     for field in ("pos", "angle", "vel", "ang_vel"):
         check(torch.equal(getattr(uni[0].bodies, field),
                           getattr(per[0].bodies, field)),
@@ -2767,10 +2839,7 @@ def run_batched_owners(dev, hopper, parallel, card) -> dict:
     check(uni[1] == per[1], f"batched_owners: counters {uni[1]} {per[1]}")
     ms = {pw: 1e3 * sum(r[2] for r in runs[pw]) / (2 * FRAMES) for pw in runs}
 
-    pair = [scene_world(dev, compound) for compound in (False, True)]
-    hw = parallel.stack_worlds(pair * (W_MAIN // 2))
-    hcfg = SolverConfig(dt=1 / 60, substeps=SUBSTEPS, slot_capacity=8,
-                        batch_uniform_topology=False, max_colliders_per_body=3)
+    hw, hcfg, _ = k4_phase("owners_alternating", dev)
     parallel.batched_rollout(hw, hcfg, 0, 2, record=lambda _: None)
     torch.cuda.synchronize()
     reset_counts(hopper)
@@ -2780,6 +2849,7 @@ def run_batched_owners(dev, hopper, parallel, card) -> dict:
     torch.cuda.synchronize()
     hms = 1e3 * (time.perf_counter() - t0) / HET_FRAMES
     hdiag = {k: int(v) for k, v in hdiag.items()}
+    record_phase("owners_alternating", hw, hcfg, HET_FRAMES, hfinal)
     check(hopper.run_frame2.owner_launches == HET_FRAMES,
           "alternating topologies: per-world form launches "
           f"{hopper.run_frame2.owner_launches}")
@@ -2813,14 +2883,14 @@ def run_batched_sleep(dev, hopper, parallel, card) -> dict:
     import dataclasses
 
     import torch
-    from starframe_tpu_torch.scenes import batched_worlds
+    from starframe_tpu_torch import SolverConfig
 
-    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
-                        device=dev)
-    cfgs = {False: sc.config, True: dataclasses.replace(
-        sc.config, sleep_velocity=SLEEP_VELOCITY, sleep_frames=SLEEP_FRAMES)}
+    w0, cfg, _ = k4_phase("sleep", dev)
+    cfgs = {False: dataclasses.replace(
+        cfg, sleep_velocity=SolverConfig.sleep_velocity,
+        sleep_frames=SolverConfig.sleep_frames), True: cfg}
     moved = []
-    prev = [sc.world]
+    prev = [w0]
 
     def frozen(w):
         # bodies asleep before and after the frame (not woken): unmoved
@@ -2834,8 +2904,7 @@ def run_batched_sleep(dev, hopper, parallel, card) -> dict:
         return None
 
     def rollout(on, n, record=lambda _: None):
-        return parallel.batched_rollout(sc.world, cfgs[on], 0, n,
-                                        record=record)
+        return parallel.batched_rollout(w0, cfgs[on], 0, n, record=record)
 
     for on in (False, True):
         rollout(on, 10)
@@ -2853,6 +2922,7 @@ def run_batched_sleep(dev, hopper, parallel, card) -> dict:
         runs[on].append((final, {k: int(v) for k, v in diag.items()},
                          seconds))
     final, diag, _ = runs[True][0]
+    record_phase("sleep", w0, cfgs[True], SLEEP_RUN, final)
     for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
         check(torch.equal(getattr(final.bodies, field),
                           getattr(runs[True][1][0].bodies, field)),
@@ -2894,15 +2964,13 @@ def run_batched_events(dev, hopper, parallel, card) -> dict:
     import dataclasses
 
     import torch
-    from starframe_tpu_torch.scenes import batched_worlds
 
-    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
-                        device=dev)
-    cfg, M = sc.config, sc.world.colliders.m
+    w0, cfg, _ = k4_phase("events", dev)
+    M = w0.colliders.m
 
     def rollout(keys, n, c=cfg):
-        return parallel.batched_rollout(sc.world, c, 0, n,
-                                        record=lambda _: None, with_keys=keys)
+        return parallel.batched_rollout(w0, c, 0, n, record=lambda _: None,
+                                        with_keys=keys)
 
     for keys in (False, True):
         rollout(keys, 10)
@@ -2923,6 +2991,8 @@ def run_batched_events(dev, hopper, parallel, card) -> dict:
             check(n_touch > 0 and bool(((live // M) < (live % M)).all()),
                   "batched_events: a key is not a pair a < b < M")
             table_mb = k[0].numel() * k.element_size() / 1e6
+            if "events" not in DIGESTS:
+                record_phase("events", w0, cfg, FRAMES, final, keys=k)
             del traj, k, live
         runs[keys].append((final, {k: int(v) for k, v in diag.items()},
                            seconds, n_touch))
@@ -2934,7 +3004,7 @@ def run_batched_events(dev, hopper, parallel, card) -> dict:
     check(a[1] == b[1], "batched_events: keys change the counters")
     c1 = dataclasses.replace(cfg, frames_per_broadphase=1)
     _, (_, keys), _ = rollout(True, 10, c1)
-    w = sc.world
+    w = w0
     for f in range(10):
         w, kf, _ = parallel.batched_step_events(w, c1)
         check(torch.equal(keys[f], kf),
@@ -3031,6 +3101,29 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             print("ptxas:", line.strip())
+    # K4's instances: ptxas's report beside the shared memory and resident
+    # blocks an SM at the shapes of the phases that run each (the main
+    # path; the mechanism and rope batches; the V = 8 test scene for V = 8)
+    k4 = ptxas_k4(_build.build_log())
+    lib = _build.library()
+    for inst, (regs, stack, st_, ld) in sorted(k4.items()):
+        V, kJ, kCcd = inst.strip("<>").split(",")
+        shapes = (((128, 128, 10, 12), (128, 128, 50, 8)) if kJ == "true"
+                  else ((N_BODIES, N_BODIES, 0, 8),) if V == "4"
+                  else ((128, 128, 0, 8),))
+        for n, m, j, csol in shapes:
+            smem = hopper.frame2_shared_bytes(n, m, int(V), j, csol)
+            rows = hopper.frame2_table_rows(n, m, int(V), j, csol)
+            blocks = lib.sf_frame2_blocks_per_sm(
+                int(V), j, int(kCcd == "true"), n, m, csol)
+            threads = lib.sf_frame2_block_threads(n, m, int(V), j, csol)
+            check(blocks >= 1, f"K4 {inst}: no block fits an SM")
+            print(f"K4 {inst}: {regs} registers, {stack} bytes stack, {st_} "
+                  f"bytes spill stores, {ld} bytes spill loads; at N = {n}, "
+                  f"M = {m}, J = {j}, {csol} solve slots: {smem} bytes of "
+                  f"shared memory, table rows {rows} of {m}, {blocks} "
+                  f"block(s) of {threads} threads an SM")
+    check(len(k4) == 8, f"ptxas reported {len(k4)} K4 instances, not 8")
 
     # ---- 2. kernel vs twin ------------------------------------------------
     errs = parity(dev, hopper, parallel, batched_worlds)
@@ -3042,25 +3135,28 @@ def main() -> int:
     errs.update(parity_ccd(dev, hopper, tiled, parallel))
 
     # ---- 3. the main path at full width ------------------------------------
-    sc = batched_worlds(n_worlds=W_MAIN, n_bodies=N_BODIES, substeps=SUBSTEPS,
-                        device=dev)
-    cfg = sc.config
-    active = int(((sc.world.bodies.flags & 1) != 0).sum())
+    w0, cfg, _ = k4_phase("main", dev)
+    active = int(((w0.bodies.flags & 1) != 0).sum())
 
     def rollout(n, plain=False):
-        return parallel.batched_rollout(sc.world, cfg, 0, n,
-                                        record=lambda _: None, plain=plain)
+        return parallel.batched_rollout(w0, cfg, 0, n, record=lambda _: None,
+                                        plain=plain)
 
     rollout(FRAMES)  # warm-up
     torch.cuda.synchronize()
     wrappers = {name: getattr(hopper, attr) for name, attr, _, _ in KERNELS}
     for fn in wrappers.values():
         fn.launches = 0
+    hopper.run_frame2.shared_table_launches = 0
     syncs0 = parallel.host_syncs
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     final, _, diag = rollout(FRAMES)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    shared_launches = hopper.run_frame2.shared_table_launches
+    record_phase("main", w0, cfg, FRAMES, final)
     launches = {name: wrappers[name].launches for name in CONTACT_KERNELS}
     syncs = parallel.host_syncs - syncs0
     diag = {k: int(v) for k, v in diag.items()}
@@ -3079,6 +3175,8 @@ def main() -> int:
           f"slots launched {launches['slots']} times")
     check(launches["frame2"] == FRAMES,
           f"frame2 launched {launches['frame2']} times")
+    check(shared_launches == FRAMES, f"main path: {shared_launches} of "
+          f"{FRAMES} K4 launches with the whole slot table in shared memory")
     ms_frame = 1e3 * seconds / FRAMES
     bps = active * FRAMES / seconds
     print(f"main path: {W_MAIN}x{N_BODIES} worlds, {SUBSTEPS} substeps, "
@@ -3087,6 +3185,9 @@ def main() -> int:
     print(f"main path counters: {json.dumps(diag)}; launches "
           f"{json.dumps(launches)}; host syncs {syncs} "
           f"({syncs / FRAMES:.3f}/frame); min dynamic y {y_min:.4f}")
+    print(f"main path: K4 slot table in shared memory on {shared_launches} "
+          f"of {FRAMES} launches (run_frame2.shared_table_launches); peak "
+          f"device memory {peak_gib:.3f} GiB on {card}")
 
     jointed = {name: run_jointed(name, dev, wrappers, parallel, card)
                for name in JOINTED}
@@ -3113,9 +3214,8 @@ def main() -> int:
     # K4's last branches: compaction (with CCD too), per-world owner
     # tables, sleep and the contact keys on the main path
     a1 = {"frame2_compact": run_batched_compact(dev, hopper, parallel, card)}
-    a1["frame2_compact_ccd"] = run_batched_compact(
-        dev, hopper, parallel, card, ccd=True,
-        widths=a1["frame2_compact"]["widths"])
+    a1["frame2_compact_ccd"] = run_batched_compact(dev, hopper, parallel,
+                                                   card, ccd=True)
     eproj = run_compact_projectile(dev, hopper, parallel, card)
     a1["frame2_owners"] = run_batched_owners(dev, hopper, parallel, card)
     bsleep = run_batched_sleep(dev, hopper, parallel, card)
@@ -3247,10 +3347,10 @@ def main() -> int:
     # ---- 5. determinism ----------------------------------------------------
     a, _, da = rollout(10)
     b, _, db = rollout(10)
-    msc = jointed["mechanism"]["sc"]
-    ma, _, dma = parallel.batched_rollout(msc.world, msc.config, 0, 10,
+    mw, mcfg = jointed["mechanism"]["world"], jointed["mechanism"]["cfg"]
+    ma, _, dma = parallel.batched_rollout(mw, mcfg, 0, 10,
                                           record=lambda _: None)
-    mb, _, dmb = parallel.batched_rollout(msc.world, msc.config, 0, 10,
+    mb, _, dmb = parallel.batched_rollout(mw, mcfg, 0, 10,
                                           record=lambda _: None)
     pa, dpa = tiled.tiled_rollout(pile["sc"].world, pile["cfg"], 10)
     pb, dpb = tiled.tiled_rollout(pile["sc"].world, pile["cfg"], 10)
@@ -3267,6 +3367,19 @@ def main() -> int:
     print("determinism: 10-frame reruns of the main path, the mechanism "
           "batch and the pile bitwise equal (and the sleeping pile's last "
           "chunk, above)")
+
+    # ---- 6. the slot table's placement and the K4 phases' digests --------
+    split = digests_tool().SPLIT
+    for name, (r, m) in TABLE_ROWS.items():
+        check((r < m) if name in split else (r == m), f"{name}: K4 kept {r} "
+              f"of {m} rows' slot records in shared memory")
+    check(sorted(DIGESTS) == sorted(digests_tool().PHASES),
+          f"digests of {sorted(DIGESTS)}")
+    print("K4 table rows in shared memory (R / M) on each phase: "
+          + ", ".join(f"{n} {r}/{m}" for n, (r, m) in TABLE_ROWS.items())
+          + f" (all M but {', '.join(split)}, the uncompacted tables "
+          "batched_compact times its own against)")
+    print("frame2 digests: " + json.dumps(DIGESTS))
 
     # no single PyTorch call computes any of these kernels: library_ms null
     print(f"wall time {time.perf_counter() - t_start:.1f} s")

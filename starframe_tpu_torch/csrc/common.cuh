@@ -81,7 +81,9 @@ struct Frame2Args {
   const float* gravity;     // [W, 2]
   const int32_t* owner_start;  // [N + 1] collider->body CSR (world 0's, or
   const int32_t* owner_idx;    // [M]  [W, N + 1] / [W, M] per world), ascending
-  float* scratch;           // [W, F2_FIELDS, C, M] per-slot frame constants
+  // slot records of rows i >= R (frame2.cu `place`): [W] tables of Csol
+  // slots x (M - R) rows; null when every row's fits in shared memory
+  uint8_t* gtab;
   float* o_posx;            // [W, N] outputs
   float* o_posy;
   float* o_ang;
@@ -120,7 +122,9 @@ struct Frame2Args {
   float hh;                 // h * h, rounded once (joint compliance scale)
   // CCD (the kCcd instantiation): null pointers and ccd = 0 without it
   const float* bullet;      // [W, N] 1 on a bullet body
-  float* ccd_scratch;       // [W, 2, C, M] the carried world normal per slot
+  // with Cs too: the slots compaction drops, [W] tables of C - Cs slots x
+  // M rows, which only the TOI reads; null otherwise
+  uint8_t* side;
   int ccd;
   float ccd_slop;
   int owner_per_world;      // 1: owner_start/idx hold one CSR per world
@@ -128,21 +132,34 @@ struct Frame2Args {
   int Cs;
   int32_t* o_partner;       // [W, C, M] the partner table in rank order
   float* o_nact;            // [W, 2, M] imminent / pmask-active slot counts
+  // [W, 4, N] the substep-start pose (x, y, cos, sin) when it does not fit
+  // in shared memory beside the world's state; null otherwise
+  float* gpose;
 };
 
-// Per-slot fields the frame kernel keeps in global scratch, each a [C, M]
-// plane so that consecutive threads (rows i) read consecutive addresses.
+// A slot's record in the frame kernel's slot table: the float fields
+// below, each a [Csol, rows] plane so that consecutive threads (rows i)
+// read consecutive words, then the partner collider (int16) and a mask
+// byte (F2_PM0 .. F2_TOUCHED) per slot. Everything else a slot uses is
+// recomputed from the pose and the colliders in shared memory. The terms
+// hold what the slot adds to its row's correction sum in a pass, computed
+// slot-parallel and summed by the row in slot order.
 enum Frame2Field {
   F2_NAX, F2_NAY,                       // body-local normal (own frame)
   F2_AAX0, F2_AAX1, F2_AAY0, F2_AAY1,   // body-local anchors on own body
   F2_BAX0, F2_BAX1, F2_BAY0, F2_BAY1,   // body-local anchors on partner
-  F2_SM0, F2_SM1, F2_PM0, F2_PM1,       // solve mask, point mask
-  F2_FRIC, F2_REST, F2_IMB, F2_IIB,     // pair friction/restitution, partner
-  F2_WAX0, F2_WAX1, F2_WAY0, F2_WAY1,   // substep-start anchor world
-  F2_WBX0, F2_WBX1, F2_WBY0, F2_WBY1,   //   positions (static friction)
   F2_LAM0, F2_LAM1,                     // accumulated normal lambda
+  F2_T0, F2_T1, F2_T2, F2_T3,           // the slot's term of a pass's row sum
   F2_FIELDS
 };
+enum Frame2Mask {
+  F2_PM0 = 1, F2_PM1 = 2,               // point masks (manifold x slot_act)
+  F2_SM0 = 4, F2_SM1 = 8,               // solve masks (x 1 - sensor)
+  F2_TOUCHED = 16                       // the slot's running `touched`
+};
+#define F2_SLOT_BYTES (4 * F2_FIELDS + 3)
+// shared memory one H100 block may use (hopper/frame2.py SHARED_LIMIT)
+#define F2_SHARED_LIMIT 232448
 
 // The tile engine (tile_tables.cu, tile_manifold.cu, tile_substep.cu).
 // Rows are colliders sorted along the sort axis, cut into Nt tiles of

@@ -6,37 +6,56 @@
 // `run_frame2`) in every configuration it has: contact-only or with joints
 // (both joint tiers), with or without CCD, with one collider->body list for
 // the batch or one per world, and with or without per-frame solve-slot
-// compaction (Cs, compact_row below). Sleep needs no kernel change: the
+// compaction (Cs, `rank_row` below). Sleep needs no kernel change: the
 // wrapper's caller zeroes a sleeper's inverse masses for the frame.
 //
-// What bounds it on an H100: the per-slot frame constants. Each slot of
-// each row carries ~28 floats through the frame (normal, anchors, masks,
-// pair material, the carried static-friction reference, lambda): 229 KB a
-// world at C = 8, M = 256, more than a block's shared memory. They live in
-// a global scratch [W, F2_FIELDS, C, M] laid out so that consecutive
-// threads (rows) touch consecutive addresses; every substep re-reads them
-// (~0.9 GB at W = 4096). The manifold math itself is scalar SAT/clip code,
-// ~1-2k flops per active slot.
+// What bounds it on an H100: latency. The slot table, everything a row's
+// slots carry through the frame, lives in shared memory. Of the ~30 floats
+// a slot once kept in a 1.0 GB global scratch (W = 4096, C = 8, M = 256),
+// only what cannot be recomputed is stored: the body-local normal and
+// anchors, the two lambdas, the four terms a pass adds to the row's sums,
+// the partner collider (int16) and a mask byte, 67 bytes a slot
+// (common.cuh Frame2Field). The pair's friction, restitution and the
+// partner's inverse masses are read from the world's state where they are
+// used, and the static-friction reference (the anchors at the substep's
+// start, and CCD's frame-start normal) is rebuilt from four [N] planes of
+// the substep-start pose with the expressions that once wrote it, so the
+// frame is bitwise what it was. At the main path's shapes the table is 137
+// KB and the block 182 KB: one 512-thread block an SM, 128 registers a
+// thread, and what is left is the dependent chain of each slot's solve
+// (its divisions and square roots) and the barriers between phases. A
+// shape whose table does not fit keeps rows i >= R (`place`) in a global
+// table of the same layout, reached through the same row accessor
+// (`row_of`); one whose pose planes do not fit either keeps them in global
+// memory too. The manifold math itself is scalar SAT/clip code, ~1-2k
+// flops per active slot.
 //
-// Design: one CTA per world, 256 threads. A thread is body n in the body
-// phases and collider row i in the slot phases (strided when N or M
-// exceed the block). Body state, the world's collider geometry and the
-// per-row correction sums live in shared memory. The Jacobi semantics are
-// the TPU's: every row reads the iteration's start pose, writes its row
-// sum to shared memory, __syncthreads(), and only then do bodies apply the
-// count-normalised, clipped corrections. A row sums its C slots in order
-// c = 0..C-1 (frame2.py `_sum_w`), and a body sums its colliders' rows in
+// Design: one CTA per world, 512 threads (256 where two blocks fit an
+// SM's shared memory: `block_threads`). A thread is body n in the body
+// phases, one (row i, slot c) item in the slot phases (the manifolds, the
+// projection, the velocity pass), and row i where a row's slots go
+// together (compaction's ranking, CCD's TOI), strided when the block runs
+// out. Body state, the world's collider geometry and the slot table live
+// in shared memory. The Jacobi semantics are the TPU's: every slot reads
+// the iteration's start pose and leaves its terms in its record,
+// __syncthreads(), and only then does each body sum them and apply the
+// count-normalised, clipped corrections. A body sums its colliders' rows in
 // ascending collider order from a CSR, world 0's for a batch of one
-// topology (what the TPU's one-hot dot computes) or each world's own (the
-// TPU's per-world owner tables, summed k = 0..Kc-1). No float atomics:
-// the frame is bitwise reproducible. Slots whose manifold has no active
-// point are skipped in the substep loop; they contribute exact zeros in
-// the reference. The
-// static-friction reference is carried from the previous substep's
-// velocity-pass kinematics, starting from the frame-start pose (kin00).
-// The manifold and the per-point contact solves are the shared
-// transcriptions of kernels.py in contact.cuh, over the V (templated)
-// vertices.
+// topology (what the TPU's one-hot dot computes; colliders inactive in
+// every world, whose rows are empty, left out) or each world's own (the
+// TPU's per-world owner tables, summed k = 0..Kc-1), and each row's slots
+// in order c = 0..C-1 (frame2.py `_sum_w`), so the adds are the
+// reference's, in its order. No float atomics: the frame is bitwise
+// reproducible. Slots whose manifold has no active point are skipped;
+// they contribute exact zeros in the reference. Each phase that moves an
+// angle refreshes its cos/sin, and body phases with no slot phase between
+// them share a loop, so a substep has four barriers: after the integrate,
+// after the projection, after the apply, after the velocity pass. The
+// static-friction reference is the reference's carried velocity-pass
+// kinematics (kin00 at the first substep): the anchors at the pose that
+// ended the previous substep, which the pose planes hold. The manifold
+// and the per-point contact solves are the shared transcriptions of
+// kernels.py in contact.cuh, over the V (templated) vertices.
 //
 // Joints (the kJ instantiation; the contact-only one compiles without any
 // of it, so the main path keeps its registers and occupancy): the world's
@@ -44,7 +63,7 @@
 // a body phase owns that body's JC joint slots (joint_slots.cu), read
 // canonicalised so the own body is endpoint A (frame2.py `jd_all`). The
 // Jacobi tier sums a body's slots in order jc = 0..JC-1 during the contact
-// row phase (every body reads the iteration-start pose) and adds the sum
+// slot phase (every body reads the iteration-start pose) and adds the sum
 // after the contact sum, as the reference does. The coloured Gauss-Seidel
 // tier runs one pass per colour after the contact apply: each pass reads
 // the pass-start pose, writes its per-body sums to shared memory,
@@ -60,20 +79,22 @@
 // static-friction reference, and at the integrated one); then a body phase
 // sums (1 - f) over the body's colliders (the same owner lists as the row
 // sums) and pulls the integrated pose back to p0 + f (p - p0) where f < 1.
-// The substep-start pose waits in dxx/dxy/dth (zeroed after the clamp) and
-// the carried world normal in `ccd_scratch`, so the shared-memory layout is
-// the non-CCD one.
+// The substep-start pose waits in dxx/dxy/dth (zeroed after the clamp), and
+// the TOI's anchors and normal at it are rebuilt from the pose planes like
+// the static-friction reference.
 
 #include "common.cuh"
 #include "contact.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;  // a block's threads, or half (block_threads)
+constexpr size_t kSmPerSM = 233472;  // shared memory an H100 SM shares out
+constexpr size_t kSmReserved = 1024;  // of it, what the runtime keeps a block
 constexpr float kPi = 3.14159265358979323846f;  // pi and 2 pi rounded to f32
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr int kJointFields = 15;  // Frame2Args jtype .. jcolor
-constexpr int kMaxC = 32;  // table width compact_row ranks (MAX_COMPACT_C)
+constexpr int kMaxC = 32;  // table width rank_row ranks (MAX_COMPACT_C)
 enum JointType { kDistance = 1, kPin = 2, kAngleRange = 3, kMotor = 4,
                  kWeld = 5 };  // state.py JOINT_*
 
@@ -81,7 +102,8 @@ struct Shared {
   // body state [N]
   float *px, *py, *an, *vx, *vy, *om, *invm, *invi, *dyn, *kin;
   float *vtx, *vty, *vtom, *cab, *sab, *dxx, *dxy, *dth, *spd;
-  // collider geometry [M] (verts [V, M]) and per-row correction sums [4, M]
+  // collider geometry [M] (verts [V, M]) and a [4, M] row plane (CCD's
+  // per-row TOI terms in its first [M])
   float *vlx, *vly, *rad, *fric, *rest, *sens, *ext, *row;
   int *cbody, *nv, *ostart, *oidx;
   // joints (kJ only): parameters [J] and per-body joint sums [4, N]
@@ -92,7 +114,7 @@ struct Shared {
 
 __host__ __device__ inline size_t shared_bytes(int N, int M, int V, int J) {
   // body: 19 [N] planes; colliders: verts 2 [V, M], five [M] fields and the
-  // [4, M] row sums; ints: cbody, nverts, owner_idx [M] and owner_start;
+  // [4, M] row plane; ints: cbody, nverts, owner_idx [M] and owner_start;
   // with joints: 15 [J] parameter rows and the [4, N] joint sums
   return (size_t)(19 * N + (2 * V + 9) * M) * sizeof(float) +
          (size_t)(3 * M + N + 1) * sizeof(int) +
@@ -117,7 +139,8 @@ __device__ Shared carve(float* base, int N, int M, int V, int J) {
     *f = p;
     p += M;
   }
-  s.row = p; p += 4 * M;
+  s.row = p;
+  p += 4 * M;
   int* q = reinterpret_cast<int*>(p);
   s.cbody = q; q += M;
   s.nv = q; q += M;
@@ -139,6 +162,67 @@ __device__ Shared carve(float* base, int N, int M, int V, int J) {
     s.jrow = r;
   }
   return s;
+}
+
+// Where a world's slot table goes (see the header note): the shared
+// memory left after the world's state holds the four [N] substep-start pose
+// planes, then the records of rows i < R. R = -1 when the state alone does
+// not fit (the wrapper refuses such a shape); R = 0 with `pose_shared`
+// false when the pose planes do not fit either.
+struct Placement {
+  int R;
+  bool pose_shared;
+  size_t bytes;  // the block's dynamic shared memory
+};
+
+__host__ __device__ inline Placement place(int N, int M, int V, int J,
+                                           int Csol) {
+  const size_t state = shared_bytes(N, M, V, J);
+  const size_t pose = (size_t)4 * N * sizeof(float);
+  if (state > F2_SHARED_LIMIT) return {-1, false, state};
+  if (state + pose > F2_SHARED_LIMIT) return {0, false, state};
+  const size_t per_row = (size_t)Csol * F2_SLOT_BYTES;
+  const size_t fit = (F2_SHARED_LIMIT - state - pose) / per_row;
+  const int R = fit < (size_t)M ? (int)fit : M;
+  return {R, true, state + pose + per_row * R};
+}
+
+// Threads a block: kThreads, or half as many where two such blocks fit an
+// SM's shared memory (a small world, e.g. 128 bodies: two worlds an SM,
+// each running while the other waits at a barrier or fills only 128
+// threads in a body phase; two 256-thread blocks also fit the registers).
+inline int block_threads(size_t bytes) {
+  return 2 * (bytes + kSmReserved) <= kSmPerSM ? kThreads / 2 : kThreads;
+}
+
+// Bytes of one world's global table of K slots x Rn rows (16-aligned).
+__host__ __device__ inline size_t table_bytes(int K, int Rn) {
+  return ((size_t)K * Rn * F2_SLOT_BYTES + 15) / 16 * 16;
+}
+
+// Row r of a table of K slots x Rn rows at `base` (shared or global: the
+// accessors use generic addresses): field q of slot c at f[q * fs + c *
+// cs], its partner collider at pc[c * cs], its mask byte at mk[c * cs].
+struct SlotRow {
+  float* f;
+  int16_t* pc;
+  uint8_t* mk;
+  int cs, fs;
+  __device__ __forceinline__ float& at(int q, int c) const {
+    return f[q * fs + c * cs];
+  }
+  __device__ __forceinline__ int16_t& partner(int c) const {
+    return pc[c * cs];
+  }
+  __device__ __forceinline__ uint8_t& mask(int c) const { return mk[c * cs]; }
+};
+
+__device__ __forceinline__ SlotRow table_row(uint8_t* base, int K, int Rn,
+                                             int r) {
+  float* f = reinterpret_cast<float*>(base);
+  int16_t* pc = reinterpret_cast<int16_t*>(f + F2_FIELDS * K * Rn);
+  uint8_t* mk = reinterpret_cast<uint8_t*>(pc + K * Rn);
+  return {f + r, pc + r, mk + r, Rn, K * Rn};
 }
 
 // One joint slot of body n, canonicalised so that n is endpoint A: the
@@ -305,79 +389,145 @@ __device__ __forceinline__ void joint_sums(const Shared& s,
   for (int q = 0; q < 4; ++q) s.jrow[q * N + n] = acc[q];
 }
 
-// sum of a [4, M] row-sum plane over body n's colliders, ascending
-__device__ __forceinline__ void to_body(const Shared& s, int M, int n,
-                                        float (&out)[4]) {
-  out[0] = out[1] = out[2] = out[3] = 0.f;
-  for (int k = s.ostart[n]; k < s.ostart[n + 1]; ++k) {
-    const int col = s.oidx[k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) out[q] += s.row[q * M + col];
+// Run f(i, c) on the (row i, slot c) items of a K-slot table over M rows
+// that this thread takes: items u = c * M + i, strided by the block, so
+// consecutive threads take consecutive rows.
+template <class F>
+__device__ __forceinline__ void for_items(int K, int M, F f) {
+  const int di = blockDim.x % M, dc = blockDim.x / M;
+  int i = threadIdx.x % M, c = threadIdx.x / M;
+  while (c < K) {
+    f(i, c);
+    i += di;
+    c += dc;
+    if (i >= M) {
+      i -= M;
+      ++c;
+    }
   }
 }
 
-// K4's TOI factor of row i (kCcd): 1 unless its body is a bullet and a
-// solved point of one of its slots would close past ccd_slop this substep
-// (frame2.py:482-504). The pose is integrated and cab/sab are its own; the
-// substep-start pose waits in dxx/dxy/dth. It walks all C slots of the
-// table: the first `Csol` (the solved ones) carry their substep-start
-// anchors and normal from the last velocity pass; a slot that compaction
-// dropped carries nothing, so its are computed here from the substep-start
-// pose with the velocity pass's formula (the same values it would carry).
-__device__ __forceinline__ float ccd_row_factor(const Shared& s,
-                                                const Frame2Args& a,
-                                                const float* scr,
-                                                const float* cscr,
-                                                const int32_t* ptab, int i,
-                                                size_t plane, int Csol) {
-  const long long w = blockIdx.x;
-  const int ob = s.cbody[i];
-  if (!(a.bullet[w * a.N + ob] > 0.f)) return 1.f;
+// The substep-start pose [N] (x, y, cos, sin): the pose that ended the
+// previous substep (the frame-start pose at the first). The load and the
+// velocity reconstruction fill it; the static-friction reference and the
+// TOI's substep-start anchors and normal are rebuilt from it.
+struct Pose0 {
+  float *x, *y, *c, *s;
+};
+
+// A slot's frame-start constants (frame2.py `cb_`): what its record stores,
+// and the smallest active separation that compaction ranks by.
+struct SlotSetup {
+  float n_ax, n_ay, a_ax[2], a_ay[2], b_ax[2], b_ay[2];
+  float sep_min;
+  int pc;
+  int mask;
+};
+
+// The manifold of row i's slot against partner collider pc at the
+// frame-start pose (own vertices vax/vay), with a velocity-expanded
+// speculative margin, in body-local terms. Every mask is 0 or 1 (the
+// manifold's pmask, K2's slot_act, the collider's sensor flag), so each
+// is kept as a bit; `touched` starts at the slot's touch flag.
+template <int V>
+__device__ __forceinline__ void setup_slot(
+    const Shared& s, const Frame2Args& a, int i, int pc, float act,
+    const float (&vax)[V], const float (&vay)[V], float o_px, float o_py,
+    float o_ca, float o_sa, float o_spd, SlotSetup& u) {
+  const int M = a.M;
+  const int pb = s.cbody[pc];
+  const float p_px = s.px[pb], p_py = s.py[pb];
+  const float p_ca = s.cab[pb], p_sa = s.sab[pb];
+  const float p_spd = s.spd[pb] + fabsf(s.om[pb]) * s.ext[pc];
+  float vbx[V], vby[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float x = s.vlx[v * M + pc], y = s.vly[v * M + pc];
+    vbx[v] = p_px + p_ca * x - p_sa * y;
+    vby[v] = p_py + p_sa * x + p_ca * y;
+  }
+  // velocity-expanded speculative margin: a contact that forms during
+  // this frame's substeps must already be in the manifold
+  const float margin_eff = a.margin + a.dt * (o_spd + p_spd);
+  Manifold m;
+  manifold<V>(vax, vay, s.nv[i], s.rad[i], vbx, vby, s.nv[pc], s.rad[pc],
+              margin_eff, m);
+  const float solvable = act * (1.f - fmaxf(s.sens[i], s.sens[pc]));
+  u.n_ax = o_ca * m.nx + o_sa * m.ny;
+  u.n_ay = -o_sa * m.nx + o_ca * m.ny;
+  u.pc = pc;
+  u.mask = 0;
+  u.sep_min = 1e9f;
+  float touch0 = 0.f;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const float dxa = m.wax[p] - o_px, dya = m.way[p] - o_py;
+    u.a_ax[p] = o_ca * dxa + o_sa * dya;
+    u.a_ay[p] = -o_sa * dxa + o_ca * dya;
+    const float dxb = m.wbx[p] - p_px, dyb = m.wby[p] - p_py;
+    u.b_ax[p] = p_ca * dxb + p_sa * dyb;
+    u.b_ay[p] = -p_sa * dxb + p_ca * dyb;
+    const float pm = m.pmask[p] * act;
+    u.mask |= (pm != 0.f ? F2_PM0 : 0) << p;
+    u.mask |= (pm * solvable > 0.f ? F2_SM0 : 0) << p;
+    touch0 = fmaxf(touch0, (m.sep[p] < kTouchSlop ? 1.f : 0.f) * pm);
+    if (pm > 0.f) u.sep_min = fminf(u.sep_min, m.sep[p]);
+  }
+  u.mask |= touch0 > 0.f ? F2_TOUCHED : 0;
+}
+
+// Slot c of table row t gets u's record, its lambdas zeroed.
+__device__ __forceinline__ void store_slot(const SlotRow& t, int c,
+                                           const SlotSetup& u) {
+  t.at(F2_NAX, c) = u.n_ax;
+  t.at(F2_NAY, c) = u.n_ay;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    t.at(F2_AAX0 + p, c) = u.a_ax[p];
+    t.at(F2_AAY0 + p, c) = u.a_ay[p];
+    t.at(F2_BAX0 + p, c) = u.b_ax[p];
+    t.at(F2_BAY0 + p, c) = u.b_ay[p];
+  }
+  t.at(F2_LAM0, c) = 0.f;
+  t.at(F2_LAM1, c) = 0.f;
+  t.partner(c) = (int16_t)u.pc;
+  t.mask(c) = (uint8_t)u.mask;
+}
+
+// The TOI minimum over the K slots of table row t (kCcd), for a row of
+// bullet body ob (frame2.py:482-504): each solved point's fraction of the
+// substep's closing along the frame-start normal that lands the pair at
+// ccd_slop of penetration. The pose is integrated and cab/sab are its own;
+// the substep-start anchors and normal come from q0, with the expressions
+// of the velocity pass that carries them in the reference.
+__device__ __forceinline__ float ccd_slots(const Shared& s,
+                                           const Frame2Args& a,
+                                           const SlotRow& t, int K, int ob,
+                                           const Pose0& q0, float f_col) {
   const float o_px = s.px[ob], o_py = s.py[ob];
   const float o_ca = s.cab[ob], o_sa = s.sab[ob];
-  float f_col = 1.f;
-  for (int c = 0; c < a.C; ++c) {
-    const size_t t = (size_t)c * a.M + i;
-    const float* f = scr + t;
-    const float sm[2] = {f[F2_SM0 * plane], f[F2_SM1 * plane]};
-    if (!(sm[0] > 0.f) && !(sm[1] > 0.f)) continue;
-    const int pb = s.cbody[ptab[t]];
+  const float q_px = q0.x[ob], q_py = q0.y[ob];
+  const float q_ca = q0.c[ob], q_sa = q0.s[ob];
+  for (int c = 0; c < K; ++c) {
+    const int mk = t.mask(c);
+    if (!(mk & (F2_SM0 | F2_SM1))) continue;
+    const int pb = s.cbody[t.partner(c)];
     const float p_px = s.px[pb], p_py = s.py[pb];
     const float p_ca = s.cab[pb], p_sa = s.sab[pb];
-    const bool carried = c < Csol;
-    float q_ca = 0.f, q_sa = 0.f, r_ca = 0.f, r_sa = 0.f;
-    float nx0, ny0;
-    if (carried) {
-      nx0 = cscr[t];
-      ny0 = cscr[plane + t];
-    } else {  // own and partner pose at the substep start
-      q_ca = cosf(s.dth[ob]);
-      q_sa = sinf(s.dth[ob]);
-      r_ca = cosf(s.dth[pb]);
-      r_sa = sinf(s.dth[pb]);
-      const float n_ax = f[F2_NAX * plane], n_ay = f[F2_NAY * plane];
-      nx0 = q_ca * n_ax - q_sa * n_ay;
-      ny0 = q_sa * n_ax + q_ca * n_ay;
-    }
+    const float r_px = q0.x[pb], r_py = q0.y[pb];
+    const float r_ca = q0.c[pb], r_sa = q0.s[pb];
+    const float n_ax = t.at(F2_NAX, c), n_ay = t.at(F2_NAY, c);
+    const float nx0 = q_ca * n_ax - q_sa * n_ay;
+    const float ny0 = q_sa * n_ax + q_ca * n_ay;
 #pragma unroll
     for (int p = 0; p < 2; ++p) {
-      if (!(sm[p] > 0.f)) continue;
-      const float a_ax = f[(F2_AAX0 + p) * plane];
-      const float a_ay = f[(F2_AAY0 + p) * plane];
-      const float b_ax = f[(F2_BAX0 + p) * plane];
-      const float b_ay = f[(F2_BAY0 + p) * plane];
-      float wax0, way0, wbx0, wby0;
-      if (carried) {
-        wax0 = f[(F2_WAX0 + p) * plane];
-        way0 = f[(F2_WAY0 + p) * plane];
-        wbx0 = f[(F2_WBX0 + p) * plane];
-        wby0 = f[(F2_WBY0 + p) * plane];
-      } else {
-        wax0 = s.dxx[ob] + (q_ca * a_ax - q_sa * a_ay);
-        way0 = s.dxy[ob] + (q_sa * a_ax + q_ca * a_ay);
-        wbx0 = s.dxx[pb] + (r_ca * b_ax - r_sa * b_ay);
-        wby0 = s.dxy[pb] + (r_sa * b_ax + r_ca * b_ay);
-      }
+      if (!(mk & (F2_SM0 << p))) continue;
+      const float a_ax = t.at(F2_AAX0 + p, c), a_ay = t.at(F2_AAY0 + p, c);
+      const float b_ax = t.at(F2_BAX0 + p, c), b_ay = t.at(F2_BAY0 + p, c);
+      const float wax0 = q_px + (q_ca * a_ax - q_sa * a_ay);
+      const float way0 = q_py + (q_sa * a_ax + q_ca * a_ay);
+      const float wbx0 = r_px + (r_ca * b_ax - r_sa * b_ay);
+      const float wby0 = r_py + (r_sa * b_ax + r_ca * b_ay);
       const float wax1 = o_px + (o_ca * a_ax - o_sa * a_ay);
       const float way1 = o_py + (o_sa * a_ax + o_ca * a_ay);
       const float wbx1 = p_px + (p_ca * b_ax - p_sa * b_ay);
@@ -393,30 +543,26 @@ __device__ __forceinline__ float ccd_row_factor(const Shared& s,
   return f_col;
 }
 
-// Per-frame solve-slot compaction of row i (frame2.py:361-426), run by
-// the thread that owns the row once its C slots are set up: each slot's
-// tier (0 touching, 1 imminent sep < margin, 2 speculative-active, 3
-// empty) and smallest active separation (left in the F2_LAM0 plane by the
-// set-up), the rank of every slot in the exact total order (tier, sep,
-// slot index), then every per-slot plane of the row (the scratch fields,
-// `touched`, the CCD normal) permuted in place into rank order, and the
-// partner table written in rank order to o_partner. The row counts go to
-// o_nact. A phase of its own after the set-up, its arrays in local memory.
-__device__ __forceinline__ void compact_row(const Frame2Args& a, float* scr,
-                                            float* cscr, int i,
-                                            size_t plane) {
+// Per-frame solve-slot compaction of row i (frame2.py:361-426), by the
+// thread that owns the row: each of its C slots' tier (0 touching, 1
+// imminent sep < margin, 2 speculative-active, 3 empty) and smallest active
+// separation, the rank of every slot in the exact total order (tier, sep,
+// slot index) into `perm` (perm[r]: the slot of rank r), and the row's
+// counts in o_nact. `slot(c, u)` sets slot c up (false: an empty slot).
+template <class SlotFn>
+__device__ __forceinline__ void rank_row(const Frame2Args& a, int i,
+                                         SlotFn slot, int (&tier)[kMaxC],
+                                         int (&perm)[kMaxC]) {
   const long long w = blockIdx.x;
   const int C = a.C, M = a.M;
-  float* touched = a.o_touched + w * plane;
   float key[kMaxC];
-  int tier[kMaxC], perm[kMaxC];
   float n_imm = 0.f, n_act = 0.f;
   for (int c = 0; c < C; ++c) {
-    const size_t t = (size_t)c * M + i;
-    const bool pm_any =
-        fmaxf(scr[F2_PM0 * plane + t], scr[F2_PM1 * plane + t]) > 0.f;
-    key[c] = pm_any ? scr[F2_LAM0 * plane + t] : 1e9f;
-    tier[c] = touched[t] > 0.f                 ? 0
+    SlotSetup u;
+    const bool live = slot(c, u);
+    const bool pm_any = live && (u.mask & (F2_PM0 | F2_PM1));
+    key[c] = pm_any ? u.sep_min : 1e9f;
+    tier[c] = live && (u.mask & F2_TOUCHED)   ? 0
               : (key[c] < a.margin && pm_any) ? 1
               : pm_any                         ? 2
                                                : 3;
@@ -436,47 +582,39 @@ __device__ __forceinline__ void compact_row(const Frame2Args& a, float* scr,
   }
   a.o_nact[(w * 2) * M + i] = n_imm;
   a.o_nact[(w * 2 + 1) * M + i] = n_act;
-  float tmp[kMaxC];
-  auto permute = [&](float* base) {
-    for (int c = 0; c < C; ++c) tmp[c] = base[(size_t)c * M + i];
-    for (int r = 0; r < C; ++r) base[(size_t)r * M + i] = tmp[perm[r]];
-  };
-  for (int q = 0; q < F2_FIELDS; ++q) {
-    if (q == F2_LAM0 || q == F2_LAM1) continue;
-    permute(scr + q * plane);
-  }
-  permute(touched);
-  if (cscr != nullptr) {
-    permute(cscr);
-    permute(cscr + plane);
-  }
-  const int32_t* partner = a.partner + w * plane;
-  for (int r = 0; r < C; ++r) {
-    a.o_partner[w * plane + (size_t)r * M + i] =
-        partner[(size_t)perm[r] * M + i];
-    scr[F2_LAM0 * plane + (size_t)r * M + i] = 0.f;
-    scr[F2_LAM1 * plane + (size_t)r * M + i] = 0.f;
-  }
 }
 
 template <int V, bool kJ, bool kCcd>
-__global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
+__global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
   extern __shared__ float smem[];
   const int N = a.N, M = a.M, C = a.C;
   const long long w = blockIdx.x;
-  const Shared s = carve<kJ>(smem, N, M, V, a.J);
-  const size_t plane = (size_t)C * M;  // one scratch field of one world
-  float* scr = a.scratch + (size_t)w * F2_FIELDS * plane;
-  // kCcd: the carried world normal [2, C, M] of this world
-  float* cscr = kCcd ? a.ccd_scratch + (size_t)w * 2 * plane : nullptr;
+  const int J = kJ ? a.J : 0;
+  const Shared s = carve<kJ>(smem, N, M, V, J);
+  const size_t plane = (size_t)C * M;  // one [C, M] slot table of one world
   const float gx = a.gravity[2 * w], gy = a.gravity[2 * w + 1];
   const float h = a.h;
   // with compaction the substeps solve the first Cs slots of the ranked
-  // table, whose partners are in o_partner
+  // table, whose partners go to o_partner
   const bool compact = a.Cs > 0;
   const int Csol = compact ? a.Cs : C;
-  const int32_t* ptab = (compact ? a.o_partner : a.partner) + w * plane;
   const long long ow = a.owner_per_world ? w : 0;
+
+  // where the pose planes and the slot records live (see `place`)
+  const Placement pl = place(N, M, V, J, Csol);
+  const int R = pl.R;
+  const size_t state = shared_bytes(N, M, V, J);
+  float* const pose = pl.pose_shared ? smem + state / sizeof(float)
+                                     : a.gpose + w * 4 * N;
+  const Pose0 q0 = {pose, pose + N, pose + 2 * N, pose + 3 * N};
+  uint8_t* const stab =
+      reinterpret_cast<uint8_t*>(smem) + state + 4 * N * sizeof(float);
+  uint8_t* const gtab =
+      R < M ? a.gtab + (size_t)w * table_bytes(Csol, M - R) : nullptr;
+  auto row_of = [&](int i) {
+    return i < R ? table_row(stab, Csol, R, i)
+                 : table_row(gtab, Csol, M - R, i - R);
+  };
 
   // ---- load the world ----------------------------------------------------
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
@@ -487,6 +625,8 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
     s.dyn[n] = a.dyn[g]; s.kin[n] = a.kin[g];
     s.cab[n] = cosf(s.an[n]); s.sab[n] = sinf(s.an[n]);
     s.spd[n] = sqrtf(s.vx[n] * s.vx[n] + s.vy[n] * s.vy[n]);
+    q0.x[n] = s.px[n]; q0.y[n] = s.py[n];
+    q0.c[n] = s.cab[n]; q0.s[n] = s.sab[n];
   }
   for (int n = threadIdx.x; n <= N; n += blockDim.x)
     s.ostart[n] = a.owner_start[ow * (N + 1) + n];
@@ -520,8 +660,12 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
   }
   __syncthreads();
 
-  // ---- frame setup: manifolds and frame constants per slot ----------------
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+  // ---- frame setup: manifolds and slot records ---------------------------
+  // slot c of row i at the frame-start pose (false: an empty slot)
+  auto slot = [&](int i, int c, SlotSetup& u) {
+    const size_t g = (size_t)w * plane + (size_t)c * M + i;
+    const float act = a.slot_act[g];
+    if (act == 0.f) return false;  // empty: every mask zero
     const int ob = s.cbody[i];
     const float o_px = s.px[ob], o_py = s.py[ob];
     const float o_ca = s.cab[ob], o_sa = s.sab[ob];
@@ -533,111 +677,131 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       vax[v] = o_px + o_ca * x - o_sa * y;
       vay[v] = o_py + o_sa * x + o_ca * y;
     }
-    for (int c = 0; c < C; ++c) {
-      const size_t t = (size_t)c * M + i;
-      const size_t g = (size_t)w * plane + t;
-      float* f = scr + t;
-      const float act = a.slot_act[g];
-      if (act == 0.f) {  // empty slot: every mask zero, nothing to solve
-        f[F2_PM0 * plane] = f[F2_PM1 * plane] = 0.f;
-        f[F2_SM0 * plane] = f[F2_SM1 * plane] = 0.f;
-        a.o_touched[g] = 0.f;
+    setup_slot<V>(s, a, i, a.partner[g], act, vax, vay, o_px, o_py, o_ca,
+                  o_sa, o_spd, u);
+    return true;
+  };
+  if (!compact) {  // slot-parallel: one (row, slot) item at a time
+    for_items(C, M, [&](int i, int c) {
+      const SlotRow t = row_of(i);
+      SlotSetup su;
+      if (slot(i, c, su))
+        store_slot(t, c, su);
+      else
+        t.mask(c) = 0;
+    });
+  }
+  // compaction: a thread ranks a row's C slots, then sets the winners up
+  // again straight into their ranks of the table (the same values: the
+  // same expressions on the same inputs); the dropped ones' records (kCcd:
+  // the TOI still takes them) go to the side table, their `touched` and
+  // every rank's partner to the outputs
+  for (int i = threadIdx.x; compact && i < M; i += blockDim.x) {
+    const SlotRow t = row_of(i);
+    int tier[kMaxC], perm[kMaxC];
+    rank_row(a, i, [&](int c, SlotSetup& u) { return slot(i, c, u); }, tier,
+             perm);
+    for (int r = 0; r < C; ++r) {
+      const int c = perm[r];
+      const size_t go = (size_t)w * plane + (size_t)r * M + i;
+      a.o_partner[go] = a.partner[(size_t)w * plane + (size_t)c * M + i];
+      SlotSetup u;
+      if (r < Csol) {
+        if (slot(i, c, u))
+          store_slot(t, r, u);
+        else
+          t.mask(r) = 0;
         continue;
       }
-      const int pc = a.partner[g];
-      const int pb = s.cbody[pc];
-      const float p_px = s.px[pb], p_py = s.py[pb];
-      const float p_ca = s.cab[pb], p_sa = s.sab[pb];
-      const float p_spd = s.spd[pb] + fabsf(s.om[pb]) * s.ext[pc];
-      float vbx[V], vby[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float x = s.vlx[v * M + pc], y = s.vly[v * M + pc];
-        vbx[v] = p_px + p_ca * x - p_sa * y;
-        vby[v] = p_py + p_sa * x + p_ca * y;
+      a.o_touched[go] = tier[c] == 0 ? 1.f : 0.f;
+      if constexpr (kCcd) {
+        const SlotRow d =
+            table_row(a.side + (size_t)w * table_bytes(C - Csol, M),
+                      C - Csol, M, i);
+        if (slot(i, c, u))
+          store_slot(d, r - Csol, u);
+        else
+          d.mask(r - Csol) = 0;
       }
-      // velocity-expanded speculative margin: a contact that forms during
-      // this frame's substeps must already be in the manifold
-      const float margin_eff = a.margin + a.dt * (o_spd + p_spd);
-      Manifold m;
-      manifold<V>(vax, vay, s.nv[i], s.rad[i], vbx, vby, s.nv[pc], s.rad[pc],
-                  margin_eff, m);
-      const float solvable = act * (1.f - fmaxf(s.sens[i], s.sens[pc]));
-      const float n_ax = o_ca * m.nx + o_sa * m.ny;
-      const float n_ay = -o_sa * m.nx + o_ca * m.ny;
-      f[F2_NAX * plane] = n_ax;
-      f[F2_NAY * plane] = n_ay;
-      if constexpr (kCcd) {  // the normal at the frame-start pose (kin00)
-        cscr[t] = o_ca * n_ax - o_sa * n_ay;
-        cscr[plane + t] = o_sa * n_ax + o_ca * n_ay;
-      }
-      float touch0 = 0.f, sep_min = 1e9f;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const float dxa = m.wax[p] - o_px, dya = m.way[p] - o_py;
-        const float a_ax = o_ca * dxa + o_sa * dya;
-        const float a_ay = -o_sa * dxa + o_ca * dya;
-        const float dxb = m.wbx[p] - p_px, dyb = m.wby[p] - p_py;
-        const float b_ax = p_ca * dxb + p_sa * dyb;
-        const float b_ay = -p_sa * dxb + p_ca * dyb;
-        const float pm = m.pmask[p] * act;
-        f[(F2_AAX0 + p) * plane] = a_ax;
-        f[(F2_AAY0 + p) * plane] = a_ay;
-        f[(F2_BAX0 + p) * plane] = b_ax;
-        f[(F2_BAY0 + p) * plane] = b_ay;
-        f[(F2_PM0 + p) * plane] = pm;
-        f[(F2_SM0 + p) * plane] = pm * solvable;
-        touch0 = fmaxf(touch0, (m.sep[p] < kTouchSlop ? 1.f : 0.f) * pm);
-        if (pm > 0.f) sep_min = fminf(sep_min, m.sep[p]);
-        // kin00: anchor world positions at the frame-start pose
-        f[(F2_WAX0 + p) * plane] = o_px + (o_ca * a_ax - o_sa * a_ay);
-        f[(F2_WAY0 + p) * plane] = o_py + (o_sa * a_ax + o_ca * a_ay);
-        f[(F2_WBX0 + p) * plane] = p_px + (p_ca * b_ax - p_sa * b_ay);
-        f[(F2_WBY0 + p) * plane] = p_py + (p_sa * b_ax + p_ca * b_ay);
-      }
-      f[F2_FRIC * plane] = sqrtf(s.fric[i] * s.fric[pc]);
-      // compact_row reads the slot's separation here and zeroes both
-      f[F2_LAM0 * plane] = compact ? sep_min : 0.f;
-      f[F2_LAM1 * plane] = 0.f;
-      f[F2_REST * plane] = fmaxf(s.rest[i], s.rest[pc]);
-      f[F2_IMB * plane] = s.invm[pb];
-      f[F2_IIB * plane] = s.invi[pb];
-      a.o_touched[g] = touch0;
     }
-  }
-  if (compact) {  // each thread ranks the rows it set up: no barrier needed
-    for (int i = threadIdx.x; i < M; i += blockDim.x)
-      compact_row(a, scr, cscr, i, plane);
   }
   __syncthreads();
 
   // ---- substeps ------------------------------------------------------------
-  for (int step = 0; step < a.substeps; ++step) {
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-      // integrate (semi-implicit Euler)
-      const float dyn = s.dyn[n];
-      const float vx = s.vx[n] + gx * h * dyn;
-      const float vy = s.vy[n] + gy * h * dyn;
-      if constexpr (kCcd) {  // the substep-start pose, for the TOI clamp
-        s.dxx[n] = s.px[n]; s.dxy[n] = s.py[n]; s.dth[n] = s.an[n];
-      }
-      s.vx[n] = vx; s.vy[n] = vy;
-      s.px[n] = s.px[n] + vx * h;
-      s.py[n] = s.py[n] + vy * h;
-      s.an[n] = s.an[n] + s.om[n] * h;
-      s.vtx[n] = vx; s.vty[n] = vy; s.vtom[n] = s.om[n];
-      if constexpr (kCcd) {
-        s.cab[n] = cosf(s.an[n]);
-        s.sab[n] = sinf(s.an[n]);
-      } else {
-        s.dxx[n] = 0.f; s.dxy[n] = 0.f; s.dth[n] = 0.f;
-      }
+  // Every phase that moves a body's angle also refreshes its cab/sab, so a
+  // phase that reads them finds cos/sin of the current angle, which is what
+  // the reference recomputes before each pass; a body phase that follows
+  // another body phase with no slot phase between them runs in the same
+  // loop (they touch only body n).
+  // integrate (semi-implicit Euler) body n into the substep
+  auto integrate = [&](int n) {
+    const float dyn = s.dyn[n];
+    const float vx = s.vx[n] + gx * h * dyn;
+    const float vy = s.vy[n] + gy * h * dyn;
+    if constexpr (kCcd) {  // the substep-start pose, for the TOI clamp
+      s.dxx[n] = s.px[n]; s.dxy[n] = s.py[n]; s.dth[n] = s.an[n];
     }
+    s.vx[n] = vx; s.vy[n] = vy;
+    s.px[n] = s.px[n] + vx * h;
+    s.py[n] = s.py[n] + vy * h;
+    s.an[n] = s.an[n] + s.om[n] * h;
+    s.vtx[n] = vx; s.vty[n] = vy; s.vtom[n] = s.om[n];
+    s.cab[n] = cosf(s.an[n]);
+    s.sab[n] = sinf(s.an[n]);
+    if constexpr (!kCcd) {
+      s.dxx[n] = 0.f; s.dxy[n] = 0.f; s.dth[n] = 0.f;
+    }
+  };
+  // velocity reconstruction (kinematic bodies keep their velocity); the
+  // pose is final for the substep, so it is also the next one's start
+  auto reconstruct = [&](int n) {
+    const float kin = s.kin[n], nk = 1.f - kin;
+    s.vx[n] = kin * s.vx[n] + nk * (s.vtx[n] + s.dxx[n] / h);
+    s.vy[n] = kin * s.vy[n] + nk * (s.vty[n] + s.dxy[n] / h);
+    s.om[n] = kin * s.om[n] + nk * (s.vtom[n] + s.dth[n] / h);
+    q0.x[n] = s.px[n]; q0.y[n] = s.py[n];
+    q0.c[n] = s.cab[n]; q0.s[n] = s.sab[n];
+  };
+  // the body sums of a pass: body n's colliders' rows (ascending), each the
+  // terms its solved slots left in their records, in slot order (the
+  // slots without an active point left none)
+  auto body_sums = [&](int n, float (&out)[4]) {
+    out[0] = out[1] = out[2] = out[3] = 0.f;
+    for (int k = s.ostart[n]; k < s.ostart[n + 1]; ++k) {
+      const SlotRow t = row_of(s.oidx[k]);
+      float r[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < Csol; ++c) {
+        if (!(t.mask(c) & (F2_PM0 | F2_PM1))) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) r[q] += t.at(F2_T0 + q, c);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) out[q] += r[q];
+    }
+  };
+  // with coloured joints the reconstruction follows the last pass
+  const bool colored = kJ && a.joint_colored;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) integrate(n);
+  for (int step = 0; step < a.substeps; ++step) {
+    __syncthreads();
     if constexpr (kCcd) {
-      // TOI clamp: each row's factor, then each body's over its colliders
-      __syncthreads();
-      for (int i = threadIdx.x; i < M; i += blockDim.x)
-        s.row[i] = 1.f - ccd_row_factor(s, a, scr, cscr, ptab, i, plane, Csol);
+      // TOI clamp: each row's factor over every slot of its table (the
+      // solved ones, then those compaction dropped), then each body's over
+      // its colliders
+      for (int i = threadIdx.x; i < M; i += blockDim.x) {
+        const int ob = s.cbody[i];
+        float f = 1.f;
+        if (a.bullet[w * N + ob] > 0.f) {
+          f = ccd_slots(s, a, row_of(i), Csol, ob, q0, f);
+          if (compact)
+            f = ccd_slots(
+                s, a,
+                table_row(a.side + (size_t)w * table_bytes(C - Csol, M),
+                          C - Csol, M, i),
+                C - Csol, ob, q0, f);
+        }
+        s.row[i] = 1.f - f;
+      }
       __syncthreads();
       for (int n = threadIdx.x; n < N; n += blockDim.x) {
         float neg = 0.f;
@@ -648,74 +812,76 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
           s.px[n] = s.dxx[n] + fb * (s.px[n] - s.dxx[n]);
           s.py[n] = s.dxy[n] + fb * (s.py[n] - s.dxy[n]);
           s.an[n] = s.dth[n] + fb * (s.an[n] - s.dth[n]);
+          s.cab[n] = cosf(s.an[n]);
+          s.sab[n] = sinf(s.an[n]);
         }
         s.dxx[n] = 0.f; s.dxy[n] = 0.f; s.dth[n] = 0.f;
       }
+      __syncthreads();
     }
     for (int it = 0; it < a.iterations; ++it) {
-      __syncthreads();
-      for (int n = threadIdx.x; n < N; n += blockDim.x) {
-        s.cab[n] = cosf(s.an[n]);
-        s.sab[n] = sinf(s.an[n]);
-      }
-      __syncthreads();
-      // Jacobi contact projection: every row reads the iteration-start pose
-      for (int i = threadIdx.x; i < M; i += blockDim.x) {
+      const bool last = it == a.iterations - 1;
+      // Jacobi contact projection, slot-parallel: every slot reads the
+      // iteration-start pose and leaves its row-sum terms in its record
+      for_items(Csol, M, [&](int i, int c) {
+        const SlotRow t = row_of(i);
+        const int mk = t.mask(c);
+        if (!(mk & (F2_PM0 | F2_PM1))) return;
         const int ob = s.cbody[i];
         const float ima = s.invm[ob], iia = s.invi[ob];
         const float o_px = s.px[ob], o_py = s.py[ob];
         const float o_ca = s.cab[ob], o_sa = s.sab[ob];
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int c = 0; c < Csol; ++c) {
-          const size_t t = (size_t)c * M + i;
-          float* f = scr + t;
-          const float pm0 = f[F2_PM0 * plane], pm1 = f[F2_PM1 * plane];
-          if (pm0 == 0.f && pm1 == 0.f) continue;
-          const int pb = s.cbody[ptab[t]];
-          const float p_px = s.px[pb], p_py = s.py[pb];
-          const float p_ca = s.cab[pb], p_sa = s.sab[pb];
-          const float imb = f[F2_IMB * plane], iib = f[F2_IIB * plane];
-          const float fric = f[F2_FRIC * plane];
-          const float n_ax = f[F2_NAX * plane], n_ay = f[F2_NAY * plane];
-          const float nx = o_ca * n_ax - o_sa * n_ay;
-          const float ny = o_sa * n_ax + o_ca * n_ay;
-          float cax = 0.f, cay = 0.f, dang = 0.f, nact = 0.f;
+        const float q_px = q0.x[ob], q_py = q0.y[ob];
+        const float q_ca = q0.c[ob], q_sa = q0.s[ob];
+        const int pc = t.partner(c);
+        const int pb = s.cbody[pc];
+        const float p_px = s.px[pb], p_py = s.py[pb];
+        const float p_ca = s.cab[pb], p_sa = s.sab[pb];
+        const float r_px = q0.x[pb], r_py = q0.y[pb];
+        const float r_ca = q0.c[pb], r_sa = q0.s[pb];
+        const float imb = s.invm[pb], iib = s.invi[pb];
+        const float fric = sqrtf(s.fric[i] * s.fric[pc]);
+        const float n_ax = t.at(F2_NAX, c), n_ay = t.at(F2_NAY, c);
+        const float nx = o_ca * n_ax - o_sa * n_ay;
+        const float ny = o_sa * n_ax + o_ca * n_ay;
+        float cax = 0.f, cay = 0.f, dang = 0.f, nact = 0.f;
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            const float a_ax = f[(F2_AAX0 + p) * plane];
-            const float a_ay = f[(F2_AAY0 + p) * plane];
-            const float b_ax = f[(F2_BAX0 + p) * plane];
-            const float b_ay = f[(F2_BAY0 + p) * plane];
-            const float rax = o_ca * a_ax - o_sa * a_ay;
-            const float ray = o_sa * a_ax + o_ca * a_ay;
-            const float rbx = p_ca * b_ax - p_sa * b_ay;
-            const float rby = p_sa * b_ax + p_ca * b_ay;
-            const float wax = o_px + rax, way = o_py + ray;
-            const float wbx = p_px + rbx, wby = p_py + rby;
-            float ax, ay, da, dlam;
-            bool active;
-            project_point(
-                rax, ray, rbx, rby, wax, way, wbx, wby, nx, ny,
-                [&] { return f[(F2_SM0 + p) * plane]; },
-                [&](int k) {  // wax0, way0, wbx0, wby0
-                  return f[(F2_WAX0 + 2 * k + p) * plane];
-                },
-                ima, iia, imb, iib, fric, a.alpha_t, ax, ay, da, dlam, active);
-            cax = p ? cax + ax : ax;
-            cay = p ? cay + ay : ay;
-            dang = p ? dang + da : da;
-            nact += active ? 1.f : 0.f;
-            float* lam = f + (F2_LAM0 + p) * plane;
-            *lam = (it ? *lam : 0.f) + dlam;
-          }
-          acc[0] += cax * ima;
-          acc[1] += cay * ima;
-          acc[2] += dang;
-          acc[3] += nact;
+        for (int p = 0; p < 2; ++p) {
+          const float a_ax = t.at(F2_AAX0 + p, c);
+          const float a_ay = t.at(F2_AAY0 + p, c);
+          const float b_ax = t.at(F2_BAX0 + p, c);
+          const float b_ay = t.at(F2_BAY0 + p, c);
+          const float rax = o_ca * a_ax - o_sa * a_ay;
+          const float ray = o_sa * a_ax + o_ca * a_ay;
+          const float rbx = p_ca * b_ax - p_sa * b_ay;
+          const float rby = p_sa * b_ax + p_ca * b_ay;
+          const float wax = o_px + rax, way = o_py + ray;
+          const float wbx = p_px + rbx, wby = p_py + rby;
+          // the static-friction reference: the anchors at the substep's
+          // start (wax0, way0, wbx0, wby0)
+          const float ref[4] = {q_px + (q_ca * a_ax - q_sa * a_ay),
+                                q_py + (q_sa * a_ax + q_ca * a_ay),
+                                r_px + (r_ca * b_ax - r_sa * b_ay),
+                                r_py + (r_sa * b_ax + r_ca * b_ay)};
+          float ax, ay, da, dlam;
+          bool active;
+          project_point(
+              rax, ray, rbx, rby, wax, way, wbx, wby, nx, ny,
+              [&] { return (mk & (F2_SM0 << p)) ? 1.f : 0.f; },
+              [&](int k) { return ref[k]; }, ima, iia, imb, iib, fric,
+              a.alpha_t, ax, ay, da, dlam, active);
+          cax = p ? cax + ax : ax;
+          cay = p ? cay + ay : ay;
+          dang = p ? dang + da : da;
+          nact += active ? 1.f : 0.f;
+          float& lam = t.at(F2_LAM0 + p, c);
+          lam = (it ? lam : 0.f) + dlam;
         }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) s.row[q * M + i] = acc[q];
-      }
+        t.at(F2_T0, c) = cax * ima;
+        t.at(F2_T1, c) = cay * ima;
+        t.at(F2_T2, c) = dang;
+        t.at(F2_T3, c) = nact;
+      });
       if constexpr (kJ) {
         // Jacobi joints: summed at the iteration-start pose, like contacts
         if (!a.joint_colored)
@@ -725,7 +891,7 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       __syncthreads();
       for (int n = threadIdx.x; n < N; n += blockDim.x) {
         float ab[4];
-        to_body(s, M, n, ab);
+        body_sums(n, ab);
         if constexpr (kJ) {
           if (!a.joint_colored) {
 #pragma unroll
@@ -743,132 +909,111 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
         s.dxx[n] = s.dxx[n] + ddx;
         s.dxy[n] = s.dxy[n] + ddy;
         s.dth[n] = s.dth[n] + dda;
+        s.cab[n] = cosf(s.an[n]);
+        s.sab[n] = sinf(s.an[n]);
+        if (last && !colored) reconstruct(n);
       }
       if constexpr (kJ) {
         // coloured Gauss-Seidel: same-colour joints share no dynamic body,
         // so each pass applies exactly; the pose refreshes between passes
-        if (a.joint_colored) {
-          for (int color = 0; color < a.n_colors; ++color) {
-            const bool last = color == a.n_colors - 1;
-            for (int n = threadIdx.x; n < N; n += blockDim.x) {
-              s.cab[n] = cosf(s.an[n]);
-              s.sab[n] = sinf(s.an[n]);
-            }
-            __syncthreads();
-            for (int n = threadIdx.x; n < N; n += blockDim.x)
-              joint_sums<false>(s, a, w, n, color, last);
-            __syncthreads();
-            for (int n = threadIdx.x; n < N; n += blockDim.x) {
-              const float cnt = fmaxf(s.jrow[3 * N + n], 1.f);
-              // constraint upkeep, not depenetration: the raw max_dpos
-              const float md = a.max_dpos_joint;
-              const float jdx = fminf(fmaxf(s.jrow[n] / cnt, -md), md);
-              const float jdy = fminf(fmaxf(s.jrow[N + n] / cnt, -md), md);
-              const float jda =
-                  fminf(fmaxf(s.jrow[2 * N + n] / cnt, -md), md);
-              s.px[n] = s.px[n] + jdx;
-              s.py[n] = s.py[n] + jdy;
-              s.an[n] = s.an[n] + jda;
-              s.dxx[n] = s.dxx[n] + jdx;
-              s.dxy[n] = s.dxy[n] + jdy;
-              s.dth[n] = s.dth[n] + jda;
-            }
+        for (int color = 0; colored && color < a.n_colors; ++color) {
+          const bool last_color = color == a.n_colors - 1;
+          __syncthreads();
+          for (int n = threadIdx.x; n < N; n += blockDim.x)
+            joint_sums<false>(s, a, w, n, color, last_color);
+          __syncthreads();
+          for (int n = threadIdx.x; n < N; n += blockDim.x) {
+            const float cnt = fmaxf(s.jrow[3 * N + n], 1.f);
+            // constraint upkeep, not depenetration: the raw max_dpos
+            const float md = a.max_dpos_joint;
+            const float jdx = fminf(fmaxf(s.jrow[n] / cnt, -md), md);
+            const float jdy = fminf(fmaxf(s.jrow[N + n] / cnt, -md), md);
+            const float jda = fminf(fmaxf(s.jrow[2 * N + n] / cnt, -md), md);
+            s.px[n] = s.px[n] + jdx;
+            s.py[n] = s.py[n] + jdy;
+            s.an[n] = s.an[n] + jda;
+            s.dxx[n] = s.dxx[n] + jdx;
+            s.dxy[n] = s.dxy[n] + jdy;
+            s.dth[n] = s.dth[n] + jda;
+            s.cab[n] = cosf(s.an[n]);
+            s.sab[n] = sinf(s.an[n]);
+            if (last && last_color) reconstruct(n);
           }
         }
       }
+      __syncthreads();
     }
-    __syncthreads();
-    // velocity reconstruction (kinematic bodies keep their velocity)
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-      const float kin = s.kin[n], nk = 1.f - kin;
-      s.vx[n] = kin * s.vx[n] + nk * (s.vtx[n] + s.dxx[n] / h);
-      s.vy[n] = kin * s.vy[n] + nk * (s.vty[n] + s.dxy[n] / h);
-      s.om[n] = kin * s.om[n] + nk * (s.vtom[n] + s.dth[n] / h);
-      s.cab[n] = cosf(s.an[n]);
-      s.sab[n] = sinf(s.an[n]);
+    if (a.iterations == 0) {
+      for (int n = threadIdx.x; n < N; n += blockDim.x) reconstruct(n);
+      __syncthreads();
+    } else if (colored && a.n_colors <= 0) {
+      for (int n = threadIdx.x; n < N; n += blockDim.x) reconstruct(n);
+      __syncthreads();
     }
-    __syncthreads();
-    // velocity pass: restitution + dynamic friction
-    for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    // velocity pass, slot-parallel: restitution + dynamic friction
+    for_items(Csol, M, [&](int i, int c) {
+      const SlotRow t = row_of(i);
+      const int mk = t.mask(c);
+      if (!(mk & (F2_PM0 | F2_PM1))) return;
       const int ob = s.cbody[i];
       const float ima = s.invm[ob], iia = s.invi[ob];
-      const float o_px = s.px[ob], o_py = s.py[ob];
       const float o_ca = s.cab[ob], o_sa = s.sab[ob];
       const float vax = s.vx[ob], vay = s.vy[ob], oa = s.om[ob];
       const float v0ax = s.vtx[ob], v0ay = s.vty[ob], o0a = s.vtom[ob];
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c = 0; c < Csol; ++c) {
-        const size_t t = (size_t)c * M + i;
-        float* f = scr + t;
-        const float pm[2] = {f[F2_PM0 * plane], f[F2_PM1 * plane]};
-        if (pm[0] == 0.f && pm[1] == 0.f) continue;
-        const size_t g = (size_t)w * plane + t;
-        const int pb = s.cbody[ptab[t]];
-        const float p_px = s.px[pb], p_py = s.py[pb];
-        const float p_ca = s.cab[pb], p_sa = s.sab[pb];
-        const float vbx = s.vx[pb], vby = s.vy[pb], ob_ = s.om[pb];
-        const float v0bx = s.vtx[pb], v0by = s.vty[pb], o0b = s.vtom[pb];
-        const float imb = f[F2_IMB * plane], iib = f[F2_IIB * plane];
-        const float fric = f[F2_FRIC * plane], rest = f[F2_REST * plane];
-        const float n_ax = f[F2_NAX * plane], n_ay = f[F2_NAY * plane];
-        const float nx = o_ca * n_ax - o_sa * n_ay;
-        const float ny = o_sa * n_ax + o_ca * n_ay;
-        float cbx = 0.f, cby = 0.f, dng = 0.f, nact = 0.f, tk = 0.f;
+      const int pc = t.partner(c);
+      const int pb = s.cbody[pc];
+      const float p_ca = s.cab[pb], p_sa = s.sab[pb];
+      const float vbx = s.vx[pb], vby = s.vy[pb], ob_ = s.om[pb];
+      const float v0bx = s.vtx[pb], v0by = s.vty[pb], o0b = s.vtom[pb];
+      const float imb = s.invm[pb], iib = s.invi[pb];
+      const float fric = sqrtf(s.fric[i] * s.fric[pc]);
+      const float rest = fmaxf(s.rest[i], s.rest[pc]);
+      const float n_ax = t.at(F2_NAX, c), n_ay = t.at(F2_NAY, c);
+      const float nx = o_ca * n_ax - o_sa * n_ay;
+      const float ny = o_sa * n_ax + o_ca * n_ay;
+      float cbx = 0.f, cby = 0.f, dng = 0.f, nact = 0.f;
+      bool tk = false;
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const float a_ax = f[(F2_AAX0 + p) * plane];
-          const float a_ay = f[(F2_AAY0 + p) * plane];
-          const float b_ax = f[(F2_BAX0 + p) * plane];
-          const float b_ay = f[(F2_BAY0 + p) * plane];
-          const float rax = o_ca * a_ax - o_sa * a_ay;
-          const float ray = o_sa * a_ax + o_ca * a_ay;
-          const float rbx = p_ca * b_ax - p_sa * b_ay;
-          const float rby = p_sa * b_ax + p_ca * b_ay;
-          // the next substep's static-friction reference: positions do not
-          // move after this pass
-          f[(F2_WAX0 + p) * plane] = o_px + rax;
-          f[(F2_WAY0 + p) * plane] = o_py + ray;
-          f[(F2_WBX0 + p) * plane] = p_px + rbx;
-          f[(F2_WBY0 + p) * plane] = p_py + rby;
-          if constexpr (kCcd) {  // and the TOI's frame-start normal
-            if (p == 0) {
-              cscr[t] = nx;
-              cscr[plane + t] = ny;
-            }
-          }
-          float impx, impy, dd;
-          bool active;
-          const float* lamp = f + (F2_LAM0 + p) * plane;
-          velocity_point(
-              rax, ray, rbx, rby, nx, ny, vax, vay, oa, vbx, vby, ob_, v0ax,
-              v0ay, o0a, v0bx, v0by, o0b, [&] { return *lamp; },
-              [&] { return f[(F2_SM0 + p) * plane]; }, ima, iia, imb, iib,
-              rest, fric, h, a.rest_threshold, impx, impy, dd, active);
-          const float lam = *lamp;
-          cbx = p ? cbx + impx : impx;
-          cby = p ? cby + impy : impy;
-          dng = p ? dng + dd : dd;
-          nact += active ? 1.f : 0.f;
-          tk = fmaxf(tk, (lam > 0.f ? 1.f : 0.f) * pm[p]);
-        }
-        acc[0] += -cbx * ima;
-        acc[1] += -cby * ima;
-        acc[2] += -dng;
-        acc[3] += nact;
-        a.o_touched[g] = fmaxf(a.o_touched[g], tk);
+      for (int p = 0; p < 2; ++p) {
+        const float a_ax = t.at(F2_AAX0 + p, c);
+        const float a_ay = t.at(F2_AAY0 + p, c);
+        const float b_ax = t.at(F2_BAX0 + p, c);
+        const float b_ay = t.at(F2_BAY0 + p, c);
+        const float rax = o_ca * a_ax - o_sa * a_ay;
+        const float ray = o_sa * a_ax + o_ca * a_ay;
+        const float rbx = p_ca * b_ax - p_sa * b_ay;
+        const float rby = p_sa * b_ax + p_ca * b_ay;
+        const float lam = t.at(F2_LAM0 + p, c);
+        float impx, impy, dd;
+        bool active;
+        velocity_point(
+            rax, ray, rbx, rby, nx, ny, vax, vay, oa, vbx, vby, ob_, v0ax,
+            v0ay, o0a, v0bx, v0by, o0b, [&] { return lam; },
+            [&] { return (mk & (F2_SM0 << p)) ? 1.f : 0.f; }, ima, iia, imb,
+            iib, rest, fric, h, a.rest_threshold, impx, impy, dd, active);
+        cbx = p ? cbx + impx : impx;
+        cby = p ? cby + impy : impy;
+        dng = p ? dng + dd : dd;
+        nact += active ? 1.f : 0.f;
+        tk = tk || (lam > 0.f && (mk & (F2_PM0 << p)));
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s.row[q * M + i] = acc[q];
-    }
+      t.at(F2_T0, c) = -cbx * ima;
+      t.at(F2_T1, c) = -cby * ima;
+      t.at(F2_T2, c) = -dng;
+      t.at(F2_T3, c) = nact;
+      if (tk) t.mask(c) = (uint8_t)(mk | F2_TOUCHED);
+    });
     if constexpr (kJ) {
       // motors and joint damping, at the post-solve pose and velocities
       for (int n = threadIdx.x; n < N; n += blockDim.x)
         joint_sums<true>(s, a, w, n, -1, false);
     }
     __syncthreads();
+    // the velocity pass's apply, then the next substep's integrate
+    const bool more = step + 1 < a.substeps;
     for (int n = threadIdx.x; n < N; n += blockDim.x) {
       float ab[4];
-      to_body(s, M, n, ab);
+      body_sums(n, ab);
       if constexpr (kJ) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) ab[q] = ab[q] + s.jrow[q * N + n];
@@ -883,26 +1028,40 @@ __global__ void __launch_bounds__(kThreads) frame2_kernel(Frame2Args a) {
       }
       if (a.use_ang_damp) om = om * a.ang_sdamp;
       s.vx[n] = vx; s.vy[n] = vy; s.om[n] = om;
+      if (more) integrate(n);
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     const long long g = w * N + n;
     a.o_posx[g] = s.px[n]; a.o_posy[g] = s.py[n]; a.o_ang[g] = s.an[n];
     a.o_velx[g] = s.vx[n]; a.o_vely[g] = s.vy[n]; a.o_angvel[g] = s.om[n];
   }
+  // `touched` of the solved slots, once (the velocity passes kept its
+  // running max in each record's mask byte; each thread reads its own rows)
+  for_items(Csol, M, [&](int i, int c) {
+    a.o_touched[(size_t)w * plane + (size_t)c * M + i] =
+        (row_of(i).mask(c) & F2_TOUCHED) ? 1.f : 0.f;
+  });
 }
 
 template <int V, bool kJ, bool kCcd>
 int launch(const Frame2Args& a, cudaStream_t stream) {
-  const size_t shmem = shared_bytes(a.N, a.M, V, kJ ? a.J : 0);
+  const int Csol = a.Cs > 0 ? a.Cs : a.C;
+  const Placement pl = place(a.N, a.M, V, kJ ? a.J : 0, Csol);
+  // a shape the wrapper cannot place, or a global table it did not give
+  if (pl.R < 0 || (pl.R < a.M && a.gtab == nullptr) ||
+      (!pl.pose_shared && a.gpose == nullptr) ||
+      (kCcd && a.Cs > 0 && a.side == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       frame2_kernel<V, kJ, kCcd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shmem);
+      (int)pl.bytes);
   if (err != cudaSuccess) return (int)err;
   if (a.W > 0)
-    frame2_kernel<V, kJ, kCcd><<<a.W, kThreads, shmem, stream>>>(a);
+    frame2_kernel<V, kJ, kCcd>
+        <<<a.W, block_threads(pl.bytes), pl.bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -911,14 +1070,59 @@ int launch_ccd(const Frame2Args& a, cudaStream_t stream) {
   return a.ccd ? launch<V, kJ, true>(a, stream) : launch<V, kJ, false>(a, stream);
 }
 
+// Resident blocks an SM of the instance <V, kJ, kCcd> at these shapes.
+template <int V, bool kJ, bool kCcd>
+int blocks_per_sm(int N, int M, int J, int Csol) {
+  const Placement pl = place(N, M, V, kJ ? J : 0, Csol);
+  if (pl.R < 0) return -1;
+  if (cudaFuncSetAttribute(frame2_kernel<V, kJ, kCcd>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)pl.bytes) != cudaSuccess)
+    return -1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, frame2_kernel<V, kJ, kCcd>, block_threads(pl.bytes),
+          pl.bytes) != cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace
 
 SF_EXPORT(sf_frame2, Frame2Args)
 
 extern "C" int sf_frame2_fields() { return F2_FIELDS; }
 
-extern "C" long long sf_frame2_shared_bytes(int N, int M, int V, int J) {
-  return (long long)shared_bytes(N, M, V, J);
+extern "C" int sf_frame2_slot_bytes() { return F2_SLOT_BYTES; }
+
+extern "C" long long sf_frame2_shared_bytes(int N, int M, int V, int J,
+                                            int Csol) {
+  return (long long)place(N, M, V, J, Csol).bytes;
+}
+
+extern "C" int sf_frame2_table_rows(int N, int M, int V, int J, int Csol) {
+  return place(N, M, V, J, Csol).R;
+}
+
+extern "C" int sf_frame2_block_threads(int N, int M, int V, int J,
+                                       int Csol) {
+  return block_threads(place(N, M, V, J, Csol).bytes);
+}
+
+extern "C" int sf_frame2_blocks_per_sm(int V, int J, int ccd, int N, int M,
+                                       int Csol) {
+  const bool kJ = J > 0;
+  if (V == 4)
+    return kJ ? (ccd ? blocks_per_sm<4, true, true>(N, M, J, Csol)
+                     : blocks_per_sm<4, true, false>(N, M, J, Csol))
+              : (ccd ? blocks_per_sm<4, false, true>(N, M, J, Csol)
+                     : blocks_per_sm<4, false, false>(N, M, J, Csol));
+  if (V == 8)
+    return kJ ? (ccd ? blocks_per_sm<8, true, true>(N, M, J, Csol)
+                     : blocks_per_sm<8, true, false>(N, M, J, Csol))
+              : (ccd ? blocks_per_sm<8, false, true>(N, M, J, Csol)
+                     : blocks_per_sm<8, false, false>(N, M, J, Csol));
+  return -1;
 }
 
 extern "C" int sf_frame2(const Frame2Args* a, void* stream) {

@@ -3,6 +3,8 @@ their plain PyTorch twins."""
 
 from .frame2 import (
     frame2_plain,
+    frame2_shared_bytes,
+    frame2_table_rows,
     owner_csr,
     owner_csr_tables,
     run_frame2,
@@ -39,6 +41,7 @@ from .tiles import (
 
 __all__ = ["build_elig_mask", "build_joint_slots", "build_slot_tables",
            "build_tile_tables", "elig_mask_plain", "frame2_plain",
+           "frame2_shared_bytes", "frame2_table_rows",
            "joint_slots_plain", "owner_csr", "owner_csr_tables", "owner_min", "owner_min_plain",
            "owner_sum", "owner_sum_plain", "owner_velocity",
            "owner_velocity_plain", "run_frame2", "run_tiled_frame",

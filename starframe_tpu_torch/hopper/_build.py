@@ -87,7 +87,7 @@ class Frame2Args(ctypes.Structure):
         ("rest", ctypes.c_void_p), ("sensor", ctypes.c_void_p),
         ("partner", ctypes.c_void_p), ("slot_act", ctypes.c_void_p),
         ("gravity", ctypes.c_void_p), ("owner_start", ctypes.c_void_p),
-        ("owner_idx", ctypes.c_void_p), ("scratch", ctypes.c_void_p),
+        ("owner_idx", ctypes.c_void_p), ("gtab", ctypes.c_void_p),
         ("o_posx", ctypes.c_void_p), ("o_posy", ctypes.c_void_p),
         ("o_ang", ctypes.c_void_p), ("o_velx", ctypes.c_void_p),
         ("o_vely", ctypes.c_void_p), ("o_angvel", ctypes.c_void_p),
@@ -107,10 +107,11 @@ class Frame2Args(ctypes.Structure):
         ("J", ctypes.c_int), ("JC", ctypes.c_int),
         ("joint_colored", ctypes.c_int), ("n_colors", ctypes.c_int),
         ("max_dpos_joint", ctypes.c_float), ("hh", ctypes.c_float),
-        ("bullet", ctypes.c_void_p), ("ccd_scratch", ctypes.c_void_p),
+        ("bullet", ctypes.c_void_p), ("side", ctypes.c_void_p),
         ("ccd", ctypes.c_int), ("ccd_slop", ctypes.c_float),
         ("owner_per_world", ctypes.c_int), ("Cs", ctypes.c_int),
         ("o_partner", ctypes.c_void_p), ("o_nact", ctypes.c_void_p),
+        ("gpose", ctypes.c_void_p),
     ]
 
 
@@ -303,8 +304,14 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(f"{name}: the C argument struct is "
                                f"{size()} bytes, its ctypes mirror "
                                f"{ctypes.sizeof(struct)}")
-    lib.sf_frame2_shared_bytes.argtypes = [ctypes.c_int] * 4
+    lib.sf_frame2_shared_bytes.argtypes = [ctypes.c_int] * 5
     lib.sf_frame2_shared_bytes.restype = ctypes.c_longlong
+    for name in ("sf_frame2_table_rows", "sf_frame2_blocks_per_sm",
+                 "sf_frame2_block_threads"):
+        getattr(lib, name).restype = ctypes.c_int
+    lib.sf_frame2_table_rows.argtypes = [ctypes.c_int] * 5
+    lib.sf_frame2_block_threads.argtypes = [ctypes.c_int] * 5
+    lib.sf_frame2_blocks_per_sm.argtypes = [ctypes.c_int] * 6
     lib.sf_tile_solve_fields.argtypes = []
     lib.sf_tile_solve_fields.restype = ctypes.c_int
     lib.sf_error_string.argtypes = [ctypes.c_int]

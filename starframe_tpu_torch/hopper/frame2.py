@@ -9,6 +9,14 @@ launches it for CUDA tensors and runs :func:`frame2_plain`, the plain
 PyTorch twin, for CPU tensors. ``run_frame2.launches`` counts kernel
 launches.
 
+The kernel keeps each world's slot table (67 bytes a slot: the body-local
+normal and anchors, the lambdas, a pass's four row-sum terms, the partner
+and a mask byte) in shared memory beside the world's state and the
+substep-start pose;
+:func:`frame2_table_rows` gives how many rows' records fit there, and the
+wrapper hands the kernel a global table for the rest (none at the main
+path's shapes).
+
 The frame: manifolds once at the frame-start pose (with a velocity-expanded
 speculative margin, anchors kept body-local), then ``substeps`` x
 [integrate -> ``iterations`` x (Jacobi contact projection over each row's
@@ -50,7 +58,8 @@ from .slots import _check, _route
 f32 = torch.float32
 i32 = torch.int32
 
-SCRATCH_FIELDS = 28  # csrc/common.cuh F2_FIELDS
+SCRATCH_FIELDS = 16  # csrc/common.cuh F2_FIELDS: float fields a slot record keeps
+SLOT_BYTES = 4 * SCRATCH_FIELDS + 3  # and its int16 partner and mask byte
 _KERNEL_V = (4, 8)  # vertex widths the kernel is compiled for
 SHARED_LIMIT = 232448  # bytes of shared memory one H100 block may use
 MAX_COMPACT_C = 32  # csrc/frame2.cu kMaxC: table width a row can rank
@@ -64,22 +73,59 @@ def kernel_verts(V: int):
     return next((v for v in _KERNEL_V if v >= V), None)
 
 
-def frame2_shared_bytes(N: int, M: int, V: int, J: int) -> int:
-    """Shared memory of one frame-kernel block (``csrc/frame2.cu``
-    ``shared_bytes``): the world's bodies, colliders and row sums, and with
-    joints their 15 parameter rows and the per-body joint sums."""
+def frame2_state_bytes(N: int, M: int, V: int, J: int) -> int:
+    """Shared memory of one frame-kernel block's world state
+    (``csrc/frame2.cu`` ``shared_bytes``): the bodies, colliders and row
+    sums, and with joints their 15 parameter rows and the per-body joint
+    sums. A batch whose state does not fit is not eligible."""
     return (4 * (19 * N + (2 * V + 9) * M) + 4 * (3 * M + N + 1)
             + (4 * (len(_build.JOINT_KEYS) * J + 4 * N) if J > 0 else 0))
 
 
-def owner_csr(cbody0, n_bodies: int):
+def frame2_table_rows(N: int, M: int, V: int, J: int, Csol: int):
+    """``R``: how many collider rows keep their ``Csol``-slot records in the
+    block's shared memory (``csrc/frame2.cu`` ``place``), the rest going to
+    a global table. The shared memory left after the world's state first
+    holds the four ``[N]`` substep-start pose planes; when they do not fit,
+    they go to global memory too and R = 0. None when the state itself does
+    not fit."""
+    state = frame2_state_bytes(N, M, V, J)
+    if state > SHARED_LIMIT:
+        return None
+    free = SHARED_LIMIT - state - 16 * N
+    return min(M, free // (SLOT_BYTES * Csol)) if free >= 0 else 0
+
+
+def frame2_shared_bytes(N: int, M: int, V: int, J: int, Csol: int) -> int:
+    """Dynamic shared memory of one frame-kernel block: the world's state,
+    then (when they fit) the pose planes and the records of the first
+    :func:`frame2_table_rows` rows."""
+    state = frame2_state_bytes(N, M, V, J)
+    R = frame2_table_rows(N, M, V, J, Csol)
+    if R is None or state + 16 * N > SHARED_LIMIT:
+        return state
+    return state + 16 * N + SLOT_BYTES * Csol * R
+
+
+def table_bytes(K: int, rows: int) -> int:
+    """Bytes of one world's global slot table of ``K`` slots x ``rows``
+    rows (``csrc/frame2.cu`` ``table_bytes``)."""
+    return -(-K * rows * SLOT_BYTES // 16) * 16
+
+
+def owner_csr(cbody0, n_bodies: int, listed=None):
     """``(start [N + 1] i32, idx [M] i32)``: body n owns colliders
     ``idx[start[n]:start[n + 1]]``, ascending, in every world of a batch
-    that shares world 0's topology. Built on the device, with no host
-    round trip."""
+    that shares world 0's topology. With ``listed`` ([M] bool: active in
+    some world) the others are left out (past ``start[N]``): they have no
+    slots in any world, so their rows would add exact zeros to their
+    body's sums (a padded batch gives one body ~100 of them). Built on the
+    device, with no host round trip."""
     cb = cbody0.long()
+    if listed is not None:
+        cb = torch.where(listed, cb, n_bodies)
     order = torch.argsort(cb, stable=True).to(i32)
-    counts = torch.bincount(cb, minlength=n_bodies)
+    counts = torch.bincount(cb, minlength=n_bodies + 1)[:n_bodies]
     start = torch.zeros(n_bodies + 1, dtype=i32, device=cb.device)
     start[1:] = torch.cumsum(counts, 0).to(i32)
     return start, order
@@ -532,7 +578,11 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     indexes) and ``nact [W, 2, M]`` f32 (each row's imminent and
     pmask-active slot counts). Compacted launches count in
     ``run_frame2.compact_launches``, per-world owner tables in
-    ``run_frame2.owner_launches`` (besides the counter of the form).
+    ``run_frame2.owner_launches`` (besides the counter of the form), and
+    those whose slot table fit in shared memory whole (:func:`
+    frame2_table_rows` = M) in ``run_frame2.shared_table_launches``.
+    ``slot_act`` holds 0 or 1 (K2's tables): the kernel keeps each mask as
+    one bit.
     ``plain=True`` runs the twin even on CUDA tensors (for timing the kernel
     against it)."""
     W, N = posx.shape
@@ -592,32 +642,43 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                             Cs=Cs if compact else 0, **params)
 
     lib = _build.library()
-    if lib.sf_frame2_fields() != SCRATCH_FIELDS:
-        raise RuntimeError("frame kernel scratch layout differs from "
-                           "SCRATCH_FIELDS")
+    if (lib.sf_frame2_fields() != SCRATCH_FIELDS
+            or lib.sf_frame2_slot_bytes() != SLOT_BYTES):
+        raise RuntimeError("frame kernel slot record differs from "
+                           "SCRATCH_FIELDS / SLOT_BYTES")
     Vk = kernel_verts(V)
     if Vk is None:
         raise ValueError(f"frame kernel supports up to {_KERNEL_V[-1]} "
                          f"vertices per collider, got {V}")
-    smem = frame2_shared_bytes(N, M, Vk, J)
-    if lib.sf_frame2_shared_bytes(N, M, Vk, J) != smem:
+    Csol = Cs if compact else C
+    R = frame2_table_rows(N, M, Vk, J, Csol)
+    smem = frame2_shared_bytes(N, M, Vk, J, Csol)
+    if (lib.sf_frame2_table_rows(N, M, Vk, J, Csol) != (-1 if R is None else R)
+            or lib.sf_frame2_shared_bytes(N, M, Vk, J, Csol) != smem):
         raise RuntimeError("frame kernel shared-memory layout differs from "
-                           "frame2_shared_bytes")
-    if smem > SHARED_LIMIT:
+                           "frame2_table_rows / frame2_shared_bytes")
+    if R is None:
         raise ValueError(f"frame kernel needs {smem} bytes of shared memory "
-                         f"for N={N}, M={M}, V={Vk}, J={J}; a block has "
-                         f"{SHARED_LIMIT}")
+                         f"for the world's state at N={N}, M={M}, V={Vk}, "
+                         f"J={J}; a block has {SHARED_LIMIT}")
     if Vk != V:  # pad with copies of v0: every min, max and manifold holds
         vlx = torch.cat([vlx, vlx[:, :1].expand(W, Vk - V, M)], 1)
         vly = torch.cat([vly, vly[:, :1].expand(W, Vk - V, M)], 1)
     ostart, oidx = owners
-    scratch = torch.empty((W, SCRATCH_FIELDS, C, M), dtype=f32, device=dev)
+    u8 = torch.uint8
+    # rows past R keep their records in a global table of the same layout;
+    # with compaction and CCD the dropped slots go to a side table (the
+    # TOI reads them); pose planes that do not fit go to global memory
+    gtab = (torch.empty((W, table_bytes(Csol, M - R)), dtype=u8, device=dev)
+            if R < M else None)
+    side = (torch.empty((W, table_bytes(C - Cs, M)), dtype=u8, device=dev)
+            if compact and ccd else None)
+    gpose = (torch.empty((W, 4, N), dtype=f32, device=dev)
+             if frame2_state_bytes(N, M, Vk, J) + 16 * N > SHARED_LIMIT
+             else None)
     outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
     # compacting: the whole table in rank order, the first Cs returned
     touched = torch.empty((W, C, M), dtype=f32, device=dev)
-    # CCD: the world normal of each slot, carried between substeps
-    ccd_scratch = (torch.empty((W, 2, C, M), dtype=f32, device=dev) if ccd
-                   else None)
     o_partner = (torch.empty((W, C, M), dtype=i32, device=dev) if compact
                  else None)
     nact = torch.empty((W, 2, M), dtype=f32, device=dev) if compact else None
@@ -628,7 +689,9 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         *(p(t) for t in (posx, posy, ang, velx, vely, angvel, invm, invi,
                          dyn, kin, cbody, vlx, vly, nverts, radius, fric,
                          rest, sensor, partner, slot_act, gravity, ostart,
-                         oidx, scratch, *outs, touched)),
+                         oidx)),
+        p(gtab) if gtab is not None else None,
+        *(p(t) for t in (*outs, touched)),
         W, N, M, Vk, C, substeps, iterations,
         h, dt, margin, compliance / (h * h), relaxation, max_dpos,
         rest_threshold, 1.0 / (1.0 + h * lin_damp),
@@ -636,10 +699,13 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         int(ang_damp > 0.0), *jptrs, J, JC if joints is not None else 0,
         int(joint_solver == "colored"), n_colors, max_dpos_joint, h * h,
         p(bullet) if ccd else None,
-        p(ccd_scratch) if ccd else None, int(ccd), ccd_slop,
+        p(side) if side is not None else None, int(ccd), ccd_slop,
         int(per_world), Cs if compact else 0,
-        p(o_partner) if compact else None, p(nact) if compact else None)
+        p(o_partner) if compact else None, p(nact) if compact else None,
+        p(gpose) if gpose is not None else None)
     _build.launch("sf_frame2", args, dev)
+    if R == M:
+        run_frame2.shared_table_launches += 1
     if ccd:
         run_frame2.ccd_launches += 1
     else:
@@ -657,3 +723,5 @@ run_frame2.launches = 0
 run_frame2.ccd_launches = 0  # the ccd instances', counted apart
 run_frame2.compact_launches = 0  # launches with Cs (also in one above)
 run_frame2.owner_launches = 0  # launches with per-world owner tables
+# launches whose whole slot table sat in shared memory (R = M)
+run_frame2.shared_table_launches = 0

@@ -32,8 +32,7 @@ import torch
 from .config import SolverConfig
 from .events import touching_keys_from_slots
 from .hopper.frame2 import (
-    SHARED_LIMIT,
-    frame2_shared_bytes,
+    frame2_table_rows,
     kernel_verts,
     owner_csr,
     owner_csr_tables,
@@ -84,17 +83,20 @@ def frame2_shapes_ok(worlds: World, cfg: SolverConfig) -> bool:
     """Shape/config half of the slot-kernel decision. The CUDA kernels run
     one block of 256 threads per world with the world's bodies, colliders
     and joint parameters in shared memory, so the capacities are bounded
-    (N, M, J <= 1024, and the frame kernel's block within an H100's shared
-    memory); the TPU's 128-lane and sublane-block rules do not apply."""
+    (N, M, J <= 1024, and the frame kernel's world state within an H100's
+    shared memory: :func:`hopper.frame2_table_rows` places the slot table
+    beside it, in global memory for the rows that do not fit); the TPU's
+    128-lane and sublane-block rules do not apply."""
     if cfg.use_pallas is False:
         return False
     if cfg.ccd and cfg.manifold_refresh != "frame":
         return False
     n, m, j = worlds.bodies.n, worlds.colliders.m, worlds.joints.j
     v = worlds.colliders.max_verts
-    smem = frame2_shared_bytes(n, m, kernel_verts(v) or v, j)
+    csol = _batch_solve_cap(cfg) or cfg.slot_capacity
+    rows = frame2_table_rows(n, m, kernel_verts(v) or v, j, csol)
     return (n <= 1024 and m <= 1024 and j <= MAX_JOINTS
-            and smem <= SHARED_LIMIT)
+            and rows is not None)
 
 
 def _require_slice(worlds: World, cfg: SolverConfig) -> None:
@@ -264,12 +266,14 @@ def collider_owner_tables(worlds: World, cfg: SolverConfig):
 def frame2_owners(worlds: World, cfg: SolverConfig):
     """The frame kernel's collider -> body lists and the HARD
     ``owner_overflow``: world 0's for the whole batch under
-    ``cfg.batch_uniform_topology`` (0 overflow), else each world's, from
+    ``cfg.batch_uniform_topology`` (0 overflow; a collider is listed when
+    it is active in any world), else each world's active colliders, from
     :func:`collider_owner_tables`."""
     cb = worlds.colliders.body_idx
     if cfg.batch_uniform_topology:
         zero = torch.zeros((), dtype=torch.int32, device=cb.device)
-        return owner_csr(cb[0], worlds.bodies.n), zero
+        return (owner_csr(cb[0], worlds.bodies.n,
+                          worlds.colliders.active.any(0)), zero)
     bcol, bmask, overflow = collider_owner_tables(worlds, cfg)
     return owner_csr_tables(bcol, bmask, worlds.colliders.m), overflow
 

@@ -307,6 +307,90 @@ def test_rollout_is_bitwise_reproducible(scene):
         k: int(v) for k, v in db.items()}
 
 
+@pytest.fixture(scope="module")
+def split_table():
+    """Shapes whose slot table does not fit in shared memory beside the
+    world's state: 4 worlds of 1024 bodies (R = 97 of 1024 rows at C = 8)
+    and 2 worlds of 1024 bodies with 850 distance joints (the pose planes
+    do not fit either: R = 0, everything in global memory), 40 frames into
+    contact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    sc = batched_worlds(n_worlds=4, n_bodies=1024, substeps=4,
+                        device="cuda")
+    b = WorldBuilder(gravity=(0.0, -9.81))
+    g = b.add_static(pos=(0.0, -0.5))
+    b.add_collider(g, Shape.box(60.0, 0.5), friction=0.5)
+    ids = []
+    for i in range(1023):
+        row, col = divmod(i, 40)
+        body = b.add_body(pos=(-22.0 + col * 1.1, 0.6 + row * 1.1))
+        b.add_collider(body, Shape.circle(0.45) if i % 2 else
+                       Shape.box(0.45, 0.45), friction=0.5)
+        ids.append(body)
+    for k in range(850):
+        b.distance_joint(ids[k], ids[k + 1])
+    jw, _ = b.build(Capacity(max_bodies=1024, max_colliders=1024,
+                             max_pairs=8192, max_joints=850, max_verts=4),
+                    device="cuda")
+    jcfg = SolverConfig(substeps=4, frames_per_broadphase=4)
+    out = {}
+    for name, w, cfg in (("contacts", sc.world, sc.config),
+                         ("joints", parallel.replicate_world(jw, 2), jcfg)):
+        w, _, _ = parallel.batched_rollout(w, cfg, 0, 40,
+                                           record=lambda _: None)
+        out[name] = (cfg, w)
+    return out
+
+
+SPLIT_FORMS = {
+    "contacts": ("contacts", {}),
+    "ccd": ("contacts", dict(ccd=True)),
+    "compact_ccd": ("contacts", dict(ccd=True, slot_capacity=16,
+                                     batch_solve_capacity=8)),
+    "joints_pose_in_global": ("joints", {}),
+}
+
+
+@pytest.mark.parametrize("form", sorted(SPLIT_FORMS))
+def test_frame_kernel_split_table_matches_twin(split_table, form):
+    """K4 with rows i >= R in the global table (and, with 850 joints, the
+    pose planes too) against its twin: the tolerances of the whole-table
+    forms; the launch is not counted as a shared-table one."""
+    scene, kw = SPLIT_FORMS[form]
+    cfg, w = split_table[scene]
+    cfg = dataclasses.replace(cfg, **kw)
+    if cfg.ccd:
+        w = _bulleted(w)
+    csol = parallel._batch_solve_cap(cfg) or cfg.slot_capacity
+    R = hopper.frame2_table_rows(w.bodies.n, w.colliders.m, 4, w.joints.j,
+                                 csol)
+    assert R == (0 if scene == "joints" else 97), R
+    n0 = hopper.run_frame2.shared_table_launches
+    _frame_kernel_matches_twin(cfg, w)
+    assert hopper.run_frame2.shared_table_launches == n0
+
+
+@pytest.mark.parametrize("scene_name", ["contacts", "joints"])
+def test_split_table_rollout_is_bitwise_reproducible(split_table, scene_name):
+    cfg, w = split_table[scene_name]
+    a, _, da = parallel.batched_rollout(w, cfg, 0, 4, record=lambda _: None)
+    b, _, db = parallel.batched_rollout(w, cfg, 0, 4, record=lambda _: None)
+    for field in ("pos", "angle", "vel", "ang_vel"):
+        assert torch.equal(getattr(a.bodies, field), getattr(b.bodies, field))
+    assert {k: int(v) for k, v in da.items()} == {
+        k: int(v) for k, v in db.items()}
+
+
+def test_main_scene_table_is_shared(scene):
+    """The main path's shapes keep every row's records in shared memory
+    (R = M), counted in run_frame2.shared_table_launches."""
+    cfg, w = scene
+    n0 = hopper.run_frame2.shared_table_launches
+    parallel.frame2_step(w, cfg)
+    assert hopper.run_frame2.shared_table_launches == n0 + 1
+
+
 JOINTED = {"mechanism": mechanism, "rope_bridge": rope_bridge}
 
 

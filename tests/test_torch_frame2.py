@@ -105,3 +105,131 @@ def test_off_slice_configs_raise():
     cfg = dataclasses.replace(sc.config, use_pallas=False)
     with pytest.raises(NotImplementedError, match="A3"):
         parallel.frame2_step(sc.world, cfg)
+
+
+# ---- where the frame kernel keeps its slot table --------------------------
+# (hopper.frame2_table_rows: the rows whose records sit in shared memory)
+
+def _phase_shapes():
+    """(N, M, V, J, solve slots) of each K4 phase chip_smoke.py runs: the
+    main path at its 8 slots, compacted at 4 and 6 of 8 and 8 of 16 (also
+    with CCD: the same shapes), the jointed batches, the projectile and
+    escorted batches, per-world lists' alternating batch, V = 8."""
+    main = st.scenes.batched_worlds(n_worlds=1, n_bodies=256, device="cpu")
+    n, m = main.world.bodies.n, main.world.colliders.m
+    out = {"main": (n, m, 4, 0, main.config.slot_capacity)}
+    for C, Cs in ((8, 4), (8, 6), (16, 8)):
+        out[f"compact{Cs}of{C}"] = (n, m, 4, 0, Cs)
+    for name in ("mechanism", "rope_bridge"):
+        sc = st.scenes.batchify(getattr(st.scenes, name)(device="cpu"), 1)
+        w = sc.world
+        out[name] = (w.bodies.n, w.colliders.m, 4, w.joints.j,
+                     sc.config.slot_capacity)
+    out["projectile"] = (128, 128, 4, 0, 8)
+    out["escorted"] = (128, 128, 4, 0, 4)
+    out["owners_alternating"] = (128, 128, 4, 0, 8)
+    out["verts8"] = (128, 128, 8, 0, 8)
+    return out
+
+
+PHASES = _phase_shapes()
+
+
+@pytest.mark.parametrize("phase", sorted(PHASES))
+def test_every_phase_keeps_its_whole_table_in_shared_memory(phase):
+    N, M, V, J, csol = PHASES[phase]
+    assert hopper.frame2_table_rows(N, M, V, J, csol) == M
+    smem = hopper.frame2_shared_bytes(N, M, V, J, csol)
+    assert smem == (hopper.frame2.frame2_state_bytes(N, M, V, J) + 16 * N
+                    + hopper.frame2.SLOT_BYTES * csol * M)
+    assert smem <= hopper.frame2.SHARED_LIMIT
+
+
+def test_main_path_table_and_block_bytes():
+    """The main path's 2,048 slots: 67 bytes each (16 floats: normal,
+    anchors, lambdas and a pass's four row-sum terms; the int16 partner;
+    the mask byte), 137,216 bytes beside the 40,964 of the world's state
+    and 4,096 of pose planes."""
+    assert hopper.frame2.SLOT_BYTES == 67
+    assert hopper.frame2.frame2_state_bytes(256, 256, 4, 0) == 40964
+    assert hopper.frame2_shared_bytes(256, 256, 4, 0, 8) == (
+        40964 + 4096 + 137216)
+
+
+SPLIT = {  # (N, M, V, J, solve slots) -> (R, pose planes in shared memory)
+    "1024x1024": ((1024, 1024, 4, 0, 8), (97, True)),
+    "1024x1024_v8": ((1024, 1024, 8, 0, 8), (36, True)),
+    "16_slots_uncompacted": ((256, 256, 4, 0, 16), (174, True)),
+    "850_joints": ((1024, 1024, 4, 850, 8), (0, False)),
+    "state_too_big": ((1024, 1024, 4, 1024, 8), (None, False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT))
+def test_table_rows_past_shared_memory(case):
+    """Shapes whose table does not fit: rows i >= R go to a global table
+    (all of them, and the pose planes too, when the state leaves no room
+    for the planes); a state that does not fit is refused (None)."""
+    (N, M, V, J, csol), (R, pose_shared) = SPLIT[case]
+    assert hopper.frame2_table_rows(N, M, V, J, csol) == R
+    state = hopper.frame2.frame2_state_bytes(N, M, V, J)
+    smem = hopper.frame2_shared_bytes(N, M, V, J, csol)
+    assert smem <= hopper.frame2.SHARED_LIMIT or R is None
+    if pose_shared:
+        assert smem == state + 16 * N + hopper.frame2.SLOT_BYTES * csol * R
+        # one more row would not fit
+        assert (smem + hopper.frame2.SLOT_BYTES * csol
+                > hopper.frame2.SHARED_LIMIT)
+    else:
+        assert smem == state
+
+
+@pytest.mark.parametrize("V", [4, 8])
+def test_eligibility_follows_the_world_state_only(V):
+    """``frame2_shapes_ok`` answers as it did before the slot table moved
+    into shared memory (the state's bytes within the block, N, M and J
+    within 1024) on a grid up to N = M = 1024 and J = MAX_JOINTS, for a
+    plain, a compacted and a 32-slot table."""
+    from types import SimpleNamespace
+
+    def old_smem(N, M, V, J):  # the parent's frame2_shared_bytes
+        return (4 * (19 * N + (2 * V + 9) * M) + 4 * (3 * M + N + 1)
+                + (4 * (15 * J + 4 * N) if J > 0 else 0))
+
+    sizes = (1, 128, 256, 512, 700, 1000, 1024, 1025)
+    joints = (0, 10, 256, 700, 850, 900, parallel.MAX_JOINTS)
+    cfgs = [SolverConfig(slot_capacity=8), SolverConfig(
+        slot_capacity=16, batch_solve_capacity=8),
+        SolverConfig(slot_capacity=32)]
+    n_ok = n_no = 0
+    for N in sizes:
+        for M in sizes:
+            for J in joints:
+                w = SimpleNamespace(
+                    bodies=SimpleNamespace(n=N), joints=SimpleNamespace(j=J),
+                    colliders=SimpleNamespace(m=M, max_verts=V))
+                want = (N <= 1024 and M <= 1024 and J <= parallel.MAX_JOINTS
+                        and old_smem(N, M, V, J) <= 232448)
+                for cfg in cfgs:
+                    assert parallel.frame2_shapes_ok(w, cfg) == want, (
+                        N, M, J, cfg.slot_capacity)
+                n_ok += want
+                n_no += not want
+    assert n_ok > 50 and n_no > 50
+
+
+def test_slot_record_layout_matches_the_kernel_source():
+    """The CUDA header's record (its float fields, the shared-memory limit)
+    is what the wrapper sizes tables by (checked here without nvcc; the
+    library checks it again when it loads)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(hopper.frame2.__file__).parent.parent / "csrc"
+           / "common.cuh").read_text()
+    enum = re.search(r"enum Frame2Field \{(.*?)F2_FIELDS", src, re.S).group(1)
+    fields = re.findall(r"\bF2_[A-Z0-9]+\b", enum)
+    assert len(fields) == hopper.frame2.SCRATCH_FIELDS
+    assert re.search(r"#define F2_SLOT_BYTES \(4 \* F2_FIELDS \+ 3\)", src)
+    limit = int(re.search(r"#define F2_SHARED_LIMIT (\d+)", src).group(1))
+    assert limit == hopper.frame2.SHARED_LIMIT

@@ -9,7 +9,9 @@ colliders), built by both builders. The owner tables and
 ``owner_overflow`` equal; over 3 frames of the heterogeneous batch (one
 world of each, from frame 13, when both piles touch the ground) ``touched``
 equal in the first and poses and velocities within tests/test_frame2.py's
-bounds for that batch (1e-3 and 5e-2).
+bounds for that batch (1e-3 and 5e-2). A replicated batch whose world 0
+alone turns off a touching collider holds the uniform lists (world 0's
+topology) to the same reference and bounds.
 """
 
 import dataclasses
@@ -149,3 +151,47 @@ def test_uniform_batch_is_bitwise_the_uniform_path():
         assert torch.equal(getattr(a.bodies, f), getattr(b.bodies, f)), f
     assert {k: int(v) for k, v in da.items()} == {
         k: int(v) for k, v in db.items()}
+
+
+def test_collider_off_in_world_zero_only_matches_jax():
+    """A replicated pile (uniform topology) whose world 0 alone turns off a
+    dynamic body's touching collider: the uniform owner lists still list
+    it, so world 1's body takes that collider's contacts, as the
+    reference's (which sums every row of world 0's topology). One frame
+    from the same arrays and slot tables, held as the heterogeneous
+    batch."""
+    cfg = st.SolverConfig(substeps=4, slot_capacity=8)
+    ja = build(build_pile(JBuilder, JShape, seed=0), JCapacity(**CAP))[0]
+    ta = build(build_pile(st.WorldBuilder, st.Shape, seed=0),
+               st.Capacity(**CAP))[0]
+    tw, _, _ = parallel.batched_rollout(parallel.replicate_world(ta, 2), cfg,
+                                        0, SETTLE, record=lambda _: None)
+    # the rows that touch in the next frame; take the first owned by a
+    # dynamic body
+    touching = parallel.frame2_step(tw, cfg)[1][1].sum(0) > 0
+    cb = tw.colliders.body_idx[1].long()
+    dyn = tw.bodies.inv_mass[1][cb] > 0
+    k = int(torch.nonzero(touching & dyn).flatten()[0])
+    tw.colliders.flags[0, k] &= ~st.state.COL_ACTIVE
+    assert not bool(tw.colliders.active[0, k])
+    assert bool(tw.colliders.active[1, k])
+    (start, idx), _ = parallel.frame2_owners(tw, cfg)
+    b = int(cb[k])
+    assert k in idx[start[b]:start[b + 1]].tolist()
+
+    jw = numpy_to_jax(tio.world_to_numpy(tw),
+                      jax.tree.map(lambda x: jnp.stack([x, x]), ja))
+    tables = parallel.frame2_tables(tw, cfg)
+    jw, jt, _, _, jaux = jpar.frame2_step(
+        jw, JConfig(substeps=4, slot_capacity=8), interpret=True,
+        tables=to_jax_tables(tables))
+    tw, tt, _, _, taux = parallel.frame2_step(tw, cfg, tables=tables)
+    np.testing.assert_array_equal(np.asarray(jt), tt.numpy())
+    assert float(tt[1, :, k].sum()) > 0, "row k does not touch in world 1"
+    assert {n: int(v) for n, v in jaux.items()} == {
+        n: int(v) for n, v in taux.items()}
+    a, b = jax_to_numpy(jw), tio.world_to_numpy(tw)
+    for key, tol in (("bodies/pos", 1e-3), ("bodies/angle", 1e-3),
+                     ("bodies/vel", 5e-2), ("bodies/ang_vel", 5e-2)):
+        np.testing.assert_allclose(a[key], b[key], rtol=0, atol=tol,
+                                   err_msg=key)

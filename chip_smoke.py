@@ -149,6 +149,19 @@ phase's start batch, config and frames come from ``tools/frame2_digests.py``
 ``phase``, which computes the same digests for any checkout, to compare a
 change with its parent.
 
+K2 (slot tables) keeps each world's mask as bits in shared memory and
+ranks with warp ballots; K1 (eligibility) writes the mask 16 bytes a
+thread: step 1 prints their ptxas lines
+(K2 must keep no stack frame and spill nothing) and K2's shared bytes and
+resident blocks an SM at each of ``SLOT_SHAPES``; step 2 also holds both
+against their twins at their widest shapes, 64 worlds x 1024 colliders
+with 32 slots (``parity_wide``: rows past C in the touch tier, in the swept
+tier and with all three tiers); step 4 prints, for each phase of K2 at
+the main path's final state, the share of (row, 32-partner chunk) pairs and
+of the kernel's visits its culling skips and the pair tests it leaves
+(``chunk_skips``, which K2's operation count takes), and both terms of each
+bound.
+
 Prints the run's wall time, a ``{"kernels": [...]}`` line (``max_abs_err``: the larger of the
 two parity checks; ``frame2_joints`` is the frame kernel's joint
 instantiation, timed on the mechanism batch; ``bound_ms``: the least time
@@ -166,6 +179,8 @@ import time
 
 W_MAIN, N_BODIES, SUBSTEPS, FRAMES = 4096, 256, 10, 60
 W_PARITY = 64
+# the slot kernels' widest shapes: 64 worlds x 1024 colliders, 32 slots
+N_WIDE, C_WIDE = 1024, 32
 W_JOINTED = 1024  # bench.py:232-237 runs the jointed configs at this width
 TWIN_FRAMES = 8
 KERNELS = (
@@ -249,6 +264,7 @@ PILE_PARITY_N = 1021  # 4 tiles of 256 colliders with the 3 statics
 PEAK_BYTES_S, PEAK_FLOPS_S = 3.35e12, 67e12
 PAIR_FLOPS, MANIFOLD_FLOPS, PROJECT_FLOPS, VELOCITY_FLOPS = 20, 1000, 200, 220
 JOINT_FLOPS = 100  # one joint slot's solve, per pass
+UNION_FLOPS = 4  # a row's swept box against a chunk's union box (K2)
 
 # Joint health after 60 frames from the start, 10 substeps, per world
 # (chip_smoke.joint_health, plus the fastest body's speed and, for the
@@ -467,18 +483,17 @@ def record_phase(name, w, cfg, frames, final, keys=None) -> None:
     TABLE_ROWS[name] = table_rows(w, cfg)
 
 
-def ptxas_k4(log: str) -> dict:
-    """``{"<V,kJ,kCcd>": (registers, stack bytes, spill stores, spill
-    loads)}`` of every K4 instance, from the build's ptxas report."""
+def ptxas_report(log: str, name_re: str, label) -> dict:
+    """``{label(match): (registers, stack bytes, spill stores, spill
+    loads)}`` of every kernel whose mangled name matches ``name_re``, from
+    the build's ptxas report."""
     import re
 
     out, inst = {}, None
     for line in log.splitlines():
-        m = re.search(r"frame2_kernelILi(\d+)ELb(\d)ELb(\d)E", line)
+        m = re.search(name_re, line)
         if m and "Function properties" in line:
-            inst = "<{},{},{}>".format(
-                m.group(1), *("true" if b == "1" else "false"
-                              for b in m.group(2, 3)))
+            inst = label(m)
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -490,6 +505,118 @@ def ptxas_k4(log: str) -> dict:
             out[inst].insert(0, int(m.group(1)))
             inst = None
     return {k: tuple(v) for k, v in out.items()}
+
+
+def _flags(*bits) -> str:
+    return ",".join("true" if b == "1" else "false" for b in bits)
+
+
+def ptxas_k4(log: str) -> dict:
+    """:func:`ptxas_report` of every K4 instance, as ``<V,kJ,kCcd>``."""
+    return ptxas_report(
+        log, r"frame2_kernelILi(\d+)ELb(\d)ELb(\d)E",
+        lambda m: f"<{m.group(1)},{_flags(*m.group(2, 3))}>")
+
+
+# (M, C) of every K2 phase: the main path at C = 8 and 16, the projectile
+# and jointed batches (M = 128), the 64 x 1024 parity batch at C = 32
+SLOT_SHAPES = ((256, 8), (256, 16), (128, 8), (1024, 32))
+
+
+def ptxas_slots(log: str, lib) -> None:
+    """Print ptxas's report of K2 (``slot_kernel<kVec>``) beside its shared
+    memory and resident blocks an SM at each of ``SLOT_SHAPES``, and K1's
+    (``elig_kernel<kStore>``); K2 must keep no stack frame and spill
+    nothing."""
+    k2 = ptxas_report(log, r"slot_kernelILb(\d)E",
+                      lambda m: f"<{_flags(m.group(1))}>")
+    k1 = ptxas_report(log, r"elig_kernelILi(\d+)E",
+                      lambda m: f"<{m.group(1)}>")
+    check(len(k2) == 2 and len(k1) == 3, f"ptxas reported {len(k2)} K2 "
+          f"and {len(k1)} K1 instances, not 2 and 3")
+    for name, insts in (("K2 slot_kernel", k2), ("K1 elig_kernel", k1)):
+        for inst, (regs, stack, st_, ld) in sorted(insts.items()):
+            print(f"{name}{inst}: {regs} registers, {stack} bytes stack, "
+                  f"{st_} bytes spill stores, {ld} bytes spill loads")
+    for inst, (_, stack, st_, ld) in k2.items():
+        check(stack == 0 and st_ == 0 and ld == 0, f"K2 {inst}: {stack} "
+              f"bytes stack, {st_} / {ld} bytes spilled")
+    for m, c in SLOT_SHAPES:  # <true>: rows of 16-byte multiples, as here
+        print(f"K2 slot_kernel<true> at M = {m}, C = {c}: "
+              f"{lib.sf_slots_shared_bytes(m, c)} bytes of shared memory, "
+              f"{lib.sf_slots_blocks_per_sm(m, c)} block(s) of "
+              f"{512 if m > 256 else 256} threads an SM")
+
+
+def slot_call_args(parallel, w, cfg) -> tuple:
+    """``(eargs, sargs, skw)``: K1's arguments and K2's but the mask, as a
+    rollout of ``w`` under ``cfg`` passes them at a table build
+    (``parallel.frame2_elig``, ``frame2_tables`` over
+    ``cfg.frames_per_broadphase`` frames, partner-aware past one)."""
+    body, col = parallel._frame2_arrays(w, cfg)
+    eargs = (col["cbody"], col["layer"], col["lmask"], col["active"],
+             col["sensor"], body["responds"], body["moves"])
+    K = cfg.frames_per_broadphase
+    vx, vy = ((parallel._sweep_bounds(w, cfg, K), None) if K > 1
+              else (body["velx"], body["vely"]))
+    sargs = (body["posx"], body["posy"], body["ang"], vx, vy, col["cbody"],
+             col["vlx"], col["vly"], col["radius"])
+    skw = dict(C=cfg.slot_capacity, margin=cfg.contact_margin, dt=cfg.dt * K,
+               partner_aware=K > 1)
+    return eargs, sargs, skw
+
+
+def chunk_skips(sargs, skw, elig, budget) -> dict:
+    """What K2's chunk culling (``csrc/slots.cu``) leaves to test on these
+    inputs, recomputed in plain PyTorch, for each phase the kernel runs
+    (``1``: the partner-aware sweep's, only when partner-aware; ``2``: the
+    tables'). A row skips a 32-partner chunk when it has no eligible partner
+    there or its swept box misses the union of the chunk's. ``row``: the
+    share of (row, chunk) pairs skipped; ``warp``: the share of the
+    kernel's (pair of rows, chunk) visits skipped (a warp takes rows i and
+    i + n_warps and visits the union of their chunks); ``pairs``: the
+    eligible pairs in the chunks the rows visit, which any kernel that
+    culls so must test. ``budget`` is K2's, the partner-aware sweep."""
+    import torch
+    import torch.nn.functional as F
+
+    from starframe_tpu_torch.hopper import slots
+
+    posx, posy, ang, vx, vy, cbody, vlx, vly, radius = sargs
+    _, close, sx, sy = slots._boxes(posx, posy, ang, vx,
+                                    vx if vy is None else vy, cbody, vlx,
+                                    vly, radius, skw["dt"], skw["margin"])
+    W, M = cbody.shape
+    K = -(-M // 32)
+    n_eligible = (F.pad(elig != 0, (0, 0, 0, 32 * K - M)).view(W, K, 32, M)
+                  .sum(2).transpose(1, 2))  # [W, M(i), K]
+    half = 8 if M <= 256 else 16  # the kernel's warps a block
+    rows = -(-M // (2 * half)) * 2 * half
+
+    def union(x, lo):  # [W, K] min (lo) or max over each chunk, NaN ignored
+        fill = float("inf") if lo else float("-inf")
+        x = F.pad(torch.nan_to_num(x, nan=fill), (0, 32 * K - M), value=fill)
+        x = x.view(W, K, 32)
+        return (x.amin(-1) if lo else x.amax(-1))[:, None, :]
+
+    phases = {2: (sx, sy)}
+    if skw["partner_aware"]:
+        phases = {1: (sx, sy), 2: (budget, budget)}
+    out = {}
+    for phase, (wx, wy) in phases.items():
+        lx, hx, ly, hy = slots._swept(close, wx, wy)
+        visit = ((n_eligible > 0)
+                 & (union(lx, True) <= hx[..., None])
+                 & (lx[..., None] <= union(hx, False))
+                 & (union(ly, True) <= hy[..., None])
+                 & (ly[..., None] <= union(hy, False)))
+        pairs = F.pad(visit, (0, 0, 0, rows - M)).view(W, -1, 2, half, K)
+        out[phase] = {
+            "row": 1.0 - float(visit.float().mean()),
+            "warp": 1.0 - float((pairs[:, :, 0] | pairs[:, :, 1])
+                                .float().mean()),
+            "pairs": int(n_eligible[visit].sum())}
+    return out
 
 
 def max_err(a, b) -> float:
@@ -712,6 +839,88 @@ def parity(dev, hopper, parallel, batched_worlds) -> dict:
     return errs
 
 
+def edge_batch(w, seed=0):
+    """``w`` with its even worlds squeezed toward their centre to half
+    their spacing and jostled (positions into contact, fast velocities: rows
+    fill every tier) and its odd worlds squeezed to a fifth of their spacing
+    (rows hold more than 32 touching partners)."""
+    import dataclasses
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    b = w.bodies
+    dyn = (b.inv_mass > 0)[..., None]
+    even = (torch.arange(b.pos.shape[0], device=b.pos.device)
+            % 2 == 0)[:, None, None]
+    dpos = torch.randn(b.pos.shape, generator=g).to(b.pos.device)
+    dvel = torch.randn(b.vel.shape, generator=g).to(b.pos.device)
+    c = (b.pos * dyn).sum(1, keepdim=True) / dyn.sum(1, keepdim=True)
+    pos = torch.where(even, c + 0.5 * (b.pos - c) + 0.25 * dpos,
+                      c + 0.2 * (b.pos - c))
+    pos = torch.where(dyn, pos, b.pos)
+    vel = torch.where(dyn & even, b.vel + 20.0 * dvel, b.vel)
+    return dataclasses.replace(w, bodies=dataclasses.replace(
+        b, pos=pos.contiguous(), vel=vel.contiguous()))
+
+
+def parity_wide(dev, hopper, parallel, batched_worlds) -> dict:
+    """K1 and K2 against their twins at their widest shapes, ``W_PARITY``
+    worlds x ``N_WIDE`` colliders with ``C_WIDE`` slots (:func:`edge_batch`):
+    the mask equal, also with every fifth collider on layer 31 alone; the
+    tables' integer outputs equal with ``partner_aware`` off and on, the
+    budget to 1e-6; rows pass C within the touch tier, within the swept
+    tier, and with candidates in all three tiers."""
+    import dataclasses
+
+    import torch
+
+    sc = batched_worlds(n_worlds=W_PARITY, n_bodies=N_WIDE,
+                        substeps=SUBSTEPS, device=dev)
+    cfg = dataclasses.replace(sc.config, slot_capacity=C_WIDE)
+    w = edge_batch(sc.world)
+    eargs = slot_call_args(parallel, w, cfg)[0]
+    ek = hopper.build_elig_mask(*eargs)
+    check(torch.equal(ek, hopper.elig_mask_plain(*eargs)),
+          "elig: kernel != twin at the wide batch")
+    # every fifth collider on layer 31 and hitting only it: K1 tests the
+    # layers byte by byte (its world-wide flag is off)
+    cbody, layer, lmask, *rest = eargs
+    top = torch.arange(layer.shape[1], device=layer.device) % 5 == 2
+    layered = (cbody, torch.where(top, 31, layer),
+               torch.where(top, -2 ** 31, lmask), *rest)
+    lk = hopper.build_elig_mask(*layered)
+    check(torch.equal(lk, hopper.elig_mask_plain(*layered))
+          and bool((lk != ek).any()),
+          "elig: kernel != twin at the wide batch on two layers")
+    errs = {"elig": 0.0, "slots": 0.0}
+    for frames in (1, 4):
+        tk, bk = parallel.frame2_tables(w, cfg, frames=frames, elig=ek,
+                                        return_budget=True)
+        tp, bp = parallel.frame2_tables(w, cfg, frames=frames, elig=ek,
+                                        return_budget=True, plain=True)
+        for name, a, b in zip(("partner", "slot_act", "count", "count_touch",
+                               "count_close"), tk, tp):
+            check(torch.equal(a, b), f"wide slots[{frames}]: {name} differs")
+        eb = max_err(bk, bp)
+        check(eb <= 1e-6, f"wide slots[{frames}]: budget off by {eb}")
+        errs["slots"] = max(errs["slots"], eb)
+        count, touch, close = tk[2], tk[3], tk[4]
+        rows = [int((touch > C_WIDE).sum()),
+                int(((close < C_WIDE) & (count > C_WIDE)).sum()),
+                int(((touch > 0) & (close > touch) & (count > close)
+                     & (count > C_WIDE)).sum())]
+        check(min(rows) > 0, f"wide slots[{frames}]: rows past C in the "
+              f"touch tier, in the swept tier, with all three tiers: {rows}")
+        print(f"parity slots at {W_PARITY}x{N_WIDE}, C = {C_WIDE}, "
+              f"partner_aware={frames > 1}: tables equal, budget max abs err "
+              f"{eb:.3g}; rows past C in the touch tier, in the swept tier, "
+              f"with all three tiers: {rows}")
+    print(f"parity elig at {W_PARITY}x{N_WIDE}: equal ({int(ek.sum())} "
+          f"eligible pairs; {int(lk.sum())} on two layers)")
+    return errs
+
+
 def frame_parity(name, parallel, w, cfg, tables, joint_slots=None) -> float:
     """One frame through the kernel and the twin: ``touched`` equal, poses
     to 1e-4, velocities to 1e-3. Returns the max abs error."""
@@ -909,14 +1118,18 @@ def nbytes(*xs) -> int:
     return total
 
 
-def bound(inputs, outputs, flops, extra_bytes=0) -> tuple:
-    """``(bound_ms, bound_by)``: the least time for moving ``inputs``,
-    ``outputs`` and ``extra_bytes`` more once each and doing ``flops``
-    operations on one H100."""
+def bound_terms(inputs, outputs, flops, extra_bytes=0) -> tuple:
+    """``(bytes ms, operations ms)``: the least times for moving
+    ``inputs``, ``outputs`` and ``extra_bytes`` more once each, and for
+    doing ``flops`` operations, on one H100."""
     t_bytes = (nbytes(inputs) + nbytes(outputs) + extra_bytes) / PEAK_BYTES_S
-    t_ops = float(flops) / PEAK_FLOPS_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return 1e3 * t_bytes, 1e3 * float(flops) / PEAK_FLOPS_S
+
+
+def bound(inputs, outputs, flops, extra_bytes=0) -> tuple:
+    """``(bound_ms, bound_by)``: the larger of :func:`bound_terms`."""
+    t_bytes, t_ops = bound_terms(inputs, outputs, flops, extra_bytes)
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def to64(x):
@@ -3124,9 +3337,13 @@ def main() -> int:
                   f"shared memory, table rows {rows} of {m}, {blocks} "
                   f"block(s) of {threads} threads an SM")
     check(len(k4) == 8, f"ptxas reported {len(k4)} K4 instances, not 8")
+    ptxas_slots(_build.build_log(), lib)
 
     # ---- 2. kernel vs twin ------------------------------------------------
     errs = parity(dev, hopper, parallel, batched_worlds)
+    for name, err in parity_wide(dev, hopper, parallel,
+                                 batched_worlds).items():
+        errs[name] = max(errs[name], err)
     errs.update(parity_joints(dev, hopper, parallel))
     errs.update(parity_tiles(dev, hopper))
     cerrs = parity_compound(dev, hopper, tiled)
@@ -3224,27 +3441,32 @@ def main() -> int:
         launches[name] = a1[name]["launches"]
 
     # ---- 4. kernel vs twin, and their times, at the main path's shapes ---
-    body, col = parallel._frame2_arrays(final, cfg)
-    eargs = (col["cbody"], col["layer"], col["lmask"], col["active"],
-             col["sensor"], body["responds"], body["moves"])
+    eargs, sargs, skw = slot_call_args(parallel, final, cfg)
     elig = hopper.build_elig_mask(*eargs)
-    sweep = parallel._sweep_bounds(final, cfg, cfg.frames_per_broadphase)
-    sargs = (body["posx"], body["posy"], body["ang"], sweep, None,
-             col["cbody"], col["vlx"], col["vly"], col["radius"], elig)
-    skw = dict(C=cfg.slot_capacity, margin=cfg.contact_margin,
-               dt=cfg.dt * cfg.frames_per_broadphase, partner_aware=True)
-    tables = hopper.build_slot_tables(*sargs, **skw)[:5]
+    *tables, budget = hopper.build_slot_tables(*sargs, elig, **skw)
+    skips = chunk_skips(sargs, skw, elig, budget)
+    W, M = eargs[0].shape
+    for phase, sk in skips.items():
+        print(f"K2 chunk culling at the main path's final state, phase "
+              f"{phase}: {100 * sk['row']:.2f}% of (row, 32-partner chunk) "
+              f"pairs skipped, {100 * sk['warp']:.2f}% of the kernel's (pair "
+              f"of rows, chunk) visits; {sk['pairs']} eligible pairs left to "
+              f"test, {100 * sk['pairs'] / int(elig.sum()):.2f}% of all")
+    sargs += (elig,)
     fargs, fkw = frame_call(hopper, parallel, final, cfg, tables)
     calls = {
         "elig": (lambda p: hopper.build_elig_mask(*eargs, plain=p)),
         "slots": (lambda p: hopper.build_slot_tables(*sargs, **skw, plain=p)),
         "frame2": (lambda p: hopper.run_frame2(*fargs, **fkw, plain=p)),
     }
-    W, M = col["cbody"].shape
     entries = int(tables[1].sum())
     work = {  # (inputs, operations) of each call, for its bound
         "elig": (eargs, W * M * M * 8),
-        "slots": (sargs, W * M * M + 2 * int(elig.sum()) * PAIR_FLOPS),
+        # K2: an operation a mask byte, a union test a (row, chunk) and the
+        # pair tests its culling leaves, in each phase
+        "slots": (sargs, W * M * M + sum(
+            W * M * -(-M // 32) * UNION_FLOPS + sk["pairs"] * PAIR_FLOPS
+            for sk in skips.values())),
         "frame2": ((fargs, fkw), entries * (MANIFOLD_FLOPS + cfg.substeps
                                             * cfg.iterations
                                             * (PROJECT_FLOPS
@@ -3256,6 +3478,7 @@ def main() -> int:
         spread = f32_spread(hopper, fargs, fkw, p) if name == "frame2" else None
         err = agree(name, k, p, spread)
         bounds[name] = bound(work[name][0], k, work[name][1])
+        terms = bound_terms(work[name][0], k, work[name][1])
         del k, p
         errs[name] = max(errs[name], err)
         print(f"parity {name} at {W_MAIN}x{N_BODIES}: agrees, max abs err "
@@ -3263,7 +3486,8 @@ def main() -> int:
         times[name] = turns(call)
         print(f"time {name} at {W_MAIN}x{N_BODIES}: kernel "
               f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms, "
-              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) on {card}")
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}; bytes "
+              f"{terms[0]:.4f} ms, operations {terms[1]:.4f} ms) on {card}")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()

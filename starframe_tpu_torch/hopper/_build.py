@@ -312,6 +312,10 @@ def library() -> ctypes.CDLL:
     lib.sf_frame2_table_rows.argtypes = [ctypes.c_int] * 5
     lib.sf_frame2_block_threads.argtypes = [ctypes.c_int] * 5
     lib.sf_frame2_blocks_per_sm.argtypes = [ctypes.c_int] * 6
+    lib.sf_slots_shared_bytes.argtypes = [ctypes.c_int] * 2
+    lib.sf_slots_shared_bytes.restype = ctypes.c_longlong
+    lib.sf_slots_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.sf_slots_blocks_per_sm.restype = ctypes.c_int
     lib.sf_tile_solve_fields.argtypes = []
     lib.sf_tile_solve_fields.restype = ctypes.c_int
     lib.sf_error_string.argtypes = [ctypes.c_int]

@@ -83,7 +83,8 @@ def build_elig_mask(cbody, layer, lmask, active, sensor, responds, moves,
     layer/mask bits both ways, both active, own row responds or is a moving
     sensor, and the pair moves or holds a sensor. Depends on topology and
     flags only, so rollouts build it once. ``plain=True`` runs the twin even
-    on CUDA tensors (for timing the kernel against it)."""
+    on CUDA tensors (for timing the kernel against it). The kernel takes at
+    most 4096 colliders a world and raises past that."""
     W, M = cbody.shape
     N = responds.shape[1]
     dev = cbody.device

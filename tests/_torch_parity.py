@@ -74,6 +74,50 @@ def build_pile(builder_cls, shape_cls, n=128, seed=0, sensor_idx=None,
     return b
 
 
+def slot_edge_arrays(arrays: dict, seed=9, squeeze=0.2) -> dict:
+    """Edit a world batch's snapshot (numpy arrays, ``io`` keys) for the
+    slot kernels' edge cases: every fifth collider on layer 31 and hitting
+    only layer 31 (mask bit 31, a negative int32); collider 7 inactive in
+    world 1 only; even worlds squeezed to half their spacing and jostled
+    (positions into contact, fast velocities, so rows fill every tier), odd
+    worlds squeezed toward their centre to ``squeeze`` of their spacing
+    (rows hold more than 32 touching partners). Returns an edited copy."""
+    from starframe_tpu_torch.state import COL_ACTIVE
+
+    arrays = {k: np.array(v) for k, v in arrays.items()}
+    rng = np.random.default_rng(seed)
+    top = np.arange(arrays["colliders/layer"].shape[1]) % 5 == 2
+    arrays["colliders/layer"][:, top] = 31
+    arrays["colliders/mask"][:, top] = np.int32(-2 ** 31)
+    if arrays["colliders/flags"].shape[0] > 1:
+        arrays["colliders/flags"][1, 7] &= ~COL_ACTIVE
+    pos, vel = arrays["bodies/pos"], arrays["bodies/vel"]
+    for w in range(pos.shape[0]):
+        dyn = arrays["bodies/inv_mass"][w] > 0
+        c = pos[w, dyn].mean(axis=0)
+        if w % 2 == 0:
+            pos[w, dyn] = c + 0.5 * (pos[w, dyn] - c) + rng.normal(
+                scale=0.25, size=pos[w, dyn].shape).astype(np.float32)
+            vel[w, dyn] += rng.normal(scale=60.0, size=vel[w, dyn].shape
+                                      ).astype(np.float32)
+        else:
+            pos[w, dyn] = c + squeeze * (pos[w, dyn] - c)
+    return arrays
+
+
+def shuffle_colliders(arrays: dict, seed=4, n=None) -> dict:
+    """The same batch with its first ``n`` (default all) collider rows in a
+    random order (one permutation for every world): a spatially incoherent
+    index order."""
+    m = arrays["colliders/layer"].shape[1]
+    n = m if n is None else n
+    perm = np.concatenate([np.random.default_rng(seed).permutation(n),
+                           np.arange(n, m)])
+    return {k: (np.ascontiguousarray(v[:, perm])
+                if k.startswith("colliders/") else v)
+            for k, v in arrays.items()}
+
+
 def build_jointed(builder_cls, shape_cls, n=128, seed=11):
     """Ground + mixed bodies with joints of every type (the scene of
     tests/test_frame2.py:233-284): a particle chain on distance joints, a

@@ -77,6 +77,94 @@ def test_slot_kernel_matches_twin(scene, frames):
     assert int(got[3].max()) > 0, "no touching candidates: vacuous"
 
 
+def _edge_world(n, worlds, max_verts=4, shuffle=False):
+    """``worlds`` copies of ``_torch_parity.build_pile``'s ``n``-collider
+    pile edited by ``slot_edge_arrays`` (layers 0 and 31, a moving sensor,
+    collider 7 off in world 1, jostled and squeezed worlds), optionally with
+    the colliders in a shuffled index order; on the card."""
+    from _torch_parity import build_pile, shuffle_colliders, slot_edge_arrays
+
+    from starframe_tpu_torch import io as tio
+
+    b = build_pile(WorldBuilder, Shape, n=n, seed=3, sensor_idx=4)
+    world, _ = b.build(Capacity(max_bodies=n, max_colliders=n,
+                                max_pairs=8 * n, max_joints=0,
+                                max_verts=max_verts), device="cuda")
+    a = slot_edge_arrays(tio.world_to_numpy(
+        parallel.replicate_world(world, worlds)))
+    return tio.world_from_numpy(shuffle_colliders(a) if shuffle else a,
+                                "cuda")
+
+
+def _slot_kernels_match_twins(w, cfg):
+    """K1 and K2 (``partner_aware`` off and on) against their twins: the
+    mask and the integer tables equal, the budget to 1e-6. Returns the
+    partner-aware counts."""
+    n0 = hopper.build_elig_mask.launches
+    elig = parallel.frame2_elig(w, cfg)
+    assert hopper.build_elig_mask.launches == n0 + 1
+    assert torch.equal(elig, parallel.frame2_elig(w, cfg, plain=True))
+    for frames in (1, 4):
+        n0 = hopper.build_slot_tables.launches
+        got, gb = parallel.frame2_tables(w, cfg, frames=frames, elig=elig,
+                                         return_budget=True)
+        assert hopper.build_slot_tables.launches == n0 + 1
+        ref, rb = parallel.frame2_tables(w, cfg, frames=frames, elig=elig,
+                                         return_budget=True, plain=True)
+        for name, a, b in zip(("partner", "slot_act", "count",
+                               "count_touch", "count_close"), got, ref):
+            assert torch.equal(a, b), (frames, name)
+        torch.testing.assert_close(gb, rb, rtol=0, atol=1e-6)
+    return got[2:5]
+
+
+@pytest.mark.parametrize("n, worlds, C, max_verts", [
+    (1024, 4, 32, 4),  # the widest M: 32 chunks, 512 threads
+    (200, 8, 32, 4),   # a partial last chunk; K2's byte-wise mask loads
+    (130, 8, 32, 4),   # K1's unaligned rows, stored byte by byte
+    (200, 8, 1, 4),
+    (200, 8, 8, 8),    # V = 8
+])
+def test_slot_kernels_match_twins_at_edges(n, worlds, C, max_verts):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    w = _edge_world(n, worlds, max_verts)
+    count, touch, _ = _slot_kernels_match_twins(
+        w, SolverConfig(slot_capacity=C, frames_per_broadphase=4))
+    assert int(touch.max()) > C and int(count.max()) > C, "no overflow"
+
+
+def test_elig_kernel_matches_twin_at_4096_colliders():
+    """K1 alone (K2 takes at most 1024 colliders) at its widest, 4096
+    colliders, a 16-collider group of each row a thread; one more collider
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    w = _edge_world(4096, 1)
+    cfg = SolverConfig()
+    elig = parallel.frame2_elig(w, cfg)
+    assert torch.equal(elig, parallel.frame2_elig(w, cfg, plain=True))
+    assert int(elig.sum()) > 0
+    with pytest.raises(RuntimeError, match="sf_elig"):
+        parallel.frame2_elig(_edge_world(4097, 1), cfg)
+
+
+def test_slot_kernels_match_twins_shuffled(scene):
+    """The main path's settled batch with its colliders in a shuffled index
+    order, where few 32-partner chunks are culled (in the WorldBuilder's
+    spatially coherent order, the tests above, about half are): both
+    kernels equal to their twins. The rank order follows the index, so the
+    two orders' tables are not compared with each other."""
+    from _torch_parity import shuffle_colliders
+
+    from starframe_tpu_torch import io as tio
+
+    cfg, w = scene
+    w = tio.world_from_numpy(shuffle_colliders(tio.world_to_numpy(w)), "cuda")
+    _, touch, _ = _slot_kernels_match_twins(w, cfg)
+    assert int(touch.sum()) > 0, "no touching candidates: vacuous"
+
+
 def _bulleted(w):
     """``w`` with every dynamic body flagged a bullet (CCD's TOI pass then
     runs on every row)."""

@@ -106,6 +106,47 @@ def child(root: str, reps: int) -> int:
     return 0
 
 
+def run_turns(script: str, roots, rounds: int, reps: int) -> int:
+    """Run ``script --child ROOT --reps reps`` for each root, in turns
+    (ABBA for two), ``rounds`` times; print one line a run, which outputs
+    are bitwise equal across roots, and a JSON summary last. Each child
+    prints ``{name: {"ms": ..., "sha256": ...}}`` as its last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"{os.path.basename(script)}: needs a CUDA device",
+              file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    order = []
+    for k in range(rounds):  # turns: A B ... then ... B A
+        order += roots if k % 2 == 0 else roots[::-1]
+    runs = {r: [] for r in roots}
+    for root in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(script), root, "--child",
+             "--reps", str(reps)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return proc.returncode
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[root].append(res)
+        print(f"{root}: " + ", ".join(f"{n} {r['ms']:.4f} ms"
+                                      for n, r in res.items())
+              + f" on {card}", flush=True)
+    names = list(runs[roots[0]][0])
+    summary = {root: {n: {"ms": [r[n]["ms"] for r in rs],
+                          "sha256": rs[0][n]["sha256"]} for n in names}
+               for root, rs in runs.items()}
+    same = {n: len({summary[r][n]["sha256"] for r in roots}) == 1
+            for n in names}
+    print(f"outputs bitwise equal across roots: {json.dumps(same)}")
+    print(json.dumps({"card": card, "times": summary}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="+")
@@ -116,39 +157,7 @@ def main() -> int:
     roots = [os.path.abspath(r) for r in args.roots]
     if args.child:
         return child(roots[0], args.reps)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("frame2_times: needs a CUDA device", file=sys.stderr)
-        return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    order = []
-    for k in range(args.rounds):  # turns: A B ... then ... B A
-        order += roots if k % 2 == 0 else roots[::-1]
-    runs = {r: [] for r in roots}
-    for root in order:
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), root, "--child",
-             "--reps", str(args.reps)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            print(proc.stdout, proc.stderr, file=sys.stderr)
-            return proc.returncode
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        runs[root].append(res)
-        print(f"{root}: " + ", ".join(f"{n} {r['ms']:.4f} ms"
-                                      for n, r in res.items())
-              + f" on {card}", flush=True)
-    summary = {}
-    for root, rs in runs.items():
-        summary[root] = {n: {"ms": [r[n]["ms"] for r in rs],
-                             "sha256": rs[0][n]["sha256"]} for n in PHASES}
-    same = {n: len({summary[r][n]["sha256"] for r in roots}) == 1
-            for n in PHASES}
-    print(f"outputs bitwise equal across roots: {json.dumps(same)}")
-    print(json.dumps({"card": card, "times": summary}))
-    return 0
+    return run_turns(__file__, roots, args.rounds, args.reps)
 
 
 if __name__ == "__main__":

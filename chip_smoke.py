@@ -76,21 +76,33 @@ skipped tile: keys equal, the rest as without keys), and on the compound
 scene of tests/test_tiled_compound.py (515 two-collider bodies, 5 tiles,
 built with the port's builder, 30 frames in) K5 (equal, no active slot
 pairing two rows of one body), K9's compound form (state and raw velocity
-sums to 1e-6) and the owner kernels (bitwise). Step 3 runs 240 fused
+sums to 1e-6), the owner kernels (bitwise) and the compound frame (the
+compound rows' whole frame in one launch) without and with CCD, tile 1
+skipped: bitwise equal to K8, ``owner_sum``, K9's compound form and
+``owner_velocity`` (with CCD, K7 and ``owner_min`` first) launched once a
+substep, and within 1e-6 of its twin. Step 3 runs 240 fused
 frames of ``pile(10_000, sleep=False)`` with events in turns with the same
 rollout without (bitwise the same state and counters, every key -1 or a
 pair a < b < M, K10 and the keyed K6 once a frame, a rerun bitwise equal),
 then ``pile_compound(10_000)`` for 7 chunks of 240 frames (hard counters
 0, ``owner_overflow`` included, the state finite and inside the
-container, K10 never, K8, K9's compound form and both owner kernels once a
-substep of every frame that ran, K6 once a frame that ran, at most one
-host sync a frame, health at frame 240 within bounds taken from the JAX
-package, the asleep share at frame 1680), and the last chunk again through
-the tile layout directly: every sibling row's state and sleep counter
-equal to its block's first, and the chunk bitwise the same. Step 4 times
-K6 with keys on the awake pile's final state and K9's compound form and
-the owner kernels on the compound pile's, against their twins, with their
-bounds, and the compound pile through its twins.
+container, the compound frame and K6 once a frame that ran, no K10 and no
+per-substep launch, at most one host sync a frame, health at frame 240
+within bounds taken from the JAX package, the asleep share at frame
+1680), the last chunk again through the tile layout directly (every
+sibling row's state and sleep counter equal to its block's first, and the
+chunk bitwise the same) and the first chunk again with ``fuse=False`` (K8,
+K9's compound form and both owner kernels once a substep, bitwise the
+compound frame's chunk). Step 4 times K6 with keys on the awake pile's
+final state and K9's compound form, the owner kernels, K7 and the other
+K8 and K9 forms (``<form>@compound``) and the compound frame (without and
+with CCD, held bitwise against the per-substep kernels and to a tenth of
+float32's spread against its twin) on the compound pile's, against their
+twins, with their bounds at its shapes, and the compound pile through its
+twins. Each tile kernel's time is printed twice: the call
+(CUDA events around wrapper calls, host dispatch included) and the device
+(its one launch replayed with the argument struct built once,
+``launch_ms``).
 
 Continuous collision (``cfg.ccd``, bullet bodies) runs through the same
 steps. Step 2 holds K7 and the CCD forms of K8 and K9 against their twins
@@ -109,10 +121,11 @@ every body a bullet (240 frames fused and unfused in turns with the fused
 pile without CCD: bitwise equal, a rerun bitwise equal, hard counters 0,
 health at frame 240 within the awake pile's bounds, K7 once a substep
 unfused and never fused, and the rows K7 clamps in one frame at frames 30,
-60 and 120) and ``pile_compound(10_000)`` with bullets (60 frames: K7,
-``owner_min``, K8's and K9's compound CCD forms once a substep, a rerun
-bitwise equal). Step 4 times the CCD kernels at full size against their
-twins, with their bounds.
+60 and 120) and ``pile_compound(10_000)`` with bullets (60 frames: the
+compound frame's CCD form once a frame, a rerun bitwise equal; with
+``fuse=False`` K7, ``owner_min``, K8's and K9's compound CCD forms once a
+substep, bitwise equal). Step 4 times the CCD kernels at full size against
+their twins, with their bounds.
 
 K4's last three branches (solve-slot compaction, per-world owner tables,
 sleep) and the batched contact keys run in step 3 on the main path's
@@ -148,6 +161,11 @@ M``), and prints a SHA-256 digest of each K4 phase's final state. Each K4
 phase's start batch, config and frames come from ``tools/frame2_digests.py``
 ``phase``, which computes the same digests for any checkout, to compare a
 change with its parent.
+
+K8 and K9 run one thread a (row, slot) item, 32 rows x 8 slots a block:
+step 1 prints ptxas's registers, stack, spills and shared bytes of each
+of their instances and of the compound frame's, beside its resident
+blocks an SM.
 
 K2 (slot tables) keeps each world's mask as bits in shared memory and
 ranks with warp ballots; K1 (eligibility) writes the mask 16 bytes a
@@ -237,6 +255,8 @@ TILE_READS = {
     "tile_frame": (_STATE, ("invm", "invi", "dynb", "kin"),
                    ("px", "py", "an")),
     "tile_ccd": (_STATE, ("dynb", "blt"), ("px", "py", "an")),
+    "tile_frame_compound": (_STATE, ("invm", "invi", "dynb", "kin",
+                                     "obody"), ("px", "py", "an")),
 }
 SOLVED_SLOT_WORDS = {
     # pidx_c; pdyn imb iib fric nax nay, 8 anchors, pm0 pm1
@@ -343,6 +363,11 @@ EC_KERNELS = (
      "starframe_tpu_torch/csrc/owner_reduce.cu",
      "starframe_tpu/pallas/tiles.py:1460 (_owner_shift_reduce: XLA code, "
      "not a Pallas kernel)"),
+    ("tile_frame_compound", "tile_frame", "compound_launches",
+     "starframe_tpu_torch/csrc/tile_compound_frame.cu",
+     "starframe_tpu/pallas/tiles.py:943 and :1004 (_project_kernel and "
+     "_apply_kernel(compound=True), a substep each with the owner sums, "
+     "looped at :2031-2086)"),
 )
 COMPOUND_PARITY_N = 515  # tests/test_tiled_compound.py: 1033 rows, 5 tiles
 
@@ -384,6 +409,11 @@ CCD_KERNELS = (
      "starframe_tpu_torch/csrc/owner_reduce.cu",
      "starframe_tpu/pallas/tiles.py:1483 (_owner_min3: XLA code, not a "
      "Pallas kernel)"),
+    ("tile_frame_compound_ccd", "tile_frame", "compound_ccd_launches",
+     "starframe_tpu_torch/csrc/tile_compound_frame.cu",
+     "starframe_tpu/pallas/tiles.py:759, :943 and :1004 (_ccd_kernel, "
+     "_project_kernel and _apply_kernel(compound=True), a substep each with "
+     "the owner reductions, looped at :2010-2086)"),
     ("frame2_ccd", "run_frame2", "ccd_launches",
      "starframe_tpu_torch/csrc/frame2.cu",
      "starframe_tpu/pallas/frame2.py:78"),
@@ -436,6 +466,9 @@ def check(ok: bool, what: str) -> None:
 
 # each K4 phase's final-state digest, (R, M) and frame count
 DIGESTS, TABLE_ROWS, PHASE_FRAMES = {}, {}, {}
+# each timed tile kernel's device time, its one launch replayed
+# (``launch_ms``), beside the call time of ``turns``
+DEVICE_MS = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -566,6 +599,49 @@ def slot_call_args(parallel, w, cfg) -> tuple:
     return eargs, sargs, skw
 
 
+def ptxas_substep(log: str, lib) -> None:
+    """ptxas's registers, stack, spills and shared bytes of each (row, slot)
+    instance of K8 and K9 and of the compound frame, beside its resident
+    blocks an SM (256 threads a block)."""
+    import re
+
+    smem = {}
+    inst = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            inst = m.group(1)
+        m = re.search(r"(\d+) bytes smem", line)
+        if inst and m:
+            smem[inst] = int(m.group(1))
+    kinds = (
+        (r"tile_project_kernelILb(\d)E",
+         lambda m: (f"K8 <{_flags(m.group(1))}>",
+                    lib.sf_tile_substep_blocks_per_sm(0, 0, int(m.group(1))))),
+        (r"tile_apply_kernelILb(\d)ELb(\d)E",
+         lambda m: (f"K9 <{_flags(*m.group(1, 2))}>",
+                    lib.sf_tile_substep_blocks_per_sm(
+                        1, int(m.group(1)), int(m.group(2))))),
+        (r"tile_compound_frame_kernelILb(\d)E",
+         lambda m: (f"compound frame <{_flags(m.group(1))}>",
+                    lib.sf_tile_compound_frame_blocks_per_sm(
+                        int(m.group(1))))))
+    seen = 0
+    for name_re, label in kinds:
+        for (name, blocks), (regs, stack, st_, ld) in sorted(ptxas_report(
+                log, name_re, label).items()):
+            mangled = [k for k in smem if re.search(name_re, k)
+                       and label(re.search(name_re, k))[0] == name]
+            shared = smem[mangled[0]] if mangled else 0
+            check(blocks >= 1, f"{name}: no block fits an SM")
+            print(f"{name}: {regs} registers, {stack} bytes stack, {st_} "
+                  f"bytes spill stores, {ld} bytes spill loads, {shared} "
+                  f"bytes shared, {blocks} blocks of 256 threads an SM")
+            seen += 1
+    check(seen == 8, f"ptxas reported {seen} K8/K9/compound frame instances, "
+          "not 8")
+
+
 def chunk_skips(sargs, skw, elig, budget) -> dict:
     """What K2's chunk culling (``csrc/slots.cu``) leaves to test on these
     inputs, recomputed in plain PyTorch, for each phase the kernel runs
@@ -684,6 +760,51 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(call, reps: int = 20):
+    """Device time of the one kernel launch ``call()`` makes: ``reps``
+    replays of it (``_build.launch`` with its argument struct built once,
+    no wrapper) captured in a CUDA graph, the graph's replay timed with
+    CUDA events, so that the host's launch rate does not bound it (the
+    cooperative whole-frame kernels, each far longer than a launch, are
+    replayed without a graph); None if ``call()`` makes another number of
+    launches. The call's outputs are kept alive while the launch replays
+    into them."""
+    import torch
+    from starframe_tpu_torch.hopper import _build
+
+    made, orig = [], _build.launch
+
+    def record(name, args, device):
+        made.append((name, args, device))
+        orig(name, args, device)
+
+    _build.launch = record
+    try:
+        out = call()
+    finally:
+        _build.launch = orig
+    if len(made) != 1:
+        return None
+    if made[0][0] in ("sf_tile_frame", "sf_tile_compound_frame"):
+        # cooperative: not captured; each runs far longer than its launch
+        ms = cuda_ms(lambda: orig(*made[0]), reps)
+        del out
+        return ms
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            orig(*made[0])
+    ms = cuda_ms(graph.replay, 1) / reps
+    del out, graph
+    return ms
+
+
+def device_str(name) -> str:
+    ms = DEVICE_MS.get(name)
+    return "device not measured" if ms is None else f"device {ms:.4f} ms"
 
 
 def turns(call, twin_reps: int = 2, kernel_reps: int = 5):
@@ -1228,7 +1349,9 @@ def tile_calls(hopper, w, cfg):
 
 # the ``touched`` output of the kernels that return one (held equal)
 TOUCHED_OUTPUT = {("tile_project", 5), ("tile_frame", 6),
-                  ("tile_project_ccd", 5), ("tile_frame_ccd", 6)}
+                  ("tile_project_ccd", 5), ("tile_frame_ccd", 6),
+                  ("tile_frame_compound", 6),
+                  ("tile_frame_compound_ccd", 6)}
 
 
 def agree_tiles(name, k, p, spread=None) -> float:
@@ -1340,42 +1463,50 @@ def frame_inputs(hopper, tiled, w, cfg, dead_tile=None):
     return (state, kc, large, pidx_c, sol, g, kc["tile_live"]), kw
 
 
-def substep_pair(hopper, args, kw):
+def substep_pair(hopper, args, kw, owner=None):
     """The frame through the K8/K9 kernels, launched once a substep (with
-    ``kw["ccd"]``, K7 first): ``(state, touched)``."""
+    ``kw["ccd"]``, K7 first; with ``owner = (ob, kc)``, the owner kernels
+    between them and K9's compound form): ``(state, touched)``."""
     from starframe_tpu_torch.hopper.tiles import substep_loop
 
     kw = dict(kw)
     toi = None
     if kw.pop("ccd", False):
         toi = (hopper.tile_ccd, hopper.owner_min, kw.pop("ccd_slop"))
+    if owner is not None:
+        owner = (hopper.owner_sum, hopper.owner_velocity, *owner)
     return substep_loop(hopper.tile_project, hopper.tile_apply, *args,
-                        ccd=toi, **kw)
+                        ccd=toi, owner=owner, **kw)
 
 
 def frame_outputs(state, touched) -> list:
     return [state[k] for k in _STATE] + [touched]
 
 
-def frame_agree(hopper, args, kw, what, spread=False) -> float:
+def frame_agree(hopper, args, kw, what, spread=False, owner=None) -> float:
     """K10 against the K8/K9 kernels launched once a substep (with
     ``kw["ccd"]``: K10's CCD form against K7, K8 and K9) (bitwise equal)
     and against its twin (``agree_tiles``; with ``spread``, a tenth of
-    float32's own spread there). Returns the max abs error against the
-    twin."""
-    name = "tile_frame_ccd" if kw.get("ccd") else "tile_frame"
+    float32's own spread there). With ``owner = (ob, kc)`` the compound
+    frame against K8, ``owner_sum``, K9's compound form and
+    ``owner_velocity`` (with CCD, K7 and ``owner_min`` first) the same way.
+    Returns the max abs error against the twin."""
+    name = ("tile_frame" + ("_compound" if owner is not None else "")
+            + ("_ccd" if kw.get("ccd") else ""))
     import torch
 
-    k = frame_outputs(*hopper.tile_frame(*args, **kw))
-    ref = frame_outputs(*substep_pair(hopper, args, kw))
+    k = frame_outputs(*hopper.tile_frame(*args, **kw, owner=owner))
+    ref = frame_outputs(*substep_pair(hopper, args, kw, owner))
     for field, a, b in zip(_STATE + ("touched",), k, ref):
         check(torch.equal(a, b), f"{name} {what}: {field} differs from "
               f"the per-substep kernels")
     check(float(k[6].sum()) > 0, f"{name} {what}: no contacts, vacuous")
-    p = frame_outputs(*hopper.tile_frame(*args, **kw, plain=True))
+    p = frame_outputs(*hopper.tile_frame(*args, **kw, owner=owner,
+                                         plain=True))
     spread_v = None
     if spread:
-        p64 = frame_outputs(*hopper.tile_frame_plain(*to64(args), **kw))
+        p64 = frame_outputs(*hopper.tile_frame_plain(*to64(args), **kw,
+                                                     owner=owner))
         spread_v = [max_err(a, b) for a, b in zip(p, p64)]
     err = agree_tiles(name, k, p, spread_v)
     live = args[6]
@@ -1611,8 +1742,10 @@ def pile_turns(hopper, pile, errs, bounds, card) -> dict:
         bounds[name] = bound(inputs, k, flops, extra_bytes)
         del k, p
         times[name] = turns(call)
+        DEVICE_MS[name] = launch_ms(lambda: call(False))
         print(f"time {name} at {PILE_N} bodies: kernel {times[name][0]:.4f} "
-              f"ms, plain twin {times[name][1]:.4f} ms, bound "
+              f"ms ({device_str(name)}), plain twin {times[name][1]:.4f} ms, "
+              f"bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), max abs err "
               f"{err:.3g}" + (f" (float32 spread "
                               f"{', '.join(f'{x:.3g}' for x in spread)})"
@@ -1671,9 +1804,12 @@ def frame_turns(hopper, tiled, sleep, errs, bounds, card) -> tuple:
     p1 = cuda_ms(lambda: substep_pair(hopper, args, kw), 5)
     times = turns(lambda p: hopper.tile_frame(*args, **kw, plain=p))
     p2 = cuda_ms(lambda: substep_pair(hopper, args, kw), 5)
+    DEVICE_MS["tile_frame"] = launch_ms(lambda: hopper.tile_frame(*args,
+                                                                  **kw))
     print(f"time tile_frame at {PILE_N} bodies (the sleeping pile after "
           f"chunk {PILE_CHUNKS}, {int(on.sum())} of {on.numel()} tiles live, "
-          f"{solved} solved slots, {n} substeps): kernel {times[0]:.4f} ms, "
+          f"{solved} solved slots, {n} substeps): kernel {times[0]:.4f} ms "
+          f"({device_str('tile_frame')}), "
           f"plain twin {times[1]:.4f} ms, the K8/K9 kernels once a substep "
           f"{(p1 + p2) / 2:.4f} ms; bound {bounds['tile_frame'][0]:.4f} ms "
           f"({bounds['tile_frame'][1]}; the frame's read set once), the "
@@ -1863,7 +1999,30 @@ def parity_compound(dev, hopper, tiled) -> dict:
           f"siblings; owner_sum and owner_velocity bitwise equal; K9 "
           f"compound max abs err {errs['tile_apply_compound']:.3g} "
           f"({int((accv[3] > 0).sum())} rows with velocity sums)")
+    errs.update(compound_frame_agree(hopper, tiled, w, cfg, f"at "
+                                     f"{COMPOUND_PARITY_N} bodies, tile 1 "
+                                     "skipped", dead_tile=1)[0])
     return errs
+
+
+def compound_frame_agree(hopper, tiled, w, cfg, what, dead_tile=None,
+                         spread=False) -> tuple:
+    """The compound frame on ``w``'s frame (``frame_inputs``), without and
+    with CCD (every dynamic row a bullet), against the per-substep kernels
+    (bitwise) and its twin (``frame_agree``). Returns ``({name: max abs
+    err}, {name: (args, kw, owner)})``."""
+    args, kw = frame_inputs(hopper, tiled, w, cfg, dead_tile=dead_tile)
+    owner = (args[1]["obody"].reshape(-1), cfg.max_colliders_per_body)
+    errs = {"tile_frame_compound": frame_agree(hopper, args, kw, what,
+                                               spread, owner)}
+    bargs = (args[0], dict(args[1], blt=(args[1]["invm"] > 0).float()),
+             *args[2:])
+    bkw = dict(kw, ccd=True, ccd_slop=cfg.ccd_slop)
+    errs["tile_frame_compound_ccd"] = frame_agree(
+        hopper, bargs, bkw, what + ", every dynamic row a bullet", spread,
+        owner)
+    return errs, {"tile_frame_compound": (args, kw, owner),
+                  "tile_frame_compound_ccd": (bargs, bkw, owner)}
 
 
 def run_pile_events(dev, hopper, tiled, pile, card) -> dict:
@@ -1941,9 +2100,12 @@ def run_pile_events(dev, hopper, tiled, pile, card) -> dict:
 def run_pile_compound(dev, hopper, tiled, card) -> dict:
     """bench.py's ``pile_compound``: ``pile_compound(10_000)`` (sleep on,
     awake-prefix compaction) for 7 chunks of 240 frames, each a rollout
-    continuing from the last, timed each, checked; the last chunk again
-    through the tile layout directly (sibling rows identical, bitwise the
-    same chunk)."""
+    continuing from the last, timed each, checked (the compound frame once
+    a frame that runs, no per-substep launch); the first chunk again with
+    ``fuse=False`` (K8, ``owner_sum``, K9's compound form and
+    ``owner_velocity`` once a substep: bitwise the same chunk); the last
+    chunk again through the tile layout directly (sibling rows identical,
+    bitwise the same chunk)."""
     import torch
     from starframe_tpu_torch import scenes
     from starframe_tpu_torch.hopper.tiles import STATE_KEYS
@@ -1981,7 +2143,7 @@ def run_pile_compound(dev, hopper, tiled, card) -> dict:
         asleep = float(((b.sleep_count >= cfg.sleep_frames) & dyn).sum()
                        / dyn_n)
         chunks.append(dict(ms=1e3 * seconds / PILE_FRAMES, asleep=asleep,
-                           diag=diag))
+                           diag=diag, world=w if c == 1 else None))
         print(f"compound pile chunk {c} (frames {PILE_FRAMES * (c - 1) + 1}-"
               f"{PILE_FRAMES * c}): {chunks[-1]['ms']:.4f} ms/frame, "
               f"{dyn_n / chunks[-1]['ms'] * 1e3:.6g} body-steps/s, asleep "
@@ -1999,12 +2161,13 @@ def run_pile_compound(dev, hopper, tiled, card) -> dict:
     ran = launches["tile_manifold"]  # K6 runs once a frame that runs
     per_substep = ran * cfg.substeps
     check(0 < ran <= frames, f"compound pile: K6 launched {ran} times")
-    check(launches["tile_frame"] == 0 and launches["tile_apply"] == 0,
-          "compound pile: K10 or K9's plain form ran")
-    for name in ("tile_project", "tile_apply_compound", "owner_sum",
-                 "owner_velocity"):
-        check(launches[name] == per_substep, f"compound pile: {name} "
-              f"launched {launches[name]} times, {per_substep} substeps ran")
+    check(launches["tile_frame_compound"] == ran, f"compound pile: the "
+          f"compound frame launched {launches['tile_frame_compound']} times "
+          f"in {ran} frames that ran")
+    for name in ("tile_frame", "tile_apply", "tile_project",
+                 "tile_apply_compound", "owner_sum", "owner_velocity"):
+        check(launches[name] == 0, f"compound pile: {name} launched "
+              f"{launches[name]} times beside the compound frame")
     check(syncs <= frames, f"compound pile: {syncs} host syncs in {frames} "
           "frames")
     best = min(ch["ms"] for ch in chunks[1:])
@@ -2047,7 +2210,40 @@ def run_pile_compound(dev, hopper, tiled, card) -> dict:
     print(f"compound pile: the last chunk rerun through the tile layout is "
           f"bitwise the same; every sibling row equal to its block's first "
           f"({int(same.sum())} blocks of two), state and sleep counters")
-    return dict(final=w, sc=sc, cfg=cfg, launches=launches, ms=best)
+
+    # the first chunk again through the per-substep kernels: the compound
+    # frame's bitwise reference over 240 frames
+    torch.cuda.synchronize()
+    reset_counts(hopper)
+    t0 = time.perf_counter()
+    loop, ldiag = tiled.tiled_rollout(sc.world, cfg, PILE_FRAMES, fuse=False)
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0) / PILE_FRAMES
+    ulaunches = read_counts(hopper)
+    uran = ulaunches["tile_manifold"]
+    check(uran > 0, "compound pile, fuse=False: no frame ran")
+    for name in ("tile_project", "tile_apply_compound", "owner_sum",
+                 "owner_velocity"):
+        check(ulaunches[name] == uran * cfg.substeps, f"compound pile, "
+              f"fuse=False: {name} launched {ulaunches[name]} times, "
+              f"{uran * cfg.substeps} substeps ran")
+    check(ulaunches["tile_frame_compound"] == ulaunches["tile_frame"] == 0,
+          "compound pile, fuse=False: a whole-frame kernel ran")
+    first = chunks[0]["world"]
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(loop.bodies, field),
+                          getattr(first.bodies, field)),
+              f"compound pile: fuse=False differs from the compound frame "
+              f"in {field} after {PILE_FRAMES} frames")
+    check({k: int(v) for k, v in ldiag.items()} == chunks[0]["diag"],
+          "compound pile: fuse=False counters differ")
+    print(f"compound pile: the first chunk with fuse=False (K8, owner_sum, "
+          f"K9 compound, owner_velocity once a substep: launches "
+          f"{json.dumps({k: v for k, v in ulaunches.items() if v})}) is "
+          f"bitwise the compound frame's; {loop_ms:.4f} ms/frame against the "
+          f"fused chunk's {chunks[0]['ms']:.4f}, on {card}")
+    return dict(final=w, sc=sc, cfg=cfg, launches=launches,
+                ulaunches=ulaunches, ms=best)
 
 
 def ec_turns(hopper, tiled, events, compound, errs, bounds, card) -> dict:
@@ -2065,8 +2261,10 @@ def ec_turns(hopper, tiled, events, compound, errs, bounds, card) -> dict:
                what=""):
         bounds[name] = bound(inputs, outputs, flops, extra)
         times[name] = turns(call)
+        DEVICE_MS[name] = launch_ms(lambda: call(False))
         print(f"time {name} at {PILE_N} bodies{what}: kernel "
-              f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms, "
+              f"{times[name][0]:.4f} ms ({device_str(name)}), "
+              f"plain twin {times[name][1]:.4f} ms, "
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), "
               + ("bitwise equal to the twin" if bitwise else
                  f"max abs err {errs[name]:.3g}") + f", on {card}")
@@ -2159,6 +2357,95 @@ def ec_turns(hopper, tiled, events, compound, errs, bounds, card) -> dict:
            ([ak[x] for x in ("vx", "vy", "om")], accv, ob),
            [vk[x] for x in ("vx", "vy", "om")],
            rows * (4 * 4 * (oc - 1) + 12), bitwise=True, what=where)
+
+    # K7 and the other K8 and K9 forms on the same state (every dynamic
+    # row a bullet for the CCD forms, the factors owner-minimised), for
+    # their bounds at the compound pile's shapes
+    bkc = dict(kc, blt=(kc["invm"] > 0).float())
+    bargs = (state, bkc, large, pidx_c, sol, g, live)
+    slop = ccfg.ccd_slop
+    fr = hopper.owner_min([hopper.tile_ccd(*bargs, h=h, ccd_slop=slop)], ob,
+                          oc)[0]
+    zt = torch.zeros_like(sol[:, 0])
+    pkw = dict(h=h, compliance=kw["compliance"])
+    projc = hopper.tile_project(*bargs[:6], zt, live, **pkw, f=fr)
+    osum_c = hopper.owner_sum(projc[:4], ob, oc)
+
+    def reads(name, *more):
+        sk, ck, lk = TILE_READS[name]
+        return ([state[x] for x in sk], [bkc[x] for x in ck],
+                [large[x] for x in lk], more)
+
+    forms = {
+        "tile_ccd": (lambda p: hopper.tile_ccd(*bargs, h=h, ccd_slop=slop,
+                                               plain=p),
+                     reads("tile_ccd", sm, g, live),
+                     4 * CCD_SLOT_WORDS * solved, solved * CCD_FLOPS),
+        "tile_project": (lambda p: hopper.tile_project(
+            *args[:6], zt, live, **pkw, plain=p),
+            reads("tile_project", sm, g, zt, live),
+            4 * SOLVED_SLOT_WORDS["tile_project"] * solved,
+            solved * PROJECT_FLOPS),
+        "tile_project_ccd": (lambda p: hopper.tile_project(
+            *bargs[:6], zt, live, **pkw, f=fr, plain=p),
+            reads("tile_project", sm, g, zt, live, fr),
+            4 * SOLVED_SLOT_WORDS["tile_project"] * solved,
+            solved * PROJECT_FLOPS),
+        "tile_apply": (lambda p: hopper.tile_apply(*aargs, **akw, plain=p),
+                       reads("tile_apply", sm, osum, g, live),
+                       4 * SOLVED_SLOT_WORDS["tile_apply"] * solved,
+                       solved * VELOCITY_FLOPS),
+        "tile_apply_compound_ccd": (lambda p: hopper.tile_apply(
+            state, osum_c, bkc, large, pidx_c, sol, projc[4], g, live, **akw,
+            compound=True, f=fr, plain=p),
+            reads("tile_apply", sm, osum_c, g, live, fr),
+            4 * SOLVED_SLOT_WORDS["tile_apply"] * solved,
+            solved * VELOCITY_FLOPS),
+    }
+    def outs(x):  # a call's outputs as a flat list of tensors
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if isinstance(x, dict):
+            return list(x.values())
+        return [t for v in x for t in outs(v)]
+
+    for form, (call, inputs, extra, flops) in forms.items():
+        name = form + "@compound"
+        k, p = call(False), call(True)
+        errs[name] = agree_tiles(form, outs(k), outs(p))
+        report(name, call, inputs, k, flops, extra, what=where)
+        del k, p
+
+    # the compound frame, without and with CCD (every dynamic row a
+    # bullet), beside the per-substep kernels on the same inputs
+    ferrs, finputs = compound_frame_agree(
+        hopper, tiled, compound["final"], ccfg, f"at {PILE_N} bodies, the "
+        "compound pile's final state", spread=True)
+    for name, (fargs, fkw, owner) in finputs.items():
+        errs[name] = max(errs[name], ferrs[name])
+        ccd = bool(fkw.get("ccd"))
+        n = fkw["substeps"]
+        owner_ops = rows * (4 * 4 * (oc - 1) + 4 * 4 * (oc - 1) + 12
+                            + (2 * (oc - 1) if ccd else 0))
+        sk, ck, lk = TILE_READS["tile_frame_compound"]
+        fkc = fargs[1]
+
+        def frame(p, fargs=fargs, fkw=fkw, owner=owner):
+            return hopper.tile_frame(*fargs, **fkw, owner=owner, plain=p)
+
+        report(name, frame,
+               ([fargs[0][x] for x in sk],
+                [fkc[x] for x in ck + (("blt",) if ccd else ())],
+                [large[x] for x in lk], sm, g, live), frame(False),
+               n * (solved * (PROJECT_FLOPS + VELOCITY_FLOPS
+                              + (CCD_FLOPS if ccd else 0)) + owner_ops),
+               4 * SOLVED_SLOT_WORDS["tile_frame"] * solved, what=where)
+        loop = cuda_ms(lambda: substep_pair(hopper, fargs, fkw, owner), 5)
+        print(f"time {name}: the per-substep kernels on the same inputs "
+              f"({'K7, owner_min, ' if ccd else ''}K8, owner_sum, K9 "
+              f"compound, owner_velocity once a substep) {loop:.4f} ms "
+              f"against the compound frame's {times[name][0]:.4f} ms, on "
+              f"{card}")
     return times
 
 
@@ -2642,9 +2929,10 @@ def run_pile_ccd(dev, hopper, tiled, card) -> dict:
 
 def run_compound_ccd(dev, hopper, tiled, card) -> dict:
     """``pile_compound(10_000)`` (sleep on) with CCD and every body a
-    bullet, 60 frames from the start: K7, ``owner_min``, K8's CCD form and
-    K9's compound CCD form once a substep, hard counters 0, inside the
-    container, a rerun bitwise equal."""
+    bullet, 60 frames from the start: the compound frame's CCD form once a
+    frame, hard counters 0, inside the container, a rerun bitwise equal;
+    then the same frames with ``fuse=False`` (K7, ``owner_min``, K8's CCD
+    form and K9's compound CCD form once a substep), bitwise equal."""
     import dataclasses
 
     import torch
@@ -2677,26 +2965,52 @@ def run_compound_ccd(dev, hopper, tiled, card) -> dict:
     check(float(b.pos[dyn, 0].abs().max()) < wall
           and float(b.pos[dyn, 1].min()) > 0.0,
           "compound pile with CCD: a body left the container")
-    ran = launches["tile_manifold"] * cfg.substeps
+    ran = launches["tile_manifold"]
+    check(launches["tile_frame_compound_ccd"] == ran and ran > 0,
+          f"compound pile with CCD: the compound frame launched "
+          f"{launches['tile_frame_compound_ccd']} times, {ran} frames ran")
     for name in ("tile_ccd", "owner_min", "tile_project_ccd",
-                 "tile_apply_compound_ccd"):
-        check(launches[name] == ran and ran > 0,
-              f"compound pile with CCD: {name} launched {launches[name]} "
-              f"times, {ran} substeps ran")
-    check(launches["tile_frame_ccd"] == launches["tile_apply_ccd"] == 0,
-          "compound pile with CCD: K10 or the non-compound K9 ran")
+                 "tile_apply_compound_ccd", "tile_frame_ccd",
+                 "tile_apply_ccd", "tile_frame_compound"):
+        check(launches[name] == 0, f"compound pile with CCD: {name} "
+              f"launched {launches[name]} times beside the compound frame")
     again, dagain = tiled.tiled_rollout(w, cfg, frames)
     for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
         check(torch.equal(getattr(again.bodies, field), getattr(b, field)),
               f"compound pile with CCD: rerun differs in {field}")
+    # the per-substep kernels: the compound frame's bitwise reference
+    torch.cuda.synchronize()
+    reset_counts(hopper)
+    t0 = time.perf_counter()
+    loop, ldiag = tiled.tiled_rollout(w, cfg, frames, fuse=False)
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0) / frames
+    ulaunches = read_counts(hopper)
+    uran = ulaunches["tile_manifold"] * cfg.substeps
+    for name in ("tile_ccd", "owner_min", "tile_project_ccd",
+                 "tile_apply_compound_ccd"):
+        check(ulaunches[name] == uran and uran > 0,
+              f"compound pile with CCD, fuse=False: {name} launched "
+              f"{ulaunches[name]} times, {uran} substeps ran")
+    check(ulaunches["tile_frame_compound_ccd"] == 0,
+          "compound pile with CCD, fuse=False: the compound frame ran")
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        check(torch.equal(getattr(loop.bodies, field), getattr(b, field)),
+              f"compound pile with CCD: fuse=False differs in {field}")
+    check({k: int(v) for k, v in ldiag.items()} == diag,
+          "compound pile with CCD: fuse=False counters differ")
     ms = 1e3 * seconds / frames
     dyn_n = int(dyn.sum())
     print(f"compound pile with CCD: pile_compound({PILE_N}), every body a "
           f"bullet, {frames} frames: {ms:.4f} ms/frame, "
           f"{dyn_n / ms * 1e3:.6g} body-steps/s; counters {json.dumps(diag)}"
           f"; launches {json.dumps({k: v for k, v in launches.items() if v})}"
-          f"; a rerun bitwise equal; on {card}")
-    return dict(final=final, cfg=cfg, ms=ms, launches=launches)
+          f"; a rerun bitwise equal; fuse=False bitwise equal at "
+          f"{loop_ms:.4f} ms/frame (launches "
+          f"{json.dumps({k: v for k, v in ulaunches.items() if v})}); on "
+          f"{card}")
+    return dict(final=final, cfg=cfg, ms=ms, launches=launches,
+                ulaunches=ulaunches)
 
 
 def ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs, bounds,
@@ -2722,10 +3036,11 @@ def ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs, bounds,
         bounds[name] = bound(inputs, k, flops, extra)
         del k
         times[name] = turns(call)
+        DEVICE_MS[name] = launch_ms(lambda: call(False))
         print(f"time {name} at {PILE_N} bodies{where}: kernel "
-              f"{times[name][0]:.4f} ms, plain twin {times[name][1]:.4f} ms, "
-              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), max abs "
-              f"err {errs[name]:.3g}, on {card}")
+              f"{times[name][0]:.4f} ms ({device_str(name)}), plain twin "
+              f"{times[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}), max abs err {errs[name]:.3g}, on {card}")
 
     errs["tile_frame_ccd"] = max(errs["tile_frame_ccd"], frame_agree(
         hopper, args, kw, f"at {PILE_N} bodies{where}", spread=True))
@@ -2747,8 +3062,11 @@ def ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs, bounds,
         lambda p: hopper.tile_frame(*args, **kw, plain=p))
     p2 = cuda_ms(lambda: substep_pair(hopper, args, kw), 3)
     no_ccd = cuda_ms(lambda: hopper.tile_frame(*args, **plain_kw), 5)
+    DEVICE_MS["tile_frame_ccd"] = launch_ms(
+        lambda: hopper.tile_frame(*args, **kw))
     print(f"time tile_frame_ccd at {PILE_N} bodies{where}: kernel "
-          f"{times['tile_frame_ccd'][0]:.4f} ms, plain twin "
+          f"{times['tile_frame_ccd'][0]:.4f} ms "
+          f"({device_str('tile_frame_ccd')}), plain twin "
           f"{times['tile_frame_ccd'][1]:.4f} ms, K7 + K8 + K9 once a "
           f"substep {(p1 + p2) / 2:.4f} ms, the non-CCD K10 on the same "
           f"inputs {no_ccd:.4f} ms; bound "
@@ -2768,8 +3086,10 @@ def ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs, bounds,
           "owner_min at 10k: kernel != twin")
     bounds["owner_min"] = bound((fr, ob), omin(False), ob.numel() * 2 * (oc - 1))
     times["owner_min"] = turns(omin)
+    DEVICE_MS["owner_min"] = launch_ms(lambda: omin(False))
     print(f"time owner_min at {PILE_N} bodies (the compound CCD pile's final "
-          f"state, {ob.numel()} rows): kernel {times['owner_min'][0]:.4f} ms, "
+          f"state, {ob.numel()} rows): kernel {times['owner_min'][0]:.4f} ms "
+          f"({device_str('owner_min')}), "
           f"plain twin {times['owner_min'][1]:.4f} ms, bound "
           f"{bounds['owner_min'][0]:.4f} ms ({bounds['owner_min'][1]}), "
           f"bitwise equal to the twin, on {card}")
@@ -3338,6 +3658,7 @@ def main() -> int:
                   f"block(s) of {threads} threads an SM")
     check(len(k4) == 8, f"ptxas reported {len(k4)} K4 instances, not 8")
     ptxas_slots(_build.build_log(), lib)
+    ptxas_substep(_build.build_log(), lib)
 
     # ---- 2. kernel vs twin ------------------------------------------------
     errs = parity(dev, hopper, parallel, batched_worlds)
@@ -3349,7 +3670,8 @@ def main() -> int:
     cerrs = parity_compound(dev, hopper, tiled)
     errs["tile_tables"] = max(errs["tile_tables"], cerrs.pop("tile_tables"))
     errs.update(cerrs)
-    errs.update(parity_ccd(dev, hopper, tiled, parallel))
+    for name, err in parity_ccd(dev, hopper, tiled, parallel).items():
+        errs[name] = max(errs.get(name, 0.0), err)
 
     # ---- 3. the main path at full width ------------------------------------
     w0, cfg, _ = k4_phase("main", dev)
@@ -3416,8 +3738,12 @@ def main() -> int:
     events = run_pile_events(dev, hopper, tiled, pile, card)
     launches["tile_manifold_keys"] = events["launches"]["tile_manifold_keys"]
     compound = run_pile_compound(dev, hopper, tiled, card)
+    launches["tile_frame_compound"] = compound["launches"][
+        "tile_frame_compound"]
+    # the per-substep compound kernels, from the compound pile's fuse=False
+    # chunk (the compound frame's reference)
     for name in ("tile_apply_compound", "owner_sum", "owner_velocity"):
-        launches[name] = compound["launches"][name]
+        launches[name] = compound["ulaunches"][name]
     # CCD: the projectile batch, the main path and the piles with bullets
     projectile = run_projectile(dev, hopper, parallel, card)
     mccd = run_main_ccd(dev, hopper, parallel, card)
@@ -3426,7 +3752,9 @@ def main() -> int:
     for name in ("tile_ccd", "tile_project_ccd", "tile_apply_ccd"):
         launches[name] = pccd["launches"][name]
     launches["tile_frame_ccd"] = pccd["flaunches"]["tile_frame_ccd"]
-    launches["owner_min"] = cccd["launches"]["owner_min"]
+    launches["owner_min"] = cccd["ulaunches"]["owner_min"]
+    launches["tile_frame_compound_ccd"] = cccd["launches"][
+        "tile_frame_compound_ccd"]
     launches["frame2_ccd"] = mccd["launches"]
     # K4's last branches: compaction (with CCD too), per-world owner
     # tables, sleep and the contact keys on the main path
@@ -3537,9 +3865,9 @@ def main() -> int:
           f"K10 {events['launches']['tile_frame'] / PILE_FRAMES:.4f}; "
           "pile_compound "
           + ", ".join(f"{n} {compound['launches'][n] / frames:.4f}"
-                      for n in ("tile_manifold", "tile_project",
-                                "tile_apply_compound", "owner_sum",
-                                "owner_velocity", "tile_frame")))
+                      for n in ("tile_manifold", "tile_frame_compound",
+                                "tile_project", "tile_apply_compound",
+                                "owner_sum", "owner_velocity", "tile_frame")))
 
     # the CCD kernels at full size
     times.update(ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs,
@@ -3550,7 +3878,9 @@ def main() -> int:
           f"{pccd['launches']['tile_apply_ccd'] / PILE_FRAMES:.4f}; fused "
           f"K10 {pccd['flaunches']['tile_frame_ccd'] / PILE_FRAMES:.4f}, K7 "
           f"{pccd['flaunches']['tile_ccd'] / PILE_FRAMES:.4f}; compound "
-          f"owner_min {cccd['launches']['owner_min'] / 60:.4f}; main path K4 "
+          f"frame CCD {cccd['launches']['tile_frame_compound_ccd'] / 60:.4f}"
+          f" (fuse=False: owner_min "
+          f"{cccd['ulaunches']['owner_min'] / 60:.4f}); main path K4 "
           f"CCD {mccd['launches'] / FRAMES:.4f}; projectile ms/frame "
           f"{json.dumps(projectile)}")
 
@@ -3605,6 +3935,8 @@ def main() -> int:
           "batched_compact times its own against)")
     print("frame2 digests: " + json.dumps(DIGESTS))
 
+    print("device ms (the one launch replayed, struct built once): "
+          + json.dumps(DEVICE_MS))
     # no single PyTorch call computes any of these kernels: library_ms null
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     ec = tuple((n, a, src, tpu)

@@ -380,6 +380,22 @@ struct TileFrameArgs {
   TileCcdArgs ccd;
 };
 
+// The whole frame's substeps of a compound world (tile_compound_frame.cu):
+// `frame` as for tile_frame.cu, but `frame.project`'s corrections are the
+// raw row sums, which each substep owner-sums into `osum` [4, Nt, T]
+// (`frame.apply`'s dxx, dxy, dth, cnt point there), `frame.apply.accv`
+// [4, Nt, T] takes the velocity pass's raw sums, and with CCD `frame.ccd.f`
+// takes the raw TOI factors, which each substep owner-mins into `f_own`
+// (`frame.project.f == frame.apply.f == f_own`). `ob` [Nt * T] is each
+// row's owner, in sibling blocks of at most `kc` rows.
+struct TileCompoundFrameArgs {
+  TileFrameArgs frame;
+  float* osum;
+  float* f_own;
+  const int32_t* ob;
+  int kc;
+};
+
 // The owner reductions of compound rows (owner_reduce.cu): rows of one body
 // are contiguous in the tile layout and share `ob`, the owner body id
 // (unique ids on padding rows), in blocks of at most `kc` rows.

@@ -23,48 +23,15 @@
 // compound pile's 20,224 rows (~0.2 us at 3.35 TB/s); the neighbours'
 // words come from the same cache lines. One thread per row, 256 a block,
 // no shared memory, no atomics; a launch costs far more than its bytes.
+// The row bodies live in owner_rows.cuh: the compound whole-frame kernel
+// (tile_compound_frame.cu) runs them between its grid barriers, so that a
+// frame needs none of these launches.
 
-#include <math_constants.h>
-
-#include "common.cuh"
+#include "owner_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// x's owner sum at row i: x[i], then the rows o = 1 .. kc-1 away, the one
-// before first (torch.roll(x, o)[i] = x[i - o], then roll(x, -o))
-__device__ __forceinline__ float owner_sum_row(const float* x,
-                                               const int32_t* ob, int i,
-                                               int n, int kc) {
-  const int own = ob[i];
-  float acc = x[i];
-  for (int o = 1; o < kc; ++o) {
-    const int step = o % n;
-    const int lo = i - step < 0 ? i - step + n : i - step;
-    const int hi = i + step >= n ? i + step - n : i + step;
-    acc = acc + (ob[lo] == own ? x[lo] : 0.f);
-    acc = acc + (ob[hi] == own ? x[hi] : 0.f);
-  }
-  return acc;
-}
-
-// x's owner minimum at row i, in owner_sum_row's order, +inf for a row of
-// another owner
-__device__ __forceinline__ float owner_min_row(const float* x,
-                                               const int32_t* ob, int i,
-                                               int n, int kc) {
-  const int own = ob[i];
-  float acc = x[i];
-  for (int o = 1; o < kc; ++o) {
-    const int step = o % n;
-    const int lo = i - step < 0 ? i - step + n : i - step;
-    const int hi = i + step >= n ? i + step - n : i + step;
-    acc = fminf(acc, ob[lo] == own ? x[lo] : CUDART_INF_F);
-    acc = fminf(acc, ob[hi] == own ? x[hi] : CUDART_INF_F);
-  }
-  return acc;
-}
 
 __global__ void __launch_bounds__(kThreads) owner_min_kernel(OwnerSumArgs a) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -83,24 +50,7 @@ __global__ void __launch_bounds__(kThreads) owner_sum_kernel(OwnerSumArgs a) {
 __global__ void __launch_bounds__(kThreads)
     owner_velocity_kernel(OwnerVelocityArgs a) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.n) return;
-  const size_t plane = (size_t)a.n;
-  const float ax = owner_sum_row(a.accv, a.ob, i, a.n, a.kc);
-  const float ay = owner_sum_row(a.accv + plane, a.ob, i, a.n, a.kc);
-  const float aw = owner_sum_row(a.accv + 2 * plane, a.ob, i, a.n, a.kc);
-  const float cnt = owner_sum_row(a.accv + 3 * plane, a.ob, i, a.n, a.kc);
-  const float cntv = fmaxf(cnt, 1.f);
-  float nvx = a.vx[i] + ax / cntv;
-  float nvy = a.vy[i] + ay / cntv;
-  float nom = a.om[i] + aw / cntv;
-  if (a.use_lin_damp) {
-    nvx = nvx * a.lin_sdamp;
-    nvy = nvy * a.lin_sdamp;
-  }
-  if (a.use_ang_damp) nom = nom * a.ang_sdamp;
-  a.o_vx[i] = nvx;
-  a.o_vy[i] = nvy;
-  a.o_om[i] = nom;
+  if (i < a.n) owner_velocity_row(a, i);
 }
 
 }  // namespace

@@ -7,8 +7,9 @@
 // of one pallas_call with the state double-buffered in VMEM. Here the
 // phases are separated by `cooperative_groups::this_grid().sync()` in one
 // cooperative launch (2 x substeps - 1 barriers), and the per-row bodies
-// are K8/K9's own (tile_rows.cuh), so a frame is bitwise equal to the
-// per-substep pair of tile_substep.cu. The state ping-pongs between two
+// are the row loops of tile_rows.cuh (`project_row`, `apply_row`), whose
+// float operations are those of K8/K9's (row, slot) items, so a frame is
+// bitwise equal to the per-substep pair of tile_substep.cu. The state ping-pongs between two
 // global buffers: apply reads its partners' pre-apply state from the
 // 3-tile window while other blocks write theirs, so it writes the other
 // buffer. A skipped tile (tile_live = 0) still zeroes its corrections and

@@ -192,6 +192,12 @@ class TileFrameArgs(ctypes.Structure):
                 ("substeps", ctypes.c_int), ("ccd", TileCcdArgs)]
 
 
+class TileCompoundFrameArgs(ctypes.Structure):
+    _fields_ = [("frame", TileFrameArgs), ("osum", ctypes.c_void_p),
+                ("f_own", ctypes.c_void_p), ("ob", ctypes.c_void_p),
+                ("kc", ctypes.c_int)]
+
+
 class OwnerSumArgs(ctypes.Structure):
     _fields_ = [("x", ctypes.c_void_p * 4), ("y", ctypes.c_void_p * 4),
                 ("ob", ctypes.c_void_p), ("k", ctypes.c_int),
@@ -215,6 +221,7 @@ _ENTRY_POINTS = {"sf_elig": EligArgs, "sf_slots": SlotArgs,
                  "sf_tile_project": TileProjectArgs,
                  "sf_tile_apply": TileApplyArgs,
                  "sf_tile_frame": TileFrameArgs,
+                 "sf_tile_compound_frame": TileCompoundFrameArgs,
                  "sf_tile_ccd": TileCcdArgs,
                  "sf_owner_sum": OwnerSumArgs,
                  "sf_owner_min": OwnerSumArgs,
@@ -316,6 +323,10 @@ def library() -> ctypes.CDLL:
     lib.sf_slots_shared_bytes.restype = ctypes.c_longlong
     lib.sf_slots_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     lib.sf_slots_blocks_per_sm.restype = ctypes.c_int
+    lib.sf_tile_substep_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.sf_tile_substep_blocks_per_sm.restype = ctypes.c_int
+    lib.sf_tile_compound_frame_blocks_per_sm.argtypes = [ctypes.c_int]
+    lib.sf_tile_compound_frame_blocks_per_sm.restype = ctypes.c_int
     lib.sf_tile_solve_fields.argtypes = []
     lib.sf_tile_solve_fields.restype = ctypes.c_int
     lib.sf_error_string.argtypes = [ctypes.c_int]

@@ -11,16 +11,18 @@ and ``csrc/tile_frame.cu``, and the compound rows' owner reductions
 (``_owner_shift_reduce`` and ``_owner_min3``, XLA code there) with
 ``csrc/owner_reduce.cu`` (:func:`owner_sum`, :func:`owner_velocity`,
 :func:`owner_min`); :func:`run_tiled_frame` composes them into one frame
-(``fuse=True``: the substeps in one K10 launch; ``fuse=False`` or compound
-rows: one project and one apply launch per substep, after one CCD launch
-with ``ccd``).
+(``fuse=True``: the substeps in one K10 launch, or for compound rows one
+launch of the compound frame, ``csrc/tile_compound_frame.cu``;
+``fuse=False``: one project and one apply launch per substep, after one
+CCD launch with ``ccd``, with the owner reductions between them on
+compound rows).
 Each wrapper checks its inputs, launches its kernel for CUDA tensors (and
 raises if that fails: there is no fallback) and runs its plain PyTorch twin
 for CPU tensors; ``plain=True`` runs the twin on CUDA tensors too, for
 timing. ``<wrapper>.launches`` counts kernel launches (K6 with event keys,
-K9's compound form and the CCD forms of K8, K9 and K10 in
-``keys_launches``, ``compound_launches``, ``ccd_launches`` and
-``compound_ccd_launches``).
+the compound forms of K9 and of the whole frame, and the CCD forms of K8,
+K9 and the whole frame in ``keys_launches``, ``compound_launches``,
+``ccd_launches`` and ``compound_ccd_launches``).
 
 Layout (the TPU's ``[Nt, 1, T]`` Mosaic rows and k-major lane packing are
 not kept): rows are colliders sorted along the sort axis and cut into
@@ -1193,21 +1195,25 @@ def substep_loop(project, apply, state, consts, large, pidx_c, sol,
 
 
 def tile_frame_plain(state, consts, large, pidx_c, sol, gravity, tile_live,
-                     *, ccd: bool = False, ccd_slop: float = 0.005, **kw):
-    """Plain PyTorch twin of :func:`tile_frame`: the K7, K8 and K9 twins,
+                     *, ccd: bool = False, ccd_slop: float = 0.005,
+                     owner=None, **kw):
+    """Plain PyTorch twin of :func:`tile_frame`: the K7, K8 and K9 twins
+    (with ``owner``, K9's compound form and the owner reductions' twins),
     looped over the substeps."""
+    if owner is not None:
+        owner = (owner_sum_plain, owner_velocity_plain, *owner)
     return substep_loop(
         tile_project_plain, tile_apply_plain, state, consts, large, pidx_c,
         sol, gravity, tile_live,
         ccd=(tile_ccd_plain, owner_min_plain, ccd_slop) if ccd else None,
-        **kw)
+        owner=owner, **kw)
 
 
 def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
                substeps: int, h: float, compliance: float, relaxation: float,
                max_dpos: float, rest_threshold: float, lin_damp: float,
                ang_damp: float, ccd: bool = False, ccd_slop: float = 0.005,
-               plain: bool = False):
+               owner=None, plain: bool = False):
     """Every substep of a frame in one launch: ``substeps`` x
     (:func:`tile_project` over all tiles, then :func:`tile_apply` over all
     tiles), bitwise equal to that pair launched once a substep. Returns
@@ -1216,7 +1222,15 @@ def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
     substeps ping-pong between are allocated here, once a frame. ``ccd``
     (``consts["blt"]`` flags the bullet rows) runs three phases a substep,
     :func:`tile_ccd` into a TOI scratch first, bitwise equal to K7, K8 and
-    K9 launched once a substep (counted in ``ccd_launches``)."""
+    K9 launched once a substep (counted in ``ccd_launches``).
+
+    ``owner = (ob [Nt * T] i32, kc)`` runs compound rows (the compound
+    frame, ``csrc/tile_compound_frame.cu``): each substep is K8, then
+    :func:`owner_sum` of its four sums, K9's compound form and
+    :func:`owner_velocity` (with ``ccd``, K7 and :func:`owner_min` first),
+    each a phase between grid barriers, bitwise equal to
+    :func:`substep_loop` with ``owner`` over those launches (counted in
+    ``compound_launches``, or ``compound_ccd_launches`` with ``ccd``)."""
     if substeps < 1:
         raise ValueError(f"a frame needs at least one substep, got "
                          f"{substeps}")
@@ -1233,26 +1247,46 @@ def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
             ("gravity", gravity, f32, (2,)),
             ("tile_live", tile_live, f32, (Nt,))):
         _check(name, t, dtype, shape, dev)
+    if owner is not None:
+        ob, kc = owner
+        _check("ob", ob, i32, (Nt * T,), dev)
+        if kc < 1:
+            raise ValueError(f"owner span kc must be at least 1, got {kc}")
     kw = dict(substeps=substeps, h=h, compliance=compliance,
               relaxation=relaxation, max_dpos=max_dpos,
               rest_threshold=rest_threshold, lin_damp=lin_damp,
               ang_damp=ang_damp)
     if plain or not _route(dev):
         return tile_frame_plain(state, consts, large, pidx_c, sol, gravity,
-                                tile_live, ccd=ccd, ccd_slop=ccd_slop, **kw)
-    corr = torch.empty((4, Nt, T), dtype=f32, device=dev)
-    lam = torch.empty((Nt, 2, Cs, T), dtype=f32, device=dev)
+                                tile_live, ccd=ccd, ccd_slop=ccd_slop,
+                                owner=owner, **kw)
+    # one allocation for the frame's float scratch, which the returned
+    # state keeps alive: the project sums, their owner sums and the
+    # velocity pass's sums (compound), the two state buffers, the TOI
+    # factors (raw and owner-min'ed), then lam
+    planes = (4 + 2 * len(STATE_KEYS) + (8 if owner is not None else 0)
+              + ((2 if owner is not None else 1) if ccd else 0))
+    flat = torch.empty(planes * Nt * T + Nt * 2 * Cs * T, dtype=f32,
+                       device=dev)
+    scratch = flat[:planes * Nt * T].view(planes, Nt, T)
+    lam = flat[planes * Nt * T:].view(Nt, 2, Cs, T)
+    corr, bufs = scratch[:4], scratch[4:16].view(2, len(STATE_KEYS), Nt, T)
+    rest = scratch[16:]
     touched = torch.zeros((Nt, Cs, T), dtype=f32, device=dev)
-    bufs = torch.empty((2, len(STATE_KEYS), Nt, T), dtype=f32, device=dev)
     p = _build.ptr
     s, c = state, consts
     st_in = [p(s[k]) for k in STATE_KEYS]
     large_pose = [p(large[k]) for k in ("px", "py", "an")]
+    osum = accv = f_own = None
+    if owner is not None:
+        osum, accv, rest = rest[:4], rest[4:8], rest[8:]
     if ccd:  # the TOI scratch, written by each substep's first phase
-        f = torch.empty((Nt, T), dtype=f32, device=dev)
+        f = rest[0]
         ccd_args = _ccd_args(state, consts, large, pidx_c, sol, gravity,
                              tile_live, f, h, ccd_slop)
-        fp = p(f)
+        if owner is not None:  # the phases read each body's least factor
+            f_own = rest[1]
+        fp = p(f if f_own is None else f_own)
     else:
         ccd_args, fp = _build.TileCcdArgs(), None
     project = _build.TileProjectArgs(
@@ -1261,9 +1295,10 @@ def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
         *(p(x) for x in corr), p(lam), p(touched), fp,
         Nt, Cs, h, compliance / (h * h))
     apply = _build.TileApplyArgs(
-        *st_in, *(p(x) for x in corr), p(c["invm"]), p(c["invi"]),
-        p(c["dynb"]), p(c["kin"]), *large_pose, p(pidx_c), p(sol), p(lam),
-        p(gravity), p(tile_live), *(p(x) for x in bufs[1]), None, fp,
+        *st_in, *(p(x) for x in (corr if osum is None else osum)),
+        p(c["invm"]), p(c["invi"]), p(c["dynb"]), p(c["kin"]), *large_pose,
+        p(pidx_c), p(sol), p(lam), p(gravity), p(tile_live),
+        *(p(x) for x in bufs[1]), None if accv is None else p(accv), fp,
         Nt, Cs, h, relaxation, max_dpos, rest_threshold,
         1.0 / (1.0 + h * lin_damp), 1.0 / (1.0 + h * ang_damp),
         int(lin_damp > 0.0), int(ang_damp > 0.0))
@@ -1271,18 +1306,25 @@ def tile_frame(state, consts, large, pidx_c, sol, gravity, tile_live, *,
     args = _build.TileFrameArgs(
         project, apply, six(*(p(x) for x in bufs[0])),
         six(*(p(x) for x in bufs[1])), substeps, ccd_args)
-    _build.launch("sf_tile_frame", args, dev)
-    if ccd:
-        tile_frame.ccd_launches += 1
+    if owner is None:
+        _build.launch("sf_tile_frame", args, dev)
+        counter = "ccd_launches" if ccd else "launches"
     else:
-        tile_frame.launches += 1
+        _build.launch("sf_tile_compound_frame", _build.TileCompoundFrameArgs(
+            args, p(osum), None if f_own is None else p(f_own), p(ob), kc),
+            dev)
+        counter = "compound_ccd_launches" if ccd else "compound_launches"
+    setattr(tile_frame, counter, getattr(tile_frame, counter) + 1)
     # substep s writes the second buffer when s is even, the first when odd
     out = bufs[1] if substeps % 2 else bufs[0]
     return dict(zip(STATE_KEYS, out)), touched
 
 
+# each instance's launches, counted apart
 tile_frame.launches = 0
-tile_frame.ccd_launches = 0  # the ccd instance's, counted apart
+tile_frame.ccd_launches = 0
+tile_frame.compound_launches = 0
+tile_frame.compound_ccd_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1304,20 +1346,20 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
     one-frame sweeps unless ``tables = (pidx, act)`` reuses a K-frame
     build), the manifold kernel, then the substeps: with ``fuse`` (the
     default) all of them in one :func:`tile_frame` launch, else ``substeps``
-    x (project, apply) launches, K10's bitwise reference.
+    x (project, apply) launches, the fused kernels' bitwise reference.
 
     ``compound``: rows of multi-collider bodies (``consts["obody"]`` their
-    owner, sibling blocks of at most ``owner_kc`` rows). Their substeps run
-    as the JAX package runs them, whatever ``fuse`` says (K10 has no owner
-    reductions, ``pallas/tiles.py:1937``): per substep the project launch,
-    :func:`owner_sum` of its four sums, the apply's compound form and
-    :func:`owner_velocity`. ``event_ids = (cid, lcid)`` (see
-    :func:`tile_manifold`) adds the solve slots' event keys;
-    ``kin_velocity`` is K6's wake speed of a kinematic partner. ``ccd``
-    (``consts["blt"]`` the bullet rows) clamps each substep's pose advance
-    at the TOI factors of :func:`tile_ccd`: K10's CCD form when fused, else
-    one K7 launch before each project launch (on compound rows, through
-    :func:`owner_min`).
+    owner, sibling blocks of at most ``owner_kc`` rows). Each substep runs
+    as the JAX package runs it (``pallas/tiles.py:2031-2086``): the project
+    phase, :func:`owner_sum` of its four sums, the apply's compound form
+    and :func:`owner_velocity`; fused, in one launch of the compound frame
+    (:func:`tile_frame` with ``owner``), else as those four launches a
+    substep. ``event_ids = (cid, lcid)`` (see :func:`tile_manifold`) adds
+    the solve slots' event keys; ``kin_velocity`` is K6's wake speed of a
+    kinematic partner. ``ccd`` (``consts["blt"]`` the bullet rows) clamps
+    each substep's pose advance at the TOI factors of :func:`tile_ccd`:
+    the fused kernels' CCD forms, else one K7 launch before each project
+    launch (on compound rows, through :func:`owner_min`).
 
     ``consts`` carries the per-row constants, ``edge_lo``/``edge_hi``
     ``[Nt]`` and ``tile_live`` ``[Nt]``. Returns ``(new_state, touched
@@ -1345,19 +1387,18 @@ def run_tiled_frame(state, consts, large, gravity, tables=None, *, C: int,
               rest_threshold=rest_threshold, lin_damp=lin_damp,
               ang_damp=ang_damp)
     args = (state, consts, large, pidx_c, sol, gravity, tile_live)
-    owner = None
-    if compound:
-        owner = (functools.partial(owner_sum, plain=plain),
-                 functools.partial(owner_velocity, plain=plain),
-                 consts["obody"].reshape(-1), owner_kc)
-    if fuse and not compound:
+    ob = (consts["obody"].reshape(-1), owner_kc) if compound else None
+    if fuse:
         state, touched = tile_frame(*args, **kw, ccd=ccd, ccd_slop=ccd_slop,
-                                    plain=plain)
+                                    owner=ob, plain=plain)
     else:
-        toi = None
+        toi = owner = None
         if ccd:
             toi = (functools.partial(tile_ccd, plain=plain),
                    functools.partial(owner_min, plain=plain), ccd_slop)
+        if compound:
+            owner = (functools.partial(owner_sum, plain=plain),
+                     functools.partial(owner_velocity, plain=plain), *ob)
         state, touched = substep_loop(
             functools.partial(tile_project, plain=plain),
             functools.partial(tile_apply, plain=plain), *args, **kw,

@@ -14,8 +14,9 @@ is every sibling's key bit for bit, and the later sorts are stable. Each
 substep then sums the rows' corrections over their body with masked rolls
 of the row axis (``hopper.owner_sum``, ``hopper.owner_velocity``); the
 wake signal and the keep set are owner-reduced the same way, so sibling
-rows keep identical state and sleep counters. K10 does not run compound
-rows' owner reductions: their substeps are K8/K9 launches.
+rows keep identical state and sleep counters. A fused frame of compound
+rows runs its substeps, owner reductions included, in one launch of the
+compound frame (``hopper.tile_frame`` with ``owner``).
 
 CCD (``cfg.ccd``, bodies flagged ``bullet=True``): once a substep each
 bullet row's pose advance is clamped at its time of impact against the
@@ -617,8 +618,9 @@ def tiled_step(world: World, cfg: SolverConfig, fuse: bool = True,
     sleep on, the frame freezes sleepers and updates the sleep counters, on
     the unpartitioned layout (no awake-prefix compaction, as in the JAX
     package). ``fuse=False`` runs the substeps as per-substep project/apply
-    launches instead of the whole-frame kernel (a compound world always
-    does). A compound world's diag adds the HARD ``owner_overflow``
+    launches instead of the whole-frame kernel (on a compound world the
+    compound frame's). A compound world's diag adds the HARD
+    ``owner_overflow``
     (:func:`_owner_width_overflow`)."""
     _require_slice(world, cfg)
     compound = _compound(world)
@@ -825,8 +827,9 @@ def tiled_rollout(world: World, cfg: SolverConfig, n_frames: int,
     (:func:`_owner_width_overflow`).
 
     ``fuse=False`` runs the substeps as per-substep project/apply launches
-    instead of the whole-frame kernel (a compound world always does: K10
-    has no owner reductions, as in the JAX package); ``plain=True`` runs
+    instead of the whole-frame kernel (on a compound world the compound
+    frame, which runs the owner reductions between its phases);
+    ``plain=True`` runs
     the kernels' twins. ``with_events=True`` returns ``(final_world, diag,
     keys)``, ``keys [n_frames, Nt, Csol, T]`` i32 on the world's device:
     each frame's touching solve slots' contact-event keys ``min(a, b) *

@@ -627,15 +627,18 @@ def test_tile_manifold_kernel_matches_twin(tile_layout, case):
         assert float(got[4].sum()) > 0 and not bool(got[0][2].any())
 
 
-def test_tile_substep_kernels_match_twins(tile_layout):
+@pytest.mark.parametrize("Cs", [8, 12, 16])
+def test_tile_substep_kernels_match_twins(tile_layout, Cs):
     """One substep's project and apply, each against its twin on the same
     inputs: ``touched`` equal, the rest to 1e-6 (lam, corrections) and
     1e-5 (state; the twin divides by the substep through a host scalar in
-    the friction bound, which the card turns into a reciprocal)."""
+    the friction bound, which the card turns into a reciprocal); a rerun
+    bitwise equal. ``Cs`` 12 and 16 take the (row, slot) items' rounds of
+    8 slots past one, 12 with a partial round."""
     cfg, state, consts, large, _, g, tables = tile_layout
     live = torch.ones(state["px"].shape[0], device="cuda")
     sol, pidx_c = hopper.tile_manifold(
-        state, consts, large, *tables[:2], live, Cs=8,
+        state, consts, large, *tables[:2], live, Cs=Cs,
         margin=cfg.contact_margin, dt=cfg.dt, plain=True)[:2]
     touched = torch.zeros(pidx_c.shape, device="cuda")
     h = cfg.dt / cfg.substeps
@@ -661,6 +664,14 @@ def test_tile_substep_kernels_match_twins(tile_layout):
                               ref[4], g, live, **akw, plain=True)
     for k in got_s:
         torch.testing.assert_close(got_s[k], ref_s[k], rtol=0, atol=1e-5)
+    again = hopper.tile_project(state, consts, large, pidx_c, sol, g,
+                                touched, live, **pkw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    again_s = hopper.tile_apply(state, ref[:4], consts, large, pidx_c, sol,
+                                ref[4], g, live, **akw)
+    for k in got_s:
+        assert torch.equal(got_s[k], again_s[k]), k
 
 
 def test_tiled_rollout_is_bitwise_reproducible(tile_layout):
@@ -996,6 +1007,51 @@ def test_tile_apply_compound_matches_twin(compound_layout):
     torch.testing.assert_close(accv, ref_accv, rtol=0, atol=1e-6)
     assert float(accv[3].sum()) > 100, "few velocity rows: vacuous"
     assert not bool(accv[:, 1].any())
+
+
+@pytest.mark.parametrize("ccd", [False, True])
+def test_compound_frame_equals_the_substep_kernels(compound_layout, ccd):
+    """The compound frame (``tile_frame`` with ``owner``) against the
+    per-substep kernels (K8, ``owner_sum``, K9's compound form and
+    ``owner_velocity``; with ``ccd`` every dynamic row a bullet, K7 and
+    ``owner_min`` first): bitwise equal in every state field and
+    ``touched``, the skipped tile's state passed through, counted apart
+    from K10's launches; a rerun bitwise equal."""
+    c = compound_layout
+    cfg = c["cfg"]
+    consts = c["consts"]
+    if ccd:
+        consts = dict(consts, blt=(consts["invm"] > 0).float())
+    args = (c["state"], consts, c["large"], c["pidx_c"], c["sol"], c["g"],
+            c["live"])
+    kw = dict(substeps=cfg.substeps, h=c["h"],
+              compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
+              max_dpos=cfg.max_dpos_eff,
+              rest_threshold=cfg.restitution_threshold,
+              lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
+    kc = cfg.max_colliders_per_body
+    fkw = dict(ccd=True, ccd_slop=cfg.ccd_slop) if ccd else {}
+    counters = ("launches", "ccd_launches", "compound_launches",
+                "compound_ccd_launches")
+    n0 = {k: getattr(hopper.tile_frame, k) for k in counters}
+    got, touched = hopper.tile_frame(*args, **kw, **fkw, owner=(c["ob"], kc))
+    mine = "compound_ccd_launches" if ccd else "compound_launches"
+    assert {k: getattr(hopper.tile_frame, k) - n0[k] for k in counters} == {
+        k: int(k == mine) for k in counters}
+    toi = (hopper.tile_ccd, hopper.owner_min, cfg.ccd_slop) if ccd else None
+    ref, ref_t = hopper.tiles.substep_loop(
+        hopper.tile_project, hopper.tile_apply, *args, **kw, ccd=toi,
+        owner=(hopper.owner_sum, hopper.owner_velocity, c["ob"], kc))
+    assert torch.equal(touched, ref_t)
+    assert float(touched.sum()) > 500, "few touching slots: vacuous"
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k][1], c["state"][k][1]), k
+    again, again_t = hopper.tile_frame(*args, **kw, **fkw,
+                                       owner=(c["ob"], kc))
+    assert torch.equal(touched, again_t)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
 
 
 def test_compound_rollout_is_bitwise_reproducible(compound_layout):

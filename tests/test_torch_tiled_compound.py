@@ -3,8 +3,10 @@
 (515 two-collider dumbbells and L-shapes, 1033 collider rows in 5 tiles),
 built by both packages' builders: the builder and ``scenes.pile_compound``,
 the owner-grouped layout, the owner reductions, K9's compound form, one
-``tiled_step`` and a 3-frame ``tiled_rollout``, and the gates (with sleep:
-tests/test_torch_tiled_compound_sleep.py).
+``tiled_step``, a 3-frame ``tiled_rollout`` without and with CCD (every
+dynamic body a bullet), fused (the compound frame's twin) and not, the
+fused frame's dispatch, and the gates (with sleep:
+tests/test_torch_tiled_compound_paths.py).
 
 The scene starts in the air, so the frames compared run from its state 20
 frames into a port rollout (2 substeps, K = 2), carried across as numpy,
@@ -40,6 +42,7 @@ from starframe_tpu_torch import hopper  # noqa: E402
 from starframe_tpu_torch import io as tio  # noqa: E402
 from starframe_tpu_torch import tiled as tt  # noqa: E402
 from starframe_tpu_torch.hopper import tiles as ht  # noqa: E402
+from starframe_tpu_torch.state import BODY_BULLET  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     STATE_KEYS,
@@ -47,6 +50,7 @@ from _torch_parity import (  # noqa: E402
     compound_resting,
     jax_tile_apply,
     jax_to_numpy,
+    numpy_to_jax,
     sol_to_jax,
 )
 from test_tiled_compound import _cfg, _compound_scene  # noqa: E402
@@ -283,17 +287,74 @@ def test_sibling_rows_stay_identical(resting):
     assert int((consts["sleep"] > 0).sum()) > 100, "nothing slow: vacuous"
 
 
-def test_tiled_rollout_matches_jax(resting):
-    """Three frames kept in tile layout (K = 2: a scheduled re-sort), every
-    counter equal, ``owner_overflow`` among them."""
+def _with_ccd(resting):
+    """The resting world with every dynamic body a bullet and ``ccd`` on,
+    in both packages."""
     jw, tw, cfg = resting
+    arrays = tio.world_to_numpy(tw)
+    dyn = arrays["bodies/inv_mass"] > 0
+    arrays["bodies/flags"] = np.where(dyn, arrays["bodies/flags"]
+                                      | BODY_BULLET, arrays["bodies/flags"])
+    return (numpy_to_jax(arrays, jw), tio.world_from_numpy(arrays,
+                                                           device="cpu"),
+            dataclasses.replace(cfg, ccd=True))
+
+
+@pytest.mark.parametrize("ccd", [False, True])
+def test_tiled_rollout_matches_jax(resting, ccd):
+    """Three frames kept in tile layout (K = 2: a scheduled re-sort), every
+    counter equal, ``owner_overflow`` among them; with ``ccd`` every
+    dynamic body a bullet (the owner minimum of the TOI factors). Both the
+    fused frame (the compound frame's twin, the default) and ``fuse=False``
+    (the per-substep loop) hold, and are bitwise equal."""
+    jw, tw, cfg = _with_ccd(resting) if ccd else resting
     jf, jd = jax.jit(lambda w: jt.tiled_rollout(w, cfg, 3,
                                                 interpret=True))(jw)
-    tf, td = st.tiled_rollout(tw, _port_cfg(cfg), 3)
-    assert sorted(td) == sorted(COUNTERS)
-    assert {k: int(jd[k]) for k in COUNTERS} == {
-        k: int(td[k]) for k in COUNTERS}
-    _assert_bodies_close(jf, tf)
+    runs = [st.tiled_rollout(tw, _port_cfg(cfg), 3, fuse=fuse)
+            for fuse in (True, False)]
+    for tf, td in runs:
+        assert sorted(td) == sorted(COUNTERS)
+        assert {k: int(jd[k]) for k in COUNTERS} == {
+            k: int(td[k]) for k in COUNTERS}
+        _assert_bodies_close(jf, tf)
+    for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+        assert torch.equal(getattr(runs[0][0].bodies, field),
+                           getattr(runs[1][0].bodies, field)), field
+
+
+@pytest.mark.parametrize("ccd", [False, True])
+def test_run_tiled_frame_fuses_compound_rows(resting, ccd, monkeypatch):
+    """``run_tiled_frame(compound=True)``: fused (the default), the substeps
+    go to one ``tile_frame`` call with the owner column (the compound
+    frame; its twin here), and every output is bitwise the per-substep
+    loop's (``fuse=False``)."""
+    jw, tw, cfg = _with_ccd(resting) if ccd else resting
+    cfg = _port_cfg(cfg)
+    state, consts, large, _, _ = tt._enter_tiles(tw, cfg)
+    g = tw.gravity.contiguous()
+    seen = []
+    frame = ht.tile_frame
+
+    def spy(*args, **kw):
+        seen.append(kw)
+        return frame(*args, **kw)
+
+    monkeypatch.setattr(ht, "tile_frame", spy)
+    fused = tt._run_frame(state, consts, large, cfg, g, compound=True)
+    assert len(seen) == 1 and seen[0]["ccd"] == ccd
+    ob, kc = seen[0]["owner"]
+    assert torch.equal(ob, consts["obody"].reshape(-1))
+    assert kc == cfg.max_colliders_per_body
+    loop = tt._run_frame(state, consts, large, cfg, g, fuse=False,
+                         compound=True)
+    assert len(seen) == 1
+    for k in STATE_KEYS:
+        assert torch.equal(fused[0][k], loop[0][k]), k
+    outs = [(x, y) for x, y in zip(fused[2], loop[2]) if x is not None]
+    for x, y in outs:
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+    assert float(fused[2][0].sum()) > 100, "few touching slots: vacuous"
 
 
 def _gate_world(kind):

@@ -106,11 +106,13 @@ def child(root: str, reps: int) -> int:
     return 0
 
 
-def run_turns(script: str, roots, rounds: int, reps: int) -> int:
-    """Run ``script --child ROOT --reps reps`` for each root, in turns
-    (ABBA for two), ``rounds`` times; print one line a run, which outputs
-    are bitwise equal across roots, and a JSON summary last. Each child
-    prints ``{name: {"ms": ..., "sha256": ...}}`` as its last line."""
+def run_turns(script: str, roots, rounds: int, reps: int,
+              extra=()) -> int:
+    """Run ``script --child ROOT --reps reps *extra`` for each root, in
+    turns (ABBA for two), ``rounds`` times; print one line a run, which
+    outputs are bitwise equal across roots, and a JSON summary last. Each
+    child prints ``{name: {"ms": ..., "sha256": ..., ...}}`` as its last
+    line; every key but ``sha256`` is listed over the runs."""
     import torch
 
     if not torch.cuda.is_available():
@@ -127,7 +129,7 @@ def run_turns(script: str, roots, rounds: int, reps: int) -> int:
     for root in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(script), root, "--child",
-             "--reps", str(reps)], capture_output=True, text=True)
+             "--reps", str(reps), *extra], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return proc.returncode
@@ -137,8 +139,9 @@ def run_turns(script: str, roots, rounds: int, reps: int) -> int:
                                       for n, r in res.items())
               + f" on {card}", flush=True)
     names = list(runs[roots[0]][0])
-    summary = {root: {n: {"ms": [r[n]["ms"] for r in rs],
-                          "sha256": rs[0][n]["sha256"]} for n in names}
+    summary = {root: {n: {k: ([r[n].get(k) for r in rs] if k != "sha256"
+                              else rs[0][n][k]) for k in rs[0][n]}
+                      for n in names}
                for root, rs in runs.items()}
     same = {n: len({summary[r][n]["sha256"] for r in roots}) == 1
             for n in names}

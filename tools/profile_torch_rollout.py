@@ -72,6 +72,9 @@ KERNELS = (("frame2_kernel<4, false, true>", "K4 frame, CCD form"),
             "K9 tile apply, compound CCD form"),
            ("tile_apply_kernel<false, true>", "K9 tile apply, CCD form"),
            ("tile_apply_kernel", "K9 tile apply"),
+           ("tile_compound_frame_kernel<true>",
+            "compound frame, CCD form"),
+           ("tile_compound_frame_kernel", "compound frame"),
            ("tile_frame_kernel<true>", "K10 tile frame, CCD form"),
            ("tile_frame_kernel", "K10 tile frame"),
            ("owner_sum_kernel", "owner sums"),

@@ -162,10 +162,15 @@ phase's start batch, config and frames come from ``tools/frame2_digests.py``
 ``phase``, which computes the same digests for any checkout, to compare a
 change with its parent.
 
-K8 and K9 run one thread a (row, slot) item, 32 rows x 8 slots a block:
-step 1 prints ptxas's registers, stack, spills and shared bytes of each
-of their instances and of the compound frame's, beside its resident
-blocks an SM.
+K8, K9, K10 and the compound frame run one thread a (row, slot) item,
+32 rows x 8 slots a block: step 1 prints ptxas's registers, stack, spills
+and shared bytes of each of their instances, beside its resident blocks
+an SM. K6 runs rows on lanes (one thread a row and table slot) with each
+slot's constants parked in shared memory: step 1 prints ptxas's line of
+each of its instances (none may spill) beside its shared bytes and
+resident blocks an SM at each of ``MANIFOLD_SHAPES`` (at least 2), and
+step 4 prints the share of its (row, table slot) items with ``act > 0``
+and of its warps that are empty at the awake pile's final state.
 
 K2 (slot tables) keeps each world's mask as bits in shared memory and
 ranks with warp ballots; K1 (eligibility) writes the mask 16 bytes a
@@ -599,10 +604,19 @@ def slot_call_args(parallel, w, cfg) -> tuple:
     return eargs, sargs, skw
 
 
+# (V, C, Cs) of K6's launches: the piles' hexagons (V = 6) at the awake
+# pile's 16/8 and the compound pile's 24/8, and at Cs = C; the 4-vertex
+# instance at the compound test scene's 8/8; the 8-vertex one at 16/8
+MANIFOLD_SHAPES = ((6, 16, 8), (6, 24, 8), (6, 16, 16), (6, 24, 24),
+                   (4, 8, 8), (8, 16, 8))
+
+
 def ptxas_substep(log: str, lib) -> None:
     """ptxas's registers, stack, spills and shared bytes of each (row, slot)
-    instance of K8 and K9 and of the compound frame, beside its resident
-    blocks an SM (256 threads a block)."""
+    instance of K8 and K9, of K10 and of the compound frame, beside its
+    resident blocks an SM (256 threads a block); and K6's, beside its
+    dynamic shared memory and resident blocks an SM at each of
+    ``MANIFOLD_SHAPES``."""
     import re
 
     smem = {}
@@ -622,6 +636,9 @@ def ptxas_substep(log: str, lib) -> None:
          lambda m: (f"K9 <{_flags(*m.group(1, 2))}>",
                     lib.sf_tile_substep_blocks_per_sm(
                         1, int(m.group(1)), int(m.group(2))))),
+        (r"tile_frame_kernelILb(\d)E",
+         lambda m: (f"K10 <{_flags(m.group(1))}>",
+                    lib.sf_tile_frame_blocks_per_sm(int(m.group(1))))),
         (r"tile_compound_frame_kernelILb(\d)E",
          lambda m: (f"compound frame <{_flags(m.group(1))}>",
                     lib.sf_tile_compound_frame_blocks_per_sm(
@@ -638,8 +655,25 @@ def ptxas_substep(log: str, lib) -> None:
                   f"bytes spill stores, {ld} bytes spill loads, {shared} "
                   f"bytes shared, {blocks} blocks of 256 threads an SM")
             seen += 1
-    check(seen == 8, f"ptxas reported {seen} K8/K9/compound frame instances, "
-          "not 8")
+    check(seen == 10, f"ptxas reported {seen} K8/K9/K10/compound frame "
+          "instances, not 10")
+    k6 = ptxas_report(log, r"tile_manifold_kernelILi(\d)E",
+                      lambda m: int(m.group(1)))
+    check(sorted(k6) == [4, 6, 8], f"ptxas reported K6 instances "
+          f"{sorted(k6)}")
+    for vk, (regs, stack, st_, ld) in sorted(k6.items()):
+        check(st_ == 0 and ld == 0, f"K6 <{vk}>: {st_} / {ld} bytes spilled")
+        shapes = [sh for sh in MANIFOLD_SHAPES
+                  if lib.sf_tile_manifold_width(sh[0]) == vk]
+        print(f"K6 <{vk}>: {regs} registers, {stack} bytes stack, {st_} bytes "
+              f"spill stores, {ld} bytes spill loads; " + "; ".join(
+                  f"V = {v}, C = {c}, Cs = {cs}: "
+                  f"{lib.sf_tile_manifold_shared_bytes(v, c, cs)} bytes "
+                  f"shared, {lib.sf_tile_manifold_blocks_per_sm(v, c, cs)} "
+                  "blocks of 256 threads an SM" for v, c, cs in shapes))
+        for v, c, cs in shapes:
+            check(lib.sf_tile_manifold_blocks_per_sm(v, c, cs) >= 2,
+                  f"K6 <{vk}> at C = {c}, Cs = {cs}: under 2 blocks an SM")
 
 
 def chunk_skips(sargs, skw, elig, budget) -> dict:
@@ -1429,16 +1463,18 @@ def parity_tiles(dev, hopper) -> dict:
     return errs
 
 
-def frame_inputs(hopper, tiled, w, cfg, dead_tile=None):
-    """``(args, kwargs)`` of ``hopper.tile_frame`` for a frame of ``w`` as
-    ``tiled_rollout`` enters it: the layout (after the compacting re-sort
-    when the pile sleeps), its K-frame tables, the frame's consts (sleepers
-    frozen, ``tile_live``; ``dead_tile`` skipped too) and K6's solve
-    tables."""
+def manifold_inputs(hopper, tiled, w, cfg, dead_tile=None):
+    """``(args, kwargs, keyed)`` of ``hopper.tile_manifold`` for a frame of
+    ``w`` as ``tiled_rollout`` enters it: the layout (after the compacting
+    re-sort when the pile sleeps), its K-frame tables and the frame's
+    consts (sleepers frozen, ``tile_live``; ``dead_tile`` skipped too);
+    ``keyed`` the further kwargs of its keyed form (the rows' and large
+    slots' collider ids, as ``tiled_rollout(with_events=True)`` passes
+    them)."""
     state, consts, large, body_id, _ = tiled._enter_tiles(w, cfg)
     g = w.gravity.contiguous()
     if cfg.sleep_velocity > 0.0 and cfg.tile_awake_compaction:
-        state, consts, _ = tiled._compact_resort(
+        state, consts, body_id = tiled._compact_resort(
             state, consts, body_id, cfg, g, "px",
             compound=w.colliders.m != w.bodies.n)
     edges = tiled._edge_rows(state, consts, cfg)[:2]
@@ -1451,16 +1487,43 @@ def frame_inputs(hopper, tiled, w, cfg, dead_tile=None):
         sweep_frames=cfg.frames_per_broadphase,
         sweep_slack=cfg.broadphase_speed_slack,
         sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
-    sol, pidx_c = hopper.tile_manifold(
-        state, kc, large, *tables[:2], kc["tile_live"],
-        Cs=tiled._solve_cap(cfg), margin=cfg.contact_margin, dt=cfg.dt,
-        sleep_velocity=cfg.sleep_velocity * cfg.wake_velocity_factor)[:2]
+    mkw = dict(Cs=tiled._solve_cap(cfg), margin=cfg.contact_margin,
+               dt=cfg.dt,
+               sleep_velocity=cfg.sleep_velocity * cfg.wake_velocity_factor)
+    keyed = dict(event_ids=(body_id.reshape(-1, 256), large["cols"]),
+                 n_colliders=w.colliders.m)
+    return (state, kc, large, *tables[:2], kc["tile_live"]), mkw, keyed
+
+
+def manifold_skips(act, live) -> tuple:
+    """``(items, warps)``: of the live tiles' (row, table slot) items of
+    K6's tables (``act [Nt, C, T]``, ``live [Nt]``), the share with ``act >
+    0``, and of K6's warps (R rows x 32 / R slots: R = 16 from C = 16 up,
+    else 32, as ``csrc/tile_manifold.cu`` ``block_rows``) the share whose
+    slots are all empty, which K6 skips whole under compaction (``Cs <
+    C``)."""
+    a = act[live > 0]
+    n, C, T = a.shape
+    R = 16 if C >= 16 else 32
+    warps = (a.reshape(n, C * R // 32, 32 // R, T // R, R) == 0).all(-1)
+    return (float((a > 0).float().mean()),
+            float(warps.all(2).float().mean()))
+
+
+def frame_inputs(hopper, tiled, w, cfg, dead_tile=None):
+    """``(args, kwargs)`` of ``hopper.tile_frame`` for a frame of ``w`` as
+    ``tiled_rollout`` enters it: :func:`manifold_inputs`'s layout and
+    consts with K6's solve tables."""
+    margs, mkw, _ = manifold_inputs(hopper, tiled, w, cfg, dead_tile)
+    state, kc, large = margs[:3]
+    sol, pidx_c = hopper.tile_manifold(*margs, **mkw)[:2]
     kw = dict(substeps=cfg.substeps, h=cfg.dt / cfg.substeps,
               compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
               max_dpos=cfg.max_dpos_eff,
               rest_threshold=cfg.restitution_threshold,
               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
-    return (state, kc, large, pidx_c, sol, g, kc["tile_live"]), kw
+    return (state, kc, large, pidx_c, sol, w.gravity.contiguous(),
+            kc["tile_live"]), kw
 
 
 def substep_pair(hopper, args, kw, owner=None):
@@ -1743,6 +1806,12 @@ def pile_turns(hopper, pile, errs, bounds, card) -> dict:
         del k, p
         times[name] = turns(call)
         DEVICE_MS[name] = launch_ms(lambda: call(False))
+        if name == "tile_manifold":
+            items, warps = manifold_skips(*inputs[3][1:])
+            print(f"K6 at {PILE_N} bodies (frame {PILE_FRAMES}): "
+                  f"{100 * items:.2f}% of (row, table slot) items with act "
+                  f"> 0, {100 * warps:.2f}% of its warps empty (skipped "
+                  "whole)")
         print(f"time {name} at {PILE_N} bodies: kernel {times[name][0]:.4f} "
               f"ms ({device_str(name)}), plain twin {times[name][1]:.4f} ms, "
               f"bound "

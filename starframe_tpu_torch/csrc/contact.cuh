@@ -25,6 +25,18 @@ __device__ __forceinline__ float sel(const float (&a)[V], int k) {
   return r;
 }
 
+// the far end of edge k: vertex k + 1, or v0 at the wrap (k = nv - 1 or
+// V - 1); selected where it is needed, so no array of the far ends is kept
+// (~32 fewer registers live at V = 8)
+template <int V>
+__device__ __forceinline__ float sel_next(const float (&a)[V], int nv,
+                                          int k) {
+  float r = a[0];
+#pragma unroll
+  for (int j = 0; j + 1 < V; ++j) r = (j == k) ? a[j + 1] : r;
+  return k == nv - 1 ? a[0] : r;
+}
+
 __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.f), 1.f);
 }
@@ -32,16 +44,15 @@ __device__ __forceinline__ float clamp01(float x) {
 template <int V>
 __device__ __forceinline__ void edge_data(const float (&vx)[V],
                                           const float (&vy)[V], int nv,
-                                          float (&e1x)[V], float (&e1y)[V],
                                           float (&nx)[V], float (&ny)[V],
                                           bool (&valid)[V]) {
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     const bool wrap = k == nv - 1;
     const int kn = (k + 1 == V) ? 0 : k + 1;
-    e1x[k] = wrap ? vx[0] : vx[kn];
-    e1y[k] = wrap ? vy[0] : vy[kn];
-    const float dx = e1x[k] - vx[k], dy = e1y[k] - vy[k];
+    const float e1x = wrap ? vx[0] : vx[kn];
+    const float e1y = wrap ? vy[0] : vy[kn];
+    const float dx = e1x - vx[k], dy = e1y - vy[k];
     const float len = sqrtf(dx * dx + dy * dy);
     valid[k] = (k < nv) && (nv >= 2) && (len > 1e-9f);
     const float inv = 1.f / fmaxf(len, kEps);
@@ -122,10 +133,10 @@ __device__ void manifold(const float (&vax)[V], const float (&vay)[V],
                          int na, float ra, const float (&vbx)[V],
                          const float (&vby)[V], int nb, float rb,
                          float margin, Manifold& m) {
-  float e1ax[V], e1ay[V], nax[V], nay[V], e1bx[V], e1by[V], nbx[V], nby[V];
+  float nax[V], nay[V], nbx[V], nby[V];
   bool eva[V], evb[V];
-  edge_data<V>(vax, vay, na, e1ax, e1ay, nax, nay, eva);
-  edge_data<V>(vbx, vby, nb, e1bx, e1by, nbx, nby, evb);
+  edge_data<V>(vax, vay, na, nax, nay, eva);
+  edge_data<V>(vbx, vby, nb, nbx, nby, evb);
   float sep_a, sep_b;
   int ka, kb;
   sat<V>(vax, vay, nax, nay, eva, vbx, vby, sep_a, ka);
@@ -138,8 +149,8 @@ __device__ void manifold(const float (&vax)[V], const float (&vay)[V],
 
   const float r0x = flip ? sel(vbx, kb) : sel(vax, ka);
   const float r0y = flip ? sel(vby, kb) : sel(vay, ka);
-  const float r1x = flip ? sel(e1bx, kb) : sel(e1ax, ka);
-  const float r1y = flip ? sel(e1by, kb) : sel(e1ay, ka);
+  const float r1x = flip ? sel_next(vbx, nb, kb) : sel_next(vax, na, ka);
+  const float r1y = flip ? sel_next(vby, nb, kb) : sel_next(vay, na, ka);
   const float nrx = flip ? sel(nbx, kb) : sel(nax, ka);
   const float nry = flip ? sel(nby, kb) : sel(nay, ka);
   const float r_ref = flip ? rb : ra;
@@ -166,10 +177,10 @@ __device__ void manifold(const float (&vax)[V], const float (&vay)[V],
                          : (b_has ? sel(vbx, ib) : vbx[0]);
   const float i0y = flip ? (a_has ? sel(vay, ia) : vay[0])
                          : (b_has ? sel(vby, ib) : vby[0]);
-  const float i1x = flip ? (a_has ? sel(e1ax, ia) : vax[0])
-                         : (b_has ? sel(e1bx, ib) : vbx[0]);
-  const float i1y = flip ? (a_has ? sel(e1ay, ia) : vay[0])
-                         : (b_has ? sel(e1by, ib) : vby[0]);
+  const float i1x = flip ? (a_has ? sel_next(vax, na, ia) : vax[0])
+                         : (b_has ? sel_next(vbx, nb, ib) : vbx[0]);
+  const float i1y = flip ? (a_has ? sel_next(vay, na, ia) : vay[0])
+                         : (b_has ? sel_next(vby, nb, ib) : vby[0]);
   const float inc_dot = flip ? mina : minb;
 
   // ---- clip path ----

@@ -46,25 +46,12 @@
 #include <cooperative_groups.h>
 
 #include "owner_rows.cuh"
+#include "tile_frame.cuh"
 #include "tile_rows.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-// buffer b's field k: 0 the frame's input, 1 st_a, 2 st_b
-__device__ __forceinline__ const float* cstate_in(const TileFrameArgs& f,
-                                                  int b, int k) {
-  const float* in[6] = {f.apply.px, f.apply.py, f.apply.an,
-                        f.apply.vx, f.apply.vy, f.apply.om};
-  return b == 0 ? in[k] : (b == 1 ? f.st_a[k] : f.st_b[k]);
-}
-
-// the buffer substep s writes: st_b when s is even, st_a when odd
-__device__ __forceinline__ float* cstate_out(const TileFrameArgs& f, int odd,
-                                             int k) {
-  return odd ? f.st_a[k] : f.st_b[k];
-}
 
 template <bool kCcd>
 __global__ void __launch_bounds__(kItemThreads)
@@ -77,12 +64,12 @@ __global__ void __launch_bounds__(kItemThreads)
   const int groups = Nt * kRowGroups;  // units of the row phases
   const size_t plane = (size_t)n;
   for (int s = 0; s < f.substeps; ++s) {
-    const int src = s == 0 ? 0 : ((s & 1) ? 2 : 1);  // see cstate_in
+    const int src = state_src(s);
     const int odd = s & 1;
     TileProjectArgs p = f.project;
-    p.px = cstate_in(f, src, 0); p.py = cstate_in(f, src, 1);
-    p.an = cstate_in(f, src, 2); p.vx = cstate_in(f, src, 3);
-    p.vy = cstate_in(f, src, 4); p.om = cstate_in(f, src, 5);
+    p.px = state_in(f, src, 0); p.py = state_in(f, src, 1);
+    p.an = state_in(f, src, 2); p.vx = state_in(f, src, 3);
+    p.vy = state_in(f, src, 4); p.om = state_in(f, src, 5);
     if constexpr (kCcd) {
       TileCcdArgs k = f.ccd;
       k.px = p.px; k.py = p.py; k.an = p.an;
@@ -110,9 +97,9 @@ __global__ void __launch_bounds__(kItemThreads)
     TileApplyArgs a = f.apply;
     a.px = p.px; a.py = p.py; a.an = p.an;
     a.vx = p.vx; a.vy = p.vy; a.om = p.om;
-    a.o_px = cstate_out(f, odd, 0); a.o_py = cstate_out(f, odd, 1);
-    a.o_an = cstate_out(f, odd, 2); a.o_vx = cstate_out(f, odd, 3);
-    a.o_vy = cstate_out(f, odd, 4); a.o_om = cstate_out(f, odd, 5);
+    a.o_px = state_out(f, odd, 0); a.o_py = state_out(f, odd, 1);
+    a.o_an = state_out(f, odd, 2); a.o_vx = state_out(f, odd, 3);
+    a.o_vy = state_out(f, odd, 4); a.o_om = state_out(f, odd, 5);
     for (int u = blockIdx.x; u < groups; u += gridDim.x)
       apply_group<true, kCcd>(a, u / kRowGroups, u % kRowGroups, sh);
     grid.sync();
@@ -129,34 +116,9 @@ __global__ void __launch_bounds__(kItemThreads)
   }
 }
 
-// The most blocks of tile_compound_frame_kernel<kCcd> resident on device
-// `dev` at once (occupancy x SM count), or the error that refuses a
-// cooperative launch there. Queried once per device and instance and kept:
-// the values are fixed for the process.
-constexpr int kMaxDevices = 64;
-
-template <bool kCcd>
-cudaError_t resident_blocks(int dev, int* blocks) {
-  static int cached[kMaxDevices] = {0};  // 0: not queried yet
-  if (dev < kMaxDevices && cached[dev] > 0) {
-    *blocks = cached[dev];
-    return cudaSuccess;
-  }
-  int sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, tile_compound_frame_kernel<kCcd>, kItemThreads, 0);
-  if (err == cudaSuccess && per_sm < 1)
-    err = cudaErrorCooperativeLaunchTooLarge;
-  if (err != cudaSuccess) return err;
-  *blocks = per_sm * sms;
-  if (dev < kMaxDevices) cached[dev] = *blocks;
-  return cudaSuccess;
+const void* compound_frame_kernel(bool ccd) {
+  return ccd ? (const void*)tile_compound_frame_kernel<true>
+             : (const void*)tile_compound_frame_kernel<false>;
 }
 
 }  // namespace
@@ -166,37 +128,16 @@ SF_EXPORT(sf_tile_compound_frame, TileCompoundFrameArgs)
 // Resident blocks an SM of the compound frame, with or without CCD; -1 if
 // the query fails.
 extern "C" int sf_tile_compound_frame_blocks_per_sm(int ccd) {
-  int blocks = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks,
-      ccd ? (const void*)tile_compound_frame_kernel<true>
-          : (const void*)tile_compound_frame_kernel<false>,
-      kItemThreads, 0);
-  return err == cudaSuccess ? blocks : -1;
+  return blocks_per_sm(compound_frame_kernel(ccd), kItemThreads);
 }
 
-// Launches the frame cooperatively, so that every block is resident and
-// the grid barriers cannot deadlock; a refused launch returns its error
-// (the caller raises: there is no per-substep fallback).
 extern "C" int sf_tile_compound_frame(const TileCompoundFrameArgs* a,
                                       void* stream) {
+  static int cached[2][kMaxDevices] = {};  // resident blocks, per instance
   const int groups = a->frame.project.Nt * kRowGroups;
   if (groups == 0 || a->frame.substeps <= 0) return (int)cudaGetLastError();
   if (a->kc < 1) return (int)cudaErrorInvalidValue;
   const bool ccd = a->f_own != nullptr;
-  int dev = 0, resident = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = ccd ? resident_blocks<true>(dev, &resident)
-              : resident_blocks<false>(dev, &resident);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = resident < groups ? resident : groups;
-  TileCompoundFrameArgs args = *a;
-  void* params[] = {&args};
-  const void* kernel = ccd ? (const void*)tile_compound_frame_kernel<true>
-                           : (const void*)tile_compound_frame_kernel<false>;
-  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kItemThreads),
-                                    params, 0, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_frame(compound_frame_kernel(ccd), kItemThreads, cached[ccd],
+                      groups, a, (cudaStream_t)stream);
 }

@@ -4,37 +4,37 @@
 // kernel (tile_compound_frame.cu), so that all compute the same float32
 // operations in the same order and stay bitwise equal.
 //
-// Two layouts of the same bodies. `project_row`/`apply_row` (K10's): one
-// thread walks a row's Cs solve slots in series. `project_group`/
-// `apply_group` (K8's and K9's, and the compound frame's): a block of 256
-// threads takes 32 rows of one tile, one thread a (row, slot) item, 8 slot
-// items of a row at once; each item computes its slot's contribution with
-// the row loop's float operations and parks it in shared memory, then one
-// thread a row adds the parked contributions in slot order, skipping the
-// slots whose solve mask is zero at both points, as the loop does. Each
+// One layout, (row, slot) work items: `project_group`/`apply_group` give a
+// block of 256 threads 32 rows of one tile, one thread a (row, slot) item,
+// 8 slot items of a row at once. Each item computes its slot's
+// contribution and parks it in shared memory; then one thread a row adds
+// the parked contributions in slot order, skipping the slots whose solve
+// mask is zero at both points, as the TPU kernel's slot loop does. Each
 // item that solves a slot computes its row's own terms itself, with the
-// row loop's expressions, so no item waits for another before the sum.
-// So the sums, and every output, are bitwise those of the row loop.
+// same expressions, so no item waits for another before the sum. So the
+// sums, and every output, are those of one thread walking the row's slots
+// in order.
 //
-// `project_row`: integrate (derived: the state is not written), then XPBD
-// contact projection of row i of tile t over its solve slots against the
-// partners' integrated poses; writes the own-row Jacobi sums, lam and the
-// max-accumulated touched table. `apply_row`: the count-normalised,
-// clipped corrections, velocity reconstruction, and the restitution/
-// friction velocity pass against each partner's post-apply state derived
-// from the correction windows; writes the row's new state. A tile whose
-// `tile_live` is 0 zeroes its corrections and passes its state through.
-// `apply_row<true>` is the compound rows' form (K9 with `compound`): it
-// writes the velocity pass's raw sums to `accv` instead of normalising and
-// damping, since a compound body's count is the sum over its rows (the
-// caller's owner reduction, owner_reduce.cu); K10 never runs it.
+// `project_group`: integrate (derived: the state is not written), then
+// XPBD contact projection of each row of the group over its solve slots
+// against the partners' integrated poses; writes the own-row Jacobi sums,
+// lam and the max-accumulated touched table. `apply_group`: the
+// count-normalised, clipped corrections, velocity reconstruction, and the
+// restitution/friction velocity pass against each partner's post-apply
+// state derived from the correction windows; writes the row's new state. A
+// tile whose `tile_live` is 0 zeroes its corrections and passes its state
+// through. `apply_group<true>` is the compound rows' form (K9 with
+// `compound`): it writes the velocity pass's raw sums to `accv` instead of
+// normalising and damping, since a compound body's count is the sum over
+// its rows (the caller's owner reduction, owner_reduce.cu, or the compound
+// frame's owner phase); K10 never runs it.
 //
 // CCD (the `kCcd` forms, cfg.ccd): `ccd_row` is K7, a bullet row's TOI
-// factor f in [0, 1] over its solve slots for this substep; the `kCcd`
-// forms of `project_row` and `apply_row` scale the own and each window
-// partner's pose advance by their f (a large-set static's is 1), while the
-// velocities keep full speed. f = 1 scales by an exact 1, so a world with
-// no bullet takes the same values as the non-CCD forms.
+// factor f in [0, 1] over its solve slots for this substep, one thread a
+// row; the `kCcd` forms of `project_group` and `apply_group` scale the own
+// and each window partner's pose advance by their f (a large-set static's
+// is 1), while the velocities keep full speed. f = 1 scales by an exact 1,
+// so a world with no bullet takes the same values as the non-CCD forms.
 #pragma once
 
 #include "common.cuh"
@@ -142,258 +142,12 @@ __device__ __forceinline__ void ccd_row(const TileCcdArgs& a, int t, int i) {
   a.f[row] = f_acc;
 }
 
-// own-row project phase of row i of tile t
-template <bool kCcd = false>
-__device__ __forceinline__ void project_row(const TileProjectArgs& a, int t,
-                                            int i) {
-  const int Cs = a.Cs;
-  const size_t row = (size_t)t * kT + i;
-  const size_t splane = (size_t)Cs * kT;
-  const float* sol = a.sol + (size_t)t * TS_FIELDS * splane + i;
-  const size_t sbase = (size_t)t * Cs * kT + i;  // [Nt, Cs, T] slot 0
-  if (!(a.tile_live[t] > 0.f)) {
-    // skipped tile: zero corrections, touched passes through
-    a.dxx[row] = 0.f; a.dxy[row] = 0.f; a.dth[row] = 0.f; a.cnt[row] = 0.f;
-    for (int s = 0; s < Cs; ++s) {
-      a.lam[((size_t)t * 2 * Cs + s) * kT + i] = 0.f;
-      a.lam[((size_t)t * 2 * Cs + Cs + s) * kT + i] = 0.f;
-      a.touched[sbase + (size_t)s * kT] = a.touched_in[sbase + (size_t)s * kT];
-    }
-    return;
-  }
-  const float h = a.h, gx = a.gravity[0], gy = a.gravity[1];
-  const float o_px = a.px[row], o_py = a.py[row], o_an = a.an[row];
-  const float o_vx = a.vx[row], o_vy = a.vy[row], o_om = a.om[row];
-  const float dyn = a.dynb[row], ima = a.invm[row], iia = a.invi[row];
-  // integrated own state (v_tilde + pose), derived algebraically
-  const float ovx_t = o_vx + gx * h * dyn;
-  const float ovy_t = o_vy + gy * h * dyn;
-  float opx_t, opy_t, oa_t;
-  if constexpr (kCcd) {  // the pose advance TOI-clamped, velocities not
-    const float o_f = a.f[row];
-    opx_t = o_px + ovx_t * h * o_f;
-    opy_t = o_py + ovy_t * h * o_f;
-    oa_t = o_an + o_om * h * o_f;
-  } else {
-    opx_t = o_px + ovx_t * h;
-    opy_t = o_py + ovy_t * h;
-    oa_t = o_an + o_om * h;
-  }
-  const float oca0 = cosf(o_an), osa0 = sinf(o_an);
-  const float oca = cosf(oa_t), osa = sinf(oa_t);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < Cs; ++s) {
-    const float* f = sol + (size_t)s * kT;
-    const float sm[2] = {f[TS_SM0 * splane], f[TS_SM1 * splane]};
-    float* lam = a.lam + ((size_t)t * 2 * Cs + s) * kT + i;
-    const float tin = a.touched_in[sbase + (size_t)s * kT];
-    if (sm[0] == 0.f && sm[1] == 0.f) {
-      lam[0] = 0.f;
-      lam[(size_t)Cs * kT] = 0.f;
-      a.touched[sbase + (size_t)s * kT] = tin;
-      continue;
-    }
-    const Partner p = partner(a.px, a.py, a.an, a.vx, a.vy, a.om, a.l_px,
-                              a.l_py, a.l_an, t, a.Nt,
-                              a.pidx_c[sbase + (size_t)s * kT]);
-    const float p_dyn = f[TS_PDYN * splane];
-    const float pvx_t = p.vx + gx * h * p_dyn;
-    const float pvy_t = p.vy + gy * h * p_dyn;
-    float ppx_t, ppy_t, pa_t;
-    if constexpr (kCcd) {
-      const float p_f = p.row >= 0 ? a.f[p.row] : 1.f;
-      ppx_t = p.px + pvx_t * h * p_f;
-      ppy_t = p.py + pvy_t * h * p_f;
-      pa_t = p.an + p.om * h * p_f;
-    } else {
-      ppx_t = p.px + pvx_t * h;
-      ppy_t = p.py + pvy_t * h;
-      pa_t = p.an + p.om * h;
-    }
-    const float pca0 = cosf(p.an), psa0 = sinf(p.an);
-    const float pca = cosf(pa_t), psa = sinf(pa_t);
-    const float imb = f[TS_IMB * splane], iib = f[TS_IIB * splane];
-    const float fric = f[TS_FRIC * splane];
-    const float n_ax = f[TS_NAX * splane], n_ay = f[TS_NAY * splane];
-    const float nx = oca * n_ax - osa * n_ay;
-    const float ny = osa * n_ax + oca * n_ay;
-    float cax = 0.f, cay = 0.f, dang = 0.f, nact = 0.f, tk = 0.f;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const float a_ax = f[(TS_AAX0 + q) * splane];
-      const float a_ay = f[(TS_AAY0 + q) * splane];
-      const float b_ax = f[(TS_BAX0 + q) * splane];
-      const float b_ay = f[(TS_BAY0 + q) * splane];
-      const float rax = oca * a_ax - osa * a_ay;
-      const float ray = osa * a_ax + oca * a_ay;
-      const float rbx = pca * b_ax - psa * b_ay;
-      const float rby = psa * b_ax + pca * b_ay;
-      // static-friction reference: the anchors at the substep's start
-      const float ref[4] = {o_px + (oca0 * a_ax - osa0 * a_ay),
-                            o_py + (osa0 * a_ax + oca0 * a_ay),
-                            p.px + (pca0 * b_ax - psa0 * b_ay),
-                            p.py + (psa0 * b_ax + pca0 * b_ay)};
-      float ax, ay, da, dlam;
-      bool active;
-      project_point(rax, ray, rbx, rby, opx_t + rax, opy_t + ray,
-                    ppx_t + rbx, ppy_t + rby, nx, ny, [&] { return sm[q]; },
-                    [&](int k) { return ref[k]; }, ima, iia, imb, iib, fric,
-                    a.alpha_t, ax, ay, da, dlam, active);
-      cax = q ? cax + ax : ax;
-      cay = q ? cay + ay : ay;
-      dang = q ? dang + da : da;
-      nact += active ? 1.f : 0.f;
-      lam[(size_t)q * Cs * kT] = dlam;
-      tk = fmaxf(tk, (dlam > 0.f ? 1.f : 0.f) * f[(TS_PM0 + q) * splane]);
-    }
-    acc[0] += cax * ima;
-    acc[1] += cay * ima;
-    acc[2] += dang;
-    acc[3] += nact;
-    a.touched[sbase + (size_t)s * kT] = fmaxf(tin, tk);
-  }
-  a.dxx[row] = acc[0];
-  a.dxy[row] = acc[1];
-  a.dth[row] = acc[2];
-  a.cnt[row] = acc[3];
-}
-
 // applied (count-normalised, clipped) correction of a row, as its own tile
 // applies it
 __device__ __forceinline__ float applied(float d, float cnt,
                                          const TileApplyArgs& a) {
   const float scale = a.relaxation / fmaxf(cnt, 1.f);
   return fminf(fmaxf(d * scale, -a.max_dpos), a.max_dpos);
-}
-
-// own-row apply phase of row i of tile t
-template <bool kCompound = false, bool kCcd = false>
-__device__ __forceinline__ void apply_row(const TileApplyArgs& a, int t,
-                                          int i) {
-  const int Cs = a.Cs;
-  const size_t row = (size_t)t * kT + i;
-  const size_t plane = (size_t)a.Nt * kT;  // one accv field
-  if (!(a.tile_live[t] > 0.f)) {
-    // skipped tile: its bodies are frozen, the state passes through
-    a.o_px[row] = a.px[row]; a.o_py[row] = a.py[row]; a.o_an[row] = a.an[row];
-    a.o_vx[row] = a.vx[row]; a.o_vy[row] = a.vy[row]; a.o_om[row] = a.om[row];
-    if (kCompound)
-      for (int q = 0; q < 4; ++q) a.accv[q * plane + row] = 0.f;
-    return;
-  }
-  const size_t splane = (size_t)Cs * kT;
-  const float* sol = a.sol + (size_t)t * TS_FIELDS * splane + i;
-  const size_t sbase = (size_t)t * Cs * kT + i;
-  const float h = a.h, gx = a.gravity[0], gy = a.gravity[1];
-  const float dyn = a.dynb[row], kin = a.kin[row];
-  const float ima = a.invm[row], iia = a.invi[row];
-  const float cnt = a.cnt[row];
-  const float o_ddx = applied(a.dxx[row], cnt, a);
-  const float o_ddy = applied(a.dxy[row], cnt, a);
-  const float o_dda = applied(a.dth[row], cnt, a);
-  const float o_om = a.om[row];
-  const float ovx_t = a.vx[row] + gx * h * dyn;
-  const float ovy_t = a.vy[row] + gy * h * dyn;
-  float npx, npy, nan_;
-  if constexpr (kCcd) {  // the pose advance TOI-clamped, velocities not
-    const float o_f = a.f[row];
-    npx = a.px[row] + ovx_t * h * o_f + o_ddx;
-    npy = a.py[row] + ovy_t * h * o_f + o_ddy;
-    nan_ = a.an[row] + o_om * h * o_f + o_dda;
-  } else {
-    npx = a.px[row] + ovx_t * h + o_ddx;
-    npy = a.py[row] + ovy_t * h + o_ddy;
-    nan_ = a.an[row] + o_om * h + o_dda;
-  }
-  // velocity reconstruction (kinematic rows keep their velocity)
-  const float nk = 1.f - kin;
-  float nvx = kin * ovx_t + nk * (ovx_t + o_ddx / h);
-  float nvy = kin * ovy_t + nk * (ovy_t + o_ddy / h);
-  float nom = kin * o_om + nk * (o_om + o_dda / h);
-  const float oca = cosf(nan_), osa = sinf(nan_);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int s = 0; s < Cs; ++s) {
-    const float* f = sol + (size_t)s * kT;
-    const float sm[2] = {f[TS_SM0 * splane], f[TS_SM1 * splane]};
-    if (sm[0] == 0.f && sm[1] == 0.f) continue;
-    const Partner p = partner(a.px, a.py, a.an, a.vx, a.vy, a.om, a.l_px,
-                              a.l_py, a.l_an, t, a.Nt,
-                              a.pidx_c[sbase + (size_t)s * kT]);
-    const float p_dyn = f[TS_PDYN * splane];
-    const float pvx_t = p.vx + gx * h * p_dyn;
-    const float pvy_t = p.vy + gy * h * p_dyn;
-    float p_ddx = 0.f, p_ddy = 0.f, p_dda = 0.f;
-    if (p.row >= 0) {
-      const float pcnt = a.cnt[p.row];
-      p_ddx = applied(a.dxx[p.row], pcnt, a);
-      p_ddy = applied(a.dxy[p.row], pcnt, a);
-      p_dda = applied(a.dth[p.row], pcnt, a);
-    }
-    // the partner's post-apply pose and velocity, as its own row makes them
-    float ppx, ppy, pan;
-    if constexpr (kCcd) {
-      const float p_f = p.row >= 0 ? a.f[p.row] : 1.f;
-      ppx = p.px + pvx_t * h * p_f + p_ddx;
-      ppy = p.py + pvy_t * h * p_f + p_ddy;
-      pan = p.an + p.om * h * p_f + p_dda;
-    } else {
-      ppx = p.px + pvx_t * h + p_ddx;
-      ppy = p.py + pvy_t * h + p_ddy;
-      pan = p.an + p.om * h + p_dda;
-    }
-    const float pnvx = pvx_t + p_ddx / h;
-    const float pnvy = pvy_t + p_ddy / h;
-    const float pnom = p.om + p_dda / h;
-    const float pca = cosf(pan), psa = sinf(pan);
-    const float imb = f[TS_IMB * splane], iib = f[TS_IIB * splane];
-    const float fric = f[TS_FRIC * splane], rest = f[TS_REST * splane];
-    const float n_ax = f[TS_NAX * splane], n_ay = f[TS_NAY * splane];
-    const float nx = oca * n_ax - osa * n_ay;
-    const float ny = osa * n_ax + oca * n_ay;
-    float cbx = 0.f, cby = 0.f, dng = 0.f, nact = 0.f;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const float a_ax = f[(TS_AAX0 + q) * splane];
-      const float a_ay = f[(TS_AAY0 + q) * splane];
-      const float b_ax = f[(TS_BAX0 + q) * splane];
-      const float b_ay = f[(TS_BAY0 + q) * splane];
-      const float rax = oca * a_ax - osa * a_ay;
-      const float ray = osa * a_ax + oca * a_ay;
-      const float rbx = pca * b_ax - psa * b_ay;
-      const float rby = psa * b_ax + pca * b_ay;
-      const float lam = a.lam[((size_t)t * 2 * Cs + q * Cs + s) * kT + i];
-      float impx, impy, dd;
-      bool active;
-      velocity_point(rax, ray, rbx, rby, nx, ny, nvx, nvy, nom, pnvx, pnvy,
-                     pnom, ovx_t, ovy_t, o_om, pvx_t, pvy_t, p.om,
-                     [&] { return lam; }, [&] { return sm[q]; }, ima, iia,
-                     imb, iib, rest, fric, h, a.rest_threshold, impx, impy,
-                     dd, active);
-      cbx = q ? cbx + impx : impx;
-      cby = q ? cby + impy : impy;
-      dng = q ? dng + dd : dd;
-      nact += active ? 1.f : 0.f;
-    }
-    acc[0] += -cbx * ima;
-    acc[1] += -cby * ima;
-    acc[2] += -dng;
-    acc[3] += nact;
-  }
-  if (kCompound) {
-    for (int q = 0; q < 4; ++q) a.accv[q * plane + row] = acc[q];
-  } else {
-    const float cntv = fmaxf(acc[3], 1.f);
-    nvx = nvx + acc[0] / cntv;
-    nvy = nvy + acc[1] / cntv;
-    nom = nom + acc[2] / cntv;
-    if (a.use_lin_damp) {
-      nvx = nvx * a.lin_sdamp;
-      nvy = nvy * a.lin_sdamp;
-    }
-    if (a.use_ang_damp) nom = nom * a.ang_sdamp;
-  }
-  a.o_px[row] = npx; a.o_py[row] = npy; a.o_an[row] = nan_;
-  a.o_vx[row] = nvx; a.o_vy[row] = nvy; a.o_om[row] = nom;
 }
 
 // ---- (row, slot) work items ---------------------------------------------
@@ -435,9 +189,8 @@ __device__ __forceinline__ void sum_round(GroupShared& sh, int s0, int Cs,
   __syncthreads();
 }
 
-// The own-row terms of the project phase, with `project_row`'s
-// expressions: each item that solves a slot computes them itself, so no
-// item waits for another.
+// The own-row terms of the project phase: each item that solves a slot
+// computes them itself, so no item waits for another.
 struct OwnProject {
   float px, py, tpx, tpy, ca0, sa0, ca, sa, ima, iia;
 };
@@ -474,8 +227,8 @@ __device__ __forceinline__ OwnProject own_project(const TileProjectArgs& a,
   return o;
 }
 
-// `project_row` over row group g of tile t (rows g * 32 .. g * 32 + 31), a
-// (row, slot) item a thread; every thread of the block calls it.
+// The project phase over row group g of tile t (rows g * 32 .. g * 32 +
+// 31), a (row, slot) item a thread; every thread of the block calls it.
 template <bool kCcd = false>
 __device__ __forceinline__ void project_group(const TileProjectArgs& a, int t,
                                               int g, GroupShared& sh) {
@@ -592,9 +345,8 @@ __device__ __forceinline__ void project_group(const TileProjectArgs& a, int t,
   }
 }
 
-// The own-row terms of the apply phase, with `apply_row`'s expressions:
-// the new pose, the reconstructed velocities before the velocity pass and
-// what the pass reads of the row.
+// The own-row terms of the apply phase: the new pose, the reconstructed
+// velocities before the velocity pass and what the pass reads of the row.
 struct OwnApply {
   float npx, npy, nan_, nvx, nvy, nom, tvx, tvy, om, ca, sa, ima, iia;
 };
@@ -634,8 +386,8 @@ __device__ __forceinline__ OwnApply own_apply(const TileApplyArgs& a,
   return o;
 }
 
-// `apply_row` over row group g of tile t, a (row, slot) item a thread;
-// every thread of the block calls it.
+// The apply phase over row group g of tile t, a (row, slot) item a
+// thread; every thread of the block calls it.
 template <bool kCompound = false, bool kCcd = false>
 __device__ __forceinline__ void apply_group(const TileApplyArgs& a, int t,
                                             int g, GroupShared& sh) {

@@ -35,9 +35,10 @@
 // slots' chains run side by side. Each item that solves a slot computes
 // its row's own terms itself (no item waits on another before the sum),
 // parks its contribution in shared memory, and one thread a row adds them
-// in slot order (tile_rows.cuh), so the outputs are bitwise the row
-// loop's. The tables are [Nt, field, Cs, T] planes: a
-// warp is 32 consecutive rows of one slot, so its table loads coalesce.
+// in slot order (tile_rows.cuh), so the outputs are those of one thread
+// walking the row's slots in order. The tables are [Nt, field, Cs, T]
+// planes: a warp is 32 consecutive rows of one slot, so its table loads
+// coalesce.
 // Partner state is read from the 3-tile window in global memory (the
 // frame's working set, ~10 MB, sits in the 50 MB L2). No atomics: every
 // output has one writer, so reruns are bitwise equal.

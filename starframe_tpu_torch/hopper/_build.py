@@ -325,8 +325,16 @@ def library() -> ctypes.CDLL:
     lib.sf_slots_blocks_per_sm.restype = ctypes.c_int
     lib.sf_tile_substep_blocks_per_sm.argtypes = [ctypes.c_int] * 3
     lib.sf_tile_substep_blocks_per_sm.restype = ctypes.c_int
-    lib.sf_tile_compound_frame_blocks_per_sm.argtypes = [ctypes.c_int]
-    lib.sf_tile_compound_frame_blocks_per_sm.restype = ctypes.c_int
+    for name in ("sf_tile_frame_blocks_per_sm",
+                 "sf_tile_compound_frame_blocks_per_sm"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.sf_tile_manifold_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sf_tile_manifold_shared_bytes.restype = ctypes.c_longlong
+    lib.sf_tile_manifold_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.sf_tile_manifold_blocks_per_sm.restype = ctypes.c_int
+    lib.sf_tile_manifold_width.argtypes = [ctypes.c_int]
+    lib.sf_tile_manifold_width.restype = ctypes.c_int
     lib.sf_tile_solve_fields.argtypes = []
     lib.sf_tile_solve_fields.restype = ctypes.c_int
     lib.sf_error_string.argtypes = [ctypes.c_int]

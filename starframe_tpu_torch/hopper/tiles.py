@@ -54,7 +54,6 @@ from ..kernels import (
     velocity_contacts_b,
 )
 from . import _build
-from .frame2 import kernel_verts
 from .slots import _check, _route
 
 f32 = torch.float32
@@ -488,6 +487,15 @@ def tile_manifold_plain(state, consts, large, pidx, act, tile_live, *,
     return out if keys is None else out + (gate(keyc).contiguous(),)
 
 
+@functools.cache
+def _check_solve_fields() -> None:
+    """The kernels' solve-table layout against ``SOL_KEYS``, once a
+    process."""
+    if _build.library().sf_tile_solve_fields() != SOL_FIELDS:
+        raise RuntimeError("tile kernels' solve-table layout differs from "
+                           "SOL_KEYS")
+
+
 def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
                   margin: float, dt: float, sleep_velocity: float = 0.0,
                   kin_velocity: float = 0.0, event_ids=None,
@@ -537,19 +545,13 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
     if plain or not _route(dev):
         return tile_manifold_plain(state, consts, large, pidx, act,
                                    tile_live, **kw)
-    Vk = kernel_verts(V)
-    if Vk is None:
+    if not _build.library().sf_tile_manifold_width(V):
         raise ValueError(f"tile manifold kernel supports up to 8 vertices "
                          f"per collider, got {V}")
-    if _build.library().sf_tile_solve_fields() != SOL_FIELDS:
-        raise RuntimeError("tile kernels' solve-table layout differs from "
-                           "SOL_KEYS")
+    _check_solve_fields()
+    # the kernel reads the V planes as they are and pads to its compiled
+    # width in registers, with copies of v0
     vlx, vly, lvx, lvy = consts["vlx"], consts["vly"], large["vlx"], large["vly"]
-    if Vk != V:  # pad with copies of v0: every manifold holds
-        vlx = torch.cat([vlx, vlx[:, :1].expand(Nt, Vk - V, T)], 1)
-        vly = torch.cat([vly, vly[:, :1].expand(Nt, Vk - V, T)], 1)
-        lvx = torch.cat([lvx, lvx[:1].expand(Vk - V, L)], 0)
-        lvy = torch.cat([lvy, lvy[:1].expand(Vk - V, L)], 0)
     sol = torch.empty((Nt, SOL_FIELDS, Cs, T), dtype=f32, device=dev)
     pidx_c, src = (torch.empty((Nt, Cs, T), dtype=i32, device=dev)
                    for _ in range(2))
@@ -571,7 +573,7 @@ def tile_manifold(state, consts, large, pidx, act, tile_live, *, Cs: int,
                          lg["fric"], lg["rst"], lg["sen"], pidx, act,
                          tile_live, sol, pidx_c, src, nact, wake, pen,
                          npts)), *ev, p(c["kin"]),
-        Nt, Vk, C, Cs, margin, dt, sleep_velocity * sleep_velocity,
+        Nt, V, C, Cs, margin, dt, sleep_velocity * sleep_velocity,
         int(sleep_velocity > 0.0), n_colliders, kin_velocity * kin_velocity)
     _build.launch("sf_tile_manifold", args, dev)
     out = (sol, pidx_c, src, nact, wake, pen, npts)

@@ -783,6 +783,59 @@ def test_tile_frame_refuses_ccd(frame_inputs):
         torch.testing.assert_close(got[k], twin[k], rtol=0, atol=1e-6)
 
 
+def _edge_tiles_dead(args):
+    """``args`` with tiles 0 and 3 of 4 skipped and 1 and 2 live: tile 2's
+    window reads the dead tile 3's rows (their corrections zero)."""
+    live = torch.tensor([0.0, 1.0, 1.0, 0.0], device="cuda")
+    return args[:6] + (live,)
+
+
+@pytest.mark.parametrize("substeps", [2, 10])
+def test_tile_frame_kernel_with_dead_tiles_equals_the_substep_pair(
+        frame_inputs, substeps):
+    """K10 with the first and last tiles skipped bitwise equal to K8/K9
+    launched once a substep, the dead tiles' state passed through, a rerun
+    bitwise equal."""
+    args, kw = frame_inputs
+    args = _edge_tiles_dead(args)
+    state = args[0]
+    got, touched = hopper.tile_frame(*args, substeps=substeps, **kw)
+    ref, ref_t = hopper.tiles.substep_loop(
+        hopper.tile_project, hopper.tile_apply, *args, substeps=substeps,
+        **kw)
+    assert torch.equal(touched, ref_t)
+    assert float(touched.sum()) > 100, "few touching slots: vacuous"
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        for t in (0, 3):
+            assert torch.equal(got[k][t], state[k][t]), (k, t)
+    again, again_t = hopper.tile_frame(*args, substeps=substeps, **kw)
+    assert torch.equal(touched, again_t)
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.parametrize("substeps", [2, 10])
+def test_tile_frame_ccd_kernel_equals_k7_k8_k9(frame_inputs, substeps):
+    """K10's CCD form, every row a bullet, tiles 0 and 3 skipped, bitwise
+    equal to K7, K8 and K9 launched once a substep."""
+    args, kw = frame_inputs
+    args = _edge_tiles_dead(args)
+    consts = dict(args[1], blt=(args[1]["invm"] > 0).float())
+    args = (args[0], consts) + args[2:]
+    c0 = hopper.tile_frame.ccd_launches
+    got, touched = hopper.tile_frame(*args, substeps=substeps, ccd=True,
+                                     **kw)
+    assert hopper.tile_frame.ccd_launches == c0 + 1
+    ref, ref_t = hopper.tiles.substep_loop(
+        hopper.tile_project, hopper.tile_apply, *args, substeps=substeps,
+        ccd=(hopper.tile_ccd, hopper.owner_min, 0.005), **kw)
+    assert torch.equal(touched, ref_t)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+        assert torch.equal(got[k][0], args[0][k][0]), k
+
+
 @pytest.fixture(scope="module")
 def bullet_tiles():
     """tests/test_ccd.py's tile-engine bullet world (4 tiles) with the
@@ -874,6 +927,118 @@ def test_tile_substep_ccd_kernels_match_twins(bullet_tiles):
     row = consts["blt"] > 0
     full = state["px"][row] + state["vx"][row] * h
     assert float(got_s["px"][row]) < float(full)
+
+
+# ---- K6 at its edges -------------------------------------------------------
+
+
+def _manifold_matches_twin(args, **kw):
+    """K6 on ``args`` against its twin: integer outputs equal, the rest to
+    1e-6 (the same float32 code: bitwise in practice), and a rerun bitwise
+    equal. Returns the kernel's outputs."""
+    got = hopper.tile_manifold(*args, **kw)
+    ref = hopper.tile_manifold(*args, **kw, plain=True)
+    for n in (1, 2, 3) + ((7,) if len(got) > 7 else ()):
+        assert torch.equal(got[n], ref[n]), n
+    for n in (0, 4, 5, 6):
+        torch.testing.assert_close(got[n], ref[n], rtol=0, atol=1e-6)
+    again = hopper.tile_manifold(*args, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("keys", [False, True])
+def test_tile_manifold_kernel_without_compaction(tile_layout, keys):
+    """K6 at Cs = C = 16, where every table slot computes and is written
+    (its own solve slot), empty slots' normals and anchors included."""
+    cfg, state, consts, large, _, _, tables = tile_layout
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    live[2] = 0.0
+    kw = dict(Cs=16, margin=cfg.contact_margin, dt=cfg.dt)
+    if keys:
+        kw.update(event_ids=(consts["obody"], large["cols"]),
+                  n_colliders=4093 + 3)
+    got = _manifold_matches_twin((state, consts, large, *tables[:2], live),
+                                 **kw)
+    src = torch.arange(16, device="cuda", dtype=torch.int32)[None, :, None]
+    assert torch.equal(got[2][live > 0], src.expand_as(got[2])[live > 0])
+    assert torch.equal(got[1][live > 0], tables[0][live > 0])
+    empty = (tables[1] == 0) & (live > 0)[:, None, None]
+    assert bool(empty.any()), "no empty slot: vacuous"
+    # an empty slot still gets its manifold's normal, not zeros
+    assert bool((got[0][:, 1][empty] != 0).any())
+
+
+def _pad_vertex_planes(consts, large, Vk):
+    """The tables' vertex planes padded to ``Vk`` with copies of v0 (each
+    collider's ``nv`` unchanged)."""
+    V = consts["vlx"].shape[1]
+    Nt = consts["vlx"].shape[0]
+    c = {k: torch.cat([consts[k], consts[k][:, :1].expand(Nt, Vk - V, 256)],
+                      1) for k in ("vlx", "vly")}
+    lg = {k: torch.cat([large[k], large[k][:1].expand(Vk - V, -1)], 0)
+          for k in ("vlx", "vly")}
+    return dict(consts, **c), dict(large, **lg)
+
+
+@pytest.mark.parametrize("Cs", [8, 16])
+@pytest.mark.parametrize("keys", [False, True])
+def test_tile_manifold_kernel_at_eight_vertex_planes(tile_layout, keys, Cs):
+    """K6's 8-plane instance, on the pile's hexagon tables padded to 8
+    planes with copies of v0, against its twin at Cs < C and Cs = C, and
+    bitwise equal to the 6-plane instance on the unpadded tables."""
+    cfg, state, consts, large, _, _, tables = tile_layout
+    assert consts["vlx"].shape[1] == 6
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    live[2] = 0.0
+    kw = dict(Cs=Cs, margin=cfg.contact_margin, dt=cfg.dt,
+              sleep_velocity=0.2)
+    if keys:
+        kw.update(event_ids=(consts["obody"], large["cols"]),
+                  n_colliders=4093 + 3)
+    c8, l8 = _pad_vertex_planes(consts, large, 8)
+    got = _manifold_matches_twin((state, c8, l8, *tables[:2], live), **kw)
+    six = hopper.tile_manifold(state, consts, large, *tables[:2], live, **kw)
+    for a, b in zip(got, six):
+        assert torch.equal(a, b)
+    assert int(got[3][:, 0].sum()) > 1000, "few active slots: vacuous"
+
+
+def test_tile_manifold_kernel_at_24_table_slots(tile_layout):
+    """K6 with 24 table slots compacted to 8 (the compound pile's widths):
+    16 rows a block, two rounds of its 16 slot lanes and 47,680 bytes of
+    shared memory."""
+    cfg, state, consts, large, edges, g, _ = tile_layout
+    tables = hopper.build_tile_tables(
+        state, consts, large, *edges, g, C=24, margin=cfg.contact_margin,
+        dt=cfg.dt, sweep_frames=8, sweep_floor=cfg.tile_sweep_floor,
+        sweep_cap=cfg.tile_sweep_cap)
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    for sv in (0.0, 0.2):
+        got = _manifold_matches_twin(
+            (state, consts, large, *tables[:2], live), Cs=8,
+            margin=cfg.contact_margin, dt=cfg.dt, sleep_velocity=sv)
+        assert int(got[3][:, 0].sum()) > 1000, "few active slots: vacuous"
+
+
+@pytest.mark.parametrize("Cs", [8, 16])
+def test_tile_manifold_kernel_on_rows_without_candidates(tile_layout, Cs):
+    """K6 where every third row's table is empty (act and pidx 0): those
+    rows' solve slots and counts are zero, compacted or not."""
+    cfg, state, consts, large, _, _, tables = tile_layout
+    pidx, act = tables[0].clone(), tables[1].clone()
+    rows = torch.arange(256, device="cuda") % 3 == 0
+    pidx[:, :, rows] = 0
+    act[:, :, rows] = 0.0
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    got = _manifold_matches_twin((state, consts, large, pidx, act, live),
+                                 Cs=Cs, margin=cfg.contact_margin, dt=cfg.dt)
+    assert not bool(got[3][:, :, rows].any())
+    if Cs < 16:
+        assert not bool(got[0][:, :, :, rows].any())
+        assert not bool(got[1][:, :, rows].any())
+    assert int(got[3][:, 0].sum()) > 500, "few active slots: vacuous"
 
 
 # ---- events and compound rows --------------------------------------------

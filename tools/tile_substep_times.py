@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""K8 and K9, every form, alone, for one or more checkouts, in turns on one
+"""K6-K10, every form, alone, for one or more checkouts, in turns on one
 card.
 
-    python3 tools/tile_substep_times.py ROOT [ROOT ...] [--rounds 2] [--reps 20]
+    python3 tools/tile_substep_times.py ROOT [ROOT ...] [--rounds 2]
+        [--reps 20]
 
 The first root (e.g. the parent, unpacked with ``git archive`` into
 ``_checkouts/``) builds the inputs once, in a process of its own, and saves
 them to a temporary file: the frame's arguments (``chip_smoke.
-frame_inputs``: layout, tables, solve tables, live tiles) at three states,
-the awake pile (``pile(10_000, sleep=False)``) after 240 frames and
-``pile_compound(10_000)`` after 240 and 1680 frames (the compound pile's
-final state, 79 tiles, Cs = 8). Then every root, each in a process of its
-own and in turns (ABBA for two, ``--rounds`` times: ``tools/frame2_times.py``
-``run_turns``), runs on those same inputs: K8 (``tile_project``) and its
-CCD form; K9 (``tile_apply``), its CCD form, its compound form and the
-compound CCD form; K7 and the owner kernels; K10 (``tile_frame``) plain and
-CCD; and one compound frame (``tile_frame`` with ``owner`` where the root
-has it, else ``substep_loop`` over the owner kernels, which is the same
-computation), with and without CCD; each at every phase. The CCD forms
-take every dynamic row as a bullet, and the owner kernels the layout's
-owner column (on the awake pile, one row a body).
+frame_inputs``: layout, tables, solve tables, live tiles) and K6's
+(``chip_smoke.manifold_inputs``) at four states, the awake pile
+(``pile(10_000, sleep=False)``, C = 16, Cs = 8) after 240 frames, the
+sleeping pile (bench.py's ``pile``: ``pile(10_000)``) after 1680 and
+``pile_compound(10_000)`` (C = 24, Cs = 8) after 240 and 1680 frames (the
+compound pile's final state, 79 tiles), printing at each the share of K6's
+(row, table slot) items with ``act > 0`` and of its warps that are empty.
+Then every root, each in a process of its own and in turns (ABBA for two,
+``--rounds`` times: ``tools/frame2_times.py`` ``run_turns``), runs on
+those same inputs: K6 (``tile_manifold``) plain and keyed, compacted and
+at Cs = C; K8 (``tile_project``) and its CCD form; K9 (``tile_apply``),
+its CCD form, its compound form and the compound CCD form; K7 and the
+owner kernels; K10 (``tile_frame``) plain and CCD; and one compound frame
+(``tile_frame`` with ``owner`` where the root has it, else
+``substep_loop`` over the owner kernels, which is the same computation),
+with and without CCD; each at every phase. The CCD forms take every
+dynamic row as a bullet, and the owner kernels the layout's owner column
+(on the awake pile, one row a body).
 
 Each entry prints four times (ms): ``ms``, CUDA events around ``--reps``
 wrapper calls (host dispatch included, as ``chip_smoke.turns``); ``raw``,
@@ -27,11 +33,16 @@ CUDA events around ``--reps`` replays of the launch the wrapper made (its
 argument struct built once, ``_build.launch`` only: bounded by the host's
 launch rate where the kernel is shorter); ``dev``, the same replays
 captured in a CUDA graph and the graph's replay timed (a single-launch
-entry only for both; the cooperative whole-frame kernels are not captured,
-their ``dev`` is ``raw``: each runs far longer than a launch takes); ``prof``, the kernels' own time in a
-``torch.profiler`` trace of ``--reps`` wrapper calls. And a SHA-256 of every output, so the roots'
+entry only for both; the cooperative whole-frame kernels are not timed in
+a graph, their ``dev`` is ``raw``: each runs far longer than a launch
+takes); ``prof``, the kernels' own time in a ``torch.profiler`` trace of
+``--reps`` wrapper calls. And a SHA-256 of every output, so the roots'
 results can be compared bitwise: the tool prints which entries are equal
-across roots, and a JSON summary last. Needs a CUDA device.
+across roots, and a JSON summary last. Each cooperative launch is also
+captured in a CUDA graph and replayed ``GRAPH_REPLAYS`` times:
+``direct_equal`` and ``graph_equal`` say whether the outputs' hash after
+the direct replays and after the graph's equals the first call's, and the
+run fails where one does not. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,8 +61,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the cooperative launches (the whole-frame kernels): timed by replaying
 # the launch alone, not in a CUDA graph
 COOPERATIVE = ("sf_tile_frame", "sf_tile_compound_frame")
+# replays of each cooperative launch from a CUDA graph, outputs held
+# against the direct launch's
+GRAPH_REPLAYS = 100
 # phase -> (scene, frames from the start)
-PHASES = {"pile": ("pile", 240), "compound_240": ("compound", 240),
+PHASES = {"pile": ("pile", 240), "pile_sleep_1680": ("pile_sleep", 1680),
+          "compound_240": ("compound", 240),
           "compound_1680": ("compound", 1680)}
 
 
@@ -82,14 +97,22 @@ def make_states(root: str, out: str) -> int:
     dev = torch.device("cuda", 0)
     saved = {}
     for name, (scene, frames) in PHASES.items():
-        if scene == "pile":
-            sc = scenes.pile(n_bodies=10_000, sleep=False, device=dev)
+        if scene in ("pile", "pile_sleep"):
+            sc = scenes.pile(n_bodies=10_000, sleep=scene == "pile_sleep",
+                             device=dev)
         else:
             sc = scenes.pile_compound(n_bodies=10_000, device=dev)
         w, _ = tiled.tiled_rollout(sc.world, sc.config, frames)
         args, kw = cs.frame_inputs(hopper, tiled, w, sc.config)
-        saved[name] = dict(args=args, kw=kw,
-                           kc=sc.config.max_colliders_per_body,
+        margs, mkw, keyed = cs.manifold_inputs(hopper, tiled, w, sc.config)
+        items, warps = cs.manifold_skips(*margs[4:6])
+        print(f"{name}: K6 at C = {margs[3].shape[1]}, Cs = {mkw['Cs']}: "
+              f"{100 * items:.2f}% of the live (row, table slot) items "
+              f"have act > 0; {100 * warps:.2f}% of its warps are empty, "
+              "skipped whole under compaction",
+              flush=True)
+        saved[name] = dict(args=args, kw=kw, margs=margs, mkw=mkw,
+                           keyed=keyed, kc=sc.config.max_colliders_per_body,
                            ccd_slop=sc.config.ccd_slop)
     torch.save(saved, out)
     return 0
@@ -123,7 +146,14 @@ def _entries(hopper, ph):
         return lambda: hopper.tile_apply(state, corr, c, large, pidx_c, sol,
                                          p[4], g, live, **akw, **more)
 
-    e = {"K7": lambda: hopper.tile_ccd(*bargs, h=h, ccd_slop=slop),
+    margs, mkw, keyed = ph["margs"], ph["mkw"], ph["keyed"]
+    full = dict(mkw, Cs=margs[3].shape[1])  # no compaction: Cs = C
+    e = {"K6": lambda: hopper.tile_manifold(*margs, **mkw),
+         "K6_keys": lambda: hopper.tile_manifold(*margs, **mkw, **keyed),
+         "K6_full": lambda: hopper.tile_manifold(*margs, **full),
+         "K6_full_keys": lambda: hopper.tile_manifold(*margs, **full,
+                                                      **keyed),
+         "K7": lambda: hopper.tile_ccd(*bargs, h=h, ccd_slop=slop),
          "K8": lambda: hopper.tile_project(*args[:6], touched, live, **pkw),
          "K8_ccd": lambda: hopper.tile_project(*bargs[:6], touched, live,
                                                **pkw, f=f),
@@ -181,16 +211,27 @@ def _kernel_ms(prof, reps: int) -> float:
     return total / 1e3 / reps
 
 
+def _sha(res) -> str:
+    """SHA-256 of every tensor of ``res``, in order."""
+    h = hashlib.sha256()
+    for t in _tensors(res):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def child(root: str, states: str, reps: int) -> int:
     """Time every entry with the package of ``root`` on the saved inputs;
-    print JSON."""
+    print JSON. Each cooperative launch is also captured in a CUDA graph
+    and replayed ``GRAPH_REPLAYS`` times; the outputs' hash after the direct
+    replays and after the graph's must equal the first call's (else exit
+    1)."""
     _use_root(root)
     import torch
     from starframe_tpu_torch import hopper
     from starframe_tpu_torch.hopper import _build
 
     saved = torch.load(states, map_location="cuda", weights_only=False)
-    out = {}
+    out, unequal = {}, []
     for phase, ph in saved.items():
         for name, call in _entries(hopper, ph).items():
             print(f"{phase}/{name}", file=sys.stderr, flush=True)
@@ -207,9 +248,7 @@ def child(root: str, states: str, reps: int) -> int:
             finally:
                 _build.launch = orig
             torch.cuda.synchronize()
-            h = hashlib.sha256()
-            for t in _tensors(res):
-                h.update(t.contiguous().cpu().numpy().tobytes())
+            sha = _sha(res)
             call()
             t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0.record()
@@ -217,7 +256,7 @@ def child(root: str, states: str, reps: int) -> int:
                 call()
             t1.record()
             torch.cuda.synchronize()
-            row = {"ms": t0.elapsed_time(t1) / reps, "sha256": h.hexdigest(),
+            row = {"ms": t0.elapsed_time(t1) / reps, "sha256": sha,
                    "launches": len(launches)}
             if len(launches) == 1:  # replay the one launch, struct built
                 n, a, d = launches[0]
@@ -229,6 +268,17 @@ def child(root: str, states: str, reps: int) -> int:
                 row["raw"] = t0.elapsed_time(t1) / reps
                 if n in COOPERATIVE:  # far longer than a launch's host time
                     row["dev"] = row["raw"]
+                    row["direct_equal"] = _sha(res) == sha
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        orig(n, a, d)
+                    for _ in range(GRAPH_REPLAYS):
+                        graph.replay()
+                    torch.cuda.synchronize()
+                    row["graph_equal"] = _sha(res) == sha
+                    del graph
+                    if not (row["direct_equal"] and row["graph_equal"]):
+                        unequal.append(f"{phase}/{name}")
                 else:
                     graph = torch.cuda.CUDAGraph()
                     with torch.cuda.graph(graph):
@@ -251,6 +301,10 @@ def child(root: str, states: str, reps: int) -> int:
             del res
         torch.cuda.empty_cache()
     print(json.dumps(out))
+    if unequal:
+        print(f"replayed outputs differ from the first call's: {unequal}",
+              file=sys.stderr)
+        return 1
     return 0
 
 
@@ -286,8 +340,9 @@ def main() -> int:
                                roots[0], "--make-states", "--states", states])
         if proc.returncode != 0:
             return proc.returncode
-        return times.run_turns(__file__, roots, args.rounds, args.reps,
-                               extra=["--states", states])
+        return times.run_turns(
+            __file__, roots, args.rounds, args.reps,
+            extra=["--states", states])
 
 
 if __name__ == "__main__":

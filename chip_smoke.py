@@ -162,10 +162,16 @@ phase's start batch, config and frames come from ``tools/frame2_digests.py``
 ``phase``, which computes the same digests for any checkout, to compare a
 change with its parent.
 
-K8, K9, K10 and the compound frame run one thread a (row, slot) item,
-32 rows x 8 slots a block: step 1 prints ptxas's registers, stack, spills
-and shared bytes of each of their instances, beside its resident blocks
-an SM. K6 runs rows on lanes (one thread a row and table slot) with each
+K7, K8, K9, K10 and the compound frame run one thread a (row, slot)
+item, 32 rows x 8 slots a block: step 1 prints ptxas's registers, stack,
+spills and shared bytes of each of their instances, beside its resident
+blocks an SM. K5 (tile tables) spreads a tile over 8 blocks of 32 rows
+and ranks with chunk-culled warp ballots, K2's design: step 1 prints its
+ptxas line beside its resident blocks an SM (at least 2), and step 4
+prints the share of (row, 32-candidate chunk) pairs and of its visits
+its culling skips on the awake pile's final state and the pair tests it
+leaves (``tile_chunk_skips``, which K5's operation count takes). K3's
+device time is its one launch replayed on the mechanism batch. K6 runs rows on lanes (one thread a row and table slot) with each
 slot's constants parked in shared memory: step 1 prints ptxas's line of
 each of its instances (none may spill) beside its shared bytes and
 resident blocks an SM at each of ``MANIFOLD_SHAPES`` (at least 2), and
@@ -289,7 +295,7 @@ PILE_PARITY_N = 1021  # 4 tiles of 256 colliders with the 3 statics
 PEAK_BYTES_S, PEAK_FLOPS_S = 3.35e12, 67e12
 PAIR_FLOPS, MANIFOLD_FLOPS, PROJECT_FLOPS, VELOCITY_FLOPS = 20, 1000, 200, 220
 JOINT_FLOPS = 100  # one joint slot's solve, per pass
-UNION_FLOPS = 4  # a row's swept box against a chunk's union box (K2)
+UNION_FLOPS = 4  # a row's swept box against a chunk's union box (K2, K5)
 
 # Joint health after 60 frames from the start, 10 substeps, per world
 # (chip_smoke.joint_health, plus the fastest body's speed and, for the
@@ -612,11 +618,11 @@ MANIFOLD_SHAPES = ((6, 16, 8), (6, 24, 8), (6, 16, 16), (6, 24, 24),
 
 
 def ptxas_substep(log: str, lib) -> None:
-    """ptxas's registers, stack, spills and shared bytes of each (row, slot)
-    instance of K8 and K9, of K10 and of the compound frame, beside its
-    resident blocks an SM (256 threads a block); and K6's, beside its
-    dynamic shared memory and resident blocks an SM at each of
-    ``MANIFOLD_SHAPES``."""
+    """ptxas's registers, stack, spills and shared bytes of K5, of K7 and of
+    each (row, slot) instance of K8 and K9, of K10 and of the compound
+    frame, beside its resident blocks an SM (256 threads a block; K5 must
+    fit two); and K6's, beside its dynamic shared memory and resident
+    blocks an SM at each of ``MANIFOLD_SHAPES``."""
     import re
 
     smem = {}
@@ -629,6 +635,10 @@ def ptxas_substep(log: str, lib) -> None:
         if inst and m:
             smem[inst] = int(m.group(1))
     kinds = (
+        (r"tile_tables_kernel",
+         lambda m: ("K5", lib.sf_tile_tables_blocks_per_sm())),
+        (r"tile_ccd_kernel",
+         lambda m: ("K7", lib.sf_tile_ccd_blocks_per_sm())),
         (r"tile_project_kernelILb(\d)E",
          lambda m: (f"K8 <{_flags(m.group(1))}>",
                     lib.sf_tile_substep_blocks_per_sm(0, 0, int(m.group(1))))),
@@ -650,13 +660,14 @@ def ptxas_substep(log: str, lib) -> None:
             mangled = [k for k in smem if re.search(name_re, k)
                        and label(re.search(name_re, k))[0] == name]
             shared = smem[mangled[0]] if mangled else 0
-            check(blocks >= 1, f"{name}: no block fits an SM")
+            check(blocks >= (2 if name == "K5" else 1),
+                  f"{name}: {blocks} blocks fit an SM")
             print(f"{name}: {regs} registers, {stack} bytes stack, {st_} "
                   f"bytes spill stores, {ld} bytes spill loads, {shared} "
                   f"bytes shared, {blocks} blocks of 256 threads an SM")
             seen += 1
-    check(seen == 10, f"ptxas reported {seen} K8/K9/K10/compound frame "
-          "instances, not 10")
+    check(seen == 12, f"ptxas reported {seen} K5/K7/K8/K9/K10/compound "
+          "frame instances, not 12")
     k6 = ptxas_report(log, r"tile_manifold_kernelILi(\d)E",
                       lambda m: int(m.group(1)))
     check(sorted(k6) == [4, 6, 8], f"ptxas reported K6 instances "
@@ -727,6 +738,93 @@ def chunk_skips(sargs, skw, elig, budget) -> dict:
                                 .float().mean()),
             "pairs": int(n_eligible[visit].sum())}
     return out
+
+
+def tile_chunk_skips(state, consts, large, edges, g, tkw) -> dict:
+    """What K5's chunk culling (``csrc/tile_tables.cu``) leaves to test on
+    these inputs, recomputed in plain PyTorch from the twin's boxes: a row
+    that takes candidates (it responds, or is a moving sensor) skips a
+    32-candidate chunk when the union swept box of the chunk's eligible
+    candidates (moving window rows, active large-set slots) misses its own
+    swept box. ``row``: the share of (row, chunk) pairs skipped; ``warp``:
+    the share of the kernel's (pair of rows, chunk) visits skipped (a warp
+    takes rows 2p and 2p + 1 and visits the union of their chunks);
+    ``unions``: the union tests, one a (row, chunk); ``pairs``: the pairs
+    in visited chunks that pass the filters before the box tests (an
+    eligible candidate, not the row itself or a sibling, layers both
+    ways), which any kernel that culls so must test; ``eligible``: those
+    pairs in every chunk."""
+    import torch
+
+    from starframe_tpu_torch.hopper import tiles as ht
+
+    Nt = state["px"].shape[0]
+    dev = state["px"].device
+    idx = ht._cand_index(Nt, dev)
+    zl = torch.zeros_like(large["px"])
+
+    def cand(x, xl):
+        return ht._cand(x, xl, idx)
+
+    c_an = cand(state["an"], large["an"])
+    ca, sa = torch.cos(c_an), torch.sin(c_an)
+    vlx = ht._cand_verts(consts["vlx"], large["vlx"], idx)
+    vly = ht._cand_verts(consts["vly"], large["vly"], idx)
+    c_px, c_py = cand(state["px"], large["px"]), cand(state["py"], large["py"])
+    wx = c_px[None] + ca[None] * vlx - sa[None] * vly
+    wy = c_py[None] + sa[None] * vlx + ca[None] * vly
+    ext = torch.sqrt(vlx * vlx + vly * vly).amax(0)
+    c_rad = cand(consts["rad"], large["rad"])
+    ext = ext + c_rad
+    c_part = cand(consts["mov"], large["act"])
+    c_act = cand(consts["act"], large["act"])
+    c_vx, c_vy = cand(state["vx"], zl), cand(state["vy"], zl)
+    dt, K = tkw["dt"], tkw["sweep_frames"]
+    if K > 1:
+        gmag = torch.sqrt(g[0] * g[0] + g[1] * g[1])
+        spd = torch.sqrt(c_vx * c_vx + c_vy * c_vy)
+        swx = swy = torch.minimum(
+            (spd + gmag * dt + tkw["sweep_slack"]) * (K * dt)
+            + tkw["sweep_floor"] * ext, tkw["sweep_cap"] * ext) * (c_part > 0)
+    else:
+        swx, swy = torch.abs(c_vx) * dt, torch.abs(c_vy) * dt
+    pad = c_rad + 0.5 * tkw["margin"]
+    box = (wx.amin(0) - pad - swx, wx.amax(0) + pad + swx,
+           wy.amin(0) - pad - swy, wy.amax(0) + pad + swy)
+    elig = (c_part > 0) & (c_act > 0)  # [Nt, S]
+    n_ch = elig.shape[1] // 32
+    inf = float("inf")
+    u = [torch.where(elig, b, inf if lo else -inf).view(Nt, n_ch, 32)
+         for b, lo in zip(box, (True, False, True, False))]
+    u = [x.amin(-1) if lo else x.amax(-1)
+         for x, lo in zip(u, (True, False, True, False))]  # [Nt, n_ch]
+    own = [ht._own(b, Nt) for b in box]  # [Nt, T]
+    row_ok = (consts["responds"] > 0) | ((consts["sen"] > 0)
+                                         & (consts["mov"] > 0))
+    visit = (row_ok[..., None]
+             & (u[0][:, None] <= own[1][..., None])
+             & (own[0][..., None] <= u[1][:, None])
+             & (u[2][:, None] <= own[3][..., None])
+             & (own[2][..., None] <= u[3][:, None]))  # [Nt, T, n_ch]
+    c_lay = cand(consts["lay"], large["lay"])
+    c_msk = cand(consts["msk"], large["msk"])
+    c_ob = cand(consts["obody"], torch.full_like(large["lay"], -1))
+    gid = torch.arange(elig.shape[1], device=dev)
+    o_gid = ht._own(gid[None].expand(Nt, -1), Nt)
+    ok = (elig[:, :, None] & (gid[None, :, None] != o_gid[:, None, :])
+          & (c_ob[:, :, None] != ht._own(c_ob, Nt)[:, None, :])
+          & (((ht._own(c_msk, Nt)[:, None, :] >> c_lay[:, :, None]) & 1)
+             != 0)
+          & (((c_msk[:, :, None] >> ht._own(c_lay, Nt)[:, None, :]) & 1)
+             != 0))  # [Nt, S, T]
+    per_chunk = ok.view(Nt, n_ch, 32, -1).sum(2).transpose(1, 2)
+    pairs2 = visit.view(Nt, -1, 2, n_ch)
+    return {"row": 1.0 - float(visit.float().mean()),
+            "warp": 1.0 - float((pairs2[:, :, 0] | pairs2[:, :, 1])
+                                .float().mean()),
+            "unions": visit.numel(),
+            "pairs": int(per_chunk[visit].sum()),
+            "eligible": int((per_chunk * row_ok[..., None]).sum())}
 
 
 def max_err(a, b) -> float:
@@ -1252,9 +1350,13 @@ def jointed_turns(hopper, parallel, jointed, errs, bounds, card) -> dict:
             del k, p
             errs[name] = max(errs[name], err)
             t = turns(call)
+            device = ""
+            if name == "joint_slots" and scene == "mechanism":
+                DEVICE_MS[name] = launch_ms(lambda: call(False))
+                device = f" ({device_str(name)})"
             print(f"time {name} on {scene} at {W_JOINTED} worlds: kernel "
-                  f"{t[0]:.4f} ms, plain twin {t[1]:.4f} ms, max abs err "
-                  f"{err:.3g}, on {card}")
+                  f"{t[0]:.4f} ms{device}, plain twin {t[1]:.4f} ms, max abs "
+                  f"err {err:.3g}, on {card}")
             if scene == "mechanism":
                 times[name] = t
     return times
@@ -1346,6 +1448,13 @@ def tile_calls(hopper, w, cfg):
 
     sm = sol[:, [SOL["sm0"], SOL["sm1"]]]
     solved = int((sm != 0).any(dim=1).sum())
+    skips = tile_chunk_skips(state, consts, large, edges, g, tkw)
+    print(f"K5 chunk culling on {Nt} tiles (C = {C}, K = "
+          f"{tkw['sweep_frames']}): {100 * skips['row']:.2f}% of (row, "
+          f"32-candidate chunk) pairs skipped, {100 * skips['warp']:.2f}% of "
+          f"the kernel's (pair of rows, chunk) visits; {skips['pairs']} "
+          f"pairs left to test, {100 * skips['pairs'] / skips['eligible']:.2f}"
+          "% of the eligible ones")
 
     def reads(name, *more):
         sk, ck, lk = TILE_READS[name]
@@ -1356,9 +1465,10 @@ def tile_calls(hopper, w, cfg):
         "tile_tables": (
             lambda p: hopper.build_tile_tables(state, consts, large, *edges,
                                                g, **tkw, plain=p),
+            # K2's rule: a union test a (row, chunk) and the pair tests
+            # its culling leaves
             reads("tile_tables", edges, g), 0,
-            int((consts["responds"] > 0).sum()) * (3 * 256 + 128)
-            * PAIR_FLOPS),
+            skips["unions"] * UNION_FLOPS + skips["pairs"] * PAIR_FLOPS),
         "tile_manifold": (
             lambda p: hopper.tile_manifold(*margs, **mkw, plain=p),
             reads("tile_manifold", *tables[:2], live), 0,

@@ -428,5 +428,30 @@ static __device__ __forceinline__ int tile_candidate(int t, int Nt, int j) {
                                : -1 - (j - TILE_WIN * TILE_T);
 }
 
+// Warp-wide helpers of the ballot-ranking kernels (slots.cu, tile_tables.cu).
+constexpr unsigned kFull = 0xffffffffu;
+
+// (min lo x, max hi x, min lo y, max hi y) of box b over the warp's lanes;
+// NaN bounds are ignored by fminf/fmaxf.
+static __device__ __forceinline__ float4 warp_union(float4 b) {
+  for (int o = 16; o > 0; o >>= 1) {
+    b.x = fminf(b.x, __shfl_xor_sync(kFull, b.x, o));
+    b.y = fmaxf(b.y, __shfl_xor_sync(kFull, b.y, o));
+    b.z = fminf(b.z, __shfl_xor_sync(kFull, b.z, o));
+    b.w = fmaxf(b.w, __shfl_xor_sync(kFull, b.w, o));
+  }
+  return b;
+}
+
+// v's inclusive prefix sum over the warp's lanes
+static __device__ __forceinline__ uint32_t warp_inclusive(uint32_t v,
+                                                          int lane) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t n = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += n;
+  }
+  return v;
+}
+
 #define SF_EXPORT(name, Args)                                     \
   extern "C" int name##_args_size() { return (int)sizeof(Args); }

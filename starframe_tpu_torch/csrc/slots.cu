@@ -55,7 +55,6 @@ namespace {
 constexpr int kMaxC = 32;
 constexpr int kMaxM = 1024;  // at most 32 chunks: one per lane
 constexpr int kPlanes = 11;  // floats a collider: touch 4, close 4, sx, sy, ns
-constexpr unsigned kFull = 0xffffffffu;
 
 // The block's shared memory, laid out from its size parameters. A box is
 // (lo x, hi x, lo y, hi y), one 16-byte load.
@@ -100,27 +99,6 @@ __device__ __forceinline__ bool overlap(float alx, float ahx, float aly,
 __device__ __forceinline__ bool overlap(float4 a, float blx, float bhx,
                                         float bly, float bhy) {
   return overlap(a.x, a.y, a.z, a.w, blx, bhx, bly, bhy);
-}
-
-// (min lo x, max hi x, min lo y, max hi y) over the warp's lanes; NaN
-// boxes (the tail pads) are ignored by fminf/fmaxf.
-__device__ __forceinline__ float4 warp_union(float lx, float hx, float ly,
-                                             float hy) {
-  for (int o = 16; o > 0; o >>= 1) {
-    lx = fminf(lx, __shfl_xor_sync(kFull, lx, o));
-    hx = fmaxf(hx, __shfl_xor_sync(kFull, hx, o));
-    ly = fminf(ly, __shfl_xor_sync(kFull, ly, o));
-    hy = fmaxf(hy, __shfl_xor_sync(kFull, hy, o));
-  }
-  return make_float4(lx, hx, ly, hy);
-}
-
-__device__ __forceinline__ uint32_t warp_inclusive(uint32_t v, int lane) {
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t n = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += n;
-  }
-  return v;
 }
 
 // Pack elig[j, i] (this world's [M, M] bytes) into s.bits: one warp a
@@ -381,7 +359,9 @@ __global__ void __launch_bounds__(512, 2) slot_kernel(SlotArgs a) {
     s.cbox[i] = make_float4(clx, chx, cly, chy);
     s.sweep[i] = make_float2(sx, sy);
     s.ns[i] = nan;
-    const float4 u = warp_union(clx - sx, chx + sx, cly - sy, chy + sy);
+    // the tail pads' NaN boxes are ignored
+    const float4 u =
+        warp_union(make_float4(clx - sx, chx + sx, cly - sy, chy + sy));
     if (lane == 0) s.u1[i >> 5] = u;
   }
   pack_bits<kVec>(a.elig + w * M * M, s, M, warp, n_warps, lane);
@@ -397,7 +377,8 @@ __global__ void __launch_bounds__(512, 2) slot_kernel(SlotArgs a) {
       const int j = 32 * k + lane;
       const float n = s.ns[j];
       const float4 c = s.cbox[j];
-      const float4 u = warp_union(c.x - n, c.y + n, c.z - n, c.w + n);
+      const float4 u =
+          warp_union(make_float4(c.x - n, c.y + n, c.z - n, c.w + n));
       if (lane == 0) s.u2[k] = u;
     }
     __syncthreads();

@@ -10,7 +10,7 @@
 // of its sums, `_apply_kernel(compound=True)` and the owner velocity pass
 // (`_owner_shift_reduce`). The JAX package's `_mega_kernel` has no owner
 // reductions, so this kernel is the port's own. Each phase runs the row
-// bodies of the per-substep kernels (`ccd_row`, `project_group`,
+// bodies of the per-substep kernels (`ccd_group`, `project_group`,
 // `apply_group<true>` in tile_rows.cuh; `owner_min_row`, `owner_sum_row`,
 // `owner_velocity_row` in owner_rows.cuh), so a frame is bitwise equal to
 // tile_substep.cu's and owner_reduce.cu's launches once a substep (six
@@ -35,8 +35,8 @@
 // What bounds it on an H100: bytes, as K8/K9, and the barriers. Each
 // substep reads the solve tables and the state and correction windows; the
 // frame's working set (~15 MB at the compound pile) sits in the 50 MB L2.
-// 256 threads a block as K8/K9 (a work unit of the row phases is 32 rows x
-// 8 slot items, of the owner and CCD phases 256 rows, a thread each), as
+// 256 threads a block as K8/K9 (a work unit of the row phases, CCD's too,
+// is 32 rows x 8 slot items, of the owner phases 256 rows, a thread each), as
 // many blocks as fit on the card at once (the occupancy query times the
 // SM count, at most the row phases' units), each looping over units. No
 // register cap, unlike K8/K9's: at two blocks an SM the grid barriers cost
@@ -74,8 +74,8 @@ __global__ void __launch_bounds__(kItemThreads)
       TileCcdArgs k = f.ccd;
       k.px = p.px; k.py = p.py; k.an = p.an;
       k.vx = p.vx; k.vy = p.vy; k.om = p.om;
-      for (int u = blockIdx.x; u < Nt; u += gridDim.x)
-        ccd_row(k, u, threadIdx.x);
+      for (int u = blockIdx.x; u < groups; u += gridDim.x)
+        ccd_group(k, u / kRowGroups, u % kRowGroups, sh);
       grid.sync();
       // a compound advances by its earliest row's clamp
       for (int u = blockIdx.x; u < Nt; u += gridDim.x) {

@@ -16,12 +16,12 @@
 // barriers, no atomics on floats: reruns are bitwise equal.
 //
 // With CCD (the kCcd instance, tiles.py `_mega_kernel` with `ccd`: three
-// phases a substep) each substep starts with K7's row body (`ccd_row`, one
-// thread a row, a tile a block) writing every row's TOI factor into the
-// `ccd.f` scratch (1 on a skipped tile and a row that is not a bullet, as
-// `_run_mega`'s ones), then a barrier, then the project and apply phases'
-// kCcd forms read it: bitwise equal to K7, K8 and K9 launched once a
-// substep.
+// phases a substep) each substep starts with K7's body (`ccd_group`, the
+// same (row, slot) items over every row group) writing every row's TOI
+// factor into the `ccd.f` scratch (1 on a skipped tile and a row that is
+// not a bullet, as `_run_mega`'s ones), then a barrier, then the project
+// and apply phases' kCcd forms read it: bitwise equal to K7, K8 and K9
+// launched once a substep.
 //
 // What bounds it on an H100: bytes, as K8/K9, and the barriers. Each
 // substep reads the solve tables (7.2 MB at the 10k pile) and the state
@@ -29,10 +29,10 @@
 // 50 MB L2. What held the row-loop design back was latency: one thread
 // walked its row's Cs slots in series, at ~2.4 warps an SM. Design: the
 // compound frame's without its owner phases. 256 threads a block, a work
-// unit of the row phases is 32 rows x 8 slot items (K8's and K9's block),
-// of the CCD phase a tile's 256 rows; as many blocks as fit on the card at
-// once (the occupancy query times the SM count, at most the row phases'
-// units), each looping over units. No register cap: at 122 registers two
+// unit of every phase is 32 rows x 8 slot items (K7's, K8's and K9's
+// block); as many blocks as fit on the card at once (the occupancy query
+// times the SM count, at most the row phases' units), each looping over
+// units. No register cap: at 122 registers two
 // blocks fit an SM; capped at 80 for three, it spilled 272 B and, measured
 // alone in turns on an H100, ran 0.164 against 0.194 ms at the awake pile
 // but 0.193 against 0.152 at the settled compound pile's layout and its
@@ -65,8 +65,8 @@ __global__ void __launch_bounds__(kItemThreads)
       TileCcdArgs c = f.ccd;
       c.px = p.px; c.py = p.py; c.an = p.an;
       c.vx = p.vx; c.vy = p.vy; c.om = p.om;
-      for (int u = blockIdx.x; u < Nt; u += gridDim.x)
-        ccd_row(c, u, threadIdx.x);
+      for (int u = blockIdx.x; u < groups; u += gridDim.x)
+        ccd_group(c, u / kRowGroups, u % kRowGroups, sh);
       grid.sync();
     }
     for (int u = blockIdx.x; u < groups; u += gridDim.x)

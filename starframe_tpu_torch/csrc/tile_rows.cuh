@@ -29,12 +29,15 @@
 // its rows (the caller's owner reduction, owner_reduce.cu, or the compound
 // frame's owner phase); K10 never runs it.
 //
-// CCD (the `kCcd` forms, cfg.ccd): `ccd_row` is K7, a bullet row's TOI
-// factor f in [0, 1] over its solve slots for this substep, one thread a
-// row; the `kCcd` forms of `project_group` and `apply_group` scale the own
-// and each window partner's pose advance by their f (a large-set static's
-// is 1), while the velocities keep full speed. f = 1 scales by an exact 1,
-// so a world with no bullet takes the same values as the non-CCD forms.
+// CCD (the `kCcd` forms, cfg.ccd): `ccd_group` is K7, a bullet row's TOI
+// factor f in [0, 1] over its solve slots for this substep, in the same
+// (row, slot) layout: each item takes its slot's factor and one thread a
+// row their minimum, in slot order; a group without a bullet, and a
+// skipped tile, write 1 without a slot's work. The `kCcd` forms of
+// `project_group` and `apply_group` scale the own and each window
+// partner's pose advance by their f (a large-set static's is 1), while the
+// velocities keep full speed. f = 1 scales by an exact 1, so a world with
+// no bullet takes the same values as the non-CCD forms.
 #pragma once
 
 #include "common.cuh"
@@ -71,77 +74,6 @@ __device__ __forceinline__ Partner partner(const float* px, const float* py,
   return p;
 }
 
-// K7: the TOI factor of row i of tile t for this substep (tiles.py
-// `_ccd_math`). Own and partner poses are integrated one substep without
-// clamping (large-set partners do not move); for each point of a solved
-// slot, the pair's closing along the frame-start normal is c0 - c1 with the
-// anchors at the substep's start and end poses, and where it would carry
-// the pair past ccd_slop of penetration the factor that lands it there is
-// taken. The row's f is the min over points and slots; 1 on a row that is
-// not a bullet and in a skipped tile.
-__device__ __forceinline__ void ccd_row(const TileCcdArgs& a, int t, int i) {
-  const size_t row = (size_t)t * kT + i;
-  if (!(a.tile_live[t] > 0.f) || !(a.blt[row] > 0.f)) {
-    a.f[row] = 1.f;
-    return;
-  }
-  const int Cs = a.Cs;
-  const size_t splane = (size_t)Cs * kT;
-  const float* sol = a.sol + (size_t)t * TS_FIELDS * splane + i;
-  const size_t sbase = (size_t)t * Cs * kT + i;
-  const float h = a.h, gx = a.gravity[0], gy = a.gravity[1];
-  const float o_px = a.px[row], o_py = a.py[row], o_an = a.an[row];
-  const float dyn = a.dynb[row];
-  // the unclamped integrated own pose
-  const float opx_t = o_px + (a.vx[row] + gx * h * dyn) * h;
-  const float opy_t = o_py + (a.vy[row] + gy * h * dyn) * h;
-  const float oa_t = o_an + a.om[row] * h;
-  const float oca0 = cosf(o_an), osa0 = sinf(o_an);
-  const float oca1 = cosf(oa_t), osa1 = sinf(oa_t);
-  float f_acc = 1.f;
-  for (int s = 0; s < Cs; ++s) {
-    const float* f = sol + (size_t)s * kT;
-    const float sm[2] = {f[TS_SM0 * splane], f[TS_SM1 * splane]};
-    if (!(sm[0] > 0.f) && !(sm[1] > 0.f)) continue;
-    const Partner p = partner(a.px, a.py, a.an, a.vx, a.vy, a.om, a.l_px,
-                              a.l_py, a.l_an, t, a.Nt,
-                              a.pidx_c[sbase + (size_t)s * kT]);
-    const float p_dyn = f[TS_PDYN * splane];
-    const float ppx_t = p.px + (p.vx + gx * h * p_dyn) * h;
-    const float ppy_t = p.py + (p.vy + gy * h * p_dyn) * h;
-    const float pa_t = p.an + p.om * h;
-    const float pca0 = cosf(p.an), psa0 = sinf(p.an);
-    const float pca1 = cosf(pa_t), psa1 = sinf(pa_t);
-    const float n_ax = f[TS_NAX * splane], n_ay = f[TS_NAY * splane];
-    // the frame-start normal, at the substep's start pose
-    const float nx0 = oca0 * n_ax - osa0 * n_ay;
-    const float ny0 = osa0 * n_ax + oca0 * n_ay;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      if (!(sm[q] > 0.f)) continue;
-      const float a_ax = f[(TS_AAX0 + q) * splane];
-      const float a_ay = f[(TS_AAY0 + q) * splane];
-      const float b_ax = f[(TS_BAX0 + q) * splane];
-      const float b_ay = f[(TS_BAY0 + q) * splane];
-      const float wax0 = o_px + (oca0 * a_ax - osa0 * a_ay);
-      const float way0 = o_py + (osa0 * a_ax + oca0 * a_ay);
-      const float wbx0 = p.px + (pca0 * b_ax - psa0 * b_ay);
-      const float wby0 = p.py + (psa0 * b_ax + pca0 * b_ay);
-      const float wax1 = opx_t + (oca1 * a_ax - osa1 * a_ay);
-      const float way1 = opy_t + (osa1 * a_ax + oca1 * a_ay);
-      const float wbx1 = ppx_t + (pca1 * b_ax - psa1 * b_ay);
-      const float wby1 = ppy_t + (psa1 * b_ax + pca1 * b_ay);
-      const float c0 = (wbx0 - wax0) * nx0 + (wby0 - way0) * ny0;
-      const float c1 = (wbx1 - wax1) * nx0 + (wby1 - way1) * ny0;
-      const float advance = c0 - c1;
-      const float allowed = fmaxf(c0, 0.f) + a.ccd_slop;
-      if (advance > allowed)
-        f_acc = fminf(f_acc, allowed / fmaxf(advance, 1e-10f));
-    }
-  }
-  a.f[row] = f_acc;
-}
-
 // applied (count-normalised, clipped) correction of a row, as its own tile
 // applies it
 __device__ __forceinline__ float applied(float d, float cnt,
@@ -156,8 +88,8 @@ constexpr int kGroupRows = 32;  // rows a block: one a lane of each warp
 constexpr int kSlotLanes = 8;   // slot items of a row at once: one a warp
 constexpr int kItemThreads = kGroupRows * kSlotLanes;  // 256
 constexpr int kRowGroups = kT / kGroupRows;  // row groups a tile
-// resident blocks an SM K8 and K9 are built for: at most 85 registers a
-// thread (uncapped, K9's compound CCD form took 102 and fit two)
+// resident blocks an SM K7, K8 and K9 are built for: at most 85 registers
+// a thread (uncapped, K9's compound CCD form took 102 and fit two)
 constexpr int kItemBlocks = 3;
 
 // One round of slot contributions of a row group, [term][slot lane][row]:
@@ -187,6 +119,99 @@ __device__ __forceinline__ void sum_round(GroupShared& sh, int s0, int Cs,
     }
   }
   __syncthreads();
+}
+
+// K7 over row group g of tile t (rows g * 32 .. g * 32 + 31), a (row,
+// slot) item a thread; every thread of the block calls it. The TOI factor
+// of a row for this substep (tiles.py `_ccd_math`): own and partner poses
+// are integrated one substep without clamping (large-set partners do not
+// move); for each point of a solved slot, the pair's closing along the
+// frame-start normal is c0 - c1 with the anchors at the substep's start
+// and end poses, and where it would carry the pair past ccd_slop of
+// penetration the factor that lands it there is taken. The row's f is the
+// min over points and slots; 1 on a row that is not a bullet and in a
+// skipped tile. Each item takes its slot's min with 1 and parks it; one
+// thread a row takes the parked factors' min with 1 in slot order. The
+// factors are non-negative and not NaN, and fminf returns one of its
+// arguments, so f is bitwise that of one thread walking the row's slots.
+__device__ __forceinline__ void ccd_group(const TileCcdArgs& a, int t, int g,
+                                          GroupShared& sh) {
+  const int r = threadIdx.x % kGroupRows, lane = threadIdx.x / kGroupRows;
+  const int i = g * kGroupRows + r;
+  const size_t row = (size_t)t * kT + i;
+  const bool bullet = a.blt[row] > 0.f;
+  // the same for the whole block: a skipped tile, or no bullet in the group
+  if (!(a.tile_live[t] > 0.f) || !__syncthreads_or(bullet)) {
+    if (lane == 0) a.f[row] = 1.f;
+    return;
+  }
+  const int Cs = a.Cs;
+  const size_t splane = (size_t)Cs * kT;
+  const float* sol = a.sol + (size_t)t * TS_FIELDS * splane + i;
+  const size_t sbase = (size_t)t * Cs * kT + i;
+  const float h = a.h, gx = a.gravity[0], gy = a.gravity[1];
+  float f_row = 1.f;  // lane 0's
+  // at least one round, so that the block meets even with no slots
+  for (int s0 = 0; s0 == 0 || s0 < Cs; s0 += kSlotLanes) {
+    const int s = s0 + lane;
+    float f_acc = 1.f;
+    const float* f = sol + (size_t)s * kT;
+    const float sm0 = bullet && s < Cs ? f[TS_SM0 * splane] : 0.f;
+    const float sm1 = bullet && s < Cs ? f[TS_SM1 * splane] : 0.f;
+    if (sm0 > 0.f || sm1 > 0.f) {
+      const float sm[2] = {sm0, sm1};
+      const float o_px = a.px[row], o_py = a.py[row], o_an = a.an[row];
+      const float dyn = a.dynb[row];
+      // the unclamped integrated own pose
+      const float opx_t = o_px + (a.vx[row] + gx * h * dyn) * h;
+      const float opy_t = o_py + (a.vy[row] + gy * h * dyn) * h;
+      const float oa_t = o_an + a.om[row] * h;
+      const float oca0 = cosf(o_an), osa0 = sinf(o_an);
+      const float oca1 = cosf(oa_t), osa1 = sinf(oa_t);
+      const Partner p = partner(a.px, a.py, a.an, a.vx, a.vy, a.om, a.l_px,
+                                a.l_py, a.l_an, t, a.Nt,
+                                a.pidx_c[sbase + (size_t)s * kT]);
+      const float p_dyn = f[TS_PDYN * splane];
+      const float ppx_t = p.px + (p.vx + gx * h * p_dyn) * h;
+      const float ppy_t = p.py + (p.vy + gy * h * p_dyn) * h;
+      const float pa_t = p.an + p.om * h;
+      const float pca0 = cosf(p.an), psa0 = sinf(p.an);
+      const float pca1 = cosf(pa_t), psa1 = sinf(pa_t);
+      const float n_ax = f[TS_NAX * splane], n_ay = f[TS_NAY * splane];
+      // the frame-start normal, at the substep's start pose
+      const float nx0 = oca0 * n_ax - osa0 * n_ay;
+      const float ny0 = osa0 * n_ax + oca0 * n_ay;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (!(sm[q] > 0.f)) continue;
+        const float a_ax = f[(TS_AAX0 + q) * splane];
+        const float a_ay = f[(TS_AAY0 + q) * splane];
+        const float b_ax = f[(TS_BAX0 + q) * splane];
+        const float b_ay = f[(TS_BAY0 + q) * splane];
+        const float wax0 = o_px + (oca0 * a_ax - osa0 * a_ay);
+        const float way0 = o_py + (osa0 * a_ax + oca0 * a_ay);
+        const float wbx0 = p.px + (pca0 * b_ax - psa0 * b_ay);
+        const float wby0 = p.py + (psa0 * b_ax + pca0 * b_ay);
+        const float wax1 = opx_t + (oca1 * a_ax - osa1 * a_ay);
+        const float way1 = opy_t + (osa1 * a_ax + oca1 * a_ay);
+        const float wbx1 = ppx_t + (pca1 * b_ax - psa1 * b_ay);
+        const float wby1 = ppy_t + (psa1 * b_ax + pca1 * b_ay);
+        const float c0 = (wbx0 - wax0) * nx0 + (wby0 - way0) * ny0;
+        const float c1 = (wbx1 - wax1) * nx0 + (wby1 - way1) * ny0;
+        const float advance = c0 - c1;
+        const float allowed = fmaxf(c0, 0.f) + a.ccd_slop;
+        if (advance > allowed)
+          f_acc = fminf(f_acc, allowed / fmaxf(advance, 1e-10f));
+      }
+    }
+    sh.part[0][lane][r] = f_acc;
+    __syncthreads();
+    if (lane == 0)
+      for (int j = 0; j < kSlotLanes && s0 + j < Cs; ++j)
+        f_row = fminf(f_row, sh.part[0][j][r]);
+    __syncthreads();
+  }
+  if (lane == 0) a.f[row] = f_row;
 }
 
 // The own-row terms of the project phase: each item that solves a slot

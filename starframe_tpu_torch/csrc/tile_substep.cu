@@ -20,8 +20,9 @@
 // factor f, and a non-null `f` in the project and apply arguments runs
 // their `kCcd` forms, which scale the pose advance by it. K7 reads what
 // K8 reads of a row (its solve slots' masks, anchors and normal, the
-// window state) and writes one float a row: one thread per row, 64 a
-// block.
+// window state) and writes one float a row, in K8's (row, slot) layout
+// (`ccd_group`): each slot's chain of partner loads and four sincos runs
+// beside the row's others, where a thread a row walked them in series.
 //
 // What bounds it on an H100: bytes. Each launch reads the solve tables
 // (22 floats x Cs slots a row, of which a slot with no solve mask reads 2:
@@ -47,8 +48,6 @@
 
 namespace {
 
-constexpr int kRows = 64;  // K7: rows (threads) per block
-
 template <bool kCcd>
 __global__ void __launch_bounds__(kItemThreads, kItemBlocks) tile_project_kernel(
     TileProjectArgs a) {
@@ -63,9 +62,10 @@ __global__ void __launch_bounds__(kItemThreads, kItemBlocks) tile_apply_kernel(
   apply_group<kCompound, kCcd>(a, blockIdx.y, blockIdx.x, sh);
 }
 
-__global__ void __launch_bounds__(kRows) tile_ccd_kernel(TileCcdArgs a) {
-  const int t = blockIdx.y, i = blockIdx.x * kRows + threadIdx.x;
-  if (i < kT) ccd_row(a, t, i);
+__global__ void __launch_bounds__(kItemThreads, kItemBlocks) tile_ccd_kernel(
+    TileCcdArgs a) {
+  __shared__ GroupShared sh;
+  ccd_group(a, blockIdx.y, blockIdx.x, sh);
 }
 
 template <bool kCompound>
@@ -128,9 +128,18 @@ extern "C" int sf_tile_substep_blocks_per_sm(int apply, int compound,
   return blocks;
 }
 
+// Resident blocks of K7 an SM (256 threads); -1 if the query fails.
+extern "C" int sf_tile_ccd_blocks_per_sm() {
+  int blocks = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks, tile_ccd_kernel, kItemThreads, 0) == cudaSuccess
+             ? blocks
+             : -1;
+}
+
 extern "C" int sf_tile_ccd(const TileCcdArgs* a, void* stream) {
-  const dim3 grid(kT / kRows, a->Nt);
+  const dim3 grid(kRowGroups, a->Nt);
   if (a->Nt > 0)
-    tile_ccd_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(*a);
+    tile_ccd_kernel<<<grid, kItemThreads, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

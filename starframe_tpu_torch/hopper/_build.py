@@ -329,6 +329,9 @@ def library() -> ctypes.CDLL:
                  "sf_tile_compound_frame_blocks_per_sm"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
+    for name in ("sf_tile_tables_blocks_per_sm", "sf_tile_ccd_blocks_per_sm"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     lib.sf_tile_manifold_shared_bytes.argtypes = [ctypes.c_int] * 3
     lib.sf_tile_manifold_shared_bytes.restype = ctypes.c_longlong
     lib.sf_tile_manifold_blocks_per_sm.argtypes = [ctypes.c_int] * 3

@@ -269,12 +269,16 @@ def build_tile_tables(state, consts, large, edge_lo, edge_hi, gravity, *,
     window's sort-axis coverage (``edge_lo``/``edge_hi`` ``[Nt]``) offers;
     ``winover`` flags rows whose margin box already escapes it. With
     ``sweep_frames = K > 1`` the sweep is the K-frame symmetric speed
-    budget ``min((|v| + |g| dt + slack) K dt + floor ext, cap ext)``."""
+    budget ``min((|v| + |g| dt + slack) K dt + floor ext, cap ext)``.
+    Fewer than 3 tiles (``WIN``, the window) raise ``ValueError``."""
     dev = state["px"].device
     V = consts["vlx"].shape[1]
     Nt = _check_tiles(state, consts, large,
                       ("rad", "act", "mov", "lay", "msk", "obody", "responds",
                        "sen", "vlx", "vly"), dev, V)
+    if Nt < WIN:  # the JAX package's tile layout refuses them too
+        raise ValueError(f"tile tables need >= {WIN} tiles (a window of "
+                         f"{WIN}), got {Nt}")
     for name, t, shape in (("edge_lo", edge_lo, (Nt,)),
                            ("edge_hi", edge_hi, (Nt,)),
                            ("gravity", gravity, (2,))):

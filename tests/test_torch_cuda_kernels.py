@@ -557,7 +557,7 @@ def test_frame_kernel_with_joints_and_ccd_matches_twin(jointed, name):
         assert bool((err <= 1e-3 * speed).all()), (err / speed).max()
 
 
-# ---- the tile engine (K5, K6, K8, K9) ---------------------------------------
+# ---- the tile engine (K5, K6, K7, K8, K9) -----------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -582,20 +582,118 @@ def tile_layout():
     return cfg, state, consts, large, edges, g, tables
 
 
-@pytest.mark.parametrize("K", [1, 8])
-def test_tile_tables_kernel_matches_twin(tile_layout, K):
-    cfg, state, consts, large, edges, g, _ = tile_layout
-    kw = dict(C=16, margin=cfg.contact_margin, dt=cfg.dt, sweep_frames=K,
-              sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+def _tables_match_twin(args, **kw):
+    """K5 against its twin on ``args``: one launch, the integer outputs
+    equal, the sweep to 1e-6. Returns the kernel's outputs."""
     n0 = hopper.build_tile_tables.launches
-    got = hopper.build_tile_tables(state, consts, large, *edges, g, **kw)
+    got = hopper.build_tile_tables(*args, **kw)
     assert hopper.build_tile_tables.launches == n0 + 1
-    ref = hopper.build_tile_tables(state, consts, large, *edges, g, **kw,
-                                   plain=True)
+    ref = hopper.build_tile_tables(*args, **kw, plain=True)
     for a, b in zip(got[:6], ref[:6]):
         assert torch.equal(a, b)
     torch.testing.assert_close(got[6], ref[6], rtol=0, atol=1e-6)
+    return got
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_tile_tables_kernel_matches_twin(tile_layout, K):
+    cfg, state, consts, large, edges, g, _ = tile_layout
+    got = _tables_match_twin(
+        (state, consts, large, *edges, g), C=16, margin=cfg.contact_margin,
+        dt=cfg.dt, sweep_frames=K, sweep_floor=cfg.tile_sweep_floor,
+        sweep_cap=cfg.tile_sweep_cap)
     assert int(got[3].sum()) > 1000, "few touching candidates: vacuous"
+
+
+def test_tile_tables_kernel_overflows_every_tier(tile_layout):
+    """K5 at C = 32, its widest, with tile 3's rows packed into a 16 x 16
+    grid 0.1 m apart (each touches far more than 32 others) and sweeps of
+    8 extents (elsewhere a row sees more than 32 swept-only candidates):
+    rows past C in the touch tier and in the swept tier."""
+    from starframe_tpu_torch import tiled
+
+    cfg, state, consts, large, _, g, _ = tile_layout
+    k = torch.arange(256, device="cuda")
+    px, py = state["px"].clone(), state["py"].clone()
+    px[3] = px[3].mean() + 0.1 * (k % 16)
+    py[3] = py[3].mean() + 0.1 * (k // 16)
+    dense = dict(state, px=px, py=py)
+    edges = tiled._edge_rows(dense, consts, cfg)[:2]
+    count, touch, close = _tables_match_twin(
+        (dense, consts, large, *edges, g), C=32, margin=cfg.contact_margin,
+        dt=cfg.dt, sweep_frames=8, sweep_floor=8.0, sweep_cap=10.0)[2:5]
+    assert int((touch > 32).sum()) > 100, "no touch tier past C: vacuous"
+    assert int(((close < 32) & (count > 32)).sum()) > 100, (
+        "no swept tier past C: vacuous")
+
+
+def test_tile_tables_kernel_with_sensors_and_layers(tile_layout):
+    """K5 with every fifth row a moving sensor that does not respond (a row
+    of its own, a candidate of the others) and every third row on layer 3,
+    which every seventh row's mask leaves out, so both layer tests cut
+    pairs."""
+    cfg, state, consts, large, edges, g, _ = tile_layout
+    rows = torch.arange(state["px"].numel(), device="cuda").reshape(
+        state["px"].shape)
+    fifth = rows % 5 == 0
+    masked = dict(
+        consts, sen=torch.where(fifth, 1.0, consts["sen"]),
+        responds=torch.where(fifth, 0.0, consts["responds"]),
+        lay=torch.where(rows % 3 == 0, 3, consts["lay"]).to(torch.int32),
+        msk=torch.where(rows % 7 == 0, consts["msk"] & ~(1 << 3),
+                        consts["msk"]).to(torch.int32))
+    kw = dict(C=16, margin=cfg.contact_margin, dt=cfg.dt, sweep_frames=8,
+              sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+    got = _tables_match_twin((state, masked, large, *edges, g), **kw)
+    plain = hopper.build_tile_tables(state, consts, large, *edges, g, **kw)
+    assert not torch.equal(got[2], plain[2]), "nothing cut: vacuous"
+    sensors = fifth & (consts["mov"] > 0)
+    assert int(got[2][sensors].sum()) > 100, "sensor rows empty: vacuous"
+
+
+@pytest.mark.parametrize("K", [1, 8])
+def test_tile_tables_kernel_on_three_tiles(K):
+    """K5 on ``pile(n_bodies=765)``, 768 rows in 3 tiles, the fewest the
+    tile engine takes (the JAX package's too): every tile's window is the
+    whole world, clamped at both ends (tile 0 first in its window, tile 2
+    last)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from starframe_tpu_torch import tiled
+    from starframe_tpu_torch.scenes import pile
+
+    sc = pile(n_bodies=765, sleep=False, device="cuda")
+    cfg = sc.config
+    w, _ = tiled.tiled_rollout(sc.world, cfg, 30)
+    state, consts, large, _, _ = tiled._enter_tiles(w, cfg)
+    assert state["px"].shape[0] == 3
+    edges = tiled._edge_rows(state, consts, cfg)[:2]
+    got = _tables_match_twin(
+        (state, consts, large, *edges, w.gravity.contiguous()), C=16,
+        margin=cfg.contact_margin, dt=cfg.dt, sweep_frames=K,
+        sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)
+    assert bool((got[3] > 0).any(dim=1).all()), "a tile without contacts"
+
+
+def test_tile_tables_kernel_on_compound_rows(compound_layout):
+    """K5 on the compound pile's rows at its C = 24: equal to its twin, and
+    no active slot pairs two rows of one body."""
+    from starframe_tpu_torch.hopper.tiles import T, WIN, win_start
+
+    c = compound_layout
+    cfg, consts = c["cfg"], c["consts"]
+    pidx, act = _tables_match_twin(
+        (c["state"], consts, c["large"], *c["edges"], c["g"]), C=24,
+        margin=cfg.contact_margin, dt=cfg.dt, sweep_frames=8,
+        sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap)[:2]
+    ob = consts["obody"].reshape(-1)
+    assert int((ob[1:] == ob[:-1]).sum()) > 500, "few siblings: vacuous"
+    row = (win_start(pidx.shape[0], "cuda")[:, None, None] * T
+           + torch.clamp(pidx.long(), max=WIN * T - 1))
+    partner_ob = torch.where(pidx < WIN * T, ob[row], -1)
+    assert int(((act > 0) & (partner_ob == consts["obody"][:, None]))
+               .sum()) == 0
+    assert int((act > 0).sum()) > 1000, "few slots: vacuous"
 
 
 @pytest.mark.parametrize("case", ["awake", "waking_dead_tile"])
@@ -891,6 +989,35 @@ def test_tile_ccd_kernel_matches_twin(bullet_tiles, frame_inputs):
     assert bool((got[1] == 1.0).all())
 
 
+@pytest.mark.parametrize("Cs", [8, 16])
+def test_tile_ccd_kernel_on_partial_bullets(tile_layout, Cs):
+    """K7 against its twin, ``f`` equal, with every other dynamic row a
+    bullet (the rest take 1), tile 2 skipped and each row's vertical speed
+    moved by up to 10 m/s (so that many pairs close fast and clamp), on
+    solve tables of Cs = 8 of the C = 16 table slots (one round of 8 slot
+    lanes) and of Cs = 16 (two rounds)."""
+    cfg, state, consts, large, _, g, tables = tile_layout
+    live = torch.ones(state["px"].shape[0], device="cuda")
+    live[2] = 0.0
+    sol, pidx_c = hopper.tile_manifold(state, consts, large, *tables[:2],
+                                       live, Cs=Cs, margin=cfg.contact_margin,
+                                       dt=cfg.dt)[:2]
+    rows = torch.arange(state["px"].numel(), device="cuda").reshape(
+        state["px"].shape)
+    blt = ((consts["invm"] > 0) & (rows % 2 == 0)).float()
+    vy = state["vy"] + 10.0 * torch.sin(1.7 * rows)
+    args = (dict(state, vy=vy), dict(consts, blt=blt), large, pidx_c, sol, g,
+            live)
+    h = cfg.dt / cfg.substeps
+    n0 = hopper.tile_ccd.launches
+    got = hopper.tile_ccd(*args, h=h, ccd_slop=cfg.ccd_slop)
+    assert hopper.tile_ccd.launches == n0 + 1
+    ref = hopper.tile_ccd(*args, h=h, ccd_slop=cfg.ccd_slop, plain=True)
+    assert torch.equal(got, ref)
+    assert bool((got[blt == 0] == 1.0).all()) and bool((got[2] == 1.0).all())
+    assert int((got < 1.0).sum()) > 100, "few rows clamp: vacuous"
+
+
 def test_tile_substep_ccd_kernels_match_twins(bullet_tiles):
     """K8's and K9's CCD forms on K7's factors against their twins:
     ``touched`` equal, the rest to 1e-6 and the state to 1e-5 (as the
@@ -1107,8 +1234,8 @@ def compound_layout():
         state, consts, large, pidx_c, sol, g, torch.zeros_like(sol[:, 0]),
         live, h=h, compliance=cfg.contact_compliance)
     return dict(sc=sc, cfg=cfg, state=state, consts=consts, large=large,
-                g=g, live=live, sol=sol, pidx_c=pidx_c, corr=corr, lam=lam,
-                h=h, ob=consts["obody"].reshape(-1))
+                edges=edges, g=g, live=live, sol=sol, pidx_c=pidx_c,
+                corr=corr, lam=lam, h=h, ob=consts["obody"].reshape(-1))
 
 
 def test_owner_kernels_equal_twins_bitwise(compound_layout):

@@ -184,6 +184,22 @@ def test_tile_tables_twin_matches_jax(layouts, K):
         assert int((tout[2] > 8).sum()) > 0, "no row past 8 slots: vacuous"
 
 
+@pytest.mark.parametrize("n_tiles", [1, 2])
+def test_tile_tables_refuse_under_three_tiles(layouts, n_tiles):
+    """A tile's window is three tiles, and the JAX package's tile layout
+    refuses fewer: so do the port's tables, before the kernel or its twin
+    would read past the last row."""
+    _, t = layouts
+    cut = {k: {n: v[:n_tiles] for n, v in t[k].items()}
+           for k in ("state", "consts")}
+    cfg = t["cfg"]
+    with pytest.raises(ValueError, match="3 tiles"):
+        hopper.build_tile_tables(
+            cut["state"], cut["consts"], t["large"],
+            *(e[:n_tiles] for e in t["edges"]), torch.tensor([0.0, -9.81]),
+            C=16, margin=cfg.contact_margin, dt=cfg.dt)
+
+
 @functools.partial(jax.jit, static_argnames=("sleep_velocity",))
 def _jax_manifold(state, kc, large, pidx, act, tile_live, sleep_velocity):
     """``pallas/tiles.py``'s manifold kernel as ``run_tiled_frame`` calls

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K6-K10, every form, alone, for one or more checkouts, in turns on one
+"""K5-K10, every form, alone, for one or more checkouts, in turns on one
 card.
 
     python3 tools/tile_substep_times.py ROOT [ROOT ...] [--rounds 2]
@@ -17,9 +17,11 @@ compound pile's final state, 79 tiles), printing at each the share of K6's
 (row, table slot) items with ``act > 0`` and of its warps that are empty.
 Then every root, each in a process of its own and in turns (ABBA for two,
 ``--rounds`` times: ``tools/frame2_times.py`` ``run_turns``), runs on
-those same inputs: K6 (``tile_manifold``) plain and keyed, compacted and
-at Cs = C; K8 (``tile_project``) and its CCD form; K9 (``tile_apply``),
-its CCD form, its compound form and the compound CCD form; K7 and the
+those same inputs: K5 (``build_tile_tables`` on the frame's layout, its
+window edges and the scene's table width) at ``sweep_frames`` 1 and 8;
+K6 (``tile_manifold``) plain and keyed, compacted and at Cs = C; K8
+(``tile_project``) and its CCD form; K9 (``tile_apply``), its CCD form,
+its compound form and the compound CCD form; K7 and the
 owner kernels; K10 (``tile_frame``) plain and CCD; and one compound frame
 (``tile_frame`` with ``owner`` where the root has it, else
 ``substep_loop`` over the owner kernels, which is the same computation),
@@ -111,9 +113,16 @@ def make_states(root: str, out: str) -> int:
               f"have act > 0; {100 * warps:.2f}% of its warps are empty, "
               "skipped whole under compaction",
               flush=True)
+        cfg = sc.config
+        tkw = dict(C=tiled._table_cap(cfg), margin=cfg.contact_margin,
+                   dt=cfg.dt, sort_axis=0 if cfg.tile_sort_axis == "x" else 1,
+                   sweep_slack=cfg.broadphase_speed_slack,
+                   sweep_floor=cfg.tile_sweep_floor,
+                   sweep_cap=cfg.tile_sweep_cap)
         saved[name] = dict(args=args, kw=kw, margs=margs, mkw=mkw,
-                           keyed=keyed, kc=sc.config.max_colliders_per_body,
-                           ccd_slop=sc.config.ccd_slop)
+                           keyed=keyed, tkw=tkw,
+                           kc=cfg.max_colliders_per_body,
+                           ccd_slop=cfg.ccd_slop)
     torch.save(saved, out)
     return 0
 
@@ -148,7 +157,12 @@ def _entries(hopper, ph):
 
     margs, mkw, keyed = ph["margs"], ph["mkw"], ph["keyed"]
     full = dict(mkw, Cs=margs[3].shape[1])  # no compaction: Cs = C
-    e = {"K6": lambda: hopper.tile_manifold(*margs, **mkw),
+    targs = (state, consts, large, consts["edge_lo"], consts["edge_hi"], g)
+    e = {"K5": lambda: hopper.build_tile_tables(*targs, **ph["tkw"],
+                                                sweep_frames=1),
+         "K5_sweep8": lambda: hopper.build_tile_tables(*targs, **ph["tkw"],
+                                                       sweep_frames=8),
+         "K6": lambda: hopper.tile_manifold(*margs, **mkw),
          "K6_keys": lambda: hopper.tile_manifold(*margs, **mkw, **keyed),
          "K6_full": lambda: hopper.tile_manifold(*margs, **full),
          "K6_full_keys": lambda: hopper.tile_manifold(*margs, **full,

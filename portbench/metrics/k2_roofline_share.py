@@ -1,0 +1,8 @@
+"""K2's roofline share: the least time of its counted work
+(``roofline/k2.py``) over its device time in the traced episodes."""
+
+from harness.roofline import share
+
+
+def read(ctx):
+    return share(ctx, "k2")

@@ -1,0 +1,10 @@
+"""The benchmark's own tests (CPU): ``python -m pytest portbench/tests -q``
+from the checkout's root."""
+
+import sys
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parents[1]
+for p in (str(BENCH.parent), str(BENCH)):
+    if p not in sys.path:
+        sys.path.insert(0, p)

@@ -39,6 +39,7 @@ from .hopper.frame2 import (
     run_frame2,
 )
 from .hopper.slots import build_elig_mask, build_joint_slots, build_slot_tables
+from .spans import span
 from .state import (
     BODY_BULLET,
     BODY_KINEMATIC,
@@ -338,65 +339,69 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
     broadphase, ``owners`` (from :func:`frame2_owners`) to reuse the
     collider -> body lists, and ``joint_slots`` (from
     :func:`frame2_joint_slots`) to reuse the joint slots."""
-    _require_slice(worlds, cfg)
-    body, col = _frame2_arrays(worlds, cfg)
-    if tables is None:
-        tables = frame2_tables(worlds, cfg, plain=plain)
-    if owners is None:
-        owners = frame2_owners(worlds, cfg)
-    csr, owner_overflow = owners
-    partner, slot_act, count, count_touch, count_close = tables
-    W = body["posx"].shape[0]
-    gravity = worlds.gravity.expand(W, 2).contiguous()
-    zero = torch.zeros((), dtype=torch.int32, device=gravity.device)
-    joints, joint_overflow = None, zero
-    if worlds.joints.j > 0:
-        if joint_slots is None:
-            joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
-        joints, joint_overflow = _frame2_joints(worlds, cfg, joint_slots)
-    Cs = _batch_solve_cap(cfg)
-    outs = run_frame2(
-        body["posx"], body["posy"], body["ang"],
-        body["velx"], body["vely"], body["angvel"],
-        body["invm"], body["invi"], body["dyn"], body["kin"],
-        col["cbody"], col["vlx"], col["vly"], col["nverts"], col["radius"],
-        col["fric"], col["rest"], col["sensor"], partner, slot_act, gravity,
-        C=cfg.slot_capacity, substeps=cfg.substeps,
-        iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
-        margin=cfg.contact_margin, compliance=cfg.contact_compliance,
-        relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
-        rest_threshold=cfg.restitution_threshold,
-        lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-        owners=csr, joints=joints, JC=cfg.joint_slot_capacity,
-        joint_solver=cfg.joint_solver, n_colors=cfg.max_joint_colors,
-        # joints are constraint upkeep: the raw clip, not max_dpos_eff
-        max_dpos_joint=cfg.max_dpos, bullet=body["bullet"], ccd=cfg.ccd,
-        ccd_slop=cfg.ccd_slop, Cs=Cs, plain=plain)
-    posx, posy, ang, velx, vely, angvel, touched = outs[:7]
-    solve_overflow = solve_dropped = zero
-    if Cs:
-        # `partner` downstream (wake rows, event keys) is the table
-        # `touched` indexes; the counts give the solve counters
-        partner, nact = outs[7], outs[8]
-        solve_overflow = torch.clamp(nact[:, 0] - Cs, min=0).sum().to(
-            torch.int32)
-        solve_dropped = torch.clamp(nact[:, 1] - Cs, min=0).sum().to(
-            torch.int32) - solve_overflow
-    b = worlds.bodies
-    vel = torch.stack([velx, vely], dim=-1)
-    sleep_count = b.sleep_count
-    if cfg.sleep_velocity > 0.0:
-        sleep_count, vel, angvel = _sleep_update(worlds, cfg, vel, angvel,
-                                                 touched, partner)
-    new_bodies = dataclasses.replace(
-        b, pos=torch.stack([posx, posy], dim=-1), angle=ang, vel=vel,
-        ang_vel=angvel, prev_pos=b.pos, prev_angle=b.angle,
-        sleep_count=sleep_count)
-    new_worlds = dataclasses.replace(
-        worlds, bodies=new_bodies, step_count=worlds.step_count + 1)
-    aux = dict(joint_overflow=joint_overflow, owner_overflow=owner_overflow,
-               solve_overflow=solve_overflow, solve_dropped=solve_dropped)
-    return new_worlds, touched, partner, (count, count_touch, count_close), aux
+    with span("starframe.frame"):
+        _require_slice(worlds, cfg)
+        body, col = _frame2_arrays(worlds, cfg)
+        if tables is None:
+            tables = frame2_tables(worlds, cfg, plain=plain)
+        if owners is None:
+            owners = frame2_owners(worlds, cfg)
+        csr, owner_overflow = owners
+        partner, slot_act, count, count_touch, count_close = tables
+        W = body["posx"].shape[0]
+        gravity = worlds.gravity.expand(W, 2).contiguous()
+        zero = torch.zeros((), dtype=torch.int32, device=gravity.device)
+        joints, joint_overflow = None, zero
+        if worlds.joints.j > 0:
+            if joint_slots is None:
+                joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
+            joints, joint_overflow = _frame2_joints(worlds, cfg, joint_slots)
+        Cs = _batch_solve_cap(cfg)
+        outs = run_frame2(
+            body["posx"], body["posy"], body["ang"],
+            body["velx"], body["vely"], body["angvel"],
+            body["invm"], body["invi"], body["dyn"], body["kin"],
+            col["cbody"], col["vlx"], col["vly"], col["nverts"],
+            col["radius"], col["fric"], col["rest"], col["sensor"], partner,
+            slot_act, gravity,
+            C=cfg.slot_capacity, substeps=cfg.substeps,
+            iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
+            margin=cfg.contact_margin, compliance=cfg.contact_compliance,
+            relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+            rest_threshold=cfg.restitution_threshold,
+            lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
+            owners=csr, joints=joints, JC=cfg.joint_slot_capacity,
+            joint_solver=cfg.joint_solver, n_colors=cfg.max_joint_colors,
+            # joints are constraint upkeep: the raw clip, not max_dpos_eff
+            max_dpos_joint=cfg.max_dpos, bullet=body["bullet"], ccd=cfg.ccd,
+            ccd_slop=cfg.ccd_slop, Cs=Cs, plain=plain)
+        posx, posy, ang, velx, vely, angvel, touched = outs[:7]
+        solve_overflow = solve_dropped = zero
+        if Cs:
+            # `partner` downstream (wake rows, event keys) is the table
+            # `touched` indexes; the counts give the solve counters
+            partner, nact = outs[7], outs[8]
+            solve_overflow = torch.clamp(nact[:, 0] - Cs, min=0).sum().to(
+                torch.int32)
+            solve_dropped = torch.clamp(nact[:, 1] - Cs, min=0).sum().to(
+                torch.int32) - solve_overflow
+        b = worlds.bodies
+        vel = torch.stack([velx, vely], dim=-1)
+        sleep_count = b.sleep_count
+        if cfg.sleep_velocity > 0.0:
+            sleep_count, vel, angvel = _sleep_update(
+                worlds, cfg, vel, angvel, touched, partner)
+        new_bodies = dataclasses.replace(
+            b, pos=torch.stack([posx, posy], dim=-1), angle=ang, vel=vel,
+            ang_vel=angvel, prev_pos=b.pos, prev_angle=b.angle,
+            sleep_count=sleep_count)
+        new_worlds = dataclasses.replace(
+            worlds, bodies=new_bodies, step_count=worlds.step_count + 1)
+        aux = dict(joint_overflow=joint_overflow,
+                   owner_overflow=owner_overflow,
+                   solve_overflow=solve_overflow, solve_dropped=solve_dropped)
+        counts = (count, count_touch, count_close)
+        return new_worlds, touched, partner, counts, aux
 
 
 def _frame_diag(C, counts):
@@ -483,88 +488,100 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
     its sweep budget. The guard's verdict is read on the host: one host
     round trip per frame that is not already a scheduled rebuild (counted
     in the module's ``host_syncs``). K = 1 builds fresh tables every frame
-    with no guard and no round trip.
+    with no guard and no round trip. Under a ``torch.profiler`` the call
+    records its ``starframe.*`` spans (:mod:`.spans`).
     """
     global host_syncs
-    _require_slice(worlds, cfg)
-    if record is None:
-        record = lambda w: (w.bodies.pos, w.bodies.angle)  # noqa: E731
-    C = cfg.slot_capacity
-    K = max(cfg.frames_per_broadphase, 1)
-    M = worlds.colliders.m
-    dev = worlds.bodies.pos.device
-    neg = torch.tensor(-(2 ** 31), dtype=torch.int32, device=dev)
-    ovf = marg = spec = neg
-    rebuilds = 0
-    # INVARIANT: the eligibility mask, the collider -> body owner lists and
-    # the joint slots depend only on flags and topology, which nothing
-    # inside a rollout changes, so they are built once
-    elig = frame2_elig(worlds, cfg, plain=plain)
-    owners = frame2_owners(worlds, cfg)
-    joint_slots = (frame2_joint_slots(worlds, cfg, plain=plain)
-                   if worlds.joints.j > 0 else None)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    jovf = sovf = sdrp = zero
+    with span("starframe.rollout"):
+        _require_slice(worlds, cfg)
+        if record is None:
+            record = lambda w: (w.bodies.pos, w.bodies.angle)  # noqa: E731
+        C = cfg.slot_capacity
+        K = max(cfg.frames_per_broadphase, 1)
+        M = worlds.colliders.m
+        dev = worlds.bodies.pos.device
+        neg = torch.tensor(-(2 ** 31), dtype=torch.int32, device=dev)
+        ovf = marg = spec = neg
+        rebuilds = 0
+        # INVARIANT: the eligibility mask, the collider -> body owner lists
+        # and the joint slots depend only on flags and topology, which
+        # nothing inside a rollout changes, so they are built once
+        with span("starframe.setup"):
+            elig = frame2_elig(worlds, cfg, plain=plain)
+            owners = frame2_owners(worlds, cfg)
+            joint_slots = (frame2_joint_slots(worlds, cfg, plain=plain)
+                           if worlds.joints.j > 0 else None)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        jovf = sovf = sdrp = zero
 
-    def build(w):
-        # per-body position budget: the min over the body's active
-        # colliders of the inflation each collider's tables were built with
-        tables, budget_col = frame2_tables(
-            w, cfg, frames=K, return_budget=True, elig=elig, plain=plain)
-        act = (w.colliders.flags & COL_ACTIVE) != 0
-        big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
-        bc = torch.where(act, budget_col, big)
-        budget = torch.full(w.bodies.inv_mass.shape, 3.0e38,
-                            dtype=torch.float32, device=dev)
-        budget = budget.scatter_reduce(1, w.colliders.body_idx.long(), bc,
-                                       reduce="amin", include_self=True)
-        return tables, w.bodies.pos, budget
+        def build(w):
+            # per-body position budget: the min over the body's active
+            # colliders of the inflation each collider's tables were built
+            # with
+            with span("starframe.tables"):
+                tables, budget_col = frame2_tables(
+                    w, cfg, frames=K, return_budget=True, elig=elig,
+                    plain=plain)
+                act = (w.colliders.flags & COL_ACTIVE) != 0
+                big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
+                bc = torch.where(act, budget_col, big)
+                budget = torch.full(w.bodies.inv_mass.shape, 3.0e38,
+                                    dtype=torch.float32, device=dev)
+                budget = budget.scatter_reduce(
+                    1, w.colliders.body_idx.long(), bc, reduce="amin",
+                    include_self=True)
+            return tables, w.bodies.pos, budget
 
-    w = worlds
-    traj = []
-    if K > 1:
-        tables, pos0, sweep = build(w)
-        age = 1 % K
-    for _ in range(n_frames):
-        if K == 1:
-            tables = frame2_tables(w, cfg, frames=1, elig=elig, plain=plain)
-        else:
-            viol = False
-            if age != 0:
-                b = w.bodies
-                # positional staleness guard: each dynamic body must stay
-                # inside its build-time swept box through the COMING frame
-                disp = torch.abs(b.pos - pos0).amax(dim=-1)
-                motion = (torch.sqrt(torch.sum(b.vel ** 2, dim=-1))
-                          + _gmag(w) * cfg.dt) * cfg.dt
-                esc = disp + motion > sweep + 1e-5
-                viol = bool(torch.any(esc & (b.inv_mass > 0)))
-                host_syncs += 1
-            if age == 0 or viol:
-                tables, pos0, sweep = build(w)
-            rebuilds += int(viol)
-            age = (1 if (age == 0 or viol) else age + 1) % K
-        w, touched, partner, counts, aux = frame2_step(
-            w, cfg, tables=tables, owners=owners, joint_slots=joint_slots,
-            plain=plain)
-        jovf = torch.maximum(jovf, aux["joint_overflow"])
-        sovf = torch.maximum(sovf, aux["solve_overflow"])
-        sdrp = torch.maximum(sdrp, aux["solve_dropped"])
-        hard, m_, s_ = _frame_diag(C, counts)
-        ovf = torch.maximum(ovf, hard)
-        marg = torch.maximum(marg, m_)
-        spec = torch.maximum(spec, s_)
-        rec = record(w)
-        if with_keys:
-            rec = (rec, touching_keys_from_slots(touched, partner, M))
-        traj.append(rec)
-    diag = dict(slot_overflow=ovf.clamp(min=0), margin_dropped=marg.clamp(min=0),
-                spec_dropped=spec.clamp(min=0), joint_overflow=jovf,
-                forced_rebuilds=torch.tensor(rebuilds, dtype=torch.int32,
-                                             device=dev),
-                solve_overflow=sovf, solve_dropped=sdrp,
-                owner_overflow=owners[1])
-    return w, (_stack_records(traj) if traj else None), diag
+        w = worlds
+        traj = []
+        if K > 1:
+            tables, pos0, sweep = build(w)
+            age = 1 % K
+        for _ in range(n_frames):
+            if K == 1:
+                with span("starframe.tables"):
+                    tables = frame2_tables(w, cfg, frames=1, elig=elig,
+                                           plain=plain)
+            else:
+                viol = False
+                if age != 0:
+                    with span("starframe.guard"):
+                        b = w.bodies
+                        # positional staleness guard: each dynamic body must
+                        # stay inside its build-time swept box through the
+                        # COMING frame
+                        disp = torch.abs(b.pos - pos0).amax(dim=-1)
+                        motion = (torch.sqrt(torch.sum(b.vel ** 2, dim=-1))
+                                  + _gmag(w) * cfg.dt) * cfg.dt
+                        esc = disp + motion > sweep + 1e-5
+                        viol = bool(torch.any(esc & (b.inv_mass > 0)))
+                    host_syncs += 1
+                if age == 0 or viol:
+                    tables, pos0, sweep = build(w)
+                rebuilds += int(viol)
+                age = (1 if (age == 0 or viol) else age + 1) % K
+            w, touched, partner, counts, aux = frame2_step(
+                w, cfg, tables=tables, owners=owners, joint_slots=joint_slots,
+                plain=plain)
+            jovf = torch.maximum(jovf, aux["joint_overflow"])
+            sovf = torch.maximum(sovf, aux["solve_overflow"])
+            sdrp = torch.maximum(sdrp, aux["solve_dropped"])
+            hard, m_, s_ = _frame_diag(C, counts)
+            ovf = torch.maximum(ovf, hard)
+            marg = torch.maximum(marg, m_)
+            spec = torch.maximum(spec, s_)
+            rec = record(w)
+            if with_keys:
+                rec = (rec, touching_keys_from_slots(touched, partner, M))
+            traj.append(rec)
+        diag = dict(slot_overflow=ovf.clamp(min=0),
+                    margin_dropped=marg.clamp(min=0),
+                    spec_dropped=spec.clamp(min=0), joint_overflow=jovf,
+                    forced_rebuilds=torch.tensor(rebuilds, dtype=torch.int32,
+                                                 device=dev),
+                    solve_overflow=sovf, solve_dropped=sdrp,
+                    owner_overflow=owners[1])
+        return w, (_stack_records(traj) if traj else None), diag
 
 
 def make_batched_rollout(cfg: SolverConfig, max_pairs: int, n_frames: int,

@@ -32,7 +32,8 @@ advances by its earliest row's clamp (``hopper.owner_min``).
   sort is safe) fires; the slot tables are rebuilt early when a row leaves
   its sweep budget. The guard's verdicts, and with sleep on whether
   anything is awake and whether the layout is partitioned, are read in
-  one host sync per frame, counted in :data:`host_syncs`.
+  one host sync per frame, counted in :data:`host_syncs`. Under a
+  ``torch.profiler`` it records its ``starframe.*`` spans (``spans.py``).
 
 Sleep (``cfg.sleep_velocity > 0``) is the JAX package's: a body whose
 speed stays under ``sleep_velocity`` for ``sleep_frames`` frames is frozen
@@ -77,6 +78,7 @@ from .hopper.tiles import (
     run_tiled_frame,
     win_start,
 )
+from .spans import NULL, span
 from .state import BODY_BULLET, BODY_KINEMATIC, COL_ACTIVE, COL_SENSOR, World
 
 f32 = torch.float32
@@ -682,32 +684,34 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
 
     def build(state, consts, edges):
         """K-frame slot tables + the positional-guard budget."""
-        edge_lo, edge_hi = edges
-        (pidx, act, count, count_touch, count_close, winover,
-         sweep) = build_tile_tables(
-            state, consts, large, edge_lo, edge_hi, g, C=Cs,
-            margin=cfg.contact_margin, dt=cfg.dt,
-            sort_axis=0 if cfg.tile_sort_axis == "x" else 1,
-            sweep_frames=K, sweep_slack=cfg.broadphase_speed_slack,
-            sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap,
-            plain=plain)
-        pos0 = {"px": state["px"], "py": state["py"]}
-        if sleep_on:
-            # sleepers are frozen, so they need no settle-jitter floor; a
-            # woken body on this tight budget escapes its guard within a
-            # frame or two, forcing the re-sort that brings it into the
-            # awake prefix before it can push deep into untabled neighbours
-            sweep = torch.where(_asleep(consts, cfg), 0.1 * consts["ext"],
-                                sweep)
-        counts = torch.stack([
-            torch.clamp(count_touch - Cs, min=0).sum(dtype=i32),
-            torch.clamp(count_close - Cs, min=0).sum(dtype=i32),
-            torch.clamp(count - Cs, min=0).sum(dtype=i32),
-            # the completeness counter covers the live partition only
-            (winover * (consts["kept"] > 0)).sum(dtype=i32)])
-        return (pidx, act), pos0, sweep, counts
+        with span("starframe.tables"):
+            edge_lo, edge_hi = edges
+            (pidx, act, count, count_touch, count_close, winover,
+             sweep) = build_tile_tables(
+                state, consts, large, edge_lo, edge_hi, g, C=Cs,
+                margin=cfg.contact_margin, dt=cfg.dt,
+                sort_axis=0 if cfg.tile_sort_axis == "x" else 1,
+                sweep_frames=K, sweep_slack=cfg.broadphase_speed_slack,
+                sweep_floor=cfg.tile_sweep_floor, sweep_cap=cfg.tile_sweep_cap,
+                plain=plain)
+            pos0 = {"px": state["px"], "py": state["py"]}
+            if sleep_on:
+                # sleepers are frozen, so they need no settle-jitter floor; a
+                # woken body on this tight budget escapes its guard within a
+                # frame or two, forcing the re-sort that brings it into the
+                # awake prefix before it can push deep into untabled neighbours
+                sweep = torch.where(_asleep(consts, cfg), 0.1 * consts["ext"],
+                                    sweep)
+            counts = torch.stack([
+                torch.clamp(count_touch - Cs, min=0).sum(dtype=i32),
+                torch.clamp(count_close - Cs, min=0).sum(dtype=i32),
+                torch.clamp(count - Cs, min=0).sum(dtype=i32),
+                # the completeness counter covers the live partition only
+                (winover * (consts["kept"] > 0)).sum(dtype=i32)])
+            return (pidx, act), pos0, sweep, counts
 
-    el, eh, _ = _edge_rows(state, consts, cfg)
+    with span("starframe.setup"):
+        el, eh, _ = _edge_rows(state, consts, cfg)
     tables, pos0, sweep, build_max = build(state, consts, (el, eh))
     # solve_overflow, solve_dropped; the frames reuse the build's tables,
     # so the builds alone count window_overflow
@@ -720,41 +724,45 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
         keys = torch.full((n_frames, state["px"].shape[0], Csol, T), -1,
                           dtype=i32, device=g.device)
         no_key = torch.full((), -1, dtype=i32, device=g.device)
+    # the verdicts are read on the host with K > 1 or sleep on; at K = 1
+    # without sleep nothing is read and the edges are the frame's alone
+    reads = K > 1 or sleep_on
     for f in range(n_frames):
-        el, eh, stale = _edge_rows(state, consts, cfg)
-        # the frame's verdicts, read in one host sync: the guard's (with
-        # K > 1), and with sleep on whether any moving row is awake and
-        # (compaction) whether the layout is partitioned or wants to be
-        verdicts = [stale]
-        if K > 1:
-            # positional staleness guard: a live row whose displacement
-            # since the build plus its coming frame motion escapes its sweep
-            # budget forces a table rebuild; the scheduled re-sort waits
-            # until some live row has used half its budget (drift)
-            disp = torch.maximum(torch.abs(state["px"] - pos0["px"]),
-                                 torch.abs(state["py"] - pos0["py"]))
-            motion = (torch.sqrt(state["vx"] * state["vx"]
-                                 + state["vy"] * state["vy"])
-                      + gmag * cfg.dt) * cfg.dt
-            livb = (consts["mov"] > 0) & (consts["act"] > 0)
-            used = disp + motion
-            verdicts += [torch.any((used > sweep + 1e-5) & livb),
-                         torch.any((used > 0.5 * sweep) & livb)]
-        if sleep_on:
-            mova = (consts["mov"] > 0) & (consts["act"] > 0)
-            asleep = _asleep(consts, cfg)
-            verdicts.append(torch.any(mova & ~asleep))
-            if compact_on:
-                partitioned_t = torch.any(mova & (consts["kept"] == 0))
-                # an unpartitioned layout with a sleeping mass compacts at
-                # the next scheduled slot even without drift
-                verdicts += [partitioned_t,
-                             torch.any(asleep & mova) & ~partitioned_t]
-        if K > 1 or sleep_on:
-            read = torch.stack(verdicts).tolist()
-            host_syncs += 1
-        else:
-            read = [True]  # K = 1 re-sorts every frame: nothing to read
+        with span("starframe.guard") if reads else NULL:
+            el, eh, stale = _edge_rows(state, consts, cfg)
+            # the frame's verdicts, read in one host sync: the guard's (with
+            # K > 1), and with sleep on whether any moving row is awake and
+            # (compaction) whether the layout is partitioned or wants to be
+            verdicts = [stale]
+            if K > 1:
+                # positional staleness guard: a live row whose displacement
+                # since the build plus its coming frame motion escapes its
+                # sweep budget forces a table rebuild; the scheduled re-sort
+                # waits until some live row has used half its budget (drift)
+                disp = torch.maximum(torch.abs(state["px"] - pos0["px"]),
+                                     torch.abs(state["py"] - pos0["py"]))
+                motion = (torch.sqrt(state["vx"] * state["vx"]
+                                     + state["vy"] * state["vy"])
+                          + gmag * cfg.dt) * cfg.dt
+                livb = (consts["mov"] > 0) & (consts["act"] > 0)
+                used = disp + motion
+                verdicts += [torch.any((used > sweep + 1e-5) & livb),
+                             torch.any((used > 0.5 * sweep) & livb)]
+            if sleep_on:
+                mova = (consts["mov"] > 0) & (consts["act"] > 0)
+                asleep = _asleep(consts, cfg)
+                verdicts.append(torch.any(mova & ~asleep))
+                if compact_on:
+                    partitioned_t = torch.any(mova & (consts["kept"] == 0))
+                    # an unpartitioned layout with a sleeping mass compacts
+                    # at the next scheduled slot even without drift
+                    verdicts += [partitioned_t,
+                                 torch.any(asleep & mova) & ~partitioned_t]
+            if reads:
+                read = torch.stack(verdicts).tolist()
+                host_syncs += 1
+            else:
+                read = [True]  # K = 1 re-sorts every frame: nothing to read
         stale = read.pop(0)
         esc, drift = (read.pop(0), read.pop(0)) if K > 1 else (False, True)
         awake = read.pop(0) if sleep_on else True
@@ -766,30 +774,34 @@ def _rollout_core(state, consts, large, body_id, gravity, *,
         do_sort = ((age == 0 and awake and (drift or want_part)) or stale
                    or (esc and partitioned))
         if do_sort:
-            if compact_on:
-                state, consts, body_id = _compact_resort(
-                    state, consts, body_id, cfg, g, ak, compound=compound)
-            else:
-                state, consts, body_id = _resort(state, consts, body_id, ak)
-                consts["kept"] = torch.ones_like(consts["kept"])
-            el, eh, _ = _edge_rows(state, consts, cfg)
+            with span("starframe.sort"):
+                if compact_on:
+                    state, consts, body_id = _compact_resort(
+                        state, consts, body_id, cfg, g, ak,
+                        compound=compound)
+                else:
+                    state, consts, body_id = _resort(state, consts, body_id,
+                                                     ak)
+                    consts["kept"] = torch.ones_like(consts["kept"])
+                el, eh, _ = _edge_rows(state, consts, cfg)
         if do_sort or esc:
             tables, pos0, sweep, counts = build(state, consts, (el, eh))
             build_max = torch.maximum(build_max, counts)
         prev = {k: state[k] for k in ("px", "py", "an")}
         if awake:  # a world with nothing awake launches nothing
-            # each row's and large slot's canonical collider id, through
-            # the current sort, for K6's event keys
-            ev = ((body_id.reshape(-1, T), large["cols"]) if with_events
-                  else None)
-            state, consts, frame = _run_frame(
-                state, consts, large, cfg, g, tables=tables, edges=(el, eh),
-                fuse=fuse, plain=plain, event_ids=ev,
-                n_colliders=n_colliders, compound=compound)
-            frame_max = torch.maximum(frame_max, torch.stack(
-                _solve_counts(frame[10], Csol)))
-            if with_events:
-                torch.where(frame[0] > 0, frame[11], no_key, out=keys[f])
+            with span("starframe.frame"):
+                # each row's and large slot's canonical collider id, through
+                # the current sort, for K6's event keys
+                ev = ((body_id.reshape(-1, T), large["cols"]) if with_events
+                      else None)
+                state, consts, frame = _run_frame(
+                    state, consts, large, cfg, g, tables=tables,
+                    edges=(el, eh), fuse=fuse, plain=plain, event_ids=ev,
+                    n_colliders=n_colliders, compound=compound)
+                frame_max = torch.maximum(frame_max, torch.stack(
+                    _solve_counts(frame[10], Csol)))
+                if with_events:
+                    torch.where(frame[0] > 0, frame[11], no_key, out=keys[f])
         resorts += int(do_sort and age != 0)
         rebuilds += int(esc and not do_sort)
         age = (1 if do_sort else age + 1) % K
@@ -843,18 +855,23 @@ def tiled_rollout(world: World, cfg: SolverConfig, n_frames: int,
     JAX package's tile engine; its XLA tier also reports sleeping pairs.
     ``cfg.ccd`` clamps bullet bodies' advance at their time of impact (see
     the module's docstring)."""
-    _require_slice(world, cfg)
-    compound = _compound(world)
-    if with_events:
-        check_event_keys(world.colliders.m)
-    g = world.gravity.to(f32).contiguous()
-    state, consts, large, body_id, large_ovf = _enter_tiles(world, cfg)
-    state, consts, body_id, prev, counters, keys = _rollout_core(
-        state, consts, large, body_id, g, cfg=cfg, n_frames=n_frames,
-        fuse=fuse, plain=plain, with_events=with_events,
-        n_colliders=world.colliders.m, compound=compound)
-    final = _exit_tiles(world, state, consts, prev, body_id, n_frames)
-    diag = dict(counters, large_overflow=large_ovf)
-    if compound:
-        diag["owner_overflow"] = _owner_width_overflow(world, cfg)
-    return (final, diag, keys) if with_events else (final, diag)
+    with span("starframe.rollout"):
+        _require_slice(world, cfg)
+        compound = _compound(world)
+        if with_events:
+            check_event_keys(world.colliders.m)
+        g = world.gravity.to(f32).contiguous()
+        with span("starframe.setup"):
+            state, consts, large, body_id, large_ovf = _enter_tiles(world,
+                                                                    cfg)
+        state, consts, body_id, prev, counters, keys = _rollout_core(
+            state, consts, large, body_id, g, cfg=cfg, n_frames=n_frames,
+            fuse=fuse, plain=plain, with_events=with_events,
+            n_colliders=world.colliders.m, compound=compound)
+        with span("starframe.exit"):
+            final = _exit_tiles(world, state, consts, prev, body_id,
+                                n_frames)
+        diag = dict(counters, large_overflow=large_ovf)
+        if compound:
+            diag["owner_overflow"] = _owner_width_overflow(world, cfg)
+        return (final, diag, keys) if with_events else (final, diag)

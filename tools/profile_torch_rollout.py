@@ -27,12 +27,17 @@ tables (``batch_uniform_topology=False``); ``batched_sleep``: with the
 pile's sleep (``sleep_velocity`` 0.1, 30 frames), 240 frames from the
 start; ``batched_events``: ``batched_rollout(with_keys=True)``) once to
 warm up, three times unprofiled for wall times, then once under
-``torch.profiler``, and prints:
+``torch.profiler``, and prints, from the benchmark's own reduction of the
+trace (``portbench/harness/trace.py`` and ``spans.py``):
 
 - each device kernel's total time, call count and share of device time
   (the hand-written kernels by name, the small PyTorch ops together);
 - device busy time (the union of kernel, copy and set intervals) against
   the profiled wall, and so the device's idle share;
+- each ``starframe.*`` span the rollout records (``starframe_tpu_torch/
+  spans.py``): its count, its self time (less its nested spans) and the
+  device's idle time inside it, which with the idle under no span sum to
+  the wall's;
 - device kernels and host syncs per frame, peak device memory;
 - for the batched paths, one ``frame2_step`` (the frame kernel plus its
   array packing; CUDA events) on the starting batch and on the final one,
@@ -46,40 +51,20 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import json
+import collections
 import os
 import subprocess
 import sys
 import tempfile
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "portbench")]
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+from harness import spans, trace  # noqa: E402
+
 SETTLE_FRAMES = 960  # pile_sleep: frames run before the measured ones
-# (a substring of the kernel's name, its row), the first match wins
-KERNELS = (("frame2_kernel<4, false, true>", "K4 frame, CCD form"),
-           ("frame2_kernel", "K4 frame"),
-           ("joint_slot_kernel", "K3 joint slots"),
-           ("slot_kernel", "K2 slot tables"), ("elig_kernel", "K1 eligibility"),
-           ("tile_tables_kernel", "K5 tile tables"),
-           ("tile_manifold_kernel", "K6 tile manifolds"),
-           ("tile_ccd_kernel", "K7 tile TOI factors"),
-           ("tile_project_kernel<true>", "K8 tile project, CCD form"),
-           ("tile_project_kernel", "K8 tile project"),
-           ("tile_apply_kernel<true, false>", "K9 tile apply, compound form"),
-           ("tile_apply_kernel<true, true>",
-            "K9 tile apply, compound CCD form"),
-           ("tile_apply_kernel<false, true>", "K9 tile apply, CCD form"),
-           ("tile_apply_kernel", "K9 tile apply"),
-           ("tile_compound_frame_kernel<true>",
-            "compound frame, CCD form"),
-           ("tile_compound_frame_kernel", "compound frame"),
-           ("tile_frame_kernel<true>", "K10 tile frame, CCD form"),
-           ("tile_frame_kernel", "K10 tile frame"),
-           ("owner_sum_kernel", "owner sums"),
-           ("owner_min_kernel", "owner minima"),
-           ("owner_velocity_kernel", "owner velocity pass"))
+WINDOW = "profile_torch_rollout.window"  # the profiled rollout's mark
 PILES = ("pile", "pile_sleep", "pile_events", "pile_compound", "pile_ccd")
 BATCHED = ("batched", "batched_ccd", "batched_compact", "batched_owners",
            "batched_sleep", "batched_events")
@@ -103,19 +88,6 @@ def bulleted(sc):
                                 bodies=dataclasses.replace(b, flags=flags))
     return dataclasses.replace(sc, world=world, config=dataclasses.replace(
         sc.config, ccd=True))
-
-
-def busy_us(intervals) -> float:
-    """Length of the union of ``(start, end)`` intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
 
 
 def frame_step_ms(parallel, w, cfg, reps: int = 5):
@@ -153,7 +125,7 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not torch.cuda.is_available():
         print("profile_torch_rollout: needs a CUDA device", file=sys.stderr)
@@ -226,45 +198,52 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     syncs0 = syncing.host_syncs
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        final = rollout()[0]
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            final = rollout()[0]
+            torch.cuda.synchronize()
     syncs = syncing.host_syncs - syncs0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     with tempfile.TemporaryDirectory() as tmp:
         path = args.trace or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dev = [e for e in events
-           if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
+        events = trace.load_events(path)
+    host = trace.host_events(events)
+    ((_, t0, t1),) = [h for h in host if h[0] == WINDOW]
+    dev = trace.device_events(events, t0, t1)
     if not dev:
         print("no device events in the trace: the profiler saw no device "
               "time", file=sys.stderr)
         return 1
-    rows = {label: [0.0, 0] for _, label in KERNELS}
-    rows["other device work"] = [0.0, 0]
-    for e in dev:
-        label = next((lab for key, lab in KERNELS if key in e["name"]),
-                     "other device work")
-        rows[label][0] += e["dur"] / 1e3
-        rows[label][1] += 1
-    device_ms = sum(ms for ms, _ in rows.values())
-    busy_ms = busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e3
+    seconds = trace.device_by_label(dev)
+    calls = collections.Counter(trace.kernel_label(n, c) for n, c, _, _ in dev)
+    device_s = sum(seconds.values())
+    wall_ms = (t1 - t0) / 1e3
+    busy_ms = trace.busy_us(dev) / 1e3
     print(f"profiled run on {card}:")
     print("| device work | total ms | calls | share of device time |")
     print("|---|---|---|---|")
-    for label, (ms, n) in rows.items():
-        print(f"| {label} | {ms:.3f} | {n} | {100 * ms / device_ms:.2f}% |")
-    n_kernels = sum(1 for e in dev if e["cat"] == "kernel")
+    for label, sec in trace.top(seconds, len(seconds)):
+        print(f"| {label} | {1e3 * sec:.3f} | {calls[label]} | "
+              f"{100 * sec / device_s:.2f}% |")
+    n_kernels = sum(1 for d in dev if d[1] == "kernel")
     print(f"device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled wall: "
           f"idle {100 * (1 - busy_ms / wall_ms):.2f}%; "
           f"{n_kernels / F:.2f} device kernels per frame; host syncs "
           f"{syncs} ({syncs / F:.3f}/frame); peak device memory "
           f"{peak_gib:.3f} GiB")
+    red = spans.reduce(dict(dev=dev, host=host, t0_us=t0, t1_us=t1))
+    print("| span | spans | a frame | self ms | device idle ms | idle, % of "
+          "wall |")
+    print("|---|---|---|---|---|---|")
+    for name in sorted(red["self_s"], key=lambda n: (n is None, n or "")):
+        n = red["counts"].get(name, 0)
+        print(f"| {name or '(no span)'} | {n} | {n / F:.3f} | "
+              f"{1e3 * red['self_s'][name]:.3f} | "
+              f"{1e3 * red['idle_s'][name]:.3f} | "
+              f"{100 * red['idle_s'][name] / (wall_ms / 1e3):.2f}% |")
 
     if args.scene in PILES:
         return 0

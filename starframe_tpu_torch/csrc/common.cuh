@@ -132,9 +132,13 @@ struct Frame2Args {
   int Cs;
   int32_t* o_partner;       // [W, C, M] the partner table in rank order
   float* o_nact;            // [W, 2, M] imminent / pmask-active slot counts
-  // [W, 4, N] the substep-start pose (x, y, cos, sin) when it does not fit
-  // in shared memory beside the world's state; null otherwise
-  float* gpose;
+  // [W] scratch of frame2.cu `scratch_bytes`: the substep-start pose [4, N]
+  // (x, y, cos, sin), then the live set, for what of them does not fit in
+  // shared memory beside the world's state; null when both fit
+  uint8_t* gscratch;
+  // [1] the live (row, slot) items of every block's frame, added once a
+  // block (the engagement counter); may be null
+  unsigned long long* live_items;
 };
 
 // A slot's record in the frame kernel's slot table: the float fields

@@ -32,11 +32,11 @@
 //
 // Design: one CTA per world, 512 threads (256 where two blocks fit an
 // SM's shared memory: `block_threads`). A thread is body n in the body
-// phases, one (row i, slot c) item in the slot phases (the manifolds, the
-// projection, the velocity pass), and row i where a row's slots go
-// together (compaction's ranking, CCD's TOI), strided when the block runs
-// out. Body state, the world's collider geometry and the slot table live
-// in shared memory. The Jacobi semantics are the TPU's: every slot reads
+// phases, one (row i, slot c) item in the manifold set-up, one live item
+// in the slot phases (the projection, the velocity pass), and row i where
+// a row's slots go together (compaction's ranking, CCD's TOI), strided
+// when the block runs out. Body state, the world's collider geometry and
+// the slot table live in shared memory. The Jacobi semantics are the TPU's: every slot reads
 // the iteration's start pose and leaves its terms in its record,
 // __syncthreads(), and only then does each body sum them and apply the
 // count-normalised, clipped corrections. A body sums its colliders' rows in
@@ -47,7 +47,17 @@
 // in order c = 0..C-1 (frame2.py `_sum_w`), so the adds are the
 // reference's, in its order. No float atomics: the frame is bitwise
 // reproducible. Slots whose manifold has no active point are skipped;
-// they contribute exact zeros in the reference. Each phase that moves an
+// they contribute exact zeros in the reference. The live set says which:
+// after the set-up the block compacts the items u = c * M + i whose
+// manifold has an active point (F2_PM0 | F2_PM1; no later phase changes
+// those bits) into a list in ascending u, with warp ballots and the warps'
+// counts summed in warp order, and a bit set of each row's live slots.
+// The projection and the velocity pass walk the list, so no warp issues
+// an empty slot's item (58% of the main path's slots); the body sums walk
+// each row's bits in ascending c. It takes the shared memory of planes only
+// the set-up reads (`dead_words`), so the block's bytes are the parent's;
+// a table too wide for them (V = 4 from Csol = 28) keeps it in global
+// memory beside the pose planes. Each phase that moves an
 // angle refreshes its cos/sin, and body phases with no slot phase between
 // them share a loop, so a substep has four barriers: after the integrate,
 // after the projection, after the apply, after the velocity pass. The
@@ -103,9 +113,10 @@ struct Shared {
   float *px, *py, *an, *vx, *vy, *om, *invm, *invi, *dyn, *kin;
   float *vtx, *vty, *vtom, *cab, *sab, *dxx, *dxy, *dth, *spd;
   // collider geometry [M] (verts [V, M]) and a [4, M] row plane (CCD's
-  // per-row TOI terms in its first [M])
-  float *vlx, *vly, *rad, *fric, *rest, *sens, *ext, *row;
-  int *cbody, *nv, *ostart, *oidx;
+  // per-row TOI terms in its first [M]); from row's second [M] to the end
+  // of nv, only the set-up reads (`dead_words`)
+  float *fric, *rest, *row, *vlx, *vly, *rad, *sens, *ext;
+  int *nv, *cbody, *ostart, *oidx;
   // joints (kJ only): parameters [J] and per-body joint sums [4, N]
   int *jty, *jba, *jbb, *jcol;
   float *jaax, *jaay, *jabx, *jaby, *jrest, *jlo, *jhi, *jcomp, *jdamp;
@@ -132,18 +143,17 @@ __device__ Shared carve(float* base, int N, int M, int V, int J) {
     *f = p;
     p += N;
   }
+  s.fric = p; p += M;
+  s.rest = p; p += M;
+  s.row = p; p += 4 * M;
   s.vlx = p; p += V * M;
   s.vly = p; p += V * M;
-  float** colf[] = {&s.rad, &s.fric, &s.rest, &s.sens, &s.ext};
-  for (float** f : colf) {
-    *f = p;
-    p += M;
-  }
-  s.row = p;
-  p += 4 * M;
+  s.rad = p; p += M;
+  s.sens = p; p += M;
+  s.ext = p; p += M;
   int* q = reinterpret_cast<int*>(p);
-  s.cbody = q; q += M;
   s.nv = q; q += M;
+  s.cbody = q; q += M;
   s.oidx = q; q += M;
   s.ostart = q; q += N + 1;
   if constexpr (kJ) {
@@ -164,14 +174,44 @@ __device__ Shared carve(float* base, int N, int M, int V, int J) {
   return s;
 }
 
+// Words of the world's state that only the set-up reads: the row plane
+// past CCD's [M], the vertex planes, rad, sens, ext and nv, contiguous
+// (`carve`). The live set takes them after the set-up where it fits.
+__host__ __device__ inline size_t dead_words(int M, int V) {
+  return (size_t)(2 * V + 7) * M;
+}
+
+// The live set of a Csol-slot table over M rows (see the header note):
+// the build's warp counts (two rounds of up to 32 warps), the row bits
+// [live_words, M], then one entry per item, uint16 where every u fits.
+constexpr int kLiveCounts = 64;
+__host__ __device__ inline int live_words(int Csol) { return (Csol + 31) / 32; }
+__host__ __device__ inline bool live_wide(int M, int Csol) {
+  return (size_t)Csol * M > 65536;
+}
+__host__ __device__ inline size_t live_bytes(int M, int Csol) {
+  const size_t items = (size_t)Csol * M;
+  return (size_t)4 * (kLiveCounts + live_words(Csol) * M) +
+         items * (live_wide(M, Csol) ? 4 : 2);
+}
+
+// A world's global scratch, for the pose planes and the live set where
+// they do not fit in shared memory (each at its own offset).
+__host__ __device__ inline size_t scratch_bytes(int N, int M, int Csol) {
+  return ((size_t)4 * N * sizeof(float) + live_bytes(M, Csol) + 15) / 16 *
+         16;
+}
+
 // Where a world's slot table goes (see the header note): the shared
 // memory left after the world's state holds the four [N] substep-start pose
 // planes, then the records of rows i < R. R = -1 when the state alone does
 // not fit (the wrapper refuses such a shape); R = 0 with `pose_shared`
-// false when the pose planes do not fit either.
+// false when the pose planes do not fit either. `live_shared`: the live
+// set fits in the set-up's planes (`dead_words`), else it goes to global
+// memory beside the pose planes.
 struct Placement {
   int R;
-  bool pose_shared;
+  bool pose_shared, live_shared;
   size_t bytes;  // the block's dynamic shared memory
 };
 
@@ -179,12 +219,13 @@ __host__ __device__ inline Placement place(int N, int M, int V, int J,
                                            int Csol) {
   const size_t state = shared_bytes(N, M, V, J);
   const size_t pose = (size_t)4 * N * sizeof(float);
-  if (state > F2_SHARED_LIMIT) return {-1, false, state};
-  if (state + pose > F2_SHARED_LIMIT) return {0, false, state};
+  const bool live_shared = live_bytes(M, Csol) <= 4 * dead_words(M, V);
+  if (state > F2_SHARED_LIMIT) return {-1, false, false, state};
+  if (state + pose > F2_SHARED_LIMIT) return {0, false, live_shared, state};
   const size_t per_row = (size_t)Csol * F2_SLOT_BYTES;
   const size_t fit = (F2_SHARED_LIMIT - state - pose) / per_row;
   const int R = fit < (size_t)M ? (int)fit : M;
-  return {R, true, state + pose + per_row * R};
+  return {R, true, live_shared, state + pose + per_row * R};
 }
 
 // Threads a block: kThreads, or half as many where two such blocks fit an
@@ -407,6 +448,31 @@ __device__ __forceinline__ void for_items(int K, int M, F f) {
   }
 }
 
+// The live set as the slot phases read it: the row bits [words, M] and
+// the list of n items u = c * M + i, ascending. c = u / M is a
+// multiply-high by mdiv = ceil(2^32 / M), exact for u < 2^32 / M (the
+// launch refuses Csol * M * M > 2^32).
+struct LiveSet {
+  uint32_t* bits;
+  void* list;
+  int n;
+  bool wide;  // uint32 entries, else uint16
+  unsigned mdiv;
+};
+
+// Run f(i, c) on the live items of set L over M rows that this thread
+// takes: list entries strided by the block, so consecutive threads take
+// consecutive live items (mostly consecutive rows of one slot).
+template <class F>
+__device__ __forceinline__ void for_live(const LiveSet& L, int M, F f) {
+  for (int k = threadIdx.x; k < L.n; k += blockDim.x) {
+    const unsigned u = L.wide ? static_cast<const uint32_t*>(L.list)[k]
+                              : static_cast<const uint16_t*>(L.list)[k];
+    const int c = M > 1 ? (int)__umulhi(u, L.mdiv) : (int)u;
+    f((int)u - c * M, c);
+  }
+}
+
 // The substep-start pose [N] (x, y, cos, sin): the pose that ended the
 // previous substep (the frame-start pose at the first). The load and the
 // velocity reconstruction fill it; the static-friction reference and the
@@ -600,15 +666,23 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
   const int Csol = compact ? a.Cs : C;
   const long long ow = a.owner_per_world ? w : 0;
 
-  // where the pose planes and the slot records live (see `place`)
+  // where the pose planes, the live set and the slot records live (see
+  // `place`)
   const Placement pl = place(N, M, V, J, Csol);
   const int R = pl.R;
   const size_t state = shared_bytes(N, M, V, J);
-  float* const pose = pl.pose_shared ? smem + state / sizeof(float)
-                                     : a.gpose + w * 4 * N;
+  const size_t pose_bytes = (size_t)4 * N * sizeof(float);
+  uint8_t* const head = reinterpret_cast<uint8_t*>(smem) + state;
+  uint8_t* const gs =
+      pl.pose_shared && pl.live_shared
+          ? nullptr
+          : a.gscratch + (size_t)w * scratch_bytes(N, M, Csol);
+  float* const pose = reinterpret_cast<float*>(pl.pose_shared ? head : gs);
   const Pose0 q0 = {pose, pose + N, pose + 2 * N, pose + 3 * N};
-  uint8_t* const stab =
-      reinterpret_cast<uint8_t*>(smem) + state + 4 * N * sizeof(float);
+  uint8_t* const live = pl.live_shared
+                            ? reinterpret_cast<uint8_t*>(s.row + M)
+                            : gs + pose_bytes;
+  uint8_t* const stab = head + pose_bytes;
   uint8_t* const gtab =
       R < M ? a.gtab + (size_t)w * table_bytes(Csol, M - R) : nullptr;
   auto row_of = [&](int i) {
@@ -727,6 +801,64 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
   }
   __syncthreads();
 
+  // ---- the live set (see the header note) ---------------------------------
+  // Row bits by a thread a row; the list by rounds of blockDim.x items, each
+  // warp's ballot placed after the live items of the rounds before and of
+  // the lower warps (their counts double-buffered, so a round takes one
+  // barrier). Every thread ends with the set's size.
+  int* const wcnt = reinterpret_cast<int*>(live);
+  LiveSet L = {reinterpret_cast<uint32_t*>(live) + kLiveCounts,
+               reinterpret_cast<uint32_t*>(live) + kLiveCounts +
+                   live_words(Csol) * M,
+               0, live_wide(M, Csol),
+               (unsigned)((0x100000000ull + M - 1) / M)};
+  constexpr int kPM = F2_PM0 | F2_PM1;
+  for (int i = threadIdx.x; i < M; i += blockDim.x) {
+    const SlotRow t = row_of(i);
+    for (int c0 = 0; c0 < Csol; c0 += 32) {
+      uint32_t b = 0;
+      for (int c = c0; c < Csol && c < c0 + 32; ++c)
+        b |= (t.mask(c) & kPM) ? 1u << (c - c0) : 0u;
+      L.bits[(c0 / 32) * M + i] = b;
+    }
+  }
+  {
+    const int items = Csol * M, lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+    const int di = blockDim.x % M, dc = blockDim.x / M;
+    int i = threadIdx.x % M, c = threadIdx.x / M;  // item u = base + tid
+    for (int base = 0, buf = 0; base < items;
+         base += blockDim.x, buf ^= 32) {
+      const int u = base + threadIdx.x;
+      const bool on = u < items && (row_of(i).mask(c) & kPM);
+      const unsigned b = __ballot_sync(0xffffffffu, on);
+      if (lane == 0) wcnt[buf + warp] = __popc(b);
+      __syncthreads();
+      int at = L.n, total = 0;
+      for (int k = 0; k < warps; ++k) {
+        const int n = wcnt[buf + k];
+        at += k < warp ? n : 0;
+        total += n;
+      }
+      if (on) {
+        at += __popc(b & ((1u << lane) - 1u));
+        if (L.wide)
+          static_cast<uint32_t*>(L.list)[at] = (uint32_t)u;
+        else
+          static_cast<uint16_t*>(L.list)[at] = (uint16_t)u;
+      }
+      L.n += total;
+      i += di;
+      c += dc;
+      if (i >= M) {
+        i -= M;
+        ++c;
+      }
+    }
+  }
+  if (threadIdx.x == 0 && a.live_items != nullptr)
+    atomicAdd(a.live_items, (unsigned long long)L.n);
+
   // ---- substeps ------------------------------------------------------------
   // Every phase that moves a body's angle also refreshes its cab/sab, so a
   // phase that reads them finds cos/sin of the current angle, which is what
@@ -763,17 +895,20 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
     q0.c[n] = s.cab[n]; q0.s[n] = s.sab[n];
   };
   // the body sums of a pass: body n's colliders' rows (ascending), each the
-  // terms its solved slots left in their records, in slot order (the
-  // slots without an active point left none)
+  // terms its live slots left in their records, in slot order (the slots
+  // without an active point left none)
   auto body_sums = [&](int n, float (&out)[4]) {
     out[0] = out[1] = out[2] = out[3] = 0.f;
     for (int k = s.ostart[n]; k < s.ostart[n + 1]; ++k) {
-      const SlotRow t = row_of(s.oidx[k]);
+      const int i = s.oidx[k];
+      const SlotRow t = row_of(i);
       float r[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c = 0; c < Csol; ++c) {
-        if (!(t.mask(c) & (F2_PM0 | F2_PM1))) continue;
+      for (int c0 = 0; c0 < Csol; c0 += 32) {
+        for (uint32_t b = L.bits[(c0 / 32) * M + i]; b; b &= b - 1) {
+          const int c = c0 + __ffs(b) - 1;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) r[q] += t.at(F2_T0 + q, c);
+          for (int q = 0; q < 4; ++q) r[q] += t.at(F2_T0 + q, c);
+        }
       }
 #pragma unroll
       for (int q = 0; q < 4; ++q) out[q] += r[q];
@@ -821,12 +956,11 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
     }
     for (int it = 0; it < a.iterations; ++it) {
       const bool last = it == a.iterations - 1;
-      // Jacobi contact projection, slot-parallel: every slot reads the
-      // iteration-start pose and leaves its row-sum terms in its record
-      for_items(Csol, M, [&](int i, int c) {
+      // Jacobi contact projection over the live items: every slot reads
+      // the iteration-start pose and leaves its row-sum terms in its record
+      for_live(L, M, [&](int i, int c) {
         const SlotRow t = row_of(i);
         const int mk = t.mask(c);
-        if (!(mk & (F2_PM0 | F2_PM1))) return;
         const int ob = s.cbody[i];
         const float ima = s.invm[ob], iia = s.invi[ob];
         const float o_px = s.px[ob], o_py = s.py[ob];
@@ -950,11 +1084,10 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
       for (int n = threadIdx.x; n < N; n += blockDim.x) reconstruct(n);
       __syncthreads();
     }
-    // velocity pass, slot-parallel: restitution + dynamic friction
-    for_items(Csol, M, [&](int i, int c) {
+    // velocity pass over the live items: restitution + dynamic friction
+    for_live(L, M, [&](int i, int c) {
       const SlotRow t = row_of(i);
       const int mk = t.mask(c);
-      if (!(mk & (F2_PM0 | F2_PM1))) return;
       const int ob = s.cbody[i];
       const float ima = s.invm[ob], iia = s.invi[ob];
       const float o_ca = s.cab[ob], o_sa = s.sab[ob];
@@ -1052,8 +1185,9 @@ int launch(const Frame2Args& a, cudaStream_t stream) {
   const Placement pl = place(a.N, a.M, V, kJ ? a.J : 0, Csol);
   // a shape the wrapper cannot place, or a global table it did not give
   if (pl.R < 0 || (pl.R < a.M && a.gtab == nullptr) ||
-      (!pl.pose_shared && a.gpose == nullptr) ||
-      (kCcd && a.Cs > 0 && a.side == nullptr))
+      ((!pl.pose_shared || !pl.live_shared) && a.gscratch == nullptr) ||
+      (kCcd && a.Cs > 0 && a.side == nullptr) ||
+      (unsigned long long)Csol * a.M * a.M > (1ull << 32))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       frame2_kernel<V, kJ, kCcd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1102,6 +1236,15 @@ extern "C" long long sf_frame2_shared_bytes(int N, int M, int V, int J,
 
 extern "C" int sf_frame2_table_rows(int N, int M, int V, int J, int Csol) {
   return place(N, M, V, J, Csol).R;
+}
+
+// Bytes of a world's global scratch the launch needs (0: none).
+extern "C" long long sf_frame2_scratch_bytes(int N, int M, int V, int J,
+                                             int Csol) {
+  const Placement pl = place(N, M, V, J, Csol);
+  return pl.pose_shared && pl.live_shared
+             ? 0
+             : (long long)scratch_bytes(N, M, Csol);
 }
 
 extern "C" int sf_frame2_block_threads(int N, int M, int V, int J,

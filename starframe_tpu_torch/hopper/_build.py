@@ -111,7 +111,7 @@ class Frame2Args(ctypes.Structure):
         ("ccd", ctypes.c_int), ("ccd_slop", ctypes.c_float),
         ("owner_per_world", ctypes.c_int), ("Cs", ctypes.c_int),
         ("o_partner", ctypes.c_void_p), ("o_nact", ctypes.c_void_p),
-        ("gpose", ctypes.c_void_p),
+        ("gscratch", ctypes.c_void_p), ("live_items", ctypes.c_void_p),
     ]
 
 
@@ -311,8 +311,9 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(f"{name}: the C argument struct is "
                                f"{size()} bytes, its ctypes mirror "
                                f"{ctypes.sizeof(struct)}")
-    lib.sf_frame2_shared_bytes.argtypes = [ctypes.c_int] * 5
-    lib.sf_frame2_shared_bytes.restype = ctypes.c_longlong
+    for name in ("sf_frame2_shared_bytes", "sf_frame2_scratch_bytes"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+        getattr(lib, name).restype = ctypes.c_longlong
     for name in ("sf_frame2_table_rows", "sf_frame2_blocks_per_sm",
                  "sf_frame2_block_threads"):
         getattr(lib, name).restype = ctypes.c_int

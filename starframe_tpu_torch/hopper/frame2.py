@@ -12,10 +12,14 @@ launches.
 The kernel keeps each world's slot table (67 bytes a slot: the body-local
 normal and anchors, the lambdas, a pass's four row-sum terms, the partner
 and a mask byte) in shared memory beside the world's state and the
-substep-start pose;
+substep-start pose; each frame's live set (:func:`live_set`: the slots
+whose manifold has an active point, which the slot phases walk) reuses
+the planes only the frame's set-up reads (:func:`frame2_live_shared`).
 :func:`frame2_table_rows` gives how many rows' records fit there, and the
 wrapper hands the kernel a global table for the rest (none at the main
-path's shapes).
+path's shapes). ``run_frame2.live_items`` (a one-element int64 tensor on
+the device) and ``run_frame2.slot_items`` (an int) count the live items
+and all (row, solve slot) items of every frame run, kernel or twin.
 
 The frame: manifolds once at the frame-start pose (with a velocity-expanded
 speculative margin, anchors kept body-local), then ``substeps`` x
@@ -107,10 +111,69 @@ def frame2_shared_bytes(N: int, M: int, V: int, J: int, Csol: int) -> int:
     return state + 16 * N + SLOT_BYTES * Csol * R
 
 
+def frame2_live_bytes(M: int, Csol: int) -> int:
+    """Bytes of one world's live set (``csrc/frame2.cu`` ``live_bytes``):
+    the build's 64 warp counts, the row bits ``[ceil(Csol / 32), M]``
+    (uint32) and one list entry an item (uint16 where ``Csol * M <=
+    65536``, else uint32)."""
+    items = Csol * M
+    return 4 * (64 + -(-Csol // 32) * M) + (2 if items <= 65536 else 4) * items
+
+
+def frame2_live_shared(M: int, V: int, Csol: int) -> bool:
+    """Whether the live set takes the shared memory of the planes only the
+    frame's set-up reads (``csrc/frame2.cu`` ``dead_words``: ``(2V + 7) M``
+    words); else it goes to global memory beside the pose planes."""
+    return frame2_live_bytes(M, Csol) <= 4 * (2 * V + 7) * M
+
+
+def frame2_scratch_bytes(N: int, M: int, V: int, J: int, Csol: int) -> int:
+    """Bytes of one world's global scratch (``csrc/frame2.cu``
+    ``scratch_bytes``: the pose planes, then the live set, 16-aligned),
+    or 0 where both fit in shared memory."""
+    pose_shared = frame2_state_bytes(N, M, V, J) + 16 * N <= SHARED_LIMIT
+    if pose_shared and frame2_live_shared(M, V, Csol):
+        return 0
+    return -(-(16 * N + frame2_live_bytes(M, Csol)) // 16) * 16
+
+
 def table_bytes(K: int, rows: int) -> int:
     """Bytes of one world's global slot table of ``K`` slots x ``rows``
     rows (``csrc/frame2.cu`` ``table_bytes``)."""
     return -(-K * rows * SLOT_BYTES // 16) * 16
+
+
+def live_set(pm, M: int):
+    """The frame kernel's live set, plainly: ``pm [W, Csol * M]`` bool
+    (a slot's manifold has an active point; item u = c * M + i) gives
+    ``(items [W, Csol * M] long, n [W] long, bits [W, ceil(Csol / 32), M]
+    long)``: each world's live items in ascending u in ``items[:, :n]``
+    (the rest -1), and row i's live slots c as bit c % 32 of word c // 32.
+    """
+    W, T = pm.shape
+    Csol = T // M
+    u = torch.arange(T, device=pm.device).expand(W, T)
+    n = pm.sum(dim=1)
+    items = torch.sort(torch.where(pm, u, T), dim=1).values
+    items = torch.where(items < T, items, -1)
+    c = torch.arange(Csol, device=pm.device)
+    shifted = pm.reshape(W, Csol, M).long() << (c % 32)[None, :, None]
+    words = -(-Csol // 32)
+    bits = torch.zeros((W, words, M), dtype=torch.long, device=pm.device)
+    bits.index_add_(1, c // 32, shifted)
+    return items, n, bits
+
+
+def _live_counter(dev):
+    """``run_frame2.live_items``, allocated on ``dev`` at the first frame
+    (and moved, once, if the frames move to another device)."""
+    t = run_frame2.live_items
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int64, device=dev)
+    elif t.device != torch.device(dev):
+        t = t.to(dev)
+    run_frame2.live_items = t
+    return t
 
 
 def owner_csr(cbody0, n_bodies: int, listed=None):
@@ -363,6 +426,11 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         pd_ = SimpleNamespace(**{k: cpk(v) for k, v in vars(pd_).items()})
         pc, pb, touched = cpk(pc), cpk(pb), cpk(touched)
         Cp = Cs
+
+    # the live set the kernel builds, counted as it counts it
+    _live_counter(posx.device).add_(
+        live_set(cb_.pmask.amax(dim=0) > 0, M)[1].sum())
+    run_frame2.slot_items += W * Cp * M
 
     def tile_cp(x):
         return tile_w(x, Cp)
@@ -653,10 +721,13 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     Csol = Cs if compact else C
     R = frame2_table_rows(N, M, Vk, J, Csol)
     smem = frame2_shared_bytes(N, M, Vk, J, Csol)
+    scratch = frame2_scratch_bytes(N, M, Vk, J, Csol)
     if (lib.sf_frame2_table_rows(N, M, Vk, J, Csol) != (-1 if R is None else R)
-            or lib.sf_frame2_shared_bytes(N, M, Vk, J, Csol) != smem):
+            or lib.sf_frame2_shared_bytes(N, M, Vk, J, Csol) != smem
+            or lib.sf_frame2_scratch_bytes(N, M, Vk, J, Csol) != scratch):
         raise RuntimeError("frame kernel shared-memory layout differs from "
-                           "frame2_table_rows / frame2_shared_bytes")
+                           "frame2_table_rows / frame2_shared_bytes / "
+                           "frame2_scratch_bytes")
     if R is None:
         raise ValueError(f"frame kernel needs {smem} bytes of shared memory "
                          f"for the world's state at N={N}, M={M}, V={Vk}, "
@@ -673,9 +744,10 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             if R < M else None)
     side = (torch.empty((W, table_bytes(C - Cs, M)), dtype=u8, device=dev)
             if compact and ccd else None)
-    gpose = (torch.empty((W, 4, N), dtype=f32, device=dev)
-             if frame2_state_bytes(N, M, Vk, J) + 16 * N > SHARED_LIMIT
-             else None)
+    # the pose planes and the live set, where they do not fit in shared
+    # memory
+    gscratch = (torch.empty((W, scratch), dtype=u8, device=dev) if scratch
+                else None)
     outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
     # compacting: the whole table in rank order, the first Cs returned
     touched = torch.empty((W, C, M), dtype=f32, device=dev)
@@ -702,8 +774,10 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         p(side) if side is not None else None, int(ccd), ccd_slop,
         int(per_world), Cs if compact else 0,
         p(o_partner) if compact else None, p(nact) if compact else None,
-        p(gpose) if gpose is not None else None)
+        p(gscratch) if gscratch is not None else None,
+        p(_live_counter(dev)))
     _build.launch("sf_frame2", args, dev)
+    run_frame2.slot_items += W * Csol * M
     if R == M:
         run_frame2.shared_table_launches += 1
     if ccd:
@@ -725,3 +799,7 @@ run_frame2.compact_launches = 0  # launches with Cs (also in one above)
 run_frame2.owner_launches = 0  # launches with per-world owner tables
 # launches whose whole slot table sat in shared memory (R = M)
 run_frame2.shared_table_launches = 0
+# the frames' live (row, solve slot) items (live_set), counted on the
+# device (a [1] int64 tensor, None before the first frame), and all of them
+run_frame2.live_items = None
+run_frame2.slot_items = 0

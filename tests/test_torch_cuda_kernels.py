@@ -173,6 +173,13 @@ def _bulleted(w):
     return dataclasses.replace(w, bodies=dataclasses.replace(b, flags=flags))
 
 
+def _live_counts():
+    """``(live, slots)``: ``run_frame2``'s item counters now."""
+    live = hopper.run_frame2.live_items
+    return (0 if live is None else int(live.sum()),
+            hopper.run_frame2.slot_items)
+
+
 def _frame_kernel_matches_twin(cfg, w, touching=True):
     tables = parallel.frame2_tables(w, cfg,
                                     frames=max(cfg.frames_per_broadphase, 1),
@@ -181,14 +188,20 @@ def _frame_kernel_matches_twin(cfg, w, touching=True):
     n0 = getattr(hopper.run_frame2, counter)
     c0 = hopper.run_frame2.compact_launches
     o0 = hopper.run_frame2.owner_launches
+    live, slots = _live_counts()
     wk, tk, pk, _, ak = parallel.frame2_step(w, cfg, tables=tables)
     assert getattr(hopper.run_frame2, counter) == n0 + 1
     compact = 0 < cfg.batch_solve_capacity < cfg.slot_capacity
     assert hopper.run_frame2.compact_launches == c0 + compact
     assert hopper.run_frame2.owner_launches == o0 + (
         not cfg.batch_uniform_topology)
+    # the kernel's live items (its device counter) are the twin's count
+    live_k, slots_k = _live_counts()
     wp, tp, pp, _, ap = parallel.frame2_step(w, cfg, tables=tables,
                                              plain=True)
+    live_p, slots_p = _live_counts()
+    assert 0 < live_k - live == live_p - live_k < slots_k - slots
+    assert slots_k - slots == slots_p - slots_k
     assert torch.equal(tk, tp)
     assert torch.equal(pk, pp)  # partner_solve when compacting
     assert {k: int(v) for k, v in ak.items()} == {
@@ -230,6 +243,28 @@ def test_frame_kernel_ccd_matches_twin(scene):
     bcfg = SolverConfig(substeps=10, slot_capacity=8, ccd=True)
     bw, _, _ = parallel.batched_rollout(bw, bcfg, 0, 2, record=lambda _: None)
     _frame_kernel_matches_twin(bcfg, bw)
+
+
+def test_frame_kernel_live_set_in_global_memory_matches_twin(scene):
+    """A table too wide for the set-up's planes (V = 4, C = 32) keeps its
+    live set in global memory beside the pose planes: the kernel against
+    its twin, its live count the twin's."""
+    cfg, w = scene
+    assert not hopper.frame2.frame2_live_shared(w.colliders.m, 4, 32)
+    _frame_kernel_matches_twin(dataclasses.replace(cfg, slot_capacity=32), w)
+
+
+def test_live_counter_is_one_device_tensor(scene):
+    """The live counter is allocated once: frames add to the same int64
+    tensor on the card, with no host read."""
+    cfg, w = scene
+    parallel.frame2_step(w, cfg)
+    live = hopper.run_frame2.live_items
+    assert live.device.type == "cuda" and live.dtype == torch.int64
+    before = int(live.sum())
+    parallel.frame2_step(w, cfg)
+    assert hopper.run_frame2.live_items is live
+    assert int(live.sum()) > before
 
 
 @pytest.mark.parametrize("ccd", [False, True])

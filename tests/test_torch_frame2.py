@@ -143,6 +143,8 @@ def test_every_phase_keeps_its_whole_table_in_shared_memory(phase):
     assert smem == (hopper.frame2.frame2_state_bytes(N, M, V, J) + 16 * N
                     + hopper.frame2.SLOT_BYTES * csol * M)
     assert smem <= hopper.frame2.SHARED_LIMIT
+    # the live set reuses the set-up's planes: no byte of its own
+    assert hopper.frame2.frame2_live_shared(M, V, csol)
 
 
 def test_main_path_table_and_block_bytes():
@@ -182,6 +184,10 @@ def test_table_rows_past_shared_memory(case):
                 > hopper.frame2.SHARED_LIMIT)
     else:
         assert smem == state
+    # pose planes that do not fit go to the world's global scratch
+    if R is not None:
+        scratch = hopper.frame2.frame2_scratch_bytes(N, M, V, J, csol)
+        assert (scratch > 0) == (not pose_shared)
 
 
 @pytest.mark.parametrize("V", [4, 8])
@@ -233,3 +239,137 @@ def test_slot_record_layout_matches_the_kernel_source():
     assert re.search(r"#define F2_SLOT_BYTES \(4 \* F2_FIELDS \+ 3\)", src)
     limit = int(re.search(r"#define F2_SHARED_LIMIT (\d+)", src).group(1))
     assert limit == hopper.frame2.SHARED_LIMIT
+
+
+# ---- the live set: the (row, slot) items the slot phases walk -------------
+
+LIVE_SHARED = {  # (M, V, solve slots) -> the live set in the set-up's planes
+    "main": ((256, 4, 8), True),
+    "1024_rows": ((1024, 4, 8), True),
+    "16_slots": ((256, 4, 16), True),
+    "27_slots": ((256, 4, 27), True),
+    "28_slots": ((256, 4, 28), False),
+    "32_slots_v8": ((256, 8, 32), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_SHARED))
+def test_live_set_placement(case):
+    """The live set (64 warp counts, a uint32 of row bits a row and 32
+    slots, a uint16 entry an item) takes the (2V + 7) M words only the
+    set-up reads where it fits; a wider table keeps it in global memory."""
+    (M, V, csol), shared = LIVE_SHARED[case]
+    live = hopper.frame2.frame2_live_bytes(M, csol)
+    assert live == 4 * (64 + -(-csol // 32) * M) + 2 * csol * M
+    assert hopper.frame2.frame2_live_shared(M, V, csol) == shared
+    assert (live <= 4 * (2 * V + 7) * M) == shared
+    # a global live set sits after the pose planes in the world's scratch
+    scratch = hopper.frame2.frame2_scratch_bytes(M, M, V, 0, csol)
+    assert scratch == (0 if shared else -(-(16 * M + live) // 16) * 16)
+
+
+def _frame_masks(C, Cs, monkeypatch):
+    """One twin frame of a 2-world batch 40 frames into contact at C slots
+    (compacted to Cs): ``(pm [W, Csol * M] bool, the twin's outputs, M)``,
+    pm the live set's input."""
+    import dataclasses
+
+    sc = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3,
+                                  seed=2, device="cpu")
+    cfg = dataclasses.replace(sc.config, slot_capacity=C,
+                              batch_solve_capacity=Cs)
+    w, _, _ = parallel.batched_rollout(sc.world, cfg, 0, 40,
+                                       record=lambda _: None)
+    seen, outs = [], []
+    model, call = hopper.frame2.live_set, parallel.run_frame2
+    monkeypatch.setattr(hopper.frame2, "live_set",
+                        lambda pm, M: seen.append(pm) or model(pm, M))
+    monkeypatch.setattr(parallel, "run_frame2",
+                        lambda *a, **k: outs.append(call(*a, **k)) or outs[-1])
+    parallel.frame2_step(w, cfg)
+    assert len(seen) == len(outs) == 1
+    return seen[0], outs[0], w.colliders.m
+
+
+LIVE_MODEL = {"uncompacted": (8, 0), "cs4of8": (8, 4), "cs8of16": (16, 8),
+              "all_empty": None, "all_live": None}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_MODEL))
+def test_live_set_model(case, monkeypatch):
+    """``live_set``: each world's live items in ascending u = c * M + i
+    (the rest -1) and row i's live slots as bits, against a plain loop;
+    on a frame's real masks (with compaction the live count is each row's
+    pmask-active slots, at most Cs) and on an all-empty and all-live
+    table."""
+    if LIVE_MODEL[case] is None:
+        M, Csol = 40, 36  # two words of row bits
+        pm = torch.full((2, Csol * M), case == "all_live")
+    else:
+        C, Cs = LIVE_MODEL[case]
+        pm, _, M = _frame_masks(C, Cs, monkeypatch)
+        Csol = pm.shape[1] // M
+        assert Csol == (Cs or C)
+        assert 0 < int(pm.sum()) < pm.numel(), "vacuous masks"
+    items, n, bits = hopper.frame2.live_set(pm, M)
+    W, T = pm.shape
+    for w in range(W):
+        want = [u for u in range(T) if pm[w, u]]
+        assert int(n[w]) == len(want)
+        assert items[w, :len(want)].tolist() == want
+        assert bool((items[w, len(want):] == -1).all())
+    c = torch.arange(Csol)
+    got = (bits[:, c // 32, :] >> (c % 32)[None, :, None]) & 1
+    assert torch.equal(got.bool(), pm.reshape(W, Csol, M))
+    if case == "all_empty":
+        assert int(n.sum()) == 0 and int(bits.sum()) == 0
+
+
+def test_live_set_counts_the_compacted_table(monkeypatch):
+    """With compaction the live set is the table's first Cs ranks: each
+    row's pmask-active slots (``nact[:, 1]``, counted over all C) up to
+    Cs."""
+    pm, outs, M = _frame_masks(8, 4, monkeypatch)
+    W, nact = pm.shape[0], outs[8]
+    live = hopper.frame2.live_set(pm, M)[1]
+    assert torch.equal(live, nact[:, 1].clamp(max=4).sum(dim=1).long())
+    assert bool((nact[:, 1] > 4).any()), "no row past Cs: vacuous"
+    assert int(live.sum()) < W * 4 * M
+
+
+def test_live_counters_match_the_twin_pmask(monkeypatch):
+    """``run_frame2.live_items`` / ``slot_items`` over 8 CPU frames of a
+    2-world 256-body batch: each frame's slots with an active manifold
+    point (the twin's pmask: the manifold's point masks x K2's slot_act),
+    and W * C * M a frame."""
+    from starframe_tpu_torch.hopper import frame2 as f2
+
+    sc = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, substeps=3,
+                                  seed=2, device="cpu")
+    w, cfg = sc.world, sc.config
+    acts, pmasks = [], []
+    call, mb = parallel.run_frame2, f2.manifold_batch
+
+    def run(*args, **kw):
+        acts.append(args[19])
+        return call(*args, **kw)
+
+    def manifold(*args):
+        m = mb(*args)
+        pmasks.append(m.pmask)
+        return m
+
+    monkeypatch.setattr(parallel, "run_frame2", run)
+    monkeypatch.setattr(f2, "manifold_batch", manifold)
+    monkeypatch.setattr(f2.run_frame2, "live_items", None)
+    monkeypatch.setattr(f2.run_frame2, "slot_items", 0)
+    parallel.batched_rollout(w, cfg, 0, 8, record=lambda _: None)
+    assert len(acts) == len(pmasks) == 8
+    W, C, M = acts[0].shape
+    want = sum(int(((pm * a.reshape(W, C * M)[None]).amax(dim=0) > 0).sum())
+               for pm, a in zip(pmasks, acts))
+    assert want > 0
+    assert f2.run_frame2.live_items.dtype == torch.int64
+    assert int(f2.run_frame2.live_items) == want
+    assert f2.run_frame2.slot_items == 8 * W * C * M
+    assert want < f2.run_frame2.slot_items

@@ -12,9 +12,12 @@ HARD = ("slot_overflow", "joint_overflow", "solve_overflow",
 def implied(ref: dict, solver: dict) -> list:
     """The hard counters that have to read above 0 where the reference
     found, at the call's first frame (a table build), more touching
-    partners of one collider than its ``slot_capacity`` slots."""
-    return (["slot_overflow"] if ref["max_touching"] > solver["slot_capacity"]
-            else [])
+    partners of one collider than its ``slot_capacity`` slots, or more
+    joint rows on one body than its ``joint_slot_capacity`` slots."""
+    return ((["slot_overflow"] if ref["max_touching"]
+             > solver["slot_capacity"] else [])
+            + (["joint_overflow"] if ref.get("max_joint_rows", 0)
+               > solver["joint_slot_capacity"] else []))
 
 
 def call(world, cfg, n_frames: int):

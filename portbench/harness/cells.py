@@ -6,7 +6,9 @@
 - the configuration file (JSON): the scene module (``scenes/<scene>.py``),
   its arguments, the entry (``entries/<entry>.py``) and the solver
   configuration as run;
-- ``traffic/<traffic>.json``: the call pattern;
+- ``traffic/<traffic>.json``: the call pattern, and the ``control``
+  (``control/<control>.py``) that sets each call's actions, if it names
+  one;
 - ``limits/<cell>.json``: the limits of the numbers ``correct`` compares;
 - ``metrics/<metric>.py``: one reader per metric (``<stem>.py`` for all
   ``<stem>.<part>`` variants without a file of their own);
@@ -55,6 +57,7 @@ class Cell:
     per_layer: list
     scene: object  # scenes/<scene>.py
     entry: object  # entries/<entry>.py
+    control: object = None  # control/<control>.py, where the traffic names one
 
     @property
     def chips(self) -> int:
@@ -95,7 +98,18 @@ def resolve(cell: str, bench: dict | None = None) -> Cell:
         limits=limits, end_to_end=reported(bench["end_to_end"], cell),
         per_layer=reported(bench["per_layer"], cell),
         scene=load_module(BENCH / "scenes" / f"{config['scene']}.py"),
-        entry=load_module(BENCH / "entries" / f"{config['entry']}.py"))
+        entry=load_module(BENCH / "entries" / f"{config['entry']}.py"),
+        control=control_of(traffic))
+
+
+def control_of(traffic: dict):
+    """``control/<name>.py`` of the traffic's ``control``, or None. Its
+    ``apply(world, seed, pos)`` returns the world with the actions of the
+    call at episode position ``pos`` written into its joints, drawn on the
+    device from ``seed``, ``pos`` and the world's index alone."""
+    name = traffic.get("control")
+    return None if name is None else load_module(
+        BENCH / "control" / f"{name}.py")
 
 
 def metric_reader(name: str):

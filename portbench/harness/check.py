@@ -1,6 +1,7 @@
 """The comparison that decides ``correct``: each sampled call's answer (the
 final state the program returned) against the plain reference run over
-the same frames from the same input state.
+the same frames from the same input state, with the joint parameters the
+call ran with.
 
 Numbers over the dynamic bodies of the sampled calls: the position gap's
 median, 99th percentile and maximum (m), the angle gap's 99th percentile
@@ -22,6 +23,7 @@ import math
 import torch
 
 from reference import frame as ref_frame
+from reference import joints as ref_joints
 from reference import world as ref_world
 
 
@@ -47,11 +49,14 @@ def reference_config(solver: dict, entry_name: str) -> dict:
         linear_damping=s["linear_damping"],
         angular_damping=s["angular_damping"],
         sleep_velocity=s["sleep_velocity"], sleep_frames=s["sleep_frames"],
-        wake_velocity_factor=s["wake_velocity_factor"], solve_slots=slots)
+        wake_velocity_factor=s["wake_velocity_factor"], solve_slots=slots,
+        joint_solver=s["joint_solver"], joint_colors=s["max_joint_colors"],
+        joint_max_dpos=s["max_dpos"])
 
 
 def world_state(world) -> dict:
-    """A program world's dynamic state as flat ``[B]`` tensors (copies)."""
+    """A program world's dynamic state as flat ``[B]`` tensors (copies),
+    with :func:`joint_state`'s."""
     b = world.bodies
     return dict(px=b.pos[..., 0].reshape(-1).clone(),
                 py=b.pos[..., 1].reshape(-1).clone(),
@@ -60,7 +65,20 @@ def world_state(world) -> dict:
                 vy=b.vel[..., 1].reshape(-1).clone(),
                 om=b.ang_vel.reshape(-1).clone(),
                 sleep=b.sleep_count.reshape(-1).clone(),
-                steps=world.step_count.reshape(-1).clone())
+                steps=world.step_count.reshape(-1).clone(),
+                **joint_state(world))
+
+
+def joint_state(world) -> dict:
+    """The joint parameters a control rewrites each call (``motor_speed``
+    and ``motor_max``), flat ``[W * J]`` copies; none without joints. Taken
+    from the world the call is handed, they are the parameters it ran
+    with, and the reference runs with them in place of the scene's."""
+    j = world.joints
+    if j.j == 0:
+        return {}
+    return {k: getattr(j, k).reshape(-1).clone()
+            for k in ref_joints.STATE}
 
 
 def gaps(out: dict, ref: dict, dynamic) -> dict:

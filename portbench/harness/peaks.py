@@ -8,8 +8,9 @@ rate). The run reports the card's power limit beside every share.
 
 Operations an item needs (counted from the method, as the program's bring-up
 bound arithmetic counts them): a candidate pair's box test and tier select,
-one manifold of two polygons, and one solved pair's projection and
-velocity pass a substep."""
+one manifold of two polygons, one solved pair's projection and velocity
+pass a substep, and one joint row's solve in one pass (a projection, or
+its motor and damping rows)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ PAIR_FLOPS = 20
 MANIFOLD_FLOPS = 1000
 PROJECT_FLOPS = 200
 VELOCITY_FLOPS = 220
+JOINT_FLOPS = 100
 WORD = 4  # bytes of a float32 or int32
 
 

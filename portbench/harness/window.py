@@ -5,7 +5,10 @@ keeps the episode's start state, and runs one episode as the window will
 (``warm_up``). The window
 then runs episodes back to back until ``seconds`` have passed: each episode
 restores the start state (a device copy, inside the window) and makes its
-calls, each ended by ``torch.cuda.synchronize()`` and one read of its hard
+calls. Where the traffic names a control, each call starts by writing its
+actions into the world (``Cell.control``; an env step sets its action, so
+inside the call's wall), as every call of set-up does too. Each call is
+ended by ``torch.cuda.synchronize()`` and one read of its hard
 counters and of whether its answer is finite. A call whose answer holds a
 position or angle that is not finite has failed. A call with a hard
 counter above 0 is flagged: the program says a contact or joint may have
@@ -25,7 +28,7 @@ import time
 
 import torch
 
-from .check import world_state
+from .check import joint_state, world_state
 
 
 def clone_world(world):
@@ -68,13 +71,24 @@ class Window:
     traced: dict | None = None  # the profiled episodes (trace runs)
 
 
+def act(cell, world, seed: int, pos: int):
+    """``world`` with the actions of the call at episode position ``pos``
+    (the traffic's control), or as it is where the traffic has none."""
+    if cell.control is None:
+        return world
+    return cell.control.apply(world, seed, pos)
+
+
 def set_up(cell, seed: int, device, cfg, call):
     """``(start world, settle calls flagged)``: the scene, settled by the
-    traffic's ``start_frame`` frames in calls of its length."""
+    traffic's ``start_frame`` frames in calls of its length (the settling
+    calls take the positions before the episode's, -S to -1)."""
     world = cell.scene.program(cell.config["scene_args"], seed, device)
     F = cell.traffic["frames_per_call"]
     bad = 0
-    for _ in range(cell.traffic["start_frame"] // F):
+    settle = cell.traffic["start_frame"] // F
+    for k in range(settle):
+        world = act(cell, world, seed, k - settle)
         world, diag = call(world, cfg, F)
         hard, _ = read_call(world, diag, cell.entry.HARD)
         bad += int(any(v > 0 for v in hard.values()))
@@ -82,19 +96,21 @@ def set_up(cell, seed: int, device, cfg, call):
     return world, bad
 
 
-def warm_up(cell, start, cfg, call, positions, device) -> set:
+def warm_up(cell, start, cfg, call, positions, device, seed: int) -> set:
     """One whole episode as the window runs it, its answers dropped, so
     that every shape and every allocation the window's episodes make is
     made in set-up. Returns the positions whose call flagged, for the
     window to keep from its first episode."""
-    return run(cell, start, cfg, call, math.inf, positions, device,
+    return run(cell, start, cfg, call, math.inf, positions, device, seed,
                episodes=1).flagged
 
 
 def run(cell, start, cfg, call, seconds: float, positions, device,
-        profile_episodes: int = 0, episodes: int | None = None) -> Window:
+        seed: int, profile_episodes: int = 0,
+        episodes: int | None = None) -> Window:
     """The measured window (see the module's docstring), or its first
-    ``episodes`` whole episodes. With ``profile_episodes`` the first that
+    ``episodes`` whole episodes, the control's actions drawn from
+    ``seed``. With ``profile_episodes`` the first that
     many episodes run under ``torch.profiler``; ``Window.traced`` then
     holds the profiler and the traced calls' count and frames."""
     limit = episodes
@@ -131,6 +147,7 @@ def run(cell, start, cfg, call, seconds: float, positions, device,
                 inp = world_state(world)
             tc = time.perf_counter()
             with mark("portbench.call"):
+                sent = world = act(cell, world, seed, k)
                 world, diag = call(world, cfg, F)
                 sync(device)
             walls.append(time.perf_counter() - tc)
@@ -141,6 +158,7 @@ def run(cell, start, cfg, call, seconds: float, positions, device,
                 flagged.add(k)
             frames.append(F)
             if keep:
+                inp.update(joint_state(sent))  # the actions it ran with
                 samples[k] = dict(pos=k, **{"in": inp}, out=world_state(world),
                                   hard=hard)
             # the traced episodes always run whole

@@ -55,8 +55,8 @@ def readings(cell, seed: int, seconds: float, control: bool, device):
     positions = run.seed_positions(
         seed, cell.traffic["episode_frames"] // F, cell.traffic["check_calls"])
     positions = sorted(set(positions) | window.warm_up(
-        cell, start, cfg, call, positions, device))
-    win = window.run(cell, start, cfg, call, seconds, positions, device)
+        cell, start, cfg, call, positions, device, seed))
+    win = window.run(cell, start, cfg, call, seconds, positions, device, seed)
     setup = time.perf_counter() - t0
     del start
     torch.cuda.empty_cache()
@@ -116,15 +116,19 @@ def main() -> int:
                        k < args.control_seeds, "cuda:0")
         rows.append(row)
         print(json.dumps(row), flush=True)
-    summary = {}
-    for name in rows[0]["program"]:
-        summary[name] = dict(
-            program_max=max(r["program"][name] for r in rows),
-            control_min=min((r["control"][name] for r in rows
-                             if "control" in r), default=None))
     print(json.dumps(dict(workload=args.workload, seeds=len(rows),
-                          summary=summary)), flush=True)
+                          summary=summary(rows))), flush=True)
     return 0
+
+
+def summary(rows) -> dict:
+    """Each number's largest program reading and smallest control reading
+    over the rows of :func:`readings`."""
+    return {name: dict(
+        program_max=max(r["program"][name] for r in rows),
+        control_min=min((r["control"][name] for r in rows
+                         if "control" in r), default=None))
+        for name in rows[0]["program"]}
 
 
 if __name__ == "__main__":

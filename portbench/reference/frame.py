@@ -17,7 +17,9 @@ restitution and dynamic friction over the points that pushed. With
 stays under ``sleep_velocity`` for ``sleep_frames`` frames is frozen (its
 inverse masses are zero for the frame) until a dynamic partner within the
 margin moves at ``sleep_velocity * wake_velocity_factor`` or faster; a
-frame in which nothing dynamic is awake changes nothing.
+frame in which nothing dynamic is awake changes nothing. Joints
+(``reference.joints``) are projected after each iteration's contacts, and
+their motors and damping join the velocity pass.
 
 Nothing here reads the program's tables, slots or tiles: the pair set is
 found from scratch, so a pair the program's broadphase lost shows as a
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from . import joints as ref_joints
 from .contact import manifold, project, velocity, world_geometry
 
 STATE = ("px", "py", "an", "vx", "vy", "om")
@@ -176,13 +179,39 @@ def _sum_to(n, idx, *vals):
     return out
 
 
+def _joint_passes(jg, cfg, pose, invm, invi, h):
+    """The joints' coloured position passes of one iteration: ``pose =
+    (px, py, an, dxx, dxy, dth)``, the poses and the corrections applied so
+    far, updated."""
+    px, py, an, dxx, dxy, dth = pose
+    last, lim = cfg["joint_colors"] - 1, cfg["joint_max_dpos"]
+    for color in range(last + 1):
+        sel = jg["color"] >= color if color == last else jg["color"] == color
+        jx, jy, ja, jc = ref_joints.position_sums(jg, sel, px, py, an, invm,
+                                                  invi, h)
+        jc = torch.clamp(jc, min=1.0)
+        ddx = torch.clamp(jx / jc, -lim, lim)
+        ddy = torch.clamp(jy / jc, -lim, lim)
+        dda = torch.clamp(ja / jc, -lim, lim)
+        px, py, an = px + ddx, py + ddy, an + dda
+        dxx, dxy, dth = dxx + ddx, dxy + ddy, dth + dda
+    return px, py, an, dxx, dxy, dth
+
+
 def frame(geom, st, cfg, stats=None):
     """One frame from state ``st`` (dict of ``[B]`` tensors, with ``sleep``
     counters where the configuration sleeps). Returns the new state.
     ``stats`` (a dict) adds the frame's counts (:func:`frame_contacts`,
-    ``frames`` run and ``awake`` bodies)."""
+    ``frames`` run and ``awake`` bodies; with joints
+    ``reference.joints.count``'s). The joints' per-call parameters
+    (``reference.joints.STATE``) are ``st``'s where it has them, else the
+    scene's, and pass on to the new state."""
     sleep_on = cfg.get("sleep_velocity", 0.0) > 0.0
     invm, invi = geom["invm"], geom["invi"]
+    jg = geom.get("joints")
+    if jg is not None and (sleep_on or cfg["joint_solver"] != "colored"):
+        raise NotImplementedError("the reference's joints take the coloured "
+                                  "solver without sleep")
     if stats is not None:
         for key in ("max_touching", "max_imminent"):
             stats.setdefault(key, 0)
@@ -198,6 +227,10 @@ def frame(geom, st, cfg, stats=None):
         stats["frames"] = stats.get("frames", 0) + 1
         stats["awake"] = stats.get("awake", 0) + int((invm > 0).sum())
     pairs, ba, bb, woken = frame_contacts(geom, st, cfg, invm, invi, stats)
+    if jg is not None:
+        motor = [st.get(k, jg[k]).to(invm.dtype) for k in ref_joints.STATE]
+        if stats is not None:
+            ref_joints.count(jg, invm, invi, stats)
     dyn = (invm > 0).to(invm.dtype)
     kin = geom["kinematic"].to(invm.dtype)
     g = torch.tensor(cfg["gravity"], dtype=invm.dtype, device=invm.device)
@@ -231,6 +264,9 @@ def frame(geom, st, cfg, stats=None):
             dda = torch.clamp(sa_ * cfg["relaxation"] / sc, -lim, lim)
             px, py, an = px + ddx, py + ddy, an + dda
             dxx, dxy, dth = dxx + ddx, dxy + ddy, dth + dda
+            if jg is not None:
+                px, py, an, dxx, dxy, dth = _joint_passes(
+                    jg, cfg, (px, py, an, dxx, dxy, dth), invm, invi, h)
         nk = 1.0 - kin
         vx = kin * vx + nk * (vtx + dxx / h)
         vy = kin * vy + nk * (vty + dxy / h)
@@ -241,6 +277,10 @@ def frame(geom, st, cfg, stats=None):
             pairs, world_geometry(pairs, pose(px, py, an)), vel, vel0, lam,
             h, cfg["restitution_threshold"])
         sx, sy, sw, sc = _sum_to(n, ba, gv, gw, gdw, gc)
+        if jg is not None:
+            jx, jy, jw, jc = ref_joints.velocity_sums(
+                jg, *motor, px, py, an, vx, vy, om, invm, invi, h)
+            sx, sy, sw, sc = sx + jx, sy + jy, sw + jw, sc + jc
         sc = torch.clamp(sc, min=1.0)
         vx, vy, om = vx + sx / sc, vy + sy / sc, om + sw / sc
         if cfg.get("linear_damping", 0.0) > 0.0:
@@ -249,6 +289,7 @@ def frame(geom, st, cfg, stats=None):
         if cfg.get("angular_damping", 0.0) > 0.0:
             om = om * (1.0 / (1.0 + h * cfg["angular_damping"]))
     out = dict(px=px, py=py, an=an, vx=vx, vy=vy, om=om)
+    out.update((k, st[k]) for k in ref_joints.STATE if k in st)
     if sleep_on:
         slow = (vx * vx + vy * vy + om * om) < cfg["sleep_velocity"] ** 2
         count = torch.where(slow, st["sleep"] + 1, torch.zeros_like(

@@ -76,18 +76,21 @@ def seed_positions(seed: int, per_episode: int, n: int) -> list:
     return sorted([0] + rest)
 
 
-def count_episode(cell, start, cfg, call, geom, rcfg, device) -> dict:
+def count_episode(cell, start, cfg, call, geom, rcfg, device,
+                  seed: int) -> dict:
     """The problem's work over one episode, for the roofline counts: the
-    program replays the episode (untimed); the reference runs each call's
-    frames from the call's input state and counts candidate, active and
-    solved pairs a frame (``reference.frame``)."""
+    program replays the episode (untimed), with the control's actions; the
+    reference runs each call's frames from the call's input state and
+    counts candidate, active and solved pairs and solved joint rows a frame
+    (``reference.frame``)."""
     from reference import frame as ref_frame
 
     F = cell.traffic["frames_per_call"]
     world = window.clone_world(start)
     stats = {}
     calls = cell.traffic["episode_frames"] // F
-    for _ in range(calls):
+    for k in range(calls):
+        world = window.act(cell, world, seed, k)
         inp = check.world_state(world)
         world, _ = call(world, cfg, F)
         ref_frame.rollout(geom, inp, rcfg, F, stats)
@@ -183,7 +186,7 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
     positions = seed_positions(seed, per_episode,
                                cell.traffic["check_calls"])
     t_warm = time.perf_counter()
-    flagged = window.warm_up(cell, start, cfg, call, positions, device)
+    flagged = window.warm_up(cell, start, cfg, call, positions, device, seed)
     positions = sorted(set(positions) | flagged)
     window.sync(device)
     setup_s = time.perf_counter() - t_start
@@ -193,7 +196,7 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
     phases = dict(start_s=t_scene - t_start, scene_s=t_warm - t_scene,
                   warm_s=t_start + setup_s - t_warm)
 
-    win = window.run(cell, start, cfg, call, seconds, positions, device,
+    win = window.run(cell, start, cfg, call, seconds, positions, device, seed,
                      profile_episodes=(cell.traffic["trace_episodes"]
                                        if trace_on else 0))
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -209,7 +212,8 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
     if trace_on:
         traced = reduce_trace(win.traced)
         win.traced = None
-        counts = count_episode(cell, start, cfg, call, geom, rcfg, device)
+        counts = count_episode(cell, start, cfg, call, geom, rcfg, device,
+                               seed)
     del start
     if cuda:
         torch.cuda.empty_cache()
@@ -231,9 +235,8 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
 
     ctx = SimpleNamespace(
         cell=cell, window=win, active_bodies=active,
-        setup_s=setup_s, trace=traced, counts=counts, shapes=dict(
-            colliders=desc["M"] * desc["W"], bodies=desc["N"] * desc["W"],
-            verts=max(len(v) for v in desc["col_verts"])))
+        setup_s=setup_s, trace=traced, counts=counts,
+        shapes=ref_world.shapes(desc))
     metrics = {}
     wanted = cell.per_layer if trace_on else cell.end_to_end
     for m in wanted:

@@ -30,6 +30,27 @@ def test_k4_counts():
     assert nbytes == 4 * (2 * (3 * 16 + 3 * 14) + 10)
 
 
+def test_k4_counts_a_joint_free_world_as_before():
+    """Joint-free counts and shapes (the reference's, which name no joints,
+    or name none with zeros) give the count of contacts alone."""
+    parent = (10 * 1000 + 10 * 4 * 420, 4 * (2 * (3 * 16 + 3 * 14) + 10))
+    k4 = cells.roofline_count("k4")
+    assert k4.work(ctx(COUNTS, SOLVER)) == parent
+    zero = ctx(dict(COUNTS, joints=0, max_joint_rows=0), SOLVER)
+    zero.shapes["joints"] = 0
+    assert k4.work(zero) == parent
+
+
+def test_k4_counts_joint_rows():
+    """Each solved joint row: a projection an iteration and a motor and
+    damping pass, each substep; its 15 parameter words read once a frame."""
+    c = ctx(dict(COUNTS, joints=6, max_joint_rows=3), SOLVER)
+    c.shapes["joints"] = 5
+    flops, nbytes = cells.roofline_count("k4").work(c)
+    assert flops == 10 * 1000 + 10 * 4 * 420 + 10 * (1 + 1) * 6 * 100
+    assert nbytes == 4 * (2 * (3 * 16 + 3 * 14 + 5 * 15) + 10)
+
+
 def test_k2_counts_one_build_a_call_at_k4():
     flops, nbytes = cells.roofline_count("k2").work(ctx(COUNTS, SOLVER))
     # one build (4 frames a call, K = 4) sees half of the 2 frames' pairs

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..spans import recording
 from . import _build
 
 f32 = torch.float32
@@ -296,7 +297,15 @@ def build_joint_slots(jba, jbb, jactive, n_bodies: int, *, JC: int,
     endpoint A, ``jact [W, JC, N] f32``, ``count [W, N] i32)``; empty slots
     are ``0, 0, 0`` and ``count`` is the true number of the body's joints
     (past ``JC`` the joint overflows). ``plain=True`` runs the twin even on
-    CUDA tensors (for timing the kernel against it)."""
+    CUDA tensors (for timing the kernel against it).
+
+    While a profiler records (``spans.recording``), and only then, each
+    build, kernel or twin, adds its live slots (each body's joints up to
+    ``JC``, from ``count``: the items of K4's joint branch that hold a
+    row) to ``build_joint_slots.live_slots`` (a one-element int64 tensor
+    on the device, None before the first traced build) and all its ``W x
+    JC x N`` slot items to ``build_joint_slots.slot_items`` (an int); an
+    untraced build launches nothing for them and reads nothing back."""
     W, J = jba.shape
     N = n_bodies
     dev = jba.device
@@ -304,17 +313,36 @@ def build_joint_slots(jba, jbb, jactive, n_bodies: int, *, JC: int,
                            ("jactive", jactive, f32)):
         _check(name, t, dtype, (W, J), dev)
     if plain or not _route(dev):
-        return joint_slots_plain(jba, jbb, jactive, N, JC=JC)
-    jslot = torch.empty((W, JC, N), dtype=i32, device=dev)
-    jside, jact = (torch.empty((W, JC, N), dtype=f32, device=dev)
-                   for _ in range(2))
-    count = torch.empty((W, N), dtype=i32, device=dev)
-    p = _build.ptr
-    args = _build.JointSlotArgs(p(jba), p(jbb), p(jactive), p(jslot),
-                                p(jside), p(jact), p(count), W, N, J, JC)
-    _build.launch("sf_joint_slots", args, dev)
-    build_joint_slots.launches += 1
-    return jslot, jside, jact, count
+        out = joint_slots_plain(jba, jbb, jactive, N, JC=JC)
+    else:
+        jslot = torch.empty((W, JC, N), dtype=i32, device=dev)
+        jside, jact = (torch.empty((W, JC, N), dtype=f32, device=dev)
+                       for _ in range(2))
+        count = torch.empty((W, N), dtype=i32, device=dev)
+        p = _build.ptr
+        args = _build.JointSlotArgs(p(jba), p(jbb), p(jactive), p(jslot),
+                                    p(jside), p(jact), p(count), W, N, J, JC)
+        _build.launch("sf_joint_slots", args, dev)
+        build_joint_slots.launches += 1
+        out = (jslot, jside, jact, count)
+    if recording():
+        _count_live_slots(out[3], JC)
+    return out
+
+
+def _count_live_slots(count, JC: int) -> None:
+    """Add a build's live and all slot items to ``build_joint_slots``'s
+    counters (the live one kept on ``count``'s device)."""
+    live = build_joint_slots.live_slots
+    if live is None:
+        live = torch.zeros(1, dtype=torch.int64, device=count.device)
+    elif live.device != count.device:
+        live = live.to(count.device)
+    live.add_(torch.clamp(count, max=JC).sum())
+    build_joint_slots.live_slots = live
+    build_joint_slots.slot_items += count.numel() * JC
 
 
 build_joint_slots.launches = 0
+build_joint_slots.live_slots = None
+build_joint_slots.slot_items = 0

@@ -353,9 +353,11 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
         zero = torch.zeros((), dtype=torch.int32, device=gravity.device)
         joints, joint_overflow = None, zero
         if worlds.joints.j > 0:
-            if joint_slots is None:
-                joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
-            joints, joint_overflow = _frame2_joints(worlds, cfg, joint_slots)
+            with span("starframe.joints"):
+                if joint_slots is None:
+                    joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
+                joints, joint_overflow = _frame2_joints(worlds, cfg,
+                                                        joint_slots)
         Cs = _batch_solve_cap(cfg)
         outs = run_frame2(
             body["posx"], body["posy"], body["ang"],
@@ -509,8 +511,10 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
         with span("starframe.setup"):
             elig = frame2_elig(worlds, cfg, plain=plain)
             owners = frame2_owners(worlds, cfg)
-            joint_slots = (frame2_joint_slots(worlds, cfg, plain=plain)
-                           if worlds.joints.j > 0 else None)
+            joint_slots = None
+            if worlds.joints.j > 0:
+                with span("starframe.joints"):
+                    joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         jovf = sovf = sdrp = zero
 

@@ -16,6 +16,11 @@ names, all ``starframe.*``:
   budget's scatter; K5 and its counters);
 - ``starframe.guard``: the staleness guard's verdicts and their blocking
   host read;
+- ``starframe.joints``: a jointed batch's joint work outside the frame
+  kernel: the joint slots (K3, built once a call inside
+  ``starframe.setup``) and each frame's joint preparation (the kernel's
+  joint arrays and the ``joint_overflow`` count, inside
+  ``starframe.frame``); a batch without joints opens none;
 - ``starframe.frame``: one frame (``parallel.frame2_step``; the tile
   engine's ``_run_frame`` and its solve counts);
 - ``starframe.sort``: the tile layout's re-sort and the edges after it;
@@ -29,12 +34,14 @@ import contextlib
 import torch
 
 NULL = contextlib.nullcontext()
-_recording = torch._C._autograd._profiler_enabled
+# whether a profiler records: the spans are on, and so are the counters
+# the program keeps only under a trace
+recording = torch._C._autograd._profiler_enabled
 
 
 def span(name: str):
     """``record_function(name)`` while a profiler records, else
     :data:`NULL`."""
-    if not _recording():
+    if not recording():
         return NULL
     return torch.profiler.record_function(name)

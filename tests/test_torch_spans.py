@@ -2,8 +2,9 @@
 with no profiler recording, ``span`` enters no ``record_function``; under
 ``torch.profiler`` each rollout records its layers' spans, as many as its
 table schedule and guard make, each nested in the call's one
-``starframe.rollout``; and the final state is bitwise the same with the
-profiler on and off."""
+``starframe.rollout``, and ``starframe.joints`` only on a jointed batch;
+the joint-slot counter counts only under a trace; and the final state is
+bitwise the same with the profiler on and off."""
 
 import dataclasses
 
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import starframe_tpu_torch as st  # noqa: E402
-from starframe_tpu_torch import parallel, spans, tiled  # noqa: E402
+from starframe_tpu_torch import hopper, parallel, spans, tiled  # noqa: E402
 
 from _torch_parity import build_tiled  # noqa: E402
 
@@ -99,6 +100,46 @@ def test_batched_rollout_spans(batch, K, want):
     assert counts(got) == want
     assert_nested(got)
     assert_same_bodies(final, batched(world, cfg, K)[0])
+
+
+@pytest.fixture(scope="module")
+def jointed():
+    sc = st.scenes.batchify(st.scenes.mechanism(substeps=2, device="cpu"), 2,
+                            seed=3)
+    return sc.world, sc.config
+
+
+def test_joints_span_only_on_a_jointed_batch(batch, jointed):
+    _, plain = traced(lambda: batched(*batch, 4))
+    assert "starframe.joints" not in plain
+    world, cfg = jointed
+    (final, _, _), got = traced(lambda: batched(world, cfg, 4))
+    # K3 once, inside the set-up; the joint preparation once a frame,
+    # inside each frame
+    assert counts(got)["joints"] == 1 + 4
+    assert_nested(got)
+    (setup,) = got["starframe.setup"]
+    frames = got["starframe.frame"]
+    for s, e, _ in got["starframe.joints"]:
+        outer = [setup] + frames
+        assert sum(a <= s <= e <= b for a, b, _ in outer) == 1
+    assert_same_bodies(final, batched(world, cfg, 4)[0])
+
+
+def test_joint_slot_counter_counts_only_under_a_trace(jointed, monkeypatch):
+    world, cfg = jointed
+    build = hopper.build_joint_slots
+    monkeypatch.setattr(build, "live_slots", None)
+    monkeypatch.setattr(build, "slot_items", 0)
+    batched(world, cfg, 4, frames=2)
+    assert build.live_slots is None and build.slot_items == 0
+    traced(lambda: batched(world, cfg, 4, frames=2))
+    count = parallel.frame2_joint_slots(world, cfg, plain=True)[3]
+    JC = cfg.joint_slot_capacity
+    # one build a call: each body's joints up to JC, over W x JC x N items
+    assert int(build.live_slots) == int(torch.clamp(count, max=JC).sum())
+    assert build.slot_items == count.numel() * JC
+    assert 0 < int(build.live_slots) < build.slot_items
 
 
 @pytest.fixture(scope="module")

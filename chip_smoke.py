@@ -11,8 +11,10 @@
    the slot tables' integer outputs equal with ``partner_aware`` off and
    on, the budget to 1e-6; one frame with ``touched`` equal, poses to 1e-4,
    velocities to 1e-3. The jointed batches (``batchify`` of ``mechanism``
-   and ``rope_bridge``, 4 substeps): the joint slots equal, and one frame
-   with joints under both joint tiers to the same bounds.
+   and ``rope_bridge``, and 64 envs of the benchmark's walker 60 frames
+   in, at 4 substeps): the joint slots equal, and one frame with joints
+   under both joint tiers to the same bounds; the walker also at its own
+   10 substeps, world by world as step 4 holds its jointed batches.
 3. Drives the main path, ``batched_rollout`` over 4096 worlds x 256 bodies
    (10 substeps, broadphase every 4 frames) for 60 frames: once to warm up,
    then timed between ``torch.cuda.synchronize()`` calls, with every kernel
@@ -160,7 +162,9 @@ compacted ones against, which keep some rows in K4's global table (``R <
 M``), and prints a SHA-256 digest of each K4 phase's final state. Each K4
 phase's start batch, config and frames come from ``tools/frame2_digests.py``
 ``phase``, which computes the same digests for any checkout, to compare a
-change with its parent.
+change with its parent. Step 3 also runs that tool's ``walker`` phase, the
+benchmark's 4,096 BipedalWalker-v3 envs, and checks K4's joint list there
+(``run_frame2.live_joint_items``: 24 items a world a frame).
 
 K7, K8, K9, K10 and the compound frame run one thread a (row, slot)
 item, 32 rows x 8 slots a block: step 1 prints ptxas's registers, stack,
@@ -228,6 +232,9 @@ KERNELS = (
 )
 CONTACT_KERNELS = ("elig", "slots", "frame2")
 JOINTED = ("mechanism", "rope_bridge")
+# (N, M, J, solve slots) of the benchmark's walker (K4 phase ``walker``):
+# 199 edge bodies and 5 parts, 12 joint rows, 8 slots, at V = 8
+WALKER_SHAPE = (204, 204, 12, 8)
 TILE_KERNELS = (
     ("tile_tables", "build_tile_tables",
      "starframe_tpu_torch/csrc/tile_tables.cu",
@@ -1008,7 +1015,7 @@ def agree_worlds(name, k, p, max_share=0.01) -> float:
     q = [float(x) for x in torch.quantile(pose, torch.tensor(
         [0.5, 0.99], dtype=pose.dtype, device=pose.device))]
     check(n_off <= max_share * W, f"{name}: {n_off} of {W} worlds off")
-    print(f"parity {name} at full size: touched equal; {n_off} of {W} "
+    print(f"parity {name} at {W} worlds: touched equal; {n_off} of {W} "
           f"worlds past poses 1e-4 / velocities 1e-3 x speed; pose err "
           f"median {q[0]:.3g}, 99th percentile {q[1]:.3g}, max "
           f"{float(pose.max()):.3g}; velocity err max {float(vel.max()):.3g} "
@@ -1206,17 +1213,31 @@ def jointed_scene(name, n_worlds, dev, substeps=SUBSTEPS):
 
 
 def parity_joints(dev, hopper, parallel) -> dict:
-    """K3 and K4 with joints, kernel vs twin, on both jointed batches at 64
-    worlds 30 frames in, both joint tiers, at 4 substeps (the CPU tests'
-    depth: at 10 the mechanism's pendulum chain amplifies one ulp past the
-    fixed bounds in some worlds, which step 4 handles per world)."""
+    """K3 and K4 with joints, kernel vs twin, both joint tiers, at 4
+    substeps (the CPU tests' depth: at 10 the mechanism's pendulum chain
+    amplifies one ulp past the fixed bounds in some worlds, which step 4
+    handles per world): on both jointed batches at 64 worlds 30 frames in,
+    and on 64 envs of the benchmark's walker (K4 phase ``walker``, ``<8,
+    true, false>``) 60 frames in. Then the walker at its own 10 substeps,
+    world by world (``agree_worlds``): there a body at 15 m/s carries one
+    frame's float32 rounding past the fixed bounds in a world or two (the
+    twin moves further from itself run in float64)."""
     import dataclasses
 
+    def walker(substeps):
+        w, cfg, frames = digests_tool().walker(dev, FRAMES,
+                                               n_worlds=W_PARITY)
+        return w, dataclasses.replace(cfg, substeps=substeps), frames
+
+    def batches():
+        for name in JOINTED:
+            sc, _ = jointed_scene(name, W_PARITY, dev, substeps=4)
+            yield name, sc.world, sc.config, 30
+        yield ("walker", *walker(4))
+
     errs = {"joint_slots": 0.0, "frame2_joints": 0.0}
-    for name in JOINTED:
-        sc, _ = jointed_scene(name, W_PARITY, dev, substeps=4)
-        cfg = sc.config
-        w, _, _ = parallel.batched_rollout(sc.world, cfg, 0, 30,
+    for name, w, cfg, frames in batches():
+        w, _, _ = parallel.batched_rollout(w, cfg, 0, frames,
                                            record=lambda _: None)
         jk = parallel.frame2_joint_slots(w, cfg)
         jp = parallel.frame2_joint_slots(w, cfg, plain=True)
@@ -1230,7 +1251,51 @@ def parity_joints(dev, hopper, parallel) -> dict:
             e = frame_parity(f"frame2_joints {name} {solver}", parallel, w,
                              cfg_s, tables, joint_slots=jk)
             errs["frame2_joints"] = max(errs["frame2_joints"], e)
+    w, cfg, frames = walker(SUBSTEPS)
+    w, _, _ = parallel.batched_rollout(w, cfg, 0, frames,
+                                       record=lambda _: None)
+    jk = parallel.frame2_joint_slots(w, cfg)
+    tables = parallel.frame2_tables(w, cfg)
+    for solver in ("colored", "jacobi"):
+        cfg_s = dataclasses.replace(cfg, joint_solver=solver)
+        fargs, fkw = frame_call(hopper, parallel, w, cfg_s, tables, jk)
+        k, p = (hopper.run_frame2(*fargs, **fkw, plain=plain)
+                for plain in (False, True))
+        e = agree_worlds(f"frame2_joints walker {solver} at {SUBSTEPS} "
+                         "substeps", k, p)
+        errs["frame2_joints"] = max(errs["frame2_joints"], e)
     return errs
+
+
+def run_walker(dev, hopper, parallel, card) -> None:
+    """The benchmark's 4,096 BipedalWalker-v3 envs (K4 phase ``walker``)
+    for their frames, timed after a warm-up: no joint overflow, K4's joint
+    list 24 items a world a frame (the hull's two hips and each thigh's hip
+    and knee, three rows each, and each shin's knee), the phase's digest."""
+    import torch
+
+    w0, cfg, frames = k4_phase("walker", dev)
+
+    def rollout():
+        return parallel.batched_rollout(w0, cfg, 0, frames,
+                                        record=lambda _: None)
+
+    rollout()  # warm-up
+    torch.cuda.synchronize()
+    live0 = int(hopper.run_frame2.live_joint_items.sum())
+    t0 = time.perf_counter()
+    final, _, diag = rollout()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    W = w0.bodies.pos.shape[0]
+    live = int(hopper.run_frame2.live_joint_items.sum()) - live0
+    check(int(diag["joint_overflow"]) == 0, "walker: joint_overflow")
+    check(live == 24 * W * frames, f"walker: {live} live joint items over "
+          f"{frames} frames of {W} worlds, not 24 a world a frame")
+    record_phase("walker", w0, cfg, frames, final)
+    print(f"walker: {W} envs, {frames} frames in {seconds:.4f} s = "
+          f"{1e3 * seconds / frames:.4f} ms/frame; K4's joint list "
+          f"{live // (W * frames)} items a world a frame on {card}")
 
 
 def run_jointed(name, dev, wrappers, parallel, card) -> dict:
@@ -3815,12 +3880,15 @@ def main() -> int:
             print("ptxas:", line.strip())
     # K4's instances: ptxas's report beside the shared memory and resident
     # blocks an SM at the shapes of the phases that run each (the main
-    # path; the mechanism and rope batches; the V = 8 test scene for V = 8)
+    # path; the mechanism and rope batches, and for V = 8 the walker's; the
+    # V = 8 test scene for V = 8)
     k4 = ptxas_k4(_build.build_log())
     lib = _build.library()
     for inst, (regs, stack, st_, ld) in sorted(k4.items()):
         V, kJ, kCcd = inst.strip("<>").split(",")
-        shapes = (((128, 128, 10, 12), (128, 128, 50, 8)) if kJ == "true"
+        walker = ((WALKER_SHAPE,) if V == "8" else ())
+        shapes = (((128, 128, 10, 12), (128, 128, 50, 8)) + walker
+                  if kJ == "true"
                   else ((N_BODIES, N_BODIES, 0, 8),) if V == "4"
                   else ((128, 128, 0, 8),))
         for n, m, j, csol in shapes:
@@ -3909,6 +3977,7 @@ def main() -> int:
 
     jointed = {name: run_jointed(name, dev, wrappers, parallel, card)
                for name in JOINTED}
+    run_walker(dev, hopper, parallel, card)
     launches.update(jointed["mechanism"]["launches"])
     pile = run_pile(dev, hopper, tiled, card)
     launches.update(pile["launches"])

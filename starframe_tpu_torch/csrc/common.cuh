@@ -132,13 +132,17 @@ struct Frame2Args {
   int Cs;
   int32_t* o_partner;       // [W, C, M] the partner table in rank order
   float* o_nact;            // [W, 2, M] imminent / pmask-active slot counts
-  // [W] scratch of frame2.cu `scratch_bytes`: the substep-start pose [4, N]
-  // (x, y, cos, sin), then the live set, for what of them does not fit in
-  // shared memory beside the world's state; null when both fit
+  // [W] scratch of frame2.cu `scratch_bytes`: with joints the joint list,
+  // then the substep-start pose [4, N] (x, y, cos, sin), then the live set,
+  // for what of them does not fit in shared memory beside the world's
+  // state; null when all fit
   uint8_t* gscratch;
   // [1] the live (row, slot) items of every block's frame, added once a
   // block (the engagement counter); may be null
   unsigned long long* live_items;
+  // [1] the same for the joint list's items (body, joint slot) with joints;
+  // may be null
+  unsigned long long* live_joint_items;
 };
 
 // A slot's record in the frame kernel's slot table: the float fields

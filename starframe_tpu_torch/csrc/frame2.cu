@@ -33,9 +33,10 @@
 // Design: one CTA per world, 512 threads (256 where two blocks fit an
 // SM's shared memory: `block_threads`). A thread is body n in the body
 // phases, one (row i, slot c) item in the manifold set-up, one live item
-// in the slot phases (the projection, the velocity pass), and row i where
-// a row's slots go together (compaction's ranking, CCD's TOI), strided
-// when the block runs out. Body state, the world's collider geometry and
+// in the slot phases (the projection, the velocity pass), one joint item
+// in the joint phases (kJ, below), and row i where a row's slots go
+// together (compaction's ranking, CCD's TOI), strided when the block runs
+// out. Body state, the world's collider geometry and
 // the slot table live in shared memory. The Jacobi semantics are the TPU's: every slot reads
 // the iteration's start pose and leaves its terms in its record,
 // __syncthreads(), and only then does each body sum them and apply the
@@ -69,17 +70,28 @@
 //
 // Joints (the kJ instantiation; the contact-only one compiles without any
 // of it, so the main path keeps its registers and occupancy): the world's
-// joint parameters (15 fields x J) live in shared memory, and a thread in
-// a body phase owns that body's JC joint slots (joint_slots.cu), read
-// canonicalised so the own body is endpoint A (frame2.py `jd_all`). The
-// Jacobi tier sums a body's slots in order jc = 0..JC-1 during the contact
-// slot phase (every body reads the iteration-start pose) and adds the sum
-// after the contact sum, as the reference does. The coloured Gauss-Seidel
-// tier runs one pass per colour after the contact apply: each pass reads
-// the pass-start pose, writes its per-body sums to shared memory,
-// __syncthreads(), applies, so same-colour joints (which share no dynamic
-// body) apply exactly; the last pass takes every colour >= its own. Motors
-// and joint damping join the velocity pass the same way as the Jacobi sum.
+// joint parameters (15 fields x J) live in shared memory. After the live
+// set the block lists the frame's live joint items once, the joint list:
+// each body n's slots jc with jact != 0 (joint_slots.cu), n-major and in
+// ascending jc, each a record of the slot read canonicalised so that n is
+// endpoint A (frame2.py `jd_all`) and of the four terms a pass leaves, and
+// each body's first item (`jstart`). At most 2J items (a joint is in at
+// most its two bodies' slots), in the shared memory past the slot table
+// where they fit and cost no second block an SM, else in the world's
+// global scratch (`place`). The joint
+// phases walk the list, one item a thread, and read no slot table; each
+// body then sums the terms of its items that the pass took, in ascending
+// jc from 0, which are the adds the reference makes in its order. The
+// Jacobi tier solves the items during the contact slot phase (every body
+// reads the iteration-start pose) and adds a body's sum after the contact
+// sum, as the reference does. The coloured Gauss-Seidel tier runs one pass
+// per colour after the contact apply: each pass solves that colour's items
+// at the pass-start pose, __syncthreads(), applies, so same-colour joints
+// (which share no dynamic body) apply exactly; the last pass takes every
+// colour >= its own. A body that no item of the pass reaches skips the
+// divisions of its empty sum (their quotients are +0) and, like any body
+// whose angle keeps its bits, the refresh of its cos/sin. Motors and joint
+// damping join the velocity pass the same way as the Jacobi sum.
 //
 // CCD (the kCcd instantiation, frame2.py:464-514, 621-631): after the
 // integrate phase a row phase takes each bullet-owned row's TOI factor,
@@ -117,16 +129,21 @@ struct Shared {
   // of nv, only the set-up reads (`dead_words`)
   float *fric, *rest, *row, *vlx, *vly, *rad, *sens, *ext;
   int *nv, *cbody, *ostart, *oidx;
-  // joints (kJ only): parameters [J] and per-body joint sums [4, N]
+  // joints (kJ only): parameters [J], then [4, N] words (`shared_bytes`)
+  // that begin with each body's first item in the joint list [N + 1]
   int *jty, *jba, *jbb, *jcol;
   float *jaax, *jaay, *jabx, *jaby, *jrest, *jlo, *jhi, *jcomp, *jdamp;
-  float *jms, *jmm, *jrow;
+  float *jms, *jmm;
+  int* jstart;
 };
 
 __host__ __device__ inline size_t shared_bytes(int N, int M, int V, int J) {
   // body: 19 [N] planes; colliders: verts 2 [V, M], five [M] fields and the
   // [4, M] row plane; ints: cbody, nverts, owner_idx [M] and owner_start;
-  // with joints: 15 [J] parameter rows and the [4, N] joint sums
+  // with joints: 15 [J] parameter rows and 4 [N] words, of which the joint
+  // list's starts take N + 1: a jointed batch's eligibility and R follow
+  // these bytes (frame2.py `frame2_state_bytes`), which test_torch_frame2.py
+  // `test_eligibility_follows_the_world_state_only` pins
   return (size_t)(19 * N + (2 * V + 9) * M) * sizeof(float) +
          (size_t)(3 * M + N + 1) * sizeof(int) +
          (J > 0 ? (size_t)(kJointFields * J + 4 * N) * sizeof(float) : 0);
@@ -169,7 +186,7 @@ __device__ Shared carve(float* base, int N, int M, int V, int J) {
       *f = r;
       r += J;
     }
-    s.jrow = r;
+    s.jstart = reinterpret_cast<int*>(r);
   }
   return s;
 }
@@ -195,11 +212,27 @@ __host__ __device__ inline size_t live_bytes(int M, int Csol) {
          items * (live_wide(M, Csol) ? 4 : 2);
 }
 
-// A world's global scratch, for the pose planes and the live set where
-// they do not fit in shared memory (each at its own offset).
-__host__ __device__ inline size_t scratch_bytes(int N, int M, int Csol) {
-  return ((size_t)4 * N * sizeof(float) + live_bytes(M, Csol) + 15) / 16 *
-         16;
+// The joint list of J joints (see the header note): the build's warp
+// counts, then kJointWords [2J] planes, a record a column: own body, type,
+// partner body, colour (int); act, own and partner anchors, rest, lo, hi,
+// compliance, damping, motor speed and budget (JointSlot's values); the
+// four terms a pass leaves.
+constexpr int kJointWords = 20;
+__host__ __device__ inline size_t joint_bytes(int J) {
+  return J > 0 ? (size_t)4 * (kLiveCounts + (size_t)kJointWords * 2 * J) : 0;
+}
+
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// A world's global scratch, for the joint list, the pose planes and the
+// live set where they do not fit in shared memory (each at its own offset:
+// the joint list first, then the pose planes at joint_bytes(J)).
+__host__ __device__ inline size_t scratch_bytes(int N, int M, int Csol,
+                                                int J) {
+  return joint_bytes(J) + align16((size_t)4 * N * sizeof(float) +
+                                  live_bytes(M, Csol));
 }
 
 // Where a world's slot table goes (see the header note): the shared
@@ -208,24 +241,53 @@ __host__ __device__ inline size_t scratch_bytes(int N, int M, int Csol) {
 // not fit (the wrapper refuses such a shape); R = 0 with `pose_shared`
 // false when the pose planes do not fit either. `live_shared`: the live
 // set fits in the set-up's planes (`dead_words`), else it goes to global
-// memory beside the pose planes.
+// memory beside the pose planes. `jat`: the joint list's offset in shared
+// memory (`joints_at`), or 0 where it goes to the global scratch too (or
+// there are no joints).
 struct Placement {
   int R;
+  unsigned jat;
   bool pose_shared, live_shared;
   size_t bytes;  // the block's dynamic shared memory
 };
+
+// Whether the pose planes, the live set and (J > 0) the joint list all sit
+// in shared memory: else the launch needs the world's global scratch
+// (`scratch_bytes`).
+__host__ __device__ inline bool all_shared(const Placement& pl, int J) {
+  return pl.pose_shared && pl.live_shared && (J == 0 || pl.jat > 0);
+}
+
+// Whether two blocks of `bytes` of dynamic shared memory fit an SM
+// (`block_threads`).
+__host__ __device__ inline bool two_blocks(size_t bytes) {
+  return 2 * (bytes + kSmReserved) <= kSmPerSM;
+}
+
+// The offset of J joints' list in shared memory, past a table that ends at
+// byte `end`, 16-aligned: so it takes no row from R. 0 (global memory)
+// where it does not fit there, or where it would cost the block its second
+// block an SM (`block_threads`).
+__host__ __device__ inline size_t joints_at(size_t end, int J) {
+  const size_t at = align16(end), top = at + joint_bytes(J);
+  return J > 0 && top <= F2_SHARED_LIMIT && two_blocks(top) == two_blocks(end)
+             ? at
+             : 0;
+}
 
 __host__ __device__ inline Placement place(int N, int M, int V, int J,
                                            int Csol) {
   const size_t state = shared_bytes(N, M, V, J);
   const size_t pose = (size_t)4 * N * sizeof(float);
   const bool live_shared = live_bytes(M, Csol) <= 4 * dead_words(M, V);
-  if (state > F2_SHARED_LIMIT) return {-1, false, false, state};
-  if (state + pose > F2_SHARED_LIMIT) return {0, false, live_shared, state};
+  if (state > F2_SHARED_LIMIT) return {-1, 0u, false, false, state};
+  if (state + pose > F2_SHARED_LIMIT) return {0, 0u, false, live_shared, state};
   const size_t per_row = (size_t)Csol * F2_SLOT_BYTES;
   const size_t fit = (F2_SHARED_LIMIT - state - pose) / per_row;
   const int R = fit < (size_t)M ? (int)fit : M;
-  return {R, true, live_shared, state + pose + per_row * R};
+  const size_t end = state + pose + per_row * R, jat = joints_at(end, J);
+  return {R, (unsigned)jat, true, live_shared,
+          jat > 0 ? jat + joint_bytes(J) : end};
 }
 
 // Threads a block: kThreads, or half as many where two such blocks fit an
@@ -233,7 +295,7 @@ __host__ __device__ inline Placement place(int N, int M, int V, int J,
 // each running while the other waits at a barrier or fills only 128
 // threads in a body phase; two 256-thread blocks also fit the registers).
 inline int block_threads(size_t bytes) {
-  return 2 * (bytes + kSmReserved) <= kSmPerSM ? kThreads / 2 : kThreads;
+  return two_blocks(bytes) ? kThreads / 2 : kThreads;
 }
 
 // Bytes of one world's global table of K slots x Rn rows (16-aligned).
@@ -401,33 +463,87 @@ __device__ __forceinline__ void velocity_joint(const Shared& s, int n,
   out[3] = (is_motor || damped) ? 1.f : 0.f;
 }
 
-// Sum of body n's joint slots in order jc = 0..JC-1 into s.jrow (frame2.py
-// `sum_j`): position rows (kVel false) or velocity rows. color < 0 takes
-// every joint; else only that colour, or >= it on the last pass. A slot
-// that is empty or filtered out adds exact zeros in the reference, so it
-// is skipped here.
+// The joint list (shared or global: generic addresses), K = 2J records
+// (`joint_bytes`): word q of record k at w[q * K + k].
+struct JointList {
+  int* w;
+  int K;
+  __device__ __forceinline__ int& at(int q, int k) const {
+    return w[q * K + k];
+  }
+  __device__ __forceinline__ float& f(int q, int k) const {
+    return reinterpret_cast<float&>(w[q * K + k]);
+  }
+  __device__ __forceinline__ int body(int k) const { return at(0, k); }
+  __device__ __forceinline__ int color(int k) const { return at(3, k); }
+  __device__ __forceinline__ float& term(int q, int k) const {
+    return f(16 + q, k);
+  }
+  __device__ __forceinline__ void store(int k, int n,
+                                        const JointSlot& j) const {
+    at(0, k) = n; at(1, k) = j.ty; at(2, k) = j.pb; at(3, k) = j.color;
+    f(4, k) = j.act; f(5, k) = j.oax; f(6, k) = j.oay; f(7, k) = j.pax;
+    f(8, k) = j.pay; f(9, k) = j.rest; f(10, k) = j.lo; f(11, k) = j.hi;
+    f(12, k) = j.comp; f(13, k) = j.damp; f(14, k) = j.ms;
+    f(15, k) = j.mm;
+  }
+  __device__ __forceinline__ JointSlot slot(int k) const {
+    JointSlot j;
+    j.ty = at(1, k); j.pb = at(2, k); j.color = at(3, k);
+    j.act = f(4, k); j.oax = f(5, k); j.oay = f(6, k); j.pax = f(7, k);
+    j.pay = f(8, k); j.rest = f(9, k); j.lo = f(10, k); j.hi = f(11, k);
+    j.comp = f(12, k); j.damp = f(13, k); j.ms = f(14, k);
+    j.mm = f(15, k);
+    return j;
+  }
+};
+
+// Whether a pass of colour `color` (< 0: every joint; `last`: >= it)
+// takes an item of colour c.
+__device__ __forceinline__ bool takes(int c, int color, bool last) {
+  return color < 0 || (last ? c >= color : c == color);
+}
+
+// One pass over the joint list's items (s.jstart[N] of them) this thread
+// takes (strided by the block), each that the pass takes leaving its terms
+// in its record
+// (frame2.py `sum_j`'s operands): position rows (kVel false) or velocity
+// rows. A slot that is empty or filtered out adds exact zeros in the
+// reference, so it has no item or is skipped here.
 template <bool kVel>
-__device__ __forceinline__ void joint_sums(const Shared& s,
-                                           const Frame2Args& a, long long w,
-                                           int n, int color, bool last) {
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int jc = 0; jc < a.JC; ++jc) {
-    const JointSlot j = joint_slot(s, a, w, jc, n);
-    float active = j.act;
-    if (color >= 0 && !(last ? j.color >= color : j.color == color))
-      active = 0.f;
-    if (active == 0.f) continue;
+__device__ __forceinline__ void joint_pass(const Shared& s,
+                                           const Frame2Args& a,
+                                           const JointList& jl, int color,
+                                           bool last) {
+  for (int k = threadIdx.x; k < s.jstart[a.N]; k += blockDim.x) {
+    if (!takes(jl.color(k), color, last)) continue;
+    const JointSlot j = jl.slot(k);
     float v[4];
     if constexpr (kVel)
-      velocity_joint(s, n, j, a.h, v);
+      velocity_joint(s, jl.body(k), j, a.h, v);
     else
-      solve_joint(s, n, j, active, a.hh, v);
+      solve_joint(s, jl.body(k), j, j.act, a.hh, v);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += v[q];
+    for (int q = 0; q < 4; ++q) jl.term(q, k) = v[q];
   }
-  const int N = a.N;
+}
+
+// Body n's sum of the terms its items of the pass left (frame2.py
+// `sum_j`), in ascending jc from 0; false when the pass took none of them
+// (every sum +0).
+__device__ __forceinline__ bool joint_terms(const Shared& s,
+                                            const JointList& jl, int n,
+                                            int color, bool last,
+                                            float (&acc)[4]) {
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+  bool any = false;
+  for (int k = s.jstart[n]; k < s.jstart[n + 1]; ++k) {
+    if (!takes(jl.color(k), color, last)) continue;
+    any = true;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) s.jrow[q * N + n] = acc[q];
+    for (int q = 0; q < 4; ++q) acc[q] += jl.term(q, k);
+  }
+  return any;
 }
 
 // Run f(i, c) on the (row i, slot c) items of a K-slot table over M rows
@@ -650,8 +766,12 @@ __device__ __forceinline__ void rank_row(const Frame2Args& a, int i,
   a.o_nact[(w * 2 + 1) * M + i] = n_act;
 }
 
+// jat: `place`'s jat, which the launch passes so that no register holds it
+// through the set-up (computed here, it took <8, true, *> from 4 to 44 B
+// of spill stores)
 template <int V, bool kJ, bool kCcd>
-__global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
+__global__ void __launch_bounds__(kThreads, 1)
+    frame2_kernel(Frame2Args a, unsigned jat) {
   extern __shared__ float smem[];
   const int N = a.N, M = a.M, C = a.C;
   const long long w = blockIdx.x;
@@ -666,22 +786,26 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
   const int Csol = compact ? a.Cs : C;
   const long long ow = a.owner_per_world ? w : 0;
 
-  // where the pose planes, the live set and the slot records live (see
-  // `place`)
-  const Placement pl = place(N, M, V, J, Csol);
+  // where the pose planes, the live set, the slot records and the joint
+  // list live (see `place`)
+  Placement pl = place(N, M, V, J, Csol);
+  if constexpr (kJ) pl.jat = jat;
   const int R = pl.R;
   const size_t state = shared_bytes(N, M, V, J);
   const size_t pose_bytes = (size_t)4 * N * sizeof(float);
   uint8_t* const head = reinterpret_cast<uint8_t*>(smem) + state;
+  // (`all_shared`, spelled out: called, it changed the contact-only
+  // instances' SASS)
   uint8_t* const gs =
-      pl.pose_shared && pl.live_shared
+      pl.pose_shared && pl.live_shared && (!kJ || pl.jat > 0)
           ? nullptr
-          : a.gscratch + (size_t)w * scratch_bytes(N, M, Csol);
-  float* const pose = reinterpret_cast<float*>(pl.pose_shared ? head : gs);
+          : a.gscratch + (size_t)w * scratch_bytes(N, M, Csol, J);
+  float* const pose = reinterpret_cast<float*>(
+      pl.pose_shared ? head : gs + joint_bytes(J));
   const Pose0 q0 = {pose, pose + N, pose + 2 * N, pose + 3 * N};
   uint8_t* const live = pl.live_shared
                             ? reinterpret_cast<uint8_t*>(s.row + M)
-                            : gs + pose_bytes;
+                            : gs + joint_bytes(J) + pose_bytes;
   uint8_t* const stab = head + pose_bytes;
   uint8_t* const gtab =
       R < M ? a.gtab + (size_t)w * table_bytes(Csol, M - R) : nullptr;
@@ -859,6 +983,58 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
   if (threadIdx.x == 0 && a.live_items != nullptr)
     atomicAdd(a.live_items, (unsigned long long)L.n);
 
+  // ---- the joint list (kJ; see the header note) ---------------------------
+  // A thread a body, by rounds of blockDim.x bodies: its live slots' count,
+  // placed after the items of the rounds before and of the lower threads
+  // (a warp's inclusive scan by shuffles, the warps' totals double-buffered
+  // as the live set's counts), then its records. Starts are held to the K
+  // records (the slot tables of joint_slots.cu never reach it); the last,
+  // s.jstart[N], is the list's size. The list heads the world's scratch
+  // where pl.jat is 0.
+  int* const jcnt = reinterpret_cast<int*>(
+      pl.jat > 0 ? reinterpret_cast<uint8_t*>(smem) + pl.jat : gs);
+  const JointList jl = {jcnt + kLiveCounts, 2 * J};
+  if constexpr (kJ) {
+    int jitems = 0;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    for (int base = 0, buf = 0; base < N; base += blockDim.x, buf ^= 32) {
+      const int n = base + threadIdx.x;
+      int cnt = 0;
+      for (int jc = 0; n < N && jc < a.JC; ++jc)
+        cnt += a.jact[(w * a.JC + jc) * N + n] != 0.f ? 1 : 0;
+      int incl = cnt;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += x;
+      }
+      if (lane == 31) jcnt[buf + warp] = incl;
+      __syncthreads();
+      int at = jitems, total = 0;
+      for (int k = 0; k < warps; ++k) {
+        const int x = jcnt[buf + k];
+        at += k < warp ? x : 0;
+        total += x;
+      }
+      at += incl - cnt;
+      if (n < N) {
+        s.jstart[n] = min(at, jl.K);
+        for (int jc = 0; jc < a.JC; ++jc) {
+          if (a.jact[(w * a.JC + jc) * N + n] == 0.f) continue;
+          if (at < jl.K) jl.store(at, n, joint_slot(s, a, w, jc, n));
+          ++at;
+        }
+      }
+      jitems += total;
+    }
+    if (threadIdx.x == 0) {
+      s.jstart[N] = min(jitems, jl.K);
+      if (a.live_joint_items != nullptr)
+        atomicAdd(a.live_joint_items, (unsigned long long)jitems);
+    }
+  }
+
   // ---- substeps ------------------------------------------------------------
   // Every phase that moves a body's angle also refreshes its cab/sab, so a
   // phase that reads them finds cos/sin of the current angle, which is what
@@ -1017,10 +1193,8 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
         t.at(F2_T3, c) = nact;
       });
       if constexpr (kJ) {
-        // Jacobi joints: summed at the iteration-start pose, like contacts
-        if (!a.joint_colored)
-          for (int n = threadIdx.x; n < N; n += blockDim.x)
-            joint_sums<false>(s, a, w, n, -1, false);
+        // Jacobi joints: solved at the iteration-start pose, like contacts
+        if (!a.joint_colored) joint_pass<false>(s, a, jl, -1, false);
       }
       __syncthreads();
       for (int n = threadIdx.x; n < N; n += blockDim.x) {
@@ -1028,8 +1202,10 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
         body_sums(n, ab);
         if constexpr (kJ) {
           if (!a.joint_colored) {
+            float jt[4];
+            joint_terms(s, jl, n, -1, false, jt);
 #pragma unroll
-            for (int q = 0; q < 4; ++q) ab[q] = ab[q] + s.jrow[q * N + n];
+            for (int q = 0; q < 4; ++q) ab[q] = ab[q] + jt[q];
           }
         }
         const float cnt = fmaxf(ab[3], 1.f);
@@ -1053,24 +1229,37 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
         for (int color = 0; colored && color < a.n_colors; ++color) {
           const bool last_color = color == a.n_colors - 1;
           __syncthreads();
-          for (int n = threadIdx.x; n < N; n += blockDim.x)
-            joint_sums<false>(s, a, w, n, color, last_color);
+          joint_pass<false>(s, a, jl, color, last_color);
           __syncthreads();
           for (int n = threadIdx.x; n < N; n += blockDim.x) {
-            const float cnt = fmaxf(s.jrow[3 * N + n], 1.f);
+            float jt[4];
+            // a body the pass did not reach: its sums are +0, and +0 / 1
+            // is +0
+            float qx = 0.f, qy = 0.f, qa = 0.f;
+            if (joint_terms(s, jl, n, color, last_color, jt)) {
+              const float cnt = fmaxf(jt[3], 1.f);
+              qx = jt[0] / cnt;
+              qy = jt[1] / cnt;
+              qa = jt[2] / cnt;
+            }
             // constraint upkeep, not depenetration: the raw max_dpos
             const float md = a.max_dpos_joint;
-            const float jdx = fminf(fmaxf(s.jrow[n] / cnt, -md), md);
-            const float jdy = fminf(fmaxf(s.jrow[N + n] / cnt, -md), md);
-            const float jda = fminf(fmaxf(s.jrow[2 * N + n] / cnt, -md), md);
+            const float jdx = fminf(fmaxf(qx, -md), md);
+            const float jdy = fminf(fmaxf(qy, -md), md);
+            const float jda = fminf(fmaxf(qa, -md), md);
+            const float an0 = s.an[n], an1 = an0 + jda;
             s.px[n] = s.px[n] + jdx;
             s.py[n] = s.py[n] + jdy;
-            s.an[n] = s.an[n] + jda;
+            s.an[n] = an1;
             s.dxx[n] = s.dxx[n] + jdx;
             s.dxy[n] = s.dxy[n] + jdy;
             s.dth[n] = s.dth[n] + jda;
-            s.cab[n] = cosf(s.an[n]);
-            s.sab[n] = sinf(s.an[n]);
+            // cab/sab hold cos/sin of an0 (every phase that moves an angle
+            // refreshes them): an angle that keeps its bits keeps them
+            if (__float_as_uint(an1) != __float_as_uint(an0)) {
+              s.cab[n] = cosf(an1);
+              s.sab[n] = sinf(an1);
+            }
             if (last && last_color) reconstruct(n);
           }
         }
@@ -1138,8 +1327,7 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
     });
     if constexpr (kJ) {
       // motors and joint damping, at the post-solve pose and velocities
-      for (int n = threadIdx.x; n < N; n += blockDim.x)
-        joint_sums<true>(s, a, w, n, -1, false);
+      joint_pass<true>(s, a, jl, -1, false);
     }
     __syncthreads();
     // the velocity pass's apply, then the next substep's integrate
@@ -1148,8 +1336,10 @@ __global__ void __launch_bounds__(kThreads, 1) frame2_kernel(Frame2Args a) {
       float ab[4];
       body_sums(n, ab);
       if constexpr (kJ) {
+        float jt[4];
+        joint_terms(s, jl, n, -1, false, jt);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) ab[q] = ab[q] + s.jrow[q * N + n];
+        for (int q = 0; q < 4; ++q) ab[q] = ab[q] + jt[q];
       }
       const float cnt = fmaxf(ab[3], 1.f);
       float vx = s.vx[n] + ab[0] / cnt;
@@ -1185,7 +1375,7 @@ int launch(const Frame2Args& a, cudaStream_t stream) {
   const Placement pl = place(a.N, a.M, V, kJ ? a.J : 0, Csol);
   // a shape the wrapper cannot place, or a global table it did not give
   if (pl.R < 0 || (pl.R < a.M && a.gtab == nullptr) ||
-      ((!pl.pose_shared || !pl.live_shared) && a.gscratch == nullptr) ||
+      (!all_shared(pl, kJ ? a.J : 0) && a.gscratch == nullptr) ||
       (kCcd && a.Cs > 0 && a.side == nullptr) ||
       (unsigned long long)Csol * a.M * a.M > (1ull << 32))
     return (int)cudaErrorInvalidValue;
@@ -1195,7 +1385,7 @@ int launch(const Frame2Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   if (a.W > 0)
     frame2_kernel<V, kJ, kCcd>
-        <<<a.W, block_threads(pl.bytes), pl.bytes, stream>>>(a);
+        <<<a.W, block_threads(pl.bytes), pl.bytes, stream>>>(a, pl.jat);
   return (int)cudaGetLastError();
 }
 
@@ -1242,9 +1432,13 @@ extern "C" int sf_frame2_table_rows(int N, int M, int V, int J, int Csol) {
 extern "C" long long sf_frame2_scratch_bytes(int N, int M, int V, int J,
                                              int Csol) {
   const Placement pl = place(N, M, V, J, Csol);
-  return pl.pose_shared && pl.live_shared
-             ? 0
-             : (long long)scratch_bytes(N, M, Csol);
+  return all_shared(pl, J) ? 0 : (long long)scratch_bytes(N, M, Csol, J);
+}
+
+// Whether the joint list of a launch at these shapes sits in shared memory.
+extern "C" int sf_frame2_joints_shared(int N, int M, int V, int J,
+                                       int Csol) {
+  return J > 0 && place(N, M, V, J, Csol).jat > 0 ? 1 : 0;
 }
 
 extern "C" int sf_frame2_block_threads(int N, int M, int V, int J,

@@ -112,6 +112,7 @@ class Frame2Args(ctypes.Structure):
         ("owner_per_world", ctypes.c_int), ("Cs", ctypes.c_int),
         ("o_partner", ctypes.c_void_p), ("o_nact", ctypes.c_void_p),
         ("gscratch", ctypes.c_void_p), ("live_items", ctypes.c_void_p),
+        ("live_joint_items", ctypes.c_void_p),
     ]
 
 
@@ -318,6 +319,8 @@ def library() -> ctypes.CDLL:
                  "sf_frame2_block_threads"):
         getattr(lib, name).restype = ctypes.c_int
     lib.sf_frame2_table_rows.argtypes = [ctypes.c_int] * 5
+    lib.sf_frame2_joints_shared.argtypes = [ctypes.c_int] * 5
+    lib.sf_frame2_joints_shared.restype = ctypes.c_int
     lib.sf_frame2_block_threads.argtypes = [ctypes.c_int] * 5
     lib.sf_frame2_blocks_per_sm.argtypes = [ctypes.c_int] * 6
     lib.sf_slots_shared_bytes.argtypes = [ctypes.c_int] * 2

@@ -19,7 +19,13 @@ the planes only the frame's set-up reads (:func:`frame2_live_shared`).
 wrapper hands the kernel a global table for the rest (none at the main
 path's shapes). ``run_frame2.live_items`` (a one-element int64 tensor on
 the device) and ``run_frame2.slot_items`` (an int) count the live items
-and all (row, solve slot) items of every frame run, kernel or twin.
+and all (row, solve slot) items of every frame run, kernel or twin. With
+joints the kernel lists each frame's live joint items (the body's joint
+slots with ``jact != 0``) once, and its joint passes walk that list, one
+item a thread (:func:`frame2_joints_shared`: in shared memory past the
+slot table, else in global memory); ``run_frame2.live_joint_items`` (a
+one-element int64 device tensor) and ``run_frame2.joint_items`` (an int,
+``W x JC x N`` a jointed frame) count them, kernel or twin.
 
 The frame: manifolds once at the frame-start pose (with a velocity-expanded
 speculative margin, anchors kept body-local), then ``substeps`` x
@@ -66,6 +72,8 @@ SCRATCH_FIELDS = 16  # csrc/common.cuh F2_FIELDS: float fields a slot record kee
 SLOT_BYTES = 4 * SCRATCH_FIELDS + 3  # and its int16 partner and mask byte
 _KERNEL_V = (4, 8)  # vertex widths the kernel is compiled for
 SHARED_LIMIT = 232448  # bytes of shared memory one H100 block may use
+SM_BYTES = 233472  # csrc/frame2.cu kSmPerSM: shared memory an SM shares out
+SM_RESERVED = 1024  # kSmReserved: of it, what the runtime keeps a block
 MAX_COMPACT_C = 32  # csrc/frame2.cu kMaxC: table width a row can rank
 # the joint tables run_frame2 takes: parameters [W, J], then slots [W, JC, N]
 JOINT_SLOT_KEYS = ("jslot", "jside", "jact")
@@ -80,10 +88,43 @@ def kernel_verts(V: int):
 def frame2_state_bytes(N: int, M: int, V: int, J: int) -> int:
     """Shared memory of one frame-kernel block's world state
     (``csrc/frame2.cu`` ``shared_bytes``): the bodies, colliders and row
-    sums, and with joints their 15 parameter rows and the per-body joint
-    sums. A batch whose state does not fit is not eligible."""
+    sums, and with joints their 15 parameter rows and ``4 N`` words, of
+    which each body's first item in the joint list takes ``N + 1``. A
+    batch whose state does not fit is not eligible."""
     return (4 * (19 * N + (2 * V + 9) * M) + 4 * (3 * M + N + 1)
             + (4 * (len(_build.JOINT_KEYS) * J + 4 * N) if J > 0 else 0))
+
+
+def frame2_joint_bytes(J: int) -> int:
+    """Bytes of one world's joint list (``csrc/frame2.cu``
+    ``joint_bytes``): the build's 64 warp counts and 20 words for each of
+    at most ``2J`` items (a joint lies in at most its two bodies' slots)."""
+    return 4 * (64 + 20 * 2 * J) if J > 0 else 0
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def _two_blocks(smem: int) -> bool:
+    """Whether two blocks of ``smem`` bytes fit an SM (``csrc/frame2.cu``
+    ``two_blocks``: the kernel then runs 256 threads a block, else 512)."""
+    return 2 * (smem + SM_RESERVED) <= SM_BYTES
+
+
+def frame2_joints_shared(N: int, M: int, V: int, J: int, Csol: int) -> bool:
+    """Whether the joint list goes to shared memory past the slot table
+    (16-aligned; it takes no row from :func:`frame2_table_rows`): where it
+    fits there and leaves two blocks an SM wherever the table alone does.
+    Else it goes to global memory beside the pose planes and the live
+    set."""
+    R = frame2_table_rows(N, M, V, J, Csol)
+    state = frame2_state_bytes(N, M, V, J)
+    if J <= 0 or R is None or state + 16 * N > SHARED_LIMIT:
+        return False
+    end = state + 16 * N + SLOT_BYTES * Csol * R
+    top = _align16(end) + frame2_joint_bytes(J)
+    return top <= SHARED_LIMIT and _two_blocks(top) == _two_blocks(end)
 
 
 def frame2_table_rows(N: int, M: int, V: int, J: int, Csol: int):
@@ -102,13 +143,16 @@ def frame2_table_rows(N: int, M: int, V: int, J: int, Csol: int):
 
 def frame2_shared_bytes(N: int, M: int, V: int, J: int, Csol: int) -> int:
     """Dynamic shared memory of one frame-kernel block: the world's state,
-    then (when they fit) the pose planes and the records of the first
-    :func:`frame2_table_rows` rows."""
+    then (when they fit) the pose planes, the records of the first
+    :func:`frame2_table_rows` rows and the joint list."""
     state = frame2_state_bytes(N, M, V, J)
     R = frame2_table_rows(N, M, V, J, Csol)
     if R is None or state + 16 * N > SHARED_LIMIT:
         return state
-    return state + 16 * N + SLOT_BYTES * Csol * R
+    end = state + 16 * N + SLOT_BYTES * Csol * R
+    if frame2_joints_shared(N, M, V, J, Csol):
+        return _align16(end) + frame2_joint_bytes(J)
+    return end
 
 
 def frame2_live_bytes(M: int, Csol: int) -> int:
@@ -129,12 +173,14 @@ def frame2_live_shared(M: int, V: int, Csol: int) -> bool:
 
 def frame2_scratch_bytes(N: int, M: int, V: int, J: int, Csol: int) -> int:
     """Bytes of one world's global scratch (``csrc/frame2.cu``
-    ``scratch_bytes``: the pose planes, then the live set, 16-aligned),
-    or 0 where both fit in shared memory."""
+    ``scratch_bytes``: with joints the joint list, then the pose planes
+    and the live set, 16-aligned), or 0 where all fit in shared memory."""
     pose_shared = frame2_state_bytes(N, M, V, J) + 16 * N <= SHARED_LIMIT
-    if pose_shared and frame2_live_shared(M, V, Csol):
+    if (pose_shared and frame2_live_shared(M, V, Csol)
+            and (J <= 0 or frame2_joints_shared(N, M, V, J, Csol))):
         return 0
-    return -(-(16 * N + frame2_live_bytes(M, Csol)) // 16) * 16
+    return (frame2_joint_bytes(J)
+            + _align16(16 * N + frame2_live_bytes(M, Csol)))
 
 
 def table_bytes(K: int, rows: int) -> int:
@@ -164,15 +210,16 @@ def live_set(pm, M: int):
     return items, n, bits
 
 
-def _live_counter(dev):
-    """``run_frame2.live_items``, allocated on ``dev`` at the first frame
-    (and moved, once, if the frames move to another device)."""
-    t = run_frame2.live_items
+def _counter(name: str, dev):
+    """``run_frame2.<name>`` (``live_items``, ``live_joint_items``),
+    allocated on ``dev`` at the first frame (and moved, once, if the frames
+    move to another device)."""
+    t = getattr(run_frame2, name)
     if t is None:
         t = torch.zeros(1, dtype=torch.int64, device=dev)
     elif t.device != torch.device(dev):
         t = t.to(dev)
-    run_frame2.live_items = t
+    setattr(run_frame2, name, t)
     return t
 
 
@@ -428,7 +475,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         Cp = Cs
 
     # the live set the kernel builds, counted as it counts it
-    _live_counter(posx.device).add_(
+    _counter("live_items", posx.device).add_(
         live_set(cb_.pmask.amax(dim=0) > 0, M)[1].sum())
     run_frame2.slot_items += W * Cp * M
 
@@ -455,6 +502,10 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     if joints is not None:
         JC = joints["jslot"].shape[1]
         pb_j, jd, jcolor = _joint_pack(joints, invm, invi)
+        # the joint list the kernel builds, counted as it counts it
+        _counter("live_joint_items", posx.device).add_(
+            (joints["jact"] != 0).sum())
+        run_frame2.joint_items += W * JC * N
 
         def tile_j(x):  # [W, N] -> [W, JC*N]: own-side quantity per slot
             return x.repeat(1, JC)
@@ -724,10 +775,12 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     scratch = frame2_scratch_bytes(N, M, Vk, J, Csol)
     if (lib.sf_frame2_table_rows(N, M, Vk, J, Csol) != (-1 if R is None else R)
             or lib.sf_frame2_shared_bytes(N, M, Vk, J, Csol) != smem
-            or lib.sf_frame2_scratch_bytes(N, M, Vk, J, Csol) != scratch):
+            or lib.sf_frame2_scratch_bytes(N, M, Vk, J, Csol) != scratch
+            or bool(lib.sf_frame2_joints_shared(N, M, Vk, J, Csol))
+            != frame2_joints_shared(N, M, Vk, J, Csol)):
         raise RuntimeError("frame kernel shared-memory layout differs from "
                            "frame2_table_rows / frame2_shared_bytes / "
-                           "frame2_scratch_bytes")
+                           "frame2_scratch_bytes / frame2_joints_shared")
     if R is None:
         raise ValueError(f"frame kernel needs {smem} bytes of shared memory "
                          f"for the world's state at N={N}, M={M}, V={Vk}, "
@@ -744,8 +797,8 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             if R < M else None)
     side = (torch.empty((W, table_bytes(C - Cs, M)), dtype=u8, device=dev)
             if compact and ccd else None)
-    # the pose planes and the live set, where they do not fit in shared
-    # memory
+    # the pose planes, the live set and the joint list, where they do not
+    # fit in shared memory
     gscratch = (torch.empty((W, scratch), dtype=u8, device=dev) if scratch
                 else None)
     outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
@@ -775,9 +828,12 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         int(per_world), Cs if compact else 0,
         p(o_partner) if compact else None, p(nact) if compact else None,
         p(gscratch) if gscratch is not None else None,
-        p(_live_counter(dev)))
+        p(_counter("live_items", dev)),
+        p(_counter("live_joint_items", dev)) if joints is not None else None)
     _build.launch("sf_frame2", args, dev)
     run_frame2.slot_items += W * Csol * M
+    if joints is not None:
+        run_frame2.joint_items += W * JC * N
     if R == M:
         run_frame2.shared_table_launches += 1
     if ccd:
@@ -803,3 +859,8 @@ run_frame2.shared_table_launches = 0
 # device (a [1] int64 tensor, None before the first frame), and all of them
 run_frame2.live_items = None
 run_frame2.slot_items = 0
+# the frames' live joint items (the joint list: each body's joint slots
+# with jact != 0), counted on the device (as live_items), and all W x JC x
+# N of them
+run_frame2.live_joint_items = None
+run_frame2.joint_items = 0

@@ -174,10 +174,14 @@ def _bulleted(w):
 
 
 def _live_counts():
-    """``(live, slots)``: ``run_frame2``'s item counters now."""
+    """``(live, slots, live joint items, joint items)``: ``run_frame2``'s
+    item counters now."""
     live = hopper.run_frame2.live_items
+    joints = hopper.run_frame2.live_joint_items
     return (0 if live is None else int(live.sum()),
-            hopper.run_frame2.slot_items)
+            hopper.run_frame2.slot_items,
+            0 if joints is None else int(joints.sum()),
+            hopper.run_frame2.joint_items)
 
 
 def _frame_kernel_matches_twin(cfg, w, touching=True):
@@ -188,20 +192,27 @@ def _frame_kernel_matches_twin(cfg, w, touching=True):
     n0 = getattr(hopper.run_frame2, counter)
     c0 = hopper.run_frame2.compact_launches
     o0 = hopper.run_frame2.owner_launches
-    live, slots = _live_counts()
+    live, slots, jlive, jitems = _live_counts()
     wk, tk, pk, _, ak = parallel.frame2_step(w, cfg, tables=tables)
     assert getattr(hopper.run_frame2, counter) == n0 + 1
     compact = 0 < cfg.batch_solve_capacity < cfg.slot_capacity
     assert hopper.run_frame2.compact_launches == c0 + compact
     assert hopper.run_frame2.owner_launches == o0 + (
         not cfg.batch_uniform_topology)
-    # the kernel's live items (its device counter) are the twin's count
-    live_k, slots_k = _live_counts()
+    # the kernel's live items and live joint items (its device counters)
+    # are the twin's counts
+    live_k, slots_k, jlive_k, jitems_k = _live_counts()
     wp, tp, pp, _, ap = parallel.frame2_step(w, cfg, tables=tables,
                                              plain=True)
-    live_p, slots_p = _live_counts()
+    live_p, slots_p, jlive_p, jitems_p = _live_counts()
     assert 0 < live_k - live == live_p - live_k < slots_k - slots
     assert slots_k - slots == slots_p - slots_k
+    assert jlive_k - jlive == jlive_p - jlive_k
+    assert jitems_k - jitems == jitems_p - jitems_k
+    if w.joints.j > 0:
+        assert 0 < jlive_k - jlive < jitems_k - jitems
+    else:
+        assert jlive_k == jlive and jitems_k == jitems
     assert torch.equal(tk, tp)
     assert torch.equal(pk, pp)  # partner_solve when compacting
     assert {k: int(v) for k, v in ak.items()} == {
@@ -556,6 +567,96 @@ def test_frame_kernel_with_joints_matches_twin(jointed, name, solver):
     cfg, w = jointed[name]
     _frame_kernel_matches_twin(
         dataclasses.replace(cfg, joint_solver=solver), w)
+
+
+@pytest.mark.parametrize("solver", ["colored", "jacobi"])
+@pytest.mark.parametrize("case", ["rope_bridge_10_slots",
+                                  "rope_bridge_23_slots", "850_joints"])
+def test_frame_kernel_joint_list_in_global_memory_matches_twin(
+        jointed, split_table, case, solver):
+    """A joint list that does not fit past the slot table, or would cost
+    the block its second block an SM there, goes to the world's global
+    scratch, through the same accessor: the rope bridge at 10 slots (two
+    256-thread blocks an SM) and at 23 (R = M and the pose planes and live
+    set in shared memory, so the list alone is global) and the 850-joint
+    batch (everything global), against the twin, both tiers."""
+    if case == "850_joints":
+        cfg, w = split_table["joints"]
+    else:
+        cfg, w = jointed["rope_bridge"]
+        cfg = dataclasses.replace(
+            cfg, slot_capacity=int(case.split("_")[2]))
+    cfg = dataclasses.replace(cfg, joint_solver=solver)
+    N, M, J = w.bodies.n, w.colliders.m, w.joints.j
+    C = cfg.slot_capacity
+    assert not hopper.frame2.frame2_joints_shared(N, M, 4, J, C)
+    assert (hopper.frame2_table_rows(N, M, 4, J, C)
+            == (M if case != "850_joints" else 0))
+    assert hopper.frame2.frame2_scratch_bytes(N, M, 4, J, C) > 0
+    _frame_kernel_matches_twin(cfg, w)
+
+
+# the benchmark's walker cell, its configuration and scene (portbench/)
+WALKER_CELL = "bipedal_walker.random_actions"
+WALKER_SEED = 2_718_281_828
+
+
+@pytest.fixture(scope="module")
+def walker():
+    """64 BipedalWalker-v3 envs of the benchmark's walker cell, each env's
+    motors set once by the cell's control, 60 frames in (legs on the
+    ground): ``(cfg, world)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import sys
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[1] / "portbench"
+    if str(bench) not in sys.path:
+        sys.path.append(str(bench))
+    from harness import cells
+
+    cell = cells.resolve(WALKER_CELL)
+    args = dict(cell.config["scene_args"], n_worlds=64)
+    w = cell.control.apply(cell.scene.program(args, WALKER_SEED, "cuda"),
+                           WALKER_SEED, 0)
+    cfg = cells.solver_config(cell.config)
+    w, _, _ = parallel.batched_rollout(w, cfg, 0, 60, record=lambda _: None)
+    return cfg, w
+
+
+@pytest.mark.parametrize("solver", ["colored", "jacobi"])
+def test_frame_kernel_on_walker_matches_twin(walker, solver):
+    """K4's joint branch on the walker batch (``<8, true, false>``: the
+    hull's five vertices; 24 live joint items of 1,224 a world, six
+    colours of eight passes) against its twin, both tiers; the joint list
+    in shared memory."""
+    cfg, w = walker
+    N, M, J = w.bodies.n, w.colliders.m, w.joints.j
+    assert hopper.frame2.frame2_joints_shared(N, M, 8, J, cfg.slot_capacity)
+    _frame_kernel_matches_twin(dataclasses.replace(cfg, joint_solver=solver),
+                               w)
+
+
+def test_live_joint_items_are_the_joint_slots_every_frame(walker,
+                                                          monkeypatch):
+    """``run_frame2.live_joint_items`` over a traced 5-frame rollout of the
+    walker batch (one K3 build) is K3's ``build_joint_slots.live_slots``
+    times the frames: 24 a world a frame; ``joint_items`` W x JC x N a
+    frame."""
+    cfg, w = walker
+    frames, W, N = 5, w.bodies.pos.shape[0], w.bodies.n
+    for name, zero in (("live_joint_items", None), ("joint_items", 0)):
+        monkeypatch.setattr(hopper.run_frame2, name, zero)
+    monkeypatch.setattr(hopper.build_joint_slots, "live_slots", None)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        parallel.batched_rollout(w, cfg, 0, frames, record=lambda _: None)
+    live = int(hopper.run_frame2.live_joint_items.sum())
+    assert live == int(hopper.build_joint_slots.live_slots.sum()) * frames
+    assert live == 24 * W * frames
+    assert hopper.run_frame2.joint_items == (
+        W * cfg.joint_slot_capacity * N * frames)
 
 
 @pytest.mark.parametrize("name", sorted(JOINTED))

@@ -129,6 +129,9 @@ def _phase_shapes():
     out["escorted"] = (128, 128, 4, 0, 4)
     out["owners_alternating"] = (128, 128, 4, 0, 8)
     out["verts8"] = (128, 128, 8, 0, 8)
+    # the benchmark's walker (portbench/scenes/bipedal_walker.py): 199 edge
+    # bodies and 5 parts, the hull's five vertices, 12 joint rows, 8 slots
+    out["walker"] = (204, 204, 8, 12, 8)
     return out
 
 
@@ -140,11 +143,20 @@ def test_every_phase_keeps_its_whole_table_in_shared_memory(phase):
     N, M, V, J, csol = PHASES[phase]
     assert hopper.frame2_table_rows(N, M, V, J, csol) == M
     smem = hopper.frame2_shared_bytes(N, M, V, J, csol)
-    assert smem == (hopper.frame2.frame2_state_bytes(N, M, V, J) + 16 * N
-                    + hopper.frame2.SLOT_BYTES * csol * M)
+    table_end = (hopper.frame2.frame2_state_bytes(N, M, V, J) + 16 * N
+                 + hopper.frame2.SLOT_BYTES * csol * M)
+    # a jointed phase's joint list follows the table, 16-aligned
+    assert hopper.frame2.frame2_joints_shared(N, M, V, J, csol) == (J > 0)
+    assert smem == (-(-table_end // 16) * 16
+                    + hopper.frame2.frame2_joint_bytes(J) if J else table_end)
     assert smem <= hopper.frame2.SHARED_LIMIT
+    # and leaves the block's threads (two blocks an SM at 256, else one
+    # at 512: csrc/frame2.cu block_threads) as the table alone did
+    two = 2 * (table_end + 1024) <= 233472
+    assert (2 * (smem + 1024) <= 233472) == two
     # the live set reuses the set-up's planes: no byte of its own
     assert hopper.frame2.frame2_live_shared(M, V, csol)
+    assert hopper.frame2.frame2_scratch_bytes(N, M, V, J, csol) == 0
 
 
 def test_main_path_table_and_block_bytes():
@@ -188,6 +200,43 @@ def test_table_rows_past_shared_memory(case):
     if R is not None:
         scratch = hopper.frame2.frame2_scratch_bytes(N, M, V, J, csol)
         assert (scratch > 0) == (not pose_shared)
+
+
+JOINT_LIST = {  # (N, M, V, J, solve slots) -> (R, the joint list shared)
+    "walker": ((204, 204, 8, 12, 8), (204, True)),
+    "rope_bridge": ((128, 128, 4, 50, 8), (128, True)),
+    "rope_bridge_10_slots": ((128, 128, 4, 50, 10), (128, False)),
+    "rope_bridge_23_slots": ((128, 128, 4, 50, 23), (128, False)),
+    "850_joints": ((1024, 1024, 4, 850, 8), (0, False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JOINT_LIST))
+def test_joint_list_placement(case):
+    """The joint list (64 warp counts and 20 words for each of at most 2J
+    items) sits past the slot table where it fits, so no shape loses a
+    table row to it, unless it would cost the block its second block an SM
+    (the rope bridge at 10 slots); else in the world's global scratch after
+    the pose planes and the live set, each 16-aligned."""
+    (N, M, V, J, csol), (R, shared) = JOINT_LIST[case]
+    f2 = hopper.frame2
+    if case == "rope_bridge_10_slots":
+        # the table alone leaves two blocks an SM, with the list one
+        smem = hopper.frame2_shared_bytes(N, M, V, J, csol)
+        assert 2 * (smem + f2.SM_RESERVED) <= f2.SM_BYTES
+        top = -(-smem // 16) * 16 + f2.frame2_joint_bytes(J)
+        assert top <= f2.SHARED_LIMIT
+        assert 2 * (top + f2.SM_RESERVED) > f2.SM_BYTES
+    assert f2.frame2_joint_bytes(J) == 4 * (64 + 40 * J)
+    assert hopper.frame2_table_rows(N, M, V, J, csol) == R
+    assert f2.frame2_joints_shared(N, M, V, J, csol) == shared
+    scratch = f2.frame2_scratch_bytes(N, M, V, J, csol)
+    if shared:
+        assert scratch == 0
+    else:
+        head = -(-(16 * N + f2.frame2_live_bytes(M, csol)) // 16) * 16
+        assert scratch == -(-(head + f2.frame2_joint_bytes(J)) // 16) * 16
+    assert f2.frame2_joint_bytes(0) == 0
 
 
 @pytest.mark.parametrize("V", [4, 8])

@@ -128,3 +128,31 @@ def test_rollout_matches_the_reference(cell):
     values["flagged_unchecked"] = 0
     correct, rows = check.verdict(values, cell.limits)
     assert correct, rows
+
+
+def test_twin_counts_the_joint_list(cell, world, monkeypatch):
+    """``run_frame2.live_joint_items`` / ``joint_items`` over 3 twin frames
+    of the 2-world walker batch: the joint list K4 builds each frame (each
+    body's joint slots with ``jact != 0``: the hull's two hips and each
+    thigh's hip and knee, 3 rows each, and each shin's knee: 24 a world),
+    which is K3's count of live slots, and W x JC x N slot items a frame;
+    a contact-only frame adds to neither."""
+    from starframe_tpu_torch import hopper, parallel
+
+    cfg = cells.solver_config(cell.config)
+    monkeypatch.setattr(hopper.run_frame2, "live_joint_items", None)
+    monkeypatch.setattr(hopper.run_frame2, "joint_items", 0)
+    parallel.batched_rollout(world, cfg, 0, 3, record=lambda _: None)
+    W, N, JC = world.bodies.pos.shape[0], world.bodies.n, 6
+    assert cfg.joint_slot_capacity == JC
+    jact, count = (parallel.frame2_joint_slots(world, cfg)[k] for k in (2, 3))
+    live = int(hopper.run_frame2.live_joint_items.sum())
+    assert live == 3 * int((jact != 0).sum()) == 3 * int(
+        torch.clamp(count, max=JC).sum()) == 3 * 24 * W
+    assert hopper.run_frame2.joint_items == 3 * W * JC * N
+    from starframe_tpu_torch.scenes import batched_worlds
+
+    sc = batched_worlds(n_worlds=1, n_bodies=16, device="cpu")
+    parallel.frame2_step(sc.world, sc.config)
+    assert int(hopper.run_frame2.live_joint_items.sum()) == live
+    assert hopper.run_frame2.joint_items == 3 * W * JC * N

@@ -10,7 +10,10 @@ the same frames (:func:`phase`, their one definition): the main path, its
 CCD, compacted (with and without CCD, and the same tables uncompacted,
 whose rows do not all fit in shared memory), per-world-list, sleeping and
 keyed forms, the two jointed batches, the projectile batches and the
-escorted projectile. Each phase's digest hashes
+escorted projectile, and the 4,096 BipedalWalker-v3 envs of the
+benchmark's walker cell (``walker``: its scene and configuration under
+``portbench/``, each env's 4 motor actions drawn once from
+:data:`WALKER_SEED`). Each phase's digest hashes
 the final bodies' pose, velocity and sleep counter (and, for the keyed
 phase, every frame's contact keys). The scenes come from this checkout's
 ``chip_smoke.py``, so two package roots (a change and its parent, unpacked
@@ -32,11 +35,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("main", "mechanism", "rope_bridge", "main_ccd", "projectile_200",
           "projectile_1000", "projectile_1000_rest", "compact",
           "compact_ccd", "compact_off", "compact_ccd_off", "escorted",
-          "owners", "owners_alternating", "sleep", "events")
+          "owners", "owners_alternating", "sleep", "events", "walker")
 # the phases whose slot table does not fit in shared memory whole (rows
 # past frame2_table_rows in K4's global table): the uncompacted tables
 # that batched_compact times its compacted ones against
 SPLIT = ("compact_off", "compact_ccd_off")
+WALKER_SEED = 1_234_567  # the walker phase's terrain, push and actions
 
 
 def digest(world, *extra) -> str:
@@ -101,6 +105,30 @@ def _compact_width(cs, w, cfg, dev) -> tuple:
     return _WIDTHS[key]
 
 
+def walker(dev, frames: int, n_worlds=None) -> tuple:
+    """``(world, cfg, frames)`` of the walker phase: the benchmark's
+    ``bipedal_walker`` configuration (``portbench/configs/``, its scene
+    ``program`` and solver; ``n_worlds`` envs in place of its 4,096 where
+    given) from :data:`WALKER_SEED`, every env's motors set once by the
+    ``walker_motors`` control from the same seed."""
+    bench = os.path.join(HERE, "portbench")
+    if bench not in sys.path:  # the control imports the harness
+        sys.path.append(bench)
+    from harness import cells
+
+    config = cells.load_json(cells.BENCH / "configs" / "bipedal_walker.json")
+    scene = cells.load_module(cells.BENCH / "scenes"
+                              / f"{config['scene']}.py")
+    control = cells.load_module(cells.BENCH / "control"
+                                / "walker_motors.py")
+    args = dict(config["scene_args"])
+    if n_worlds is not None:
+        args["n_worlds"] = n_worlds
+    w = scene.program(args, WALKER_SEED, dev)
+    return (control.apply(w, WALKER_SEED, 0), cells.solver_config(config),
+            frames)
+
+
 def phase(cs, name, dev) -> tuple:
     """``(world, cfg, frames)``: K4 phase ``name``'s start batch, config
     and frame count, the one definition that ``chip_smoke.py``, this tool
@@ -113,6 +141,8 @@ def phase(cs, name, dev) -> tuple:
     from starframe_tpu_torch import SolverConfig, parallel
     from starframe_tpu_torch.scenes import batched_worlds
 
+    if name == "walker":
+        return walker(dev, cs.FRAMES)
     if name in cs.JOINTED:
         sc, _ = cs.jointed_scene(name, cs.W_JOINTED, dev)
         return sc.world, sc.config, cs.FRAMES

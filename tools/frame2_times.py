@@ -10,7 +10,9 @@ each at its state after its frames (``tools/frame2_digests.py`` ``phase``,
 their one definition): the main path after 60 frames (with and without
 every dynamic body a bullet), the same with 8 solve slots of 16, the
 4096-world alternating-topology batch with per-world lists after 30
-frames, and the mechanism and rope-bridge batches after 60 frames. Each call is timed with CUDA events over
+frames, the mechanism and rope-bridge batches after 60 frames, and the
+benchmark's 4,096 BipedalWalker-v3 envs after 60 frames (``walker``). Each
+call is timed with CUDA events over
 ``--reps`` launches after two warm-up ones; its outputs are hashed, so the
 roots' results can be compared bitwise. The roots run in turns (ABBA for
 two), ``--rounds`` times. Prints one line a root and phase, and a JSON
@@ -29,7 +31,7 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("main", "main_ccd", "compact", "owners_alternating", "mechanism",
-          "rope_bridge")
+          "rope_bridge", "walker")
 
 
 def _tools():

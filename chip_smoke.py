@@ -163,8 +163,7 @@ M``), and prints a SHA-256 digest of each K4 phase's final state. Each K4
 phase's start batch, config and frames come from ``tools/frame2_digests.py``
 ``phase``, which computes the same digests for any checkout, to compare a
 change with its parent. Step 3 also runs that tool's ``walker`` phase, the
-benchmark's 4,096 BipedalWalker-v3 envs, and checks K4's joint list there
-(``run_frame2.live_joint_items``: 24 items a world a frame).
+benchmark's 4,096 BipedalWalker-v3 envs.
 
 K7, K8, K9, K10 and the compound frame run one thread a (row, slot)
 item, 32 rows x 8 slots a block: step 1 prints ptxas's registers, stack,
@@ -202,6 +201,7 @@ for each call's bytes or operations, see ``bound``), then the card line,
 then ``{"ok": true, "device": {...}}`` last. Any failed check raises.
 """
 
+import dataclasses
 import functools
 import importlib.util
 import json
@@ -503,14 +503,9 @@ def digests_tool():
 def table_rows(w, cfg) -> tuple:
     """``(R, M)``: the rows of ``w``'s slot table that K4 keeps in shared
     memory under ``cfg``, and all of them."""
-    from starframe_tpu_torch import hopper, parallel
+    from starframe_tpu_torch import parallel
 
-    csol = parallel._batch_solve_cap(cfg) or cfg.slot_capacity
-    m, v = w.colliders.m, w.colliders.max_verts
-    r = hopper.frame2_table_rows(w.bodies.n, m,
-                                 hopper.frame2.kernel_verts(v), w.joints.j,
-                                 csol)
-    return r, m
+    return parallel.frame2_inputs(w, cfg).k4.R, w.colliders.m
 
 
 def k4_phase(name, dev) -> tuple:
@@ -604,17 +599,16 @@ def slot_call_args(parallel, w, cfg) -> tuple:
     rollout of ``w`` under ``cfg`` passes them at a table build
     (``parallel.frame2_elig``, ``frame2_tables`` over
     ``cfg.frames_per_broadphase`` frames, partner-aware past one)."""
-    body, col = parallel._frame2_arrays(w, cfg)
-    eargs = (col["cbody"], col["layer"], col["lmask"], col["active"],
-             col["sensor"], body["responds"], body["moves"])
+    inputs = parallel.frame2_inputs(w, cfg)
+    (posx, posy, ang, vx, vy, _), _ = parallel.frame2_planes(w, cfg)
     K = cfg.frames_per_broadphase
-    vx, vy = ((parallel._sweep_bounds(w, cfg, K), None) if K > 1
-              else (body["velx"], body["vely"]))
-    sargs = (body["posx"], body["posy"], body["ang"], vx, vy, col["cbody"],
-             col["vlx"], col["vly"], col["radius"])
+    if K > 1:
+        vx, vy = parallel._sweep_bounds(w, cfg, K), None
+    k4 = inputs.k4
+    sargs = (posx, posy, ang, vx, vy, k4.cbody, k4.vlx, k4.vly, k4.radius)
     skw = dict(C=cfg.slot_capacity, margin=cfg.contact_margin, dt=cfg.dt * K,
                partner_aware=K > 1)
-    return eargs, sargs, skw
+    return inputs.elig, sargs, skw
 
 
 # (V, C, Cs) of K6's launches: the piles' hexagons (V = 6) at the awake
@@ -1023,38 +1017,35 @@ def agree_worlds(name, k, p, max_share=0.01) -> float:
     return max(float(pose.max()), float(vel.max()))
 
 
-def frame_call(hopper, parallel, w, cfg, tables, joint_slots=None):
+def frame_call(hopper, parallel, w, cfg, tables):
     """``(args, kwargs)`` of ``hopper.run_frame2`` for one frame of ``w``,
     as ``parallel.frame2_step`` builds them."""
-    body, col = parallel._frame2_arrays(w, cfg)
-    W = body["posx"].shape[0]
-    fargs = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
-                               "angvel", "invm", "invi", "dyn", "kin")]
-    fargs += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
-                               "fric", "rest", "sensor")]
-    fargs += [tables[0], tables[1], w.gravity.expand(W, 2).contiguous()]
-    fkw = dict(C=cfg.slot_capacity, substeps=cfg.substeps,
-               iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
-               margin=cfg.contact_margin, compliance=cfg.contact_compliance,
-               relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
-               rest_threshold=cfg.restitution_threshold,
-               lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-               owners=parallel.frame2_owners(w, cfg)[0])
-    if joint_slots is not None:
-        fkw.update(joints=parallel._frame2_joints(w, cfg, joint_slots)[0],
-                   JC=cfg.joint_slot_capacity, joint_solver=cfg.joint_solver,
-                   n_colors=cfg.max_joint_colors, max_dpos_joint=cfg.max_dpos)
-    return fargs, fkw
+    planes, masses = parallel.frame2_planes(w, cfg)
+    inputs = parallel.frame2_inputs(w, cfg).k4
+    return (*planes, tables[0], tables[1], inputs), dict(masses=masses)
+
+
+def as_double(x):
+    """``x`` with every float tensor in it (nested in tuples, dicts and
+    dataclasses) as float64."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **as_double(
+            {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}))
+    if isinstance(x, dict):
+        return {k: as_double(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(map(as_double, x))
+    return x
 
 
 def f32_spread(hopper, fargs, fkw, p):
     """Per field, how far the f32 twin's frame ``p`` lies from the same
     twin run in float64 on the same inputs."""
-    import torch
-
-    p64 = hopper.frame2_plain(
-        *[a.double() if a.dtype == torch.float32 else a for a in fargs],
-        **fkw)
+    p64 = hopper.frame2_plain(*as_double(fargs), **as_double(fkw))
     return [max_err(a, b) for a, b in zip(p[:6], p64[:6])]
 
 
@@ -1069,9 +1060,7 @@ def parity(dev, hopper, parallel, batched_worlds) -> dict:
                                        record=lambda _: None)
     errs = {}
 
-    body, col = parallel._frame2_arrays(w, cfg)
-    eargs = (col["cbody"], col["layer"], col["lmask"], col["active"],
-             col["sensor"], body["responds"], body["moves"])
+    eargs = parallel.frame2_inputs(w, cfg).elig
     ek = hopper.build_elig_mask(*eargs)
     ep = hopper.elig_mask_plain(*eargs)
     check(torch.equal(ek, ep), "elig: kernel != twin")
@@ -1181,15 +1170,13 @@ def parity_wide(dev, hopper, parallel, batched_worlds) -> dict:
     return errs
 
 
-def frame_parity(name, parallel, w, cfg, tables, joint_slots=None) -> float:
+def frame_parity(name, parallel, w, cfg, tables) -> float:
     """One frame through the kernel and the twin: ``touched`` equal, poses
     to 1e-4, velocities to 1e-3. Returns the max abs error."""
     import torch
 
-    wk, touched_k, *_ = parallel.frame2_step(w, cfg, tables=tables,
-                                             joint_slots=joint_slots)
+    wk, touched_k, *_ = parallel.frame2_step(w, cfg, tables=tables)
     wp, touched_p, *_ = parallel.frame2_step(w, cfg, tables=tables,
-                                             joint_slots=joint_slots,
                                              plain=True)
     check(torch.equal(touched_k, touched_p), f"{name}: touched differs")
     check(float(touched_k.sum()) > 0, f"{name}: no contacts, vacuous")
@@ -1249,16 +1236,15 @@ def parity_joints(dev, hopper, parallel) -> dict:
         for solver in ("colored", "jacobi"):
             cfg_s = dataclasses.replace(cfg, joint_solver=solver)
             e = frame_parity(f"frame2_joints {name} {solver}", parallel, w,
-                             cfg_s, tables, joint_slots=jk)
+                             cfg_s, tables)
             errs["frame2_joints"] = max(errs["frame2_joints"], e)
     w, cfg, frames = walker(SUBSTEPS)
     w, _, _ = parallel.batched_rollout(w, cfg, 0, frames,
                                        record=lambda _: None)
-    jk = parallel.frame2_joint_slots(w, cfg)
     tables = parallel.frame2_tables(w, cfg)
     for solver in ("colored", "jacobi"):
         cfg_s = dataclasses.replace(cfg, joint_solver=solver)
-        fargs, fkw = frame_call(hopper, parallel, w, cfg_s, tables, jk)
+        fargs, fkw = frame_call(hopper, parallel, w, cfg_s, tables)
         k, p = (hopper.run_frame2(*fargs, **fkw, plain=plain)
                 for plain in (False, True))
         e = agree_worlds(f"frame2_joints walker {solver} at {SUBSTEPS} "
@@ -1269,9 +1255,8 @@ def parity_joints(dev, hopper, parallel) -> dict:
 
 def run_walker(dev, hopper, parallel, card) -> None:
     """The benchmark's 4,096 BipedalWalker-v3 envs (K4 phase ``walker``)
-    for their frames, timed after a warm-up: no joint overflow, K4's joint
-    list 24 items a world a frame (the hull's two hips and each thigh's hip
-    and knee, three rows each, and each shin's knee), the phase's digest."""
+    for their frames, timed after a warm-up: no joint overflow, the
+    phase's digest."""
     import torch
 
     w0, cfg, frames = k4_phase("walker", dev)
@@ -1282,20 +1267,15 @@ def run_walker(dev, hopper, parallel, card) -> None:
 
     rollout()  # warm-up
     torch.cuda.synchronize()
-    live0 = int(hopper.run_frame2.live_joint_items.sum())
     t0 = time.perf_counter()
     final, _, diag = rollout()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     W = w0.bodies.pos.shape[0]
-    live = int(hopper.run_frame2.live_joint_items.sum()) - live0
     check(int(diag["joint_overflow"]) == 0, "walker: joint_overflow")
-    check(live == 24 * W * frames, f"walker: {live} live joint items over "
-          f"{frames} frames of {W} worlds, not 24 a world a frame")
     record_phase("walker", w0, cfg, frames, final)
     print(f"walker: {W} envs, {frames} frames in {seconds:.4f} s = "
-          f"{1e3 * seconds / frames:.4f} ms/frame; K4's joint list "
-          f"{live // (W * frames)} items a world a frame on {card}")
+          f"{1e3 * seconds / frames:.4f} ms/frame on {card}")
 
 
 def run_jointed(name, dev, wrappers, parallel, card) -> dict:
@@ -1386,9 +1366,8 @@ def jointed_turns(hopper, parallel, jointed, errs, bounds, card) -> dict:
         jargs = (j.body_a, j.body_b, (j.jtype != 0).to(torch.float32),
                  w.bodies.n)
         jkw = dict(JC=jcfg.joint_slot_capacity)
-        joint_slots = hopper.build_joint_slots(*jargs, **jkw)
         jt = parallel.frame2_tables(w, jcfg)
-        jfargs, jfkw = frame_call(hopper, parallel, w, jcfg, jt, joint_slots)
+        jfargs, jfkw = frame_call(hopper, parallel, w, jcfg, jt)
         jcalls = {
             "joint_slots": (
                 lambda p: hopper.build_joint_slots(*jargs, **jkw, plain=p)),
@@ -1435,6 +1414,9 @@ def nbytes(*xs) -> int:
             total += nbytes(*x.values())
         elif isinstance(x, (list, tuple)):
             total += nbytes(*x)
+        elif dataclasses.is_dataclass(x):
+            total += nbytes(*(getattr(x, f.name)
+                              for f in dataclasses.fields(x)))
         elif hasattr(x, "element_size"):
             total += x.numel() * x.element_size()
     return total
@@ -3344,8 +3326,6 @@ def ccd_turns(hopper, tiled, parallel, pccd, cccd, mccd, errs, bounds,
                                     frames=mcfg.frames_per_broadphase,
                                     elig=elig)
     fargs, fkw = frame_call(hopper, parallel, mw, mcfg, tables)
-    body, _ = parallel._frame2_arrays(mw, mcfg)
-    fkw.update(bullet=body["bullet"], ccd=True, ccd_slop=mcfg.ccd_slop)
 
     def call(p):
         return hopper.run_frame2(*fargs, **fkw, plain=p)
@@ -3816,13 +3796,7 @@ def a1_turns(hopper, parallel, phases, errs, bounds, card) -> dict:
                                         frames=cfg.frames_per_broadphase,
                                         elig=elig)
         fargs, fkw = frame_call(hopper, parallel, w, cfg, tables)
-        fkw["owners"] = parallel.frame2_owners(w, cfg)[0]
         Cs = parallel._batch_solve_cap(cfg)
-        if cfg.ccd:
-            body, _ = parallel._frame2_arrays(w, cfg)
-            fkw.update(bullet=body["bullet"], ccd=True, ccd_slop=cfg.ccd_slop)
-        if Cs:
-            fkw["Cs"] = Cs
 
         def call(p):
             return hopper.run_frame2(*fargs, **fkw, plain=p)
@@ -3934,7 +3908,6 @@ def main() -> int:
     for fn in wrappers.values():
         fn.launches = 0
     hopper.run_frame2.shared_table_launches = 0
-    syncs0 = parallel.host_syncs
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     final, _, diag = rollout(FRAMES)
@@ -3944,7 +3917,6 @@ def main() -> int:
     shared_launches = hopper.run_frame2.shared_table_launches
     record_phase("main", w0, cfg, FRAMES, final)
     launches = {name: wrappers[name].launches for name in CONTACT_KERNELS}
-    syncs = parallel.host_syncs - syncs0
     diag = {k: int(v) for k, v in diag.items()}
 
     pos = final.bodies.pos
@@ -3969,8 +3941,7 @@ def main() -> int:
           f"{FRAMES} frames in {seconds:.4f} s = {ms_frame:.4f} ms/frame, "
           f"{bps:.6g} body-steps/s ({active} active bodies/frame) on {card}")
     print(f"main path counters: {json.dumps(diag)}; launches "
-          f"{json.dumps(launches)}; host syncs {syncs} "
-          f"({syncs / FRAMES:.3f}/frame); min dynamic y {y_min:.4f}")
+          f"{json.dumps(launches)}; min dynamic y {y_min:.4f}")
     print(f"main path: K4 slot table in shared memory on {shared_launches} "
           f"of {FRAMES} launches (run_frame2.shared_table_launches); peak "
           f"device memory {peak_gib:.3f} GiB on {card}")

@@ -140,9 +140,6 @@ struct Frame2Args {
   // [1] the live (row, slot) items of every block's frame, added once a
   // block (the engagement counter); may be null
   unsigned long long* live_items;
-  // [1] the same for the joint list's items (body, joint slot) with joints;
-  // may be null
-  unsigned long long* live_joint_items;
 };
 
 // A slot's record in the frame kernel's slot table: the float fields

@@ -1028,11 +1028,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       jitems += total;
     }
-    if (threadIdx.x == 0) {
-      s.jstart[N] = min(jitems, jl.K);
-      if (a.live_joint_items != nullptr)
-        atomicAdd(a.live_joint_items, (unsigned long long)jitems);
-    }
+    if (threadIdx.x == 0) s.jstart[N] = min(jitems, jl.K);
   }
 
   // ---- substeps ------------------------------------------------------------

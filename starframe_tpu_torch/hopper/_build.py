@@ -112,7 +112,6 @@ class Frame2Args(ctypes.Structure):
         ("owner_per_world", ctypes.c_int), ("Cs", ctypes.c_int),
         ("o_partner", ctypes.c_void_p), ("o_nact", ctypes.c_void_p),
         ("gscratch", ctypes.c_void_p), ("live_items", ctypes.c_void_p),
-        ("live_joint_items", ctypes.c_void_p),
     ]
 
 

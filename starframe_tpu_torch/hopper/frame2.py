@@ -6,8 +6,8 @@ configuration the reference has: contact-only or with joints, with or
 without CCD, with or without per-frame solve-slot compaction (``Cs``), with
 one collider -> body list for the batch or one per world. :func:`run_frame2`
 launches it for CUDA tensors and runs :func:`frame2_plain`, the plain
-PyTorch twin, for CPU tensors. ``run_frame2.launches`` counts kernel
-launches.
+PyTorch twin, for CPU tensors. Both take a frame's body planes and slot
+tables and a :class:`Frame2Inputs`, what no frame of a call changes.
 
 The kernel keeps each world's slot table (67 bytes a slot: the body-local
 normal and anchors, the lambdas, a pass's four row-sum terms, the partner
@@ -23,9 +23,7 @@ and all (row, solve slot) items of every frame run, kernel or twin. With
 joints the kernel lists each frame's live joint items (the body's joint
 slots with ``jact != 0``) once, and its joint passes walk that list, one
 item a thread (:func:`frame2_joints_shared`: in shared memory past the
-slot table, else in global memory); ``run_frame2.live_joint_items`` (a
-one-element int64 device tensor) and ``run_frame2.joint_items`` (an int,
-``W x JC x N`` a jointed frame) count them, kernel or twin.
+slot table, else in global memory).
 
 The frame: manifolds once at the frame-start pose (with a velocity-expanded
 speculative margin, anchors kept body-local), then ``substeps`` x
@@ -46,6 +44,7 @@ manifolds before the solve (``ccd=True``), over every slot of the table.
 
 from __future__ import annotations
 
+import dataclasses
 from types import SimpleNamespace
 
 import torch
@@ -210,17 +209,139 @@ def live_set(pm, M: int):
     return items, n, bits
 
 
-def _counter(name: str, dev):
-    """``run_frame2.<name>`` (``live_items``, ``live_joint_items``),
-    allocated on ``dev`` at the first frame (and moved, once, if the frames
-    move to another device)."""
-    t = getattr(run_frame2, name)
-    if t is None:
-        t = torch.zeros(1, dtype=torch.int64, device=dev)
-    elif t.device != torch.device(dev):
-        t = t.to(dev)
-    setattr(run_frame2, name, t)
+def _live_counter(dev):
+    """``run_frame2.live_items`` on ``dev``: allocated at the first frame
+    (moved, once, if the frames move to another device)."""
+    t = run_frame2.live_items
+    if t is None or t.device != torch.device(dev):
+        t = run_frame2.live_items = (
+            torch.zeros(1, dtype=torch.int64, device=dev) if t is None
+            else t.to(dev))
     return t
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Frame2Inputs:
+    """What :func:`run_frame2` and :func:`frame2_plain` read that no frame
+    of a call changes (``parallel.frame2_inputs`` builds it once a call):
+    collider planes ``[W, M]`` (``vlx``/``vly`` ``[W, V, M]``), body planes
+    ``[W, N]`` (``invm``/``invi``/``dyn`` None where sleep leaves them to
+    each frame; ``bullet`` for ``ccd``), ``gravity [W, 2]``, the owner CSR
+    (:func:`owner_csr` or :func:`owner_csr_tables`), ``joints`` (None:
+    contact-only; ``_build.JOINT_KEYS`` ``[W, J]`` and
+    ``JOINT_SLOT_KEYS`` ``[W, JC, N]``, ``jmm`` with +inf as 3.4e38), ints
+    i32 and floats ``kin``'s dtype (the kernel takes f32), then the
+    solve's parameters (``joint_solver`` ``"colored"`` or ``"jacobi"``;
+    with ``0 < Cs < C`` rows solve their ``Cs`` closest slots, the TOI
+    still over all C). Built, it checks its tensors and sets ``J``,
+    ``per_world``, ``compact`` and the kernel's layout: vertex width ``Vk``
+    (None past the widest) and the planes padded to it ``kvlx``/``kvly``,
+    solve width ``Csol``, shared table rows ``R`` (None: the state does
+    not fit) and global ``scratch`` bytes, held on a CUDA device to the
+    library's."""
+
+    cbody: torch.Tensor
+    vlx: torch.Tensor
+    vly: torch.Tensor
+    nverts: torch.Tensor
+    radius: torch.Tensor
+    fric: torch.Tensor
+    rest: torch.Tensor
+    sensor: torch.Tensor
+    kin: torch.Tensor
+    invm: torch.Tensor | None
+    invi: torch.Tensor | None
+    dyn: torch.Tensor | None
+    gravity: torch.Tensor
+    owners: tuple
+    C: int
+    substeps: int
+    iterations: int
+    h: float
+    dt: float
+    margin: float
+    compliance: float
+    relaxation: float
+    max_dpos: float
+    rest_threshold: float
+    lin_damp: float
+    ang_damp: float
+    joints: dict | None = None
+    JC: int = 0
+    joint_solver: str = "jacobi"
+    n_colors: int = 1
+    max_dpos_joint: float = 1e3
+    bullet: torch.Tensor | None = None
+    ccd: bool = False
+    ccd_slop: float = 0.005
+    Cs: int = 0
+
+    def __post_init__(self):
+        W, N = self.kin.shape
+        M = self.cbody.shape[1]
+        V = self.vlx.shape[1]
+        fl = self.kin.dtype
+        checks = [("cbody", self.cbody, i32, (W, M)),
+                  ("nverts", self.nverts, i32, (W, M)),
+                  ("vlx", self.vlx, fl, (W, V, M)),
+                  ("vly", self.vly, fl, (W, V, M)),
+                  ("gravity", self.gravity, fl, (W, 2))]
+        checks += [(k, getattr(self, k), fl, (W, M))
+                   for k in ("radius", "fric", "rest", "sensor")]
+        checks += [(k, getattr(self, k), fl, (W, N))
+                   for k in ("kin", "invm", "invi", "dyn")
+                   if getattr(self, k) is not None]
+        per_world = self.owners[0].dim() == 2
+        lead = (W,) if per_world else ()
+        checks += [("owner start", self.owners[0], i32, lead + (N + 1,)),
+                   ("owner idx", self.owners[1], i32, lead + (M,))]
+        compact = 0 < self.Cs < self.C
+        if compact and self.C > MAX_COMPACT_C:
+            raise ValueError(f"solve-slot compaction ranks at most "
+                             f"{MAX_COMPACT_C} slots a row, got C = "
+                             f"{self.C}")
+        J = 0
+        if self.joints is not None:
+            if self.joint_solver not in ("colored", "jacobi"):
+                raise ValueError(
+                    f"unknown joint_solver {self.joint_solver!r}")
+            J = self.joints["jtype"].shape[1]
+            ints = ("jtype", "jba", "jbb", "jcolor", "jslot")
+            checks += [(k, self.joints[k], i32 if k in ints else fl, (W, J))
+                       for k in _build.JOINT_KEYS]
+            checks += [(k, self.joints[k], i32 if k in ints else fl,
+                        (W, self.JC, N)) for k in JOINT_SLOT_KEYS]
+        if self.ccd:
+            if self.bullet is None:
+                raise ValueError("ccd=True needs the bodies' bullet flags")
+            checks.append(("bullet", self.bullet, fl, (W, N)))
+        for name, t, dtype, shape in checks:
+            _check(name, t, dtype, shape, self.kin.device)
+        Csol = self.Cs if compact else self.C
+        Vk = kernel_verts(V)
+        R = frame2_table_rows(N, M, Vk, J, Csol) if Vk else None
+        scratch = frame2_scratch_bytes(N, M, Vk, J, Csol) if Vk else 0
+        if Vk and _route(self.kin.device):  # the library's layout
+            lib, a = _build.library(), (N, M, Vk, J, Csol)
+            smem = frame2_shared_bytes(*a)
+            if (lib.sf_frame2_fields() != SCRATCH_FIELDS
+                    or lib.sf_frame2_slot_bytes() != SLOT_BYTES
+                    or lib.sf_frame2_table_rows(*a) != (-1 if R is None else R)
+                    or lib.sf_frame2_shared_bytes(*a) != smem
+                    or lib.sf_frame2_scratch_bytes(*a) != scratch
+                    or bool(lib.sf_frame2_joints_shared(*a))
+                    != frame2_joints_shared(*a)):
+                raise RuntimeError("frame kernel layout differs from "
+                                   "this module's (SLOT_BYTES, frame2_*)")
+        kvlx, kvly = self.vlx, self.vly
+        if Vk and Vk != V:  # pad with copies of v0: every min, max and
+            # manifold holds
+            kvlx = torch.cat([kvlx, kvlx[:, :1].expand(W, Vk - V, M)], 1)
+            kvly = torch.cat([kvly, kvly[:, :1].expand(W, Vk - V, M)], 1)
+        for k, v in dict(J=J, per_world=per_world, compact=compact,
+                         Csol=Csol, Vk=Vk, R=R, scratch=scratch, kvlx=kvlx,
+                         kvly=kvly).items():
+            object.__setattr__(self, k, v)
 
 
 def owner_csr(cbody0, n_bodies: int, listed=None):
@@ -342,13 +463,8 @@ def solve_order(sep, pmask, touch0, margin: float, C: int):
     return order, nact
 
 
-def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
-                 cbody, vlx, vly, nverts, radius, fric, rest, sensor,
-                 partner, slot_act, gravity, owners, *, C, substeps,
-                 iterations, h, dt, margin, compliance, relaxation, max_dpos,
-                 rest_threshold, lin_damp, ang_damp, joints=None,
-                 joint_solver="jacobi", n_colors=1, max_dpos_joint=1e3,
-                 bullet=None, ccd=False, ccd_slop=0.005, Cs: int = 0):
+def frame2_plain(posx, posy, ang, velx, vely, angvel, partner, slot_act,
+                 inputs: Frame2Inputs, masses=None):
     """Plain PyTorch twin of :func:`run_frame2`: the TPU kernel's sequence
     of array operations, with ``torch.gather`` in place of its lane gathers
     and the slots of a row packed on one axis ``[W, C * M]`` (slot-major),
@@ -356,6 +472,13 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     slots are ranked once (:func:`solve_order`) and the substeps run on the
     first ``Cs``; with CCD too, the TOI minimum still runs over all C
     slots, each at its substep-start anchors."""
+    x = inputs
+    invm, invi, dyn = masses or (x.invm, x.invi, x.dyn)
+    kin, cbody, vlx, vly, nverts, radius, fric, rest, sensor, C, h, dt = (
+        x.kin, x.cbody, x.vlx, x.vly, x.nverts, x.radius, x.fric, x.rest,
+        x.sensor, x.C, x.h, x.dt)
+    joints, max_dpos, max_dpos_joint = x.joints, x.max_dpos, x.max_dpos_joint
+    Cs = x.Cs if x.compact else 0
     W, N = posx.shape
     M = cbody.shape[1]
     V = vlx.shape[1]
@@ -382,7 +505,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     def tile_c(x):
         return tile_w(x, C)
 
-    oidx, omask = _owner_table(*owners)
+    oidx, omask = _owner_table(*x.owners)
 
     def to_bodies(vals):  # [Q, W, M] row sums -> [Q, W, N] body sums
         acc = None
@@ -392,8 +515,8 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             acc = g if acc is None else acc + g
         return acc
 
-    gx = gravity[:, 0:1]
-    gy = gravity[:, 1:2]
+    gx = x.gravity[:, 0:1]
+    gy = x.gravity[:, 1:2]
     px, py, an = posx, posy, ang
     vx, vy, om = velx, vely, angvel
 
@@ -428,7 +551,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         par_wx.append(p_px + p_ca * pvx - p_sa * pvy)
         par_wy.append(p_py + p_sa * pvx + p_ca * pvy)
 
-    margin_eff = margin + dt * (tile_c(o_spd) + p_spd)
+    margin_eff = x.margin + dt * (tile_c(o_spd) + p_spd)
     m = manifold_batch(
         torch.stack(own_wx), torch.stack(own_wy), tile_c(nverts),
         tile_c(radius), torch.stack(par_wx), torch.stack(par_wy),
@@ -462,7 +585,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     Cp, compact = C, 0 < Cs < C
     full_cb, full_pb = cb_, pb
     if compact:
-        order, nact = solve_order(m.sep, pmask, touched, margin, C)
+        order, nact = solve_order(m.sep, pmask, touched, x.margin, C)
         src = (order[:, :Cs] * M
                + torch.arange(M, device=order.device)).reshape(W, Cs * M)
 
@@ -475,7 +598,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         Cp = Cs
 
     # the live set the kernel builds, counted as it counts it
-    _counter("live_items", posx.device).add_(
+    _live_counter(posx.device).add_(
         live_set(cb_.pmask.amax(dim=0) > 0, M)[1].sum())
     run_frame2.slot_items += W * Cp * M
 
@@ -502,10 +625,6 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     if joints is not None:
         JC = joints["jslot"].shape[1]
         pb_j, jd, jcolor = _joint_pack(joints, invm, invi)
-        # the joint list the kernel builds, counted as it counts it
-        _counter("live_joint_items", posx.device).add_(
-            (joints["jact"] != 0).sum())
-        run_frame2.joint_items += W * JC * N
 
         def tile_j(x):  # [W, N] -> [W, JC*N]: own-side quantity per slot
             return x.repeat(1, JC)
@@ -535,8 +654,8 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     # the TOI walks every slot of the table: with compaction the dropped
     # slots' substep-start anchors and normal are not carried, so it takes
     # all C slots' at the substep-start pose (the same formula)
-    blt_t = tile_c(gat(bullet, cbl)) if ccd else None
-    for _ in range(substeps):
+    blt_t = tile_c(gat(x.bullet, cbl)) if x.ccd else None
+    for _ in range(x.substeps):
         px0, py0, an0 = px, py, an
         vx = vx + gx * h * dyn
         vy = vy + gy * h * dyn
@@ -545,7 +664,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         an = an + om * h
         vtx, vty, vtom = vx, vy, om
 
-        if ccd:
+        if x.ccd:
             # continuous collision: clamp bullets' integrated advance at
             # their earliest TOI against the frame manifolds; velocities
             # are not scaled (restitution sees the true approach speed)
@@ -562,7 +681,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
             c0 = (wbx0 - wax0) * nxp + (wby0 - way0) * nyp
             c1 = (wbx1 - wax1) * nxp + (wby1 - way1) * nyp
             advance = c0 - c1
-            allowed = torch.clamp(c0, min=0.0) + ccd_slop
+            allowed = torch.clamp(c0, min=0.0) + x.ccd_slop
             need = (advance > allowed) & (full_cb.solve_mask > 0.0)
             f_pt = torch.where(need, allowed / torch.clamp(advance, min=1e-10),
                                1.0)
@@ -581,32 +700,32 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         dxy = torch.zeros_like(py)
         dth = torch.zeros_like(an)
         lam_n = torch.zeros_like(cb_.sep)
-        for _it in range(iterations):
+        for _it in range(x.iterations):
             cab, sab = torch.cos(an), torch.sin(an)
             pose = slot_pose(cab, sab, px, py)
             vals_a, _, lam_i = solve_contacts_b(
-                pose, None, pd_, cb_, h, compliance, kin0=kin0)
+                pose, None, pd_, cb_, h, x.compliance, kin0=kin0)
             lam_n = lam_n + lam_i
             ab = to_bodies(sum_cp(vals_a))
-            if jd is not None and joint_solver == "jacobi":
+            if jd is not None and x.joint_solver == "jacobi":
                 # joints: averaged Jacobi fused with the contact apply
                 ab = ab + joint_rows(jd, cab, sab, px, py, an)
             cnt = torch.clamp(ab[3], min=1.0)
-            ddx = torch.clamp(ab[0] * relaxation / cnt, -max_dpos, max_dpos)
-            ddy = torch.clamp(ab[1] * relaxation / cnt, -max_dpos, max_dpos)
-            dda = torch.clamp(ab[2] * relaxation / cnt, -max_dpos, max_dpos)
+            ddx = torch.clamp(ab[0] * x.relaxation / cnt, -max_dpos, max_dpos)
+            ddy = torch.clamp(ab[1] * x.relaxation / cnt, -max_dpos, max_dpos)
+            dda = torch.clamp(ab[2] * x.relaxation / cnt, -max_dpos, max_dpos)
             px = px + ddx
             py = py + ddy
             an = an + dda
             dxx = dxx + ddx
             dxy = dxy + ddy
             dth = dth + dda
-            if jd is not None and joint_solver == "colored":
+            if jd is not None and x.joint_solver == "colored":
                 # coloured Gauss-Seidel: one pass per colour, the last one
                 # sweeping every colour past the static bound; clipped by
                 # the raw max_dpos (upkeep, not depenetration)
-                for color in range(n_colors):
-                    cmask = (jcolor >= color if color == n_colors - 1
+                for color in range(x.n_colors):
+                    cmask = (jcolor >= color if color == x.n_colors - 1
                              else jcolor == color)
                     jd_c = SimpleNamespace(**vars(jd))
                     jd_c.active = jd.active * cmask.to(jd.active.dtype)
@@ -638,7 +757,7 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         kin_v = _pair_kinematics(cb_, pose_v)
         cv_a, _ = velocity_contacts_b(
             pose_v, slot_vel(vx, vy, om), slot_vel(vtx, vty, vtom), pd_, cb_,
-            lam_n, h, rest_threshold, kin=kin_v)
+            lam_n, h, x.rest_threshold, kin=kin_v)
         abv = to_bodies(sum_cp(cv_a))
         tk = ((lam_n > 0.0).to(f32) * cb_.pmask).amax(dim=0)
         touched = torch.maximum(touched, tk)
@@ -651,12 +770,12 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
         vx = vx + abv[0] / cntv
         vy = vy + abv[1] / cntv
         om = om + abv[2] / cntv
-        if lin_damp > 0.0:
-            sdamp = 1.0 / (1.0 + h * lin_damp)
+        if x.lin_damp > 0.0:
+            sdamp = 1.0 / (1.0 + h * x.lin_damp)
             vx = vx * sdamp
             vy = vy * sdamp
-        if ang_damp > 0.0:
-            om = om * (1.0 / (1.0 + h * ang_damp))
+        if x.ang_damp > 0.0:
+            om = om * (1.0 / (1.0 + h * x.ang_damp))
         kin0, n0 = kin_v[6:10], kin_v[0:2]
     out = (px, py, an, vx, vy, om, touched.reshape(W, Cp, M))
     if compact:
@@ -664,143 +783,64 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
     return out
 
 
-def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
-               cbody, vlx, vly, nverts, radius, fric, rest, sensor,
-               partner, slot_act, gravity, *, C, substeps, iterations, h, dt,
-               margin, compliance, relaxation, max_dpos, rest_threshold,
-               lin_damp, ang_damp, owners=None, joints=None, JC: int = 0,
-               joint_solver: str = "jacobi", n_colors: int = 1,
-               max_dpos_joint: float = 1e3, bullet=None, ccd: bool = False,
-               ccd_slop: float = 0.005, Cs: int = 0, plain: bool = False):
-    """Run one frame's XPBD substeps for a world batch.
-
-    Body arrays are ``[W, N]`` f32, collider arrays ``[W, M]`` (``cbody``,
-    ``nverts`` i32; verts ``vlx``/``vly`` ``[W, V, M]``), slot tables
-    ``[W, C, M]`` and ``gravity`` ``[W, 2]``. ``owners`` is
-    :func:`owner_csr` of ``cbody[0]`` (built here when not given) or, for a
-    batch whose worlds differ in topology, :func:`owner_csr_tables`.
-    ``joints`` (or None: contact-only) is a dict of the joint parameters
-    ``[W, J]`` under ``_build.JOINT_KEYS`` (``jtype``, ``jba``, ``jbb``,
-    ``jcolor`` i32, the rest f32, ``jmm`` with +inf as 3.4e38) and the
-    joint slots ``jslot``/``jside``/``jact`` ``[W, JC, N]`` of
-    ``build_joint_slots``; ``joint_solver`` is ``"colored"`` (``n_colors``
-    Gauss-Seidel passes, clipped by ``max_dpos_joint``) or ``"jacobi"``.
-    ``ccd=True`` (``bullet [W, N]`` f32, 1 on a bullet body) clamps each
-    substep's integrated advance of a bullet at the earliest time of impact
-    over its colliders' slots, landing it at ``ccd_slop`` of penetration
-    (counted in ``run_frame2.ccd_launches``). With ``0 < Cs < C`` each row
-    keeps its ``Cs`` closest slots for the frame (per-frame solve-slot
-    compaction, :func:`solve_order`), the TOI still over all C. Returns
-    ``(posx, posy, ang, velx, vely, angvel, touched [W, Cp, M])`` with ``Cp
-    = Cs`` when compacting, else C; compacting, two more follow:
-    ``partner_solve [W, Cs, M]`` i32 (the partner table ``touched``
-    indexes) and ``nact [W, 2, M]`` f32 (each row's imminent and
-    pmask-active slot counts). Compacted launches count in
-    ``run_frame2.compact_launches``, per-world owner tables in
-    ``run_frame2.owner_launches`` (besides the counter of the form), and
-    those whose slot table fit in shared memory whole (:func:`
-    frame2_table_rows` = M) in ``run_frame2.shared_table_launches``.
-    ``slot_act`` holds 0 or 1 (K2's tables): the kernel keeps each mask as
-    one bit.
-    ``plain=True`` runs the twin even on CUDA tensors (for timing the kernel
-    against it)."""
-    W, N = posx.shape
-    M = cbody.shape[1]
-    V = vlx.shape[1]
-    dev = posx.device
-    checks = [(nm, t, f32, (W, N)) for nm, t in (
-        ("posx", posx), ("posy", posy), ("ang", ang), ("velx", velx),
-        ("vely", vely), ("angvel", angvel), ("invm", invm), ("invi", invi),
-        ("dyn", dyn), ("kin", kin))]
-    checks += [
-        ("cbody", cbody, i32, (W, M)), ("vlx", vlx, f32, (W, V, M)),
-        ("vly", vly, f32, (W, V, M)), ("nverts", nverts, i32, (W, M)),
-        ("radius", radius, f32, (W, M)), ("fric", fric, f32, (W, M)),
-        ("rest", rest, f32, (W, M)), ("sensor", sensor, f32, (W, M)),
-        ("partner", partner, i32, (W, C, M)),
-        ("slot_act", slot_act, f32, (W, C, M)),
-        ("gravity", gravity, f32, (W, 2))]
-    if owners is None:
-        owners = owner_csr(cbody[0], N)
-    per_world = owners[0].dim() == 2
-    lead = (W,) if per_world else ()
-    checks += [("owner start", owners[0], i32, lead + (N + 1,)),
-               ("owner idx", owners[1], i32, lead + (M,))]
-    compact = 0 < Cs < C
-    if compact and C > MAX_COMPACT_C:
-        raise ValueError(f"solve-slot compaction ranks at most "
-                         f"{MAX_COMPACT_C} slots a row, got C = {C}")
-    J = 0
-    if joints is not None:
-        if joint_solver not in ("colored", "jacobi"):
-            raise ValueError(f"unknown joint_solver {joint_solver!r}")
-        J = joints["jtype"].shape[1]
-        ints = ("jtype", "jba", "jbb", "jcolor", "jslot")
-        checks += [(k, joints[k], i32 if k in ints else f32, (W, J))
-                   for k in _build.JOINT_KEYS]
-        checks += [(k, joints[k], i32 if k in ints else f32, (W, JC, N))
-                   for k in JOINT_SLOT_KEYS]
-    if ccd:
-        if bullet is None:
-            raise ValueError("ccd=True needs the bodies' bullet flags")
-        checks.append(("bullet", bullet, f32, (W, N)))
-    for name, t, dtype, shape in checks:
-        _check(name, t, dtype, shape, dev)
-    params = dict(C=C, substeps=substeps, iterations=iterations, h=h, dt=dt,
-                  margin=margin, compliance=compliance,
-                  relaxation=relaxation, max_dpos=max_dpos,
-                  rest_threshold=rest_threshold, lin_damp=lin_damp,
-                  ang_damp=ang_damp)
+def run_frame2(posx, posy, ang, velx, vely, angvel, partner, slot_act,
+               inputs: Frame2Inputs, masses=None, plain: bool = False):
+    """Run one frame's XPBD substeps for a world batch: the frame's body
+    planes ``[W, N]`` f32, its slot tables ``partner`` (i32) and
+    ``slot_act`` (f32, 0 or 1: the kernel keeps each mask as one bit)
+    ``[W, C, M]``, and ``inputs``; ``masses`` (``invm, invi, dyn``) stand
+    in for the inputs' own, which sleep leaves to each frame. Returns
+    ``(posx, posy, ang, velx, vely, angvel, touched [W, Cp, M])``, ``Cp =
+    Cs`` when compacting, else C; compacting, two more follow:
+    ``partner_solve [W, Cs, M]`` i32 (the table ``touched`` indexes) and
+    ``nact [W, 2, M]`` f32 (each row's imminent and pmask-active slots).
+    Launches count in ``run_frame2.launches`` (CCD's in ``.ccd_launches``),
+    and also in ``.compact_launches`` (compacted), ``.owner_launches``
+    (per-world owner tables) and ``.shared_table_launches`` (the whole
+    slot table in shared memory). ``plain=True`` runs the twin even on
+    CUDA tensors (for timing the kernel against it)."""
+    x = inputs
+    W, N = x.kin.shape
+    M, C, dev = x.cbody.shape[1], x.C, x.kin.device
+    if masses is None and x.invm is None:
+        raise ValueError("these inputs hold no masses: pass the frame's "
+                         "masses=(invm, invi, dyn)")
+    for name, t in zip(("posx", "posy", "ang", "velx", "vely", "angvel",
+                        "invm", "invi", "dyn"),
+                       (posx, posy, ang, velx, vely, angvel, *(masses or ()))):
+        _check(name, t, f32, (W, N), dev)
+    for name, t, dtype in (("partner", partner, i32),
+                           ("slot_act", slot_act, f32)):
+        _check(name, t, dtype, (W, C, M), dev)
+    if x.kin.dtype != f32:
+        raise ValueError(f"inputs: dtype {x.kin.dtype}, expected {f32}")
     if plain or not _route(dev):
-        return frame2_plain(posx, posy, ang, velx, vely, angvel, invm, invi,
-                            dyn, kin, cbody, vlx, vly, nverts, radius, fric,
-                            rest, sensor, partner, slot_act, gravity, owners,
-                            joints=joints, joint_solver=joint_solver,
-                            n_colors=n_colors, max_dpos_joint=max_dpos_joint,
-                            bullet=bullet, ccd=ccd, ccd_slop=ccd_slop,
-                            Cs=Cs if compact else 0, **params)
+        return frame2_plain(posx, posy, ang, velx, vely, angvel, partner,
+                            slot_act, x, masses=masses)
 
-    lib = _build.library()
-    if (lib.sf_frame2_fields() != SCRATCH_FIELDS
-            or lib.sf_frame2_slot_bytes() != SLOT_BYTES):
-        raise RuntimeError("frame kernel slot record differs from "
-                           "SCRATCH_FIELDS / SLOT_BYTES")
-    Vk = kernel_verts(V)
-    if Vk is None:
+    invm, invi, dyn = masses or (x.invm, x.invi, x.dyn)
+    if x.Vk is None:
         raise ValueError(f"frame kernel supports up to {_KERNEL_V[-1]} "
-                         f"vertices per collider, got {V}")
-    Csol = Cs if compact else C
-    R = frame2_table_rows(N, M, Vk, J, Csol)
-    smem = frame2_shared_bytes(N, M, Vk, J, Csol)
-    scratch = frame2_scratch_bytes(N, M, Vk, J, Csol)
-    if (lib.sf_frame2_table_rows(N, M, Vk, J, Csol) != (-1 if R is None else R)
-            or lib.sf_frame2_shared_bytes(N, M, Vk, J, Csol) != smem
-            or lib.sf_frame2_scratch_bytes(N, M, Vk, J, Csol) != scratch
-            or bool(lib.sf_frame2_joints_shared(N, M, Vk, J, Csol))
-            != frame2_joints_shared(N, M, Vk, J, Csol)):
-        raise RuntimeError("frame kernel shared-memory layout differs from "
-                           "frame2_table_rows / frame2_shared_bytes / "
-                           "frame2_scratch_bytes / frame2_joints_shared")
-    if R is None:
-        raise ValueError(f"frame kernel needs {smem} bytes of shared memory "
-                         f"for the world's state at N={N}, M={M}, V={Vk}, "
-                         f"J={J}; a block has {SHARED_LIMIT}")
-    if Vk != V:  # pad with copies of v0: every min, max and manifold holds
-        vlx = torch.cat([vlx, vlx[:, :1].expand(W, Vk - V, M)], 1)
-        vly = torch.cat([vly, vly[:, :1].expand(W, Vk - V, M)], 1)
-    ostart, oidx = owners
+                         f"vertices per collider, got {x.vlx.shape[1]}")
+    if x.R is None:
+        raise ValueError(
+            f"frame kernel needs "
+            f"{frame2_shared_bytes(N, M, x.Vk, x.J, x.Csol)} bytes of shared "
+            f"memory for the world's state at N={N}, M={M}, V={x.Vk}, "
+            f"J={x.J}; a block has {SHARED_LIMIT}")
+    Cs, R, h, compact = x.Cs, x.R, x.h, x.compact
     u8 = torch.uint8
     # rows past R keep their records in a global table of the same layout;
     # with compaction and CCD the dropped slots go to a side table (the
     # TOI reads them); pose planes that do not fit go to global memory
-    gtab = (torch.empty((W, table_bytes(Csol, M - R)), dtype=u8, device=dev)
-            if R < M else None)
+    gtab = (torch.empty((W, table_bytes(x.Csol, M - R)), dtype=u8,
+                        device=dev) if R < M else None)
     side = (torch.empty((W, table_bytes(C - Cs, M)), dtype=u8, device=dev)
-            if compact and ccd else None)
+            if compact and x.ccd else None)
     # the pose planes, the live set and the joint list, where they do not
     # fit in shared memory
-    gscratch = (torch.empty((W, scratch), dtype=u8, device=dev) if scratch
-                else None)
+    gscratch = (torch.empty((W, x.scratch), dtype=u8, device=dev)
+                if x.scratch else None)
     outs = [torch.empty((W, N), dtype=f32, device=dev) for _ in range(6)]
     # compacting: the whole table in rank order, the first Cs returned
     touched = torch.empty((W, C, M), dtype=f32, device=dev)
@@ -808,39 +848,37 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, invm, invi, dyn, kin,
                  else None)
     nact = torch.empty((W, 2, M), dtype=f32, device=dev) if compact else None
     p = _build.ptr
-    jptrs = [p(joints[k]) if joints is not None else None
+    jptrs = [p(x.joints[k]) if x.joints is not None else None
              for k in _build.JOINT_KEYS + JOINT_SLOT_KEYS]
     args = _build.Frame2Args(
         *(p(t) for t in (posx, posy, ang, velx, vely, angvel, invm, invi,
-                         dyn, kin, cbody, vlx, vly, nverts, radius, fric,
-                         rest, sensor, partner, slot_act, gravity, ostart,
-                         oidx)),
+                         dyn, x.kin, x.cbody, x.kvlx, x.kvly, x.nverts,
+                         x.radius, x.fric, x.rest, x.sensor, partner,
+                         slot_act, x.gravity, *x.owners)),
         p(gtab) if gtab is not None else None,
         *(p(t) for t in (*outs, touched)),
-        W, N, M, Vk, C, substeps, iterations,
-        h, dt, margin, compliance / (h * h), relaxation, max_dpos,
-        rest_threshold, 1.0 / (1.0 + h * lin_damp),
-        1.0 / (1.0 + h * ang_damp), int(lin_damp > 0.0),
-        int(ang_damp > 0.0), *jptrs, J, JC if joints is not None else 0,
-        int(joint_solver == "colored"), n_colors, max_dpos_joint, h * h,
-        p(bullet) if ccd else None,
-        p(side) if side is not None else None, int(ccd), ccd_slop,
-        int(per_world), Cs if compact else 0,
+        W, N, M, x.Vk, C, x.substeps, x.iterations,
+        h, x.dt, x.margin, x.compliance / (h * h), x.relaxation, x.max_dpos,
+        x.rest_threshold, 1.0 / (1.0 + h * x.lin_damp),
+        1.0 / (1.0 + h * x.ang_damp), int(x.lin_damp > 0.0),
+        int(x.ang_damp > 0.0), *jptrs, x.J,
+        x.JC if x.joints is not None else 0,
+        int(x.joint_solver == "colored"), x.n_colors, x.max_dpos_joint,
+        h * h, p(x.bullet) if x.ccd else None,
+        p(side) if side is not None else None, int(x.ccd), x.ccd_slop,
+        int(x.per_world), Cs if compact else 0,
         p(o_partner) if compact else None, p(nact) if compact else None,
         p(gscratch) if gscratch is not None else None,
-        p(_counter("live_items", dev)),
-        p(_counter("live_joint_items", dev)) if joints is not None else None)
+        p(_live_counter(dev)))
     _build.launch("sf_frame2", args, dev)
-    run_frame2.slot_items += W * Csol * M
-    if joints is not None:
-        run_frame2.joint_items += W * JC * N
+    run_frame2.slot_items += W * x.Csol * M
     if R == M:
         run_frame2.shared_table_launches += 1
-    if ccd:
+    if x.ccd:
         run_frame2.ccd_launches += 1
     else:
         run_frame2.launches += 1
-    if per_world:
+    if x.per_world:
         run_frame2.owner_launches += 1
     if not compact:
         return (*outs, touched)
@@ -859,8 +897,3 @@ run_frame2.shared_table_launches = 0
 # device (a [1] int64 tensor, None before the first frame), and all of them
 run_frame2.live_items = None
 run_frame2.slot_items = 0
-# the frames' live joint items (the joint list: each body's joint slots
-# with jact != 0), counted on the device (as live_items), and all W x JC x
-# N of them
-run_frame2.live_joint_items = None
-run_frame2.joint_items = 0

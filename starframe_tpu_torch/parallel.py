@@ -9,7 +9,9 @@ dynamic collider's partner slots and each body's joint slots, and the frame
 kernel (``hopper/frame2.py``) runs the whole frame, joints included. Every
 function takes ``plain=False``; ``plain=True`` runs the kernels' plain
 PyTorch twins even on a card (for timing against the kernels), as the JAX
-package's ``interpret=True`` runs Pallas in interpret mode.
+package's ``interpret=True`` runs Pallas in interpret mode. What a call's
+frames share is built once a call (:func:`frame2_inputs`, passed as
+``inputs=``); a frame derives its body planes alone.
 
 The frame kernel runs every configuration of the reference's: CCD
 (``cfg.ccd``, bodies flagged ``bullet=True``: each substep clamps a
@@ -32,6 +34,7 @@ import torch
 from .config import SolverConfig
 from .events import touching_keys_from_slots
 from .hopper.frame2 import (
+    Frame2Inputs,
     frame2_table_rows,
     kernel_verts,
     owner_csr,
@@ -51,9 +54,6 @@ from .state import (
 )
 from .step import joint_slow_closure, joint_wake_closure
 
-# Host round trips the rollouts made (one per guarded frame: the K-frame
-# staleness guard decides on the host whether to rebuild the tables).
-host_syncs = 0
 # joints per world the kernels take (the JAX package's bound as well)
 MAX_JOINTS = 1024
 
@@ -115,40 +115,98 @@ def _asleep(bodies, cfg: SolverConfig):
     return (bodies.sleep_count >= cfg.sleep_frames) & (bodies.inv_mass > 0)
 
 
-def _frame2_arrays(worlds: World, cfg: SolverConfig):
-    """Flat contiguous f32/i32 ``[W, ...]`` views for the kernels. With
-    sleep on, sleepers are frozen for the frame: their inverse masses (and
-    so their gravity) are zeroed, so awake partners solve against them as
-    static; ``responds``/``moves`` keep the true masses, so a sleeper stays
-    in its partners' slots and keeps its own rows (wake detection)."""
+def _elig_args(worlds: World, kin: torch.Tensor) -> tuple:
+    """K1's arguments (``hopper.build_elig_mask``): the colliders' body,
+    layer, mask, ``active`` and ``sensor`` flags, the bodies' ``responds``
+    (a finite mass or inertia) and ``moves`` (that or kinematic: ``kin``
+    ``[W, N]``); flags f32 0 or 1."""
     b, c = worlds.bodies, worlds.colliders
-    f = torch.float32
-    responds = ((b.inv_mass > 0) | (b.inv_inertia > 0)).to(f)
-    kin = ((b.flags & BODY_KINEMATIC) != 0).to(f)
-    moves = torch.maximum(responds, kin)
-    invm, invi = b.inv_mass, b.inv_inertia
-    if cfg.sleep_velocity > 0.0:
-        awake = 1.0 - _asleep(b, cfg).to(f)
-        invm, invi = invm * awake, invi * awake
-    body = dict(
-        posx=b.pos[..., 0].contiguous(), posy=b.pos[..., 1].contiguous(),
-        ang=b.angle, velx=b.vel[..., 0].contiguous(),
-        vely=b.vel[..., 1].contiguous(), angvel=b.ang_vel,
-        invm=invm, invi=invi, dyn=(invm > 0).to(f), kin=kin,
-        responds=responds, moves=moves,
-        bullet=((b.flags & BODY_BULLET) != 0).to(f),
-    )
-    col = dict(
-        cbody=c.body_idx,
-        vlx=c.verts[..., 0].transpose(-1, -2).contiguous(),  # [W, V, M]
-        vly=c.verts[..., 1].transpose(-1, -2).contiguous(),
-        nverts=c.nverts, radius=c.radius,
-        fric=c.friction, rest=c.restitution,
-        layer=c.layer, lmask=c.mask,
-        active=((c.flags & COL_ACTIVE) != 0).to(f),
-        sensor=((c.flags & COL_SENSOR) != 0).to(f),
-    )
-    return body, col
+    responds = ((b.inv_mass > 0) | (b.inv_inertia > 0)).to(torch.float32)
+    return (c.body_idx, c.layer, c.mask, _flag(c, COL_ACTIVE),
+            _flag(c, COL_SENSOR), responds, torch.maximum(responds, kin))
+
+
+def _flag(objs, bit: int) -> torch.Tensor:
+    """Where ``objs.flags`` has ``bit``, f32 0 or 1."""
+    return ((objs.flags & bit) != 0).to(torch.float32)
+
+
+def _vert_planes(worlds: World) -> tuple:
+    """The collider vertices as planes ``(vlx, vly)``, each ``[W, V, M]``."""
+    v = worlds.colliders.verts
+    return (v[..., 0].transpose(-1, -2).contiguous(),
+            v[..., 1].transpose(-1, -2).contiguous())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BatchInputs:
+    """What the frames of one call share (:func:`frame2_inputs`): the frame
+    kernel's inputs ``k4``, K1's arguments ``elig``, the HARD counters
+    topology fixes (int32 device scalars) and a device ``zero`` for the
+    counters of forms that do not run."""
+
+    k4: Frame2Inputs
+    elig: tuple
+    owner_overflow: torch.Tensor
+    joint_overflow: torch.Tensor
+    zero: torch.Tensor
+
+
+def frame2_inputs(worlds: World, cfg: SolverConfig,
+                  plain: bool = False) -> BatchInputs:
+    """What the frames of one call on ``worlds`` share: flags, topology and
+    shapes, which nothing in a call changes (motors a caller rewrites
+    between calls come with the next call). Raises on a batch past the
+    kernels' bounds."""
+    _require_slice(worlds, cfg)
+    b, c = worlds.bodies, worlds.colliders
+    kin = _flag(b, BODY_KINEMATIC)
+    elig = _elig_args(worlds, kin)  # its sensor flags (elig[4]) are K4's
+    sleep = cfg.sleep_velocity > 0.0  # the masses are each frame's
+    owners, owner_overflow = frame2_owners(worlds, cfg)
+    zero = torch.zeros((), dtype=torch.int32, device=b.pos.device)
+    joints, joint_overflow = None, zero
+    if worlds.joints.j > 0:
+        with span("starframe.joints"):
+            joints, joint_overflow = _joint_inputs(worlds, cfg, plain)
+    vlx, vly = _vert_planes(worlds)
+    k4 = Frame2Inputs(
+        cbody=c.body_idx, vlx=vlx, vly=vly, nverts=c.nverts, radius=c.radius,
+        fric=c.friction, rest=c.restitution, sensor=elig[4], kin=kin,
+        invm=None if sleep else b.inv_mass,
+        invi=None if sleep else b.inv_inertia,
+        dyn=None if sleep else (b.inv_mass > 0).to(torch.float32),
+        gravity=worlds.gravity.expand(b.pos.shape[0], 2).contiguous(),
+        owners=owners,
+        C=cfg.slot_capacity, substeps=cfg.substeps,
+        iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
+        margin=cfg.contact_margin, compliance=cfg.contact_compliance,
+        relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
+        rest_threshold=cfg.restitution_threshold,
+        lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
+        joints=joints, JC=cfg.joint_slot_capacity,
+        joint_solver=cfg.joint_solver, n_colors=cfg.max_joint_colors,
+        # joints are constraint upkeep: the raw clip, not max_dpos_eff
+        max_dpos_joint=cfg.max_dpos,
+        bullet=_flag(b, BODY_BULLET) if cfg.ccd else None,
+        ccd=cfg.ccd, ccd_slop=cfg.ccd_slop, Cs=_batch_solve_cap(cfg))
+    return BatchInputs(k4, elig, owner_overflow, joint_overflow, zero)
+
+
+def frame2_planes(worlds: World, cfg: SolverConfig):
+    """What a frame changes: ``(planes, masses)``, the body planes ``(posx,
+    posy, ang, velx, vely, angvel)`` and under sleep the frame's ``(invm,
+    invi, dyn)``, the sleepers' zeroed (awake partners solve against them
+    as static; K1 keeps their slots and rows, to wake), else None."""
+    b = worlds.bodies
+    posx, posy = b.pos.movedim(-1, 0).contiguous()
+    velx, vely = b.vel.movedim(-1, 0).contiguous()
+    planes = (posx, posy, b.angle, velx, vely, b.ang_vel)
+    if cfg.sleep_velocity <= 0.0:
+        return planes, None
+    awake = 1.0 - _asleep(b, cfg).to(torch.float32)
+    invm, invi = b.inv_mass * awake, b.inv_inertia * awake
+    return planes, (invm, invi, (invm > 0).to(torch.float32))
 
 
 def _gmag(worlds: World) -> torch.Tensor:
@@ -170,33 +228,38 @@ def _sweep_bounds(worlds: World, cfg: SolverConfig, K: int) -> torch.Tensor:
     return bound * (1.0 + (cfg.broadphase_budget_headroom - 1.0) * dyn)
 
 
-def frame2_elig(worlds: World, cfg: SolverConfig, plain: bool = False):
+def frame2_elig(worlds: World, cfg: SolverConfig, plain: bool = False,
+                inputs: BatchInputs | None = None):
     """Static pair-eligibility mask ``[W, M, M] i8`` for table builds —
-    constant across a rollout, so rollouts build it once."""
-    body, col = _frame2_arrays(worlds, cfg)
-    return build_elig_mask(
-        col["cbody"], col["layer"], col["lmask"], col["active"],
-        col["sensor"], body["responds"], body["moves"], plain=plain)
+    constant across a rollout, so rollouts build it once (from ``inputs``,
+    as :func:`frame2_step`'s)."""
+    args = (inputs.elig if inputs is not None
+            else _elig_args(worlds, _flag(worlds.bodies, BODY_KINEMATIC)))
+    return build_elig_mask(*args, plain=plain)
 
 
 def frame2_tables(worlds: World, cfg: SolverConfig, frames: int = 1,
                   return_budget: bool = False, elig=None,
-                  plain: bool = False):
+                  plain: bool = False, inputs: BatchInputs | None = None):
     """Slot-table broadphase for a world batch. With ``frames > 1`` the
     swept boxes stay a valid candidate superset for that many frames (a
     symmetric positional budget from :func:`_sweep_bounds`, inflated per
     collider to the max over its phase-1 partners). Returns ``(partner,
     slot_act, count, count_touch, count_close)``; with
-    ``return_budget=True``, ``(tables, budget [W, M])``."""
-    body, col = _frame2_arrays(worlds, cfg)
+    ``return_budget=True``, ``(tables, budget [W, M])``; ``inputs`` as
+    :func:`frame2_step`'s."""
     if elig is None:
-        elig = frame2_elig(worlds, cfg, plain=plain)
-    vx, vy = body["velx"], body["vely"]
+        elig = frame2_elig(worlds, cfg, plain=plain, inputs=inputs)
+    vlx, vly = ((inputs.k4.vlx, inputs.k4.vly) if inputs is not None
+                else _vert_planes(worlds))
+    b, c = worlds.bodies, worlds.colliders
+    posx, posy = b.pos.movedim(-1, 0).contiguous()
     if frames > 1:
         vx, vy = _sweep_bounds(worlds, cfg, frames), None
+    else:
+        vx, vy = b.vel.movedim(-1, 0).contiguous()
     *tables, budget = build_slot_tables(
-        body["posx"], body["posy"], body["ang"], vx, vy,
-        col["cbody"], col["vlx"], col["vly"], col["radius"], elig,
+        posx, posy, b.angle, vx, vy, c.body_idx, vlx, vly, c.radius, elig,
         C=cfg.slot_capacity, margin=cfg.contact_margin,
         dt=cfg.dt * frames, partner_aware=frames > 1, plain=plain)
     tables = tuple(tables)
@@ -214,13 +277,13 @@ def frame2_joint_slots(worlds: World, cfg: SolverConfig,
         worlds.bodies.n, JC=cfg.joint_slot_capacity, plain=plain)
 
 
-def _frame2_joints(worlds: World, cfg: SolverConfig, joint_slots):
-    """The frame kernel's joint dict (``hopper.run_frame2``) and the hard
-    ``joint_overflow`` counter: joints dropped past the bodies' slots."""
+def _joint_inputs(worlds: World, cfg: SolverConfig, plain: bool):
+    """K4's joint dict (``hopper.Frame2Inputs.joints``; K3 builds its slots)
+    and the HARD ``joint_overflow``: joints dropped past the bodies' slots."""
     j = worlds.joints
-    jslot, jside, jact, jcount = joint_slots
-    JC = cfg.joint_slot_capacity
-    overflow = torch.clamp(jcount - JC, min=0).sum(dtype=torch.int32)
+    jslot, jside, jact, jcount = frame2_joint_slots(worlds, cfg, plain=plain)
+    overflow = torch.clamp(jcount - cfg.joint_slot_capacity, min=0).sum(
+        dtype=torch.int32)
     joints = dict(
         jtype=j.jtype, jba=j.body_a, jbb=j.body_b,
         jaax=j.anchor_a[..., 0].contiguous(),
@@ -323,8 +386,8 @@ def _sleep_update(worlds: World, cfg: SolverConfig, vel, angvel, touched,
     return count, vel, angvel
 
 
-def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
-                joint_slots=None, plain: bool = False):
+def frame2_step(worlds: World, cfg: SolverConfig, tables=None,
+                inputs: BatchInputs | None = None, plain: bool = False):
     """One batched frame through the slot kernels. Returns ``(new_worlds,
     touched [W, Cp, M], partner [W, Cp, M], (count, count_touch,
     count_close), aux)``: ``Cp`` is the solve width (``cfg.
@@ -336,56 +399,27 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
     ``solve_overflow`` (HARD: imminent slots, ``sep < contact_margin``,
     dropped by compaction) and ``solve_dropped`` (soft: speculative ones
     dropped). Pass ``tables`` (from :func:`frame2_tables`) to reuse a
-    broadphase, ``owners`` (from :func:`frame2_owners`) to reuse the
-    collider -> body lists, and ``joint_slots`` (from
-    :func:`frame2_joint_slots`) to reuse the joint slots."""
+    broadphase and ``inputs`` (from :func:`frame2_inputs` on this batch's
+    flags and topology) to reuse what the frames of a call share."""
     with span("starframe.frame"):
-        _require_slice(worlds, cfg)
-        body, col = _frame2_arrays(worlds, cfg)
+        if inputs is None:
+            inputs = frame2_inputs(worlds, cfg, plain=plain)
         if tables is None:
-            tables = frame2_tables(worlds, cfg, plain=plain)
-        if owners is None:
-            owners = frame2_owners(worlds, cfg)
-        csr, owner_overflow = owners
+            tables = frame2_tables(worlds, cfg, plain=plain, inputs=inputs)
         partner, slot_act, count, count_touch, count_close = tables
-        W = body["posx"].shape[0]
-        gravity = worlds.gravity.expand(W, 2).contiguous()
-        zero = torch.zeros((), dtype=torch.int32, device=gravity.device)
-        joints, joint_overflow = None, zero
-        if worlds.joints.j > 0:
-            with span("starframe.joints"):
-                if joint_slots is None:
-                    joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
-                joints, joint_overflow = _frame2_joints(worlds, cfg,
-                                                        joint_slots)
-        Cs = _batch_solve_cap(cfg)
-        outs = run_frame2(
-            body["posx"], body["posy"], body["ang"],
-            body["velx"], body["vely"], body["angvel"],
-            body["invm"], body["invi"], body["dyn"], body["kin"],
-            col["cbody"], col["vlx"], col["vly"], col["nverts"],
-            col["radius"], col["fric"], col["rest"], col["sensor"], partner,
-            slot_act, gravity,
-            C=cfg.slot_capacity, substeps=cfg.substeps,
-            iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
-            margin=cfg.contact_margin, compliance=cfg.contact_compliance,
-            relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
-            rest_threshold=cfg.restitution_threshold,
-            lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-            owners=csr, joints=joints, JC=cfg.joint_slot_capacity,
-            joint_solver=cfg.joint_solver, n_colors=cfg.max_joint_colors,
-            # joints are constraint upkeep: the raw clip, not max_dpos_eff
-            max_dpos_joint=cfg.max_dpos, bullet=body["bullet"], ccd=cfg.ccd,
-            ccd_slop=cfg.ccd_slop, Cs=Cs, plain=plain)
+        planes, masses = frame2_planes(worlds, cfg)
+        k4 = inputs.k4
+        outs = run_frame2(*planes, partner, slot_act, k4, masses=masses,
+                          plain=plain)
         posx, posy, ang, velx, vely, angvel, touched = outs[:7]
-        solve_overflow = solve_dropped = zero
-        if Cs:
+        solve_overflow = solve_dropped = inputs.zero
+        if k4.compact:
             # `partner` downstream (wake rows, event keys) is the table
             # `touched` indexes; the counts give the solve counters
             partner, nact = outs[7], outs[8]
-            solve_overflow = torch.clamp(nact[:, 0] - Cs, min=0).sum().to(
+            solve_overflow = torch.clamp(nact[:, 0] - k4.Cs, min=0).sum().to(
                 torch.int32)
-            solve_dropped = torch.clamp(nact[:, 1] - Cs, min=0).sum().to(
+            solve_dropped = torch.clamp(nact[:, 1] - k4.Cs, min=0).sum().to(
                 torch.int32) - solve_overflow
         b = worlds.bodies
         vel = torch.stack([velx, vely], dim=-1)
@@ -399,8 +433,8 @@ def frame2_step(worlds: World, cfg: SolverConfig, tables=None, owners=None,
             sleep_count=sleep_count)
         new_worlds = dataclasses.replace(
             worlds, bodies=new_bodies, step_count=worlds.step_count + 1)
-        aux = dict(joint_overflow=joint_overflow,
-                   owner_overflow=owner_overflow,
+        aux = dict(joint_overflow=inputs.joint_overflow,
+                   owner_overflow=inputs.owner_overflow,
                    solve_overflow=solve_overflow, solve_dropped=solve_dropped)
         counts = (count, count_touch, count_close)
         return new_worlds, touched, partner, counts, aux
@@ -488,35 +522,29 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
     POSITIONAL guard forces an early rebuild when a dynamic body's
     displacement since the build plus the coming frame's motion exceeds
     its sweep budget. The guard's verdict is read on the host: one host
-    round trip per frame that is not already a scheduled rebuild (counted
-    in the module's ``host_syncs``). K = 1 builds fresh tables every frame
-    with no guard and no round trip. Under a ``torch.profiler`` the call
+    round trip per frame that is not already a scheduled rebuild (its
+    ``starframe.guard`` span). K = 1 builds fresh tables every frame with
+    no guard and no round trip. Under a ``torch.profiler`` the call
     records its ``starframe.*`` spans (:mod:`.spans`).
     """
-    global host_syncs
     with span("starframe.rollout"):
-        _require_slice(worlds, cfg)
         if record is None:
             record = lambda w: (w.bodies.pos, w.bodies.angle)  # noqa: E731
         C = cfg.slot_capacity
         K = max(cfg.frames_per_broadphase, 1)
         M = worlds.colliders.m
         dev = worlds.bodies.pos.device
+        # INVARIANT: flags, topology and shapes, so the eligibility mask,
+        # the collider -> body owner lists, the joint slots and the frame
+        # kernel's other inputs, are what nothing inside a rollout changes:
+        # built once
+        with span("starframe.setup"):
+            inputs = frame2_inputs(worlds, cfg, plain=plain)
+            elig = frame2_elig(worlds, cfg, plain=plain, inputs=inputs)
         neg = torch.tensor(-(2 ** 31), dtype=torch.int32, device=dev)
         ovf = marg = spec = neg
         rebuilds = 0
-        # INVARIANT: the eligibility mask, the collider -> body owner lists
-        # and the joint slots depend only on flags and topology, which
-        # nothing inside a rollout changes, so they are built once
-        with span("starframe.setup"):
-            elig = frame2_elig(worlds, cfg, plain=plain)
-            owners = frame2_owners(worlds, cfg)
-            joint_slots = None
-            if worlds.joints.j > 0:
-                with span("starframe.joints"):
-                    joint_slots = frame2_joint_slots(worlds, cfg, plain=plain)
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        jovf = sovf = sdrp = zero
+        jovf = sovf = sdrp = inputs.zero
 
         def build(w):
             # per-body position budget: the min over the body's active
@@ -525,10 +553,9 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
             with span("starframe.tables"):
                 tables, budget_col = frame2_tables(
                     w, cfg, frames=K, return_budget=True, elig=elig,
-                    plain=plain)
+                    plain=plain, inputs=inputs)
                 act = (w.colliders.flags & COL_ACTIVE) != 0
-                big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
-                bc = torch.where(act, budget_col, big)
+                bc = torch.where(act, budget_col, 3.0e38)
                 budget = torch.full(w.bodies.inv_mass.shape, 3.0e38,
                                     dtype=torch.float32, device=dev)
                 budget = budget.scatter_reduce(
@@ -545,7 +572,7 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
             if K == 1:
                 with span("starframe.tables"):
                     tables = frame2_tables(w, cfg, frames=1, elig=elig,
-                                           plain=plain)
+                                           plain=plain, inputs=inputs)
             else:
                 viol = False
                 if age != 0:
@@ -559,14 +586,12 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
                                   + _gmag(w) * cfg.dt) * cfg.dt
                         esc = disp + motion > sweep + 1e-5
                         viol = bool(torch.any(esc & (b.inv_mass > 0)))
-                    host_syncs += 1
                 if age == 0 or viol:
                     tables, pos0, sweep = build(w)
                 rebuilds += int(viol)
                 age = (1 if (age == 0 or viol) else age + 1) % K
             w, touched, partner, counts, aux = frame2_step(
-                w, cfg, tables=tables, owners=owners, joint_slots=joint_slots,
-                plain=plain)
+                w, cfg, tables=tables, inputs=inputs, plain=plain)
             jovf = torch.maximum(jovf, aux["joint_overflow"])
             sovf = torch.maximum(sovf, aux["solve_overflow"])
             sdrp = torch.maximum(sdrp, aux["solve_dropped"])
@@ -584,7 +609,7 @@ def batched_rollout(worlds: World, cfg: SolverConfig, max_pairs: int,
                     forced_rebuilds=torch.tensor(rebuilds, dtype=torch.int32,
                                                  device=dev),
                     solve_overflow=sovf, solve_dropped=sdrp,
-                    owner_overflow=owners[1])
+                    owner_overflow=inputs.owner_overflow)
         return w, (_stack_records(traj) if traj else None), diag
 
 

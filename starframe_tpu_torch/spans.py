@@ -9,18 +9,18 @@ names, all ``starframe.*``:
 
 - ``starframe.rollout``: a whole ``batched_rollout`` or ``tiled_rollout``
   call, the root of every span below it on the calling thread;
-- ``starframe.setup``: the call's set-up (the batch's eligibility mask,
-  owner lists and joint slots; on the tile engine two spans, the layout's
-  entry and its first edges);
+- ``starframe.setup``: the call's set-up (``parallel.frame2_inputs`` and
+  the eligibility mask; on the tile engine two spans, the layout's entry
+  and its first edges);
 - ``starframe.tables``: a table build (K2, its host prep and the
   budget's scatter; K5 and its counters);
 - ``starframe.guard``: the staleness guard's verdicts and their blocking
   host read;
 - ``starframe.joints``: a jointed batch's joint work outside the frame
-  kernel: the joint slots (K3, built once a call inside
-  ``starframe.setup``) and each frame's joint preparation (the kernel's
-  joint arrays and the ``joint_overflow`` count, inside
-  ``starframe.frame``); a batch without joints opens none;
+  kernel: the joint slots (K3), the kernel's joint arrays and the
+  ``joint_overflow`` count, built once a call inside ``starframe.setup``
+  (inside ``starframe.frame`` when a lone ``frame2_step`` builds its own);
+  a batch without joints opens none;
 - ``starframe.frame``: one frame (``parallel.frame2_step``; the tile
   engine's ``_run_frame`` and its solve counts);
 - ``starframe.sort``: the tile layout's re-sort and the edges after it;

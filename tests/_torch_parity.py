@@ -501,6 +501,57 @@ def to_jax_tables(tables):
     return tuple(jnp.asarray(t.numpy()) for t in tables)
 
 
+def frame2_args(w, cfg, tables):
+    """One frame of ``w`` without sleep as ``hopper.run_frame2`` takes it,
+    built as ``parallel.frame2_step`` builds it: ``(args, inputs)``, the
+    frame's body planes with ``tables``' partner and mask, and the call's
+    ``Frame2Inputs``."""
+    from starframe_tpu_torch import parallel
+
+    planes, _ = parallel.frame2_planes(w, cfg)
+    return (*planes, tables[0], tables[1]), parallel.frame2_inputs(w, cfg).k4
+
+
+def jax_run_frame2(args, inputs, **kw):
+    """The JAX package's ``run_frame2`` (Pallas, interpret mode) on the
+    port's frame ``args`` and ``inputs`` (:func:`frame2_args`): the same
+    tensors in its argument order, the joint axis padded to 128 lanes as
+    its ``parallel.py:305-326`` pads it (padded rows inactive, no slot
+    points at them), the same parameters; ``kw`` adds to them."""
+    import jax.numpy as jnp
+
+    from starframe_tpu.pallas.frame2 import run_frame2
+
+    x = inputs
+    tensors = (*args[:6], x.invm, x.invi, x.dyn, x.kin, x.cbody, x.vlx,
+               x.vly, x.nverts, x.radius, x.fric, x.rest, x.sensor,
+               *args[6:])
+    joints = None
+    if x.joints is not None:
+        J = x.joints["jtype"].shape[1]
+        Jp = -(-J // 128) * 128
+        joints = {}
+        for k, v in x.joints.items():
+            v = v.numpy()
+            if v.ndim == 2:
+                v = np.pad(v, ((0, 0), (0, Jp - J)),
+                           constant_values=2 ** 20 if k == "jcolor" else 0)
+            joints[k] = jnp.asarray(v)
+    params = dict(C=x.C, substeps=x.substeps, iterations=x.iterations,
+                  h=x.h, dt=x.dt, margin=x.margin, compliance=x.compliance,
+                  relaxation=x.relaxation, max_dpos=x.max_dpos,
+                  rest_threshold=x.rest_threshold, lin_damp=x.lin_damp,
+                  ang_damp=x.ang_damp, ccd=x.ccd, ccd_slop=x.ccd_slop)
+    if joints is not None:
+        params.update(JC=x.JC, joint_solver=x.joint_solver,
+                      n_colors=x.n_colors, max_dpos_joint=x.max_dpos_joint)
+    return run_frame2(
+        *[jnp.asarray(t.numpy()) for t in tensors], joints,
+        jnp.asarray(x.gravity.numpy()),
+        None if x.bullet is None else jnp.asarray(x.bullet.numpy()),
+        interpret=True, **params, **kw)
+
+
 # starframe_tpu/pallas/frame2.py:414 gathers the per-slot normal (2-D,
 # [Wb, C * M]) with the per-point helper, whose loop runs over a leading
 # point axis: tracing the kernel with 0 < Cs < C raises, so the JAX

@@ -52,9 +52,7 @@ def scene():
 
 def test_elig_kernel_matches_twin(scene):
     cfg, w = scene
-    body, col = parallel._frame2_arrays(w, cfg)
-    args = (col["cbody"], col["layer"], col["lmask"], col["active"],
-            col["sensor"], body["responds"], body["moves"])
+    args = parallel.frame2_inputs(w, cfg).elig
     n0 = hopper.build_elig_mask.launches
     got = hopper.build_elig_mask(*args)
     assert hopper.build_elig_mask.launches == n0 + 1
@@ -174,14 +172,10 @@ def _bulleted(w):
 
 
 def _live_counts():
-    """``(live, slots, live joint items, joint items)``: ``run_frame2``'s
-    item counters now."""
+    """``(live, slots)``: ``run_frame2``'s item counters now."""
     live = hopper.run_frame2.live_items
-    joints = hopper.run_frame2.live_joint_items
     return (0 if live is None else int(live.sum()),
-            hopper.run_frame2.slot_items,
-            0 if joints is None else int(joints.sum()),
-            hopper.run_frame2.joint_items)
+            hopper.run_frame2.slot_items)
 
 
 def _frame_kernel_matches_twin(cfg, w, touching=True):
@@ -192,27 +186,20 @@ def _frame_kernel_matches_twin(cfg, w, touching=True):
     n0 = getattr(hopper.run_frame2, counter)
     c0 = hopper.run_frame2.compact_launches
     o0 = hopper.run_frame2.owner_launches
-    live, slots, jlive, jitems = _live_counts()
+    live, slots = _live_counts()
     wk, tk, pk, _, ak = parallel.frame2_step(w, cfg, tables=tables)
     assert getattr(hopper.run_frame2, counter) == n0 + 1
     compact = 0 < cfg.batch_solve_capacity < cfg.slot_capacity
     assert hopper.run_frame2.compact_launches == c0 + compact
     assert hopper.run_frame2.owner_launches == o0 + (
         not cfg.batch_uniform_topology)
-    # the kernel's live items and live joint items (its device counters)
-    # are the twin's counts
-    live_k, slots_k, jlive_k, jitems_k = _live_counts()
+    # the kernel's live items (its device counter) are the twin's count
+    live_k, slots_k = _live_counts()
     wp, tp, pp, _, ap = parallel.frame2_step(w, cfg, tables=tables,
                                              plain=True)
-    live_p, slots_p, jlive_p, jitems_p = _live_counts()
+    live_p, slots_p = _live_counts()
     assert 0 < live_k - live == live_p - live_k < slots_k - slots
     assert slots_k - slots == slots_p - slots_k
-    assert jlive_k - jlive == jlive_p - jlive_k
-    assert jitems_k - jitems == jitems_p - jitems_k
-    if w.joints.j > 0:
-        assert 0 < jlive_k - jlive < jitems_k - jitems
-    else:
-        assert jlive_k == jlive and jitems_k == jitems
     assert torch.equal(tk, tp)
     assert torch.equal(pk, pp)  # partner_solve when compacting
     assert {k: int(v) for k, v in ak.items()} == {
@@ -284,28 +271,16 @@ def test_frame_kernel_compact_matches_twin(scene, ccd):
     with CCD (every dynamic body a bullet): ``touched``, ``partner_solve``
     and the solve counters equal, ``nact`` equal on a direct call, poses
     and velocities to the non-compacted bounds."""
+    from _torch_parity import frame2_args
+
     cfg, w = scene
     cfg = dataclasses.replace(cfg, batch_solve_capacity=4, ccd=ccd)
     if ccd:
         w = _bulleted(w)
     _frame_kernel_matches_twin(cfg, w)
-    body, col = parallel._frame2_arrays(w, cfg)
-    tables = parallel.frame2_tables(w, cfg)
-    args = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
-                              "angvel", "invm", "invi", "dyn", "kin")]
-    args += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
-                              "fric", "rest", "sensor")]
-    args += [tables[0], tables[1], w.gravity.expand(w.bodies.pos.shape[0],
-                                                    2).contiguous()]
-    kw = dict(C=8, substeps=cfg.substeps, iterations=cfg.iterations,
-              h=cfg.dt / cfg.substeps, dt=cfg.dt, margin=cfg.contact_margin,
-              compliance=cfg.contact_compliance, relaxation=cfg.relaxation,
-              max_dpos=cfg.max_dpos_eff,
-              rest_threshold=cfg.restitution_threshold,
-              lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-              bullet=body["bullet"], ccd=ccd, Cs=4)
-    k = hopper.run_frame2(*args, **kw)
-    p = hopper.run_frame2(*args, **kw, plain=True)
+    args, inputs = frame2_args(w, cfg, parallel.frame2_tables(w, cfg))
+    k = hopper.run_frame2(*args, inputs)
+    p = hopper.run_frame2(*args, inputs, plain=True)
     assert torch.equal(k[7], p[7]) and torch.equal(k[8], p[8])
     assert int(k[8][:, 1].max()) > 4, "no row has more than Cs: vacuous"
 
@@ -555,7 +530,7 @@ def test_joint_slot_kernel_matches_twin(jointed, name, JC):
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert int(got[3].max()) >= 2
-    _, overflow = parallel._frame2_joints(w, cfg, got)
+    overflow = parallel.frame2_inputs(w, cfg).joint_overflow
     # JC = 2: the rope's middle particle holds three joints
     assert int(overflow) == (64 if (JC == 2 and name == "rope_bridge")
                              else 0)
@@ -640,23 +615,20 @@ def test_frame_kernel_on_walker_matches_twin(walker, solver):
 
 def test_live_joint_items_are_the_joint_slots_every_frame(walker,
                                                           monkeypatch):
-    """``run_frame2.live_joint_items`` over a traced 5-frame rollout of the
-    walker batch (one K3 build) is K3's ``build_joint_slots.live_slots``
-    times the frames: 24 a world a frame; ``joint_items`` W x JC x N a
-    frame."""
+    """K3's counters over a traced 5-frame rollout of the walker batch
+    (one K3 build a call, which K4's joint list walks every frame):
+    ``build_joint_slots.live_slots`` 24 a world (the joint list's items),
+    ``slot_items`` W x JC x N."""
     cfg, w = walker
-    frames, W, N = 5, w.bodies.pos.shape[0], w.bodies.n
-    for name, zero in (("live_joint_items", None), ("joint_items", 0)):
-        monkeypatch.setattr(hopper.run_frame2, name, zero)
+    W, N = w.bodies.pos.shape[0], w.bodies.n
     monkeypatch.setattr(hopper.build_joint_slots, "live_slots", None)
+    monkeypatch.setattr(hopper.build_joint_slots, "slot_items", 0)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
-        parallel.batched_rollout(w, cfg, 0, frames, record=lambda _: None)
-    live = int(hopper.run_frame2.live_joint_items.sum())
-    assert live == int(hopper.build_joint_slots.live_slots.sum()) * frames
-    assert live == 24 * W * frames
-    assert hopper.run_frame2.joint_items == (
-        W * cfg.joint_slot_capacity * N * frames)
+        parallel.batched_rollout(w, cfg, 0, 5, record=lambda _: None)
+    assert int(hopper.build_joint_slots.live_slots.sum()) == 24 * W
+    assert hopper.build_joint_slots.slot_items == (
+        W * cfg.joint_slot_capacity * N)
 
 
 @pytest.mark.parametrize("name", sorted(JOINTED))

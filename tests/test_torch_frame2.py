@@ -8,16 +8,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-
-from starframe_tpu.pallas.frame2 import run_frame2 as j_run_frame2  # noqa: E402
 
 import starframe_tpu_torch as st  # noqa: E402
 from starframe_tpu_torch import hopper, parallel  # noqa: E402
 from starframe_tpu_torch.config import Capacity, SolverConfig  # noqa: E402
 
-from _torch_parity import build_pile  # noqa: E402
+from _torch_parity import build_pile, frame2_args, jax_run_frame2  # noqa: E402
 
 
 def _pile(cfg):
@@ -49,27 +46,11 @@ def test_frame_twin_matches_pallas(case):
     # inputs: body/collider arrays and fresh K-frame slot tables
     worlds, _, _ = parallel.batched_rollout(worlds, cfg, 0, n_frames,
                                             record=lambda _: None)
-    body, col = parallel._frame2_arrays(worlds, cfg)
-    partner, slot_act, *_ = parallel.frame2_tables(
-        worlds, cfg, frames=cfg.frames_per_broadphase)
-    W = body["posx"].shape[0]
-    gravity = worlds.gravity.expand(W, 2).contiguous()
-    inputs = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
-                                "angvel", "invm", "invi", "dyn", "kin")]
-    inputs += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
-                                "fric", "rest", "sensor")]
-    inputs += [partner, slot_act]
-    params = dict(C=cfg.slot_capacity, substeps=cfg.substeps,
-                  iterations=cfg.iterations, h=cfg.dt / cfg.substeps,
-                  dt=cfg.dt, margin=cfg.contact_margin,
-                  compliance=cfg.contact_compliance,
-                  relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
-                  rest_threshold=cfg.restitution_threshold,
-                  lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping)
-    ref = j_run_frame2(*[jnp.asarray(t.numpy()) for t in inputs],
-                       gravity=jnp.asarray(gravity.numpy()), interpret=True,
-                       **params)
-    got = hopper.run_frame2(*inputs, gravity, **params)
+    tables = parallel.frame2_tables(worlds, cfg,
+                                    frames=cfg.frames_per_broadphase)
+    args, inputs = frame2_args(worlds, cfg, tables)
+    ref = jax_run_frame2(args, inputs)
+    got = hopper.run_frame2(*args, inputs)
     assert hopper.run_frame2.launches == 0  # CPU tensors took the twin
 
     touched = got[6].numpy()
@@ -81,7 +62,7 @@ def test_frame_twin_matches_pallas(case):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0,
                                    atol=tol, err_msg=name)
     # the frame moved things: contacts pushed back against gravity
-    assert float(torch.abs(got[4] - body["vely"]).max()) > 0.1
+    assert float(torch.abs(got[4] - args[4]).max()) > 0.1
 
 
 def test_off_slice_configs_raise():
@@ -400,7 +381,7 @@ def test_live_counters_match_the_twin_pmask(monkeypatch):
     call, mb = parallel.run_frame2, f2.manifold_batch
 
     def run(*args, **kw):
-        acts.append(args[19])
+        acts.append(args[7])  # slot_act
         return call(*args, **kw)
 
     def manifold(*args):

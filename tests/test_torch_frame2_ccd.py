@@ -162,11 +162,7 @@ def test_frame2_ccd_with_joints_matches_pallas():
     ``run_frame2(ccd=True, interpret=True)`` on the same inputs;
     ``touched`` equal, the joint tests' bounds, and CCD made a
     difference."""
-    import jax.numpy as jnp
-
-    from starframe_tpu.pallas.frame2 import run_frame2 as j_run_frame2
-
-    from _torch_parity import build_jointed
+    from _torch_parity import build_jointed, frame2_args, jax_run_frame2
 
     b, cap = build_jointed(st.WorldBuilder, st.Shape)
     w = parallel.replicate_world(build(b, st.Capacity(**cap))[0], 2)
@@ -178,42 +174,9 @@ def test_frame2_ccd_with_joints_matches_pallas():
                         bd.vel)))
     cfg = st.SolverConfig(substeps=4, slot_capacity=8, ccd=True)
     w = parallel.frame2_step(w, cfg)[0]
-    body, col = parallel._frame2_arrays(w, cfg)
-    partner, slot_act, *_ = parallel.frame2_tables(w, cfg)
-    joints, _ = parallel._frame2_joints(
-        w, cfg, parallel.frame2_joint_slots(w, cfg))
-    gravity = w.gravity.expand(2, 2).contiguous()
-    inputs = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
-                                "angvel", "invm", "invi", "dyn", "kin")]
-    inputs += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
-                                "fric", "rest", "sensor")]
-    inputs += [partner, slot_act]
-    params = dict(C=cfg.slot_capacity, substeps=cfg.substeps,
-                  iterations=cfg.iterations, h=cfg.dt / cfg.substeps,
-                  dt=cfg.dt, margin=cfg.contact_margin,
-                  compliance=cfg.contact_compliance,
-                  relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
-                  rest_threshold=cfg.restitution_threshold,
-                  lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-                  JC=cfg.joint_slot_capacity, joint_solver=cfg.joint_solver,
-                  n_colors=cfg.max_joint_colors, max_dpos_joint=cfg.max_dpos,
-                  ccd=True, ccd_slop=cfg.ccd_slop)
-    # the JAX side pads the joint axis to 128 lanes (parallel.py:305-326)
-    J = w.joints.j
-    Jp = -(-J // 128) * 128
-    j_joints = {}
-    for k, v in joints.items():
-        v = v.numpy()
-        if v.ndim == 2:
-            v = np.pad(v, ((0, 0), (0, Jp - J)),
-                       constant_values=2 ** 20 if k == "jcolor" else 0)
-        j_joints[k] = jnp.asarray(v)
-    ref = j_run_frame2(*[jnp.asarray(t.numpy()) for t in inputs], j_joints,
-                       jnp.asarray(gravity.numpy()),
-                       jnp.asarray(body["bullet"].numpy()), interpret=True,
-                       **params)
-    got = hopper.run_frame2(*inputs, gravity, joints=joints,
-                            bullet=body["bullet"], **params)
+    args, inputs = frame2_args(w, cfg, parallel.frame2_tables(w, cfg))
+    ref = jax_run_frame2(args, inputs)
+    got = hopper.run_frame2(*args, inputs)
     assert float(got[6].sum()) > 10, "no touching contacts: vacuous"
     np.testing.assert_array_equal(np.asarray(ref[6]), got[6].numpy())
     tols = (2e-4, 2e-4, 5e-4, 2e-2, 2e-2, 2e-2)
@@ -221,8 +184,7 @@ def test_frame2_ccd_with_joints_matches_pallas():
                                   "angvel"), ref[:6], got[:6], tols):
         np.testing.assert_allclose(np.asarray(a), b_.numpy(), rtol=0,
                                    atol=tol, err_msg=field)
-    free = hopper.run_frame2(*inputs, gravity, joints=joints, **dict(
-        params, ccd=False))
+    free = hopper.run_frame2(*args, dataclasses.replace(inputs, ccd=False))
     assert float(torch.abs(free[1] - got[1]).max()) > 1e-3, "CCD inert"
 
 

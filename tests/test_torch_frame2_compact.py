@@ -40,6 +40,7 @@ from _torch_parity import (  # noqa: E402
     build_escorted,
     build_jointed,
     build_ring,
+    frame2_args,
     jax_to_numpy,
     repaired_reference,
     to_jax_tables,
@@ -78,16 +79,6 @@ def _scenes():
 
 
 SCENES = _scenes()
-
-
-def _run_frame2_args(w, cfg):
-    """``hopper.run_frame2``'s arguments for one frame of ``w``."""
-    body, col = parallel._frame2_arrays(w, cfg)
-    args = [body[k] for k in ("posx", "posy", "ang", "velx", "vely",
-                              "angvel", "invm", "invi", "dyn", "kin")]
-    args += [col[k] for k in ("cbody", "vlx", "vly", "nverts", "radius",
-                              "fric", "rest", "sensor")]
-    return args
 
 
 @pytest.fixture(scope="module")
@@ -144,17 +135,9 @@ def test_ring_counts_and_counters(reference):
     expect = {"speculative": (0, 8), "imminent": (8, 0), "touching": (8, 0)}
     for kind, (hard, soft) in expect.items():
         ref = reference[f"ring_{kind}"]
-        args = _run_frame2_args(ref["port"], ref["cfg"])
-        cfg = ref["cfg"]
-        out = hopper.run_frame2(
-            *args, *ref["tables"][:2], ref["port"].gravity.expand(2, 2),
-            C=cfg.slot_capacity, substeps=cfg.substeps,
-            iterations=cfg.iterations, h=cfg.dt / cfg.substeps, dt=cfg.dt,
-            margin=cfg.contact_margin, compliance=cfg.contact_compliance,
-            relaxation=cfg.relaxation, max_dpos=cfg.max_dpos_eff,
-            rest_threshold=cfg.restitution_threshold,
-            lin_damp=cfg.linear_damping, ang_damp=cfg.angular_damping,
-            Cs=cfg.batch_solve_capacity)
+        args, inputs = frame2_args(ref["port"], ref["cfg"],
+                                      ref["tables"])
+        out = hopper.run_frame2(*args, inputs)
         assert len(out) == 9
         np.testing.assert_array_equal(ref["nact"], out[8].numpy())
         assert (ref["aux"]["solve_overflow"],

@@ -227,8 +227,7 @@ def test_joint_slot_twin_matches_pallas(name):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                       err_msg=field)
     assert int(got[3].max()) >= 2 and float(got[1].sum()) > 0
-    _, overflow = parallel._frame2_joints(world, cfg, got)
-    assert int(overflow) == 0
+    assert int(parallel.frame2_inputs(world, cfg).joint_overflow) == 0
 
 
 def test_joint_slot_overflow_matches_pallas():
@@ -241,7 +240,7 @@ def test_joint_slot_overflow_matches_pallas():
     ref = _jax_joint_slots(world, 2)
     for a, b in zip(ref, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    _, overflow = parallel._frame2_joints(world, cfg, got)
+    overflow = parallel.frame2_inputs(world, cfg).joint_overflow
     j_overflow = int(jnp.sum(jnp.maximum(ref[3] - 2, 0)))
     assert int(overflow) == j_overflow > 0
     assert int(got[3].max()) == 3

@@ -125,12 +125,12 @@ def _slot_case(jw, tw, cfg, partner_aware):
         jc["layer"], jc["lmask"], jc["active"], jc["sensor"], elig,
         C=cfg.slot_capacity, margin=cfg.contact_margin,
         dt=cfg.dt * frames, interpret=True, partner_aware=partner_aware)
-    tb, tc = parallel._frame2_arrays(tw, cfg)
-    M = tc["cbody"].shape[1]
+    tc = parallel.frame2_inputs(tw, cfg).k4
+    M = tc.cbody.shape[1]
     *got, budget = hopper.build_slot_tables(
         _t(jb["posx"]), _t(jb["posy"]), _t(jb["ang"]), _t(vx),
-        None if vy is None else _t(vy), tc["cbody"], tc["vlx"], tc["vly"],
-        tc["radius"], _t(_np(elig)[:, :M, :M]), C=cfg.slot_capacity,
+        None if vy is None else _t(vy), tc.cbody, tc.vlx, tc.vly,
+        tc.radius, _t(_np(elig)[:, :M, :M]), C=cfg.slot_capacity,
         margin=cfg.contact_margin, dt=cfg.dt * frames,
         partner_aware=partner_aware)
     M = budget.shape[-1]  # the JAX world may pad the colliders past M
@@ -214,18 +214,18 @@ def test_cpu_tensors_take_the_twins():
 
 def test_kernel_wrappers_check_their_inputs(worlds):
     _, tw = worlds
-    body, col = parallel._frame2_arrays(tw, CFG)
-    args = [col["cbody"], col["layer"], col["lmask"], col["active"],
-            col["sensor"], body["responds"], body["moves"]]
+    inputs = parallel.frame2_inputs(tw, CFG)
+    args = list(inputs.elig)
     with pytest.raises(ValueError, match="dtype"):
         hopper.build_elig_mask(*args[:3], args[3].double(), *args[4:])
     with pytest.raises(ValueError, match="contiguous"):
-        hopper.build_elig_mask(*args[:6], body["moves"].t().contiguous().t())
+        hopper.build_elig_mask(*args[:6], args[6].t().contiguous().t())
+    (posx, posy, ang, velx, vely, _), _ = parallel.frame2_planes(tw, CFG)
+    k4 = inputs.k4
     with pytest.raises(ValueError, match="symmetric"):
         hopper.build_slot_tables(
-            body["posx"], body["posy"], body["ang"], body["velx"],
-            body["vely"], col["cbody"], col["vlx"], col["vly"],
-            col["radius"], parallel.frame2_elig(tw, CFG), C=8, margin=0.05,
+            posx, posy, ang, velx, vely, k4.cbody, k4.vlx, k4.vly,
+            k4.radius, parallel.frame2_elig(tw, CFG), C=8, margin=0.05,
             dt=0.1, partner_aware=True)
     with pytest.raises(ValueError, match="device"):
         hopper.build_elig_mask(*[a.to("meta") for a in args])

@@ -36,15 +36,11 @@ PHASES = ("main", "main_ccd", "compact", "owners_alternating", "mechanism",
 
 def _tools():
     """``(chip_smoke, frame2_digests)`` of this checkout, as modules."""
-    mods = []
-    for name, path in (("_chip_smoke_scenes", "chip_smoke.py"),
-                       ("_frame2_digests", "tools/frame2_digests.py")):
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(HERE, path))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        mods.append(mod)
-    return mods
+    spec = importlib.util.spec_from_file_location(
+        "_frame2_digests", os.path.join(HERE, "tools", "frame2_digests.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool._smoke(), tool
 
 
 def _inputs(cs, tool, name, dev):
@@ -54,18 +50,9 @@ def _inputs(cs, tool, name, dev):
 
     w, cfg, frames = tool.phase(cs, name, dev)
     w = parallel.batched_rollout(w, cfg, 0, frames, record=lambda _: None)[0]
-    joint_slots = (parallel.frame2_joint_slots(w, cfg) if w.joints.j > 0
-                   else None)
     tables = parallel.frame2_tables(w, cfg, frames=cfg.frames_per_broadphase,
                                     elig=parallel.frame2_elig(w, cfg))
-    args, kw = cs.frame_call(hopper, parallel, w, cfg, tables, joint_slots)
-    if cfg.ccd:
-        body, _ = parallel._frame2_arrays(w, cfg)
-        kw.update(bullet=body["bullet"], ccd=True, ccd_slop=cfg.ccd_slop)
-    Cs = parallel._batch_solve_cap(cfg)
-    if Cs:
-        kw["Cs"] = Cs
-    return args, kw
+    return cs.frame_call(hopper, parallel, w, cfg, tables)
 
 
 def child(root: str, reps: int) -> int:

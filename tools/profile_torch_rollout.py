@@ -96,14 +96,12 @@ def frame_step_ms(parallel, w, cfg, reps: int = 5):
     import torch
 
     tables = parallel.frame2_tables(w, cfg, frames=cfg.frames_per_broadphase)
-    kw = dict(owners=parallel.frame2_owners(w, cfg),
-              joint_slots=(parallel.frame2_joint_slots(w, cfg)
-                           if w.joints.j > 0 else None))
-    parallel.frame2_step(w, cfg, tables=tables, **kw)
+    inputs = parallel.frame2_inputs(w, cfg)
+    parallel.frame2_step(w, cfg, tables=tables, inputs=inputs)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(reps):
-        parallel.frame2_step(w, cfg, tables=tables, **kw)
+        parallel.frame2_step(w, cfg, tables=tables, inputs=inputs)
     end.record()
     torch.cuda.synchronize()
     per_world = float(tables[1].sum()) / tables[1].shape[0]
@@ -165,7 +163,6 @@ def main() -> int:
     F = args.frames or (240 if args.scene in PILES + ("batched_sleep",)
                         else 60)
     active = int(((sc.world.bodies.flags & 1) != 0).sum())
-    syncing = tiled if args.scene in PILES else parallel
     start = sc.world
     if args.scene in ("pile_sleep", "pile_compound"):
         start, _ = tiled.tiled_rollout(start, cfg, SETTLE_FRAMES)
@@ -197,13 +194,13 @@ def main() -> int:
           f"({', '.join(f'{1e3 * w / F:.4f}' for w in walls)} ms/frame)")
 
     torch.cuda.reset_peak_memory_stats()
-    syncs0 = syncing.host_syncs
+    syncs0 = tiled.host_syncs
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(WINDOW):
             final = rollout()[0]
             torch.cuda.synchronize()
-    syncs = syncing.host_syncs - syncs0
+    syncs = tiled.host_syncs - syncs0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -229,12 +226,14 @@ def main() -> int:
         print(f"| {label} | {1e3 * sec:.3f} | {calls[label]} | "
               f"{100 * sec / device_s:.2f}% |")
     n_kernels = sum(1 for d in dev if d[1] == "kernel")
+    red = spans.reduce(dict(dev=dev, host=host, t0_us=t0, t1_us=t1))
+    if args.scene not in PILES:  # the batch's guard reads, one a span
+        syncs = red["counts"].get("starframe.guard", 0)
     print(f"device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled wall: "
           f"idle {100 * (1 - busy_ms / wall_ms):.2f}%; "
           f"{n_kernels / F:.2f} device kernels per frame; host syncs "
           f"{syncs} ({syncs / F:.3f}/frame); peak device memory "
           f"{peak_gib:.3f} GiB")
-    red = spans.reduce(dict(dev=dev, host=host, t0_us=t0, t1_us=t1))
     print("| span | spans | a frame | self ms | device idle ms | idle, % of "
           "wall |")
     print("|---|---|---|---|---|---|")

@@ -38,17 +38,13 @@ PHASES = {"main": ("main", None), "main_c16": ("main", 16),
           "rope_bridge": ("rope_bridge", None)}
 
 
-def _tools():
-    """``(chip_smoke, frame2_digests)`` of this checkout, as modules."""
-    mods = []
-    for name, path in (("_chip_smoke_scenes", "chip_smoke.py"),
-                       ("_frame2_digests", "tools/frame2_digests.py")):
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(HERE, path))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        mods.append(mod)
-    return mods
+def _times():
+    """This checkout's ``tools/frame2_times.py``, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "_frame2_times", os.path.join(HERE, "tools", "frame2_times.py"))
+    times = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(times)
+    return times
 
 
 def _calls(cs, tool, name, dev):
@@ -76,7 +72,7 @@ def child(root: str, reps: int) -> int:
 
     pkg = os.path.dirname(os.path.abspath(starframe_tpu_torch.__file__))
     assert os.path.dirname(pkg) == root, (pkg, root)
-    cs, tool = _tools()
+    cs, tool = _times()._tools()
     dev = torch.device("cuda", 0)
     out = {}
     for name in PHASES:
@@ -114,11 +110,7 @@ def main() -> int:
     roots = [os.path.abspath(r) for r in args.roots]
     if args.child:
         return child(roots[0], args.reps)
-    spec = importlib.util.spec_from_file_location(
-        "_frame2_times", os.path.join(HERE, "tools", "frame2_times.py"))
-    times = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(times)
-    return times.run_turns(__file__, roots, args.rounds, args.reps)
+    return _times().run_turns(__file__, roots, args.rounds, args.reps)
 
 
 if __name__ == "__main__":

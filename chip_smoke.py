@@ -156,14 +156,16 @@ frame2_table_rows``): step 1 prints ptxas's registers, stack and spills of
 every K4 instance beside its shared bytes and resident blocks an SM at its
 phase's shapes; step 3 checks that the main path counted one
 ``run_frame2.shared_table_launches`` a frame and prints its peak device
-memory; step 6 checks that every K4 phase places all M rows there (``R =
-M``) but the 16-slot uncompacted runs that ``batched_compact`` times its
-compacted ones against, which keep some rows in K4's global table (``R <
-M``), and prints a SHA-256 digest of each K4 phase's final state. Each K4
-phase's start batch, config and frames come from ``tools/frame2_digests.py``
-``phase``, which computes the same digests for any checkout, to compare a
-change with its parent. Step 3 also runs that tool's ``walker`` phase, the
-benchmark's 4,096 BipedalWalker-v3 envs.
+memory; step 6 checks that every K4 phase places all its table's rows
+there (M, or the rows that may hold a slot where only they keep records:
+the walker's) but the 16-slot uncompacted runs that ``batched_compact``
+times its compacted ones against, which keep some rows in K4's global
+table (``R < M``), and prints a SHA-256 digest of each K4 phase's final
+state. Each K4 phase's start batch, config and frames come from
+``tools/frame2_digests.py`` ``phase``, which computes the same digests for
+any checkout, to compare a change with its parent. Step 3 also runs that
+tool's ``walker`` and ``walker_owners`` phases, the benchmark's 4,096
+BipedalWalker-v3 envs.
 
 K7, K8, K9, K10 and the compound frame run one thread a (row, slot)
 item, 32 rows x 8 slots a block: step 1 prints ptxas's registers, stack,
@@ -222,19 +224,20 @@ KERNELS = (
      "starframe_tpu/pallas/slots.py:41"),
     ("slots", "build_slot_tables", "starframe_tpu_torch/csrc/slots.cu",
      "starframe_tpu/pallas/slots.py:107"),
-    ("frame2", "run_frame2", "starframe_tpu_torch/csrc/frame2.cu",
+    ("frame2", "run_frame2", "starframe_tpu_torch/csrc/frame2.cuh",
      "starframe_tpu/pallas/frame2.py:78"),
     ("joint_slots", "build_joint_slots",
      "starframe_tpu_torch/csrc/joint_slots.cu",
      "starframe_tpu/pallas/slots.py:306"),
-    ("frame2_joints", "run_frame2", "starframe_tpu_torch/csrc/frame2.cu",
+    ("frame2_joints", "run_frame2", "starframe_tpu_torch/csrc/frame2.cuh",
      "starframe_tpu/pallas/frame2.py:78"),
 )
 CONTACT_KERNELS = ("elig", "slots", "frame2")
 JOINTED = ("mechanism", "rope_bridge")
-# (N, M, J, solve slots) of the benchmark's walker (K4 phase ``walker``):
-# 199 edge bodies and 5 parts, 12 joint rows, 8 slots, at V = 8
-WALKER_SHAPE = (204, 204, 12, 8)
+# (N, M, J, solve slots, rows that may hold a slot) of the benchmark's
+# walker (K4 phase ``walker``): 199 edge bodies and 5 parts, 12 joint rows,
+# 8 slots, at V = 8
+WALKER_SHAPE = (204, 204, 12, 8, 5)
 TILE_KERNELS = (
     ("tile_tables", "build_tile_tables",
      "starframe_tpu_torch/csrc/tile_tables.cu",
@@ -433,7 +436,7 @@ CCD_KERNELS = (
      "_project_kernel and _apply_kernel(compound=True), a substep each with "
      "the owner reductions, looped at :2010-2086)"),
     ("frame2_ccd", "run_frame2", "ccd_launches",
-     "starframe_tpu_torch/csrc/frame2.cu",
+     "starframe_tpu_torch/csrc/frame2.cuh",
      "starframe_tpu/pallas/frame2.py:78"),
 )
 # K4's last three branches: per-frame solve-slot compaction (``Cs``), per
@@ -501,11 +504,13 @@ def digests_tool():
 
 
 def table_rows(w, cfg) -> tuple:
-    """``(R, M)``: the rows of ``w``'s slot table that K4 keeps in shared
-    memory under ``cfg``, and all of them."""
+    """``(R, rows)``: the rows of ``w``'s slot table that K4 keeps in
+    shared memory under ``cfg``, and all the table's rows (M, or the rows
+    that may hold a slot where only they keep records)."""
     from starframe_tpu_torch import parallel
 
-    return parallel.frame2_inputs(w, cfg).k4.R, w.colliders.m
+    k4 = parallel.frame2_inputs(w, cfg).k4
+    return k4.R, k4.table_rows
 
 
 def k4_phase(name, dev) -> tuple:
@@ -558,10 +563,13 @@ def _flags(*bits) -> str:
 
 
 def ptxas_k4(log: str) -> dict:
-    """:func:`ptxas_report` of every K4 instance, as ``<V,kJ,kCcd>``."""
+    """:func:`ptxas_report` of every K4 instance, as
+    ``<V,kJ,kCcd,kRanked>`` (``<V,kJ,kCcd>`` for a build without the
+    ranked table)."""
     return ptxas_report(
-        log, r"frame2_kernelILi(\d+)ELb(\d)ELb(\d)E",
-        lambda m: f"<{m.group(1)},{_flags(*m.group(2, 3))}>")
+        log, r"frame2_kernelILi(\d+)ELb(\d)ELb(\d)E(?:Lb(\d)E)?",
+        lambda m: f"<{m.group(1)},"
+                  f"{_flags(*(g for g in m.group(2, 3, 4) if g))}>")
 
 
 # (M, C) of every K2 phase: the main path at C = 8 and 16, the projectile
@@ -1253,13 +1261,14 @@ def parity_joints(dev, hopper, parallel) -> dict:
     return errs
 
 
-def run_walker(dev, hopper, parallel, card) -> None:
-    """The benchmark's 4,096 BipedalWalker-v3 envs (K4 phase ``walker``)
-    for their frames, timed after a warm-up: no joint overflow, the
-    phase's digest."""
+def run_walker(dev, hopper, parallel, card, name="walker") -> None:
+    """The benchmark's 4,096 BipedalWalker-v3 envs (K4 phase ``walker``,
+    or ``walker_owners``: with per-world owner lists) for their frames,
+    timed after a warm-up: no joint or owner overflow, the phase's
+    digest."""
     import torch
 
-    w0, cfg, frames = k4_phase("walker", dev)
+    w0, cfg, frames = k4_phase(name, dev)
 
     def rollout():
         return parallel.batched_rollout(w0, cfg, 0, frames,
@@ -1272,9 +1281,10 @@ def run_walker(dev, hopper, parallel, card) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     W = w0.bodies.pos.shape[0]
-    check(int(diag["joint_overflow"]) == 0, "walker: joint_overflow")
-    record_phase("walker", w0, cfg, frames, final)
-    print(f"walker: {W} envs, {frames} frames in {seconds:.4f} s = "
+    check(int(diag["joint_overflow"]) == 0, f"{name}: joint_overflow")
+    check(int(diag["owner_overflow"]) == 0, f"{name}: owner_overflow")
+    record_phase(name, w0, cfg, frames, final)
+    print(f"{name}: {W} envs, {frames} frames in {seconds:.4f} s = "
           f"{1e3 * seconds / frames:.4f} ms/frame on {card}")
 
 
@@ -3855,29 +3865,37 @@ def main() -> int:
     # K4's instances: ptxas's report beside the shared memory and resident
     # blocks an SM at the shapes of the phases that run each (the main
     # path; the mechanism and rope batches, and for V = 8 the walker's; the
-    # V = 8 test scene for V = 8)
+    # V = 8 test scene for V = 8), each with the rows that may hold a slot
+    # and with every row flagged, the ranked instances at those whose
+    # table is ranked (the walker's, the jointed batches', a static floor
+    # of 32 dynamic bodies in 256), the others at the rest
     k4 = ptxas_k4(_build.build_log())
     lib = _build.library()
     for inst, (regs, stack, st_, ld) in sorted(k4.items()):
-        V, kJ, kCcd = inst.strip("<>").split(",")
+        V, kJ, kCcd, ranked = inst.strip("<>").split(",")
         walker = ((WALKER_SHAPE,) if V == "8" else ())
-        shapes = (((128, 128, 10, 12), (128, 128, 50, 8)) + walker
+        shapes = (((128, 128, 10, 12, 18), (128, 128, 50, 8, 47)) + walker
                   if kJ == "true"
-                  else ((N_BODIES, N_BODIES, 0, 8),) if V == "4"
-                  else ((128, 128, 0, 8),))
-        for n, m, j, csol in shapes:
-            smem = hopper.frame2_shared_bytes(n, m, int(V), j, csol)
-            rows = hopper.frame2_table_rows(n, m, int(V), j, csol)
+                  else ((N_BODIES, N_BODIES, 0, 8, N_BODIES - 3),
+                        (N_BODIES, N_BODIES, 0, 8, 32))
+                  if V == "4" else ((128, 128, 0, 8, 16),))
+        shapes = [(*sh[:4], rs) for sh in shapes for rs in (sh[4], sh[1])]
+        print(f"K4 {inst}: {regs} registers, {stack} bytes stack, {st_} "
+              f"bytes spill stores, {ld} bytes spill loads")
+        for n, m, j, csol, rs in shapes:
+            lay = hopper.frame2.frame2_layout(n, m, int(V), j, csol, rs)
+            if lay.ranked != (ranked == "true"):
+                continue
+            smem, rows = lay.bytes, lay.R
             blocks = lib.sf_frame2_blocks_per_sm(
-                int(V), j, int(kCcd == "true"), n, m, csol)
-            threads = lib.sf_frame2_block_threads(n, m, int(V), j, csol)
+                int(V), j, int(kCcd == "true"), n, m, csol, rs)
+            threads = lib.sf_frame2_block_threads(n, m, int(V), j, csol, rs)
             check(blocks >= 1, f"K4 {inst}: no block fits an SM")
-            print(f"K4 {inst}: {regs} registers, {stack} bytes stack, {st_} "
-                  f"bytes spill stores, {ld} bytes spill loads; at N = {n}, "
-                  f"M = {m}, J = {j}, {csol} solve slots: {smem} bytes of "
-                  f"shared memory, table rows {rows} of {m}, {blocks} "
+            print(f"K4 {inst} at N = {n}, M = {m}, J = {j}, {csol} solve "
+                  f"slots: {smem} bytes of shared memory, table rows {rows} "
+                  f"of {lay.rows} ({rs} of {m} may hold a slot), {blocks} "
                   f"block(s) of {threads} threads an SM")
-    check(len(k4) == 8, f"ptxas reported {len(k4)} K4 instances, not 8")
+    check(len(k4) == 16, f"ptxas reported {len(k4)} K4 instances, not 16")
     ptxas_slots(_build.build_log(), lib)
     ptxas_substep(_build.build_log(), lib)
 
@@ -3948,7 +3966,8 @@ def main() -> int:
 
     jointed = {name: run_jointed(name, dev, wrappers, parallel, card)
                for name in JOINTED}
-    run_walker(dev, hopper, parallel, card)
+    for name in ("walker", "walker_owners"):
+        run_walker(dev, hopper, parallel, card, name)
     launches.update(jointed["mechanism"]["launches"])
     pile = run_pile(dev, hopper, tiled, card)
     launches.update(pile["launches"])
@@ -4145,10 +4164,11 @@ def main() -> int:
     split = digests_tool().SPLIT
     for name, (r, m) in TABLE_ROWS.items():
         check((r < m) if name in split else (r == m), f"{name}: K4 kept {r} "
-              f"of {m} rows' slot records in shared memory")
+              f"of its table's {m} rows' slot records in shared memory")
     check(sorted(DIGESTS) == sorted(digests_tool().PHASES),
           f"digests of {sorted(DIGESTS)}")
-    print("K4 table rows in shared memory (R / M) on each phase: "
+    print("K4 table rows in shared memory (R / the table's rows) on each "
+          "phase: "
           + ", ".join(f"{n} {r}/{m}" for n, (r, m) in TABLE_ROWS.items())
           + f" (all M but {', '.join(split)}, the uncompacted tables "
           "batched_compact times its own against)")
@@ -4160,7 +4180,7 @@ def main() -> int:
     print(f"wall time {time.perf_counter() - t_start:.1f} s")
     ec = tuple((n, a, src, tpu)
                for n, a, _, src, tpu in EC_KERNELS + CCD_KERNELS)
-    ec += tuple((n, "run_frame2", "starframe_tpu_torch/csrc/frame2.cu", tpu)
+    ec += tuple((n, "run_frame2", "starframe_tpu_torch/csrc/frame2.cuh", tpu)
                 for n, _, tpu in A1_KERNELS)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -81,8 +81,9 @@ struct Frame2Args {
   const float* gravity;     // [W, 2]
   const int32_t* owner_start;  // [N + 1] collider->body CSR (world 0's, or
   const int32_t* owner_idx;    // [M]  [W, N + 1] / [W, M] per world), ascending
-  // slot records of rows i >= R (frame2.cu `place`): [W] tables of Csol
-  // slots x (M - R) rows; null when every row's fits in shared memory
+  // slot records of table rows r >= R (frame2.cuh `place`): [W] tables of
+  // Csol slots x (rows - R) rows; null when every row's fits in shared
+  // memory
   uint8_t* gtab;
   float* o_posx;            // [W, N] outputs
   float* o_posy;
@@ -132,7 +133,7 @@ struct Frame2Args {
   int Cs;
   int32_t* o_partner;       // [W, C, M] the partner table in rank order
   float* o_nact;            // [W, 2, M] imminent / pmask-active slot counts
-  // [W] scratch of frame2.cu `scratch_bytes`: with joints the joint list,
+  // [W] scratch of frame2.cuh `scratch_bytes`: with joints the joint list,
   // then the substep-start pose [4, N] (x, y, cos, sin), then the live set,
   // for what of them does not fit in shared memory beside the world's
   // state; null when all fit
@@ -140,6 +141,12 @@ struct Frame2Args {
   // [1] the live (row, slot) items of every block's frame, added once a
   // block (the engagement counter); may be null
   unsigned long long* live_items;
+  // [W, M] 1 where collider i's row may hold a slot (K1's row rule), and
+  // Rs, the most such rows in any world: where a table of Rs rows buys the
+  // block more blocks an SM, only those rows keep records (frame2.cuh
+  // `place`); slot_rows may then not be null
+  const float* slot_rows;
+  int Rs;
 };
 
 // A slot's record in the frame kernel's slot table: the float fields

@@ -1,4 +1,4 @@
-// Contact math shared by the frame kernels (frame2.cu, tile_manifold.cu,
+// Contact math shared by the frame kernels (frame2.cuh, tile_manifold.cu,
 // tile_substep.cu): the manifold of two rounded convex polygons
 // (kernels.manifold_batch, per thread and scalar), one manifold point's
 // XPBD position projection (kernels.solve_contacts_b) and its

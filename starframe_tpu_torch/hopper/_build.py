@@ -112,6 +112,7 @@ class Frame2Args(ctypes.Structure):
         ("owner_per_world", ctypes.c_int), ("Cs", ctypes.c_int),
         ("o_partner", ctypes.c_void_p), ("o_nact", ctypes.c_void_p),
         ("gscratch", ctypes.c_void_p), ("live_items", ctypes.c_void_p),
+        ("slot_rows", ctypes.c_void_p), ("Rs", ctypes.c_int),
     ]
 
 
@@ -312,16 +313,14 @@ def library() -> ctypes.CDLL:
                                f"{size()} bytes, its ctypes mirror "
                                f"{ctypes.sizeof(struct)}")
     for name in ("sf_frame2_shared_bytes", "sf_frame2_scratch_bytes"):
-        getattr(lib, name).argtypes = [ctypes.c_int] * 5
+        getattr(lib, name).argtypes = [ctypes.c_int] * 6
         getattr(lib, name).restype = ctypes.c_longlong
-    for name in ("sf_frame2_table_rows", "sf_frame2_blocks_per_sm",
-                 "sf_frame2_block_threads"):
+    for name in ("sf_frame2_table_rows", "sf_frame2_table_size",
+                 "sf_frame2_joints_shared", "sf_frame2_block_threads"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 6
         getattr(lib, name).restype = ctypes.c_int
-    lib.sf_frame2_table_rows.argtypes = [ctypes.c_int] * 5
-    lib.sf_frame2_joints_shared.argtypes = [ctypes.c_int] * 5
-    lib.sf_frame2_joints_shared.restype = ctypes.c_int
-    lib.sf_frame2_block_threads.argtypes = [ctypes.c_int] * 5
-    lib.sf_frame2_blocks_per_sm.argtypes = [ctypes.c_int] * 6
+    lib.sf_frame2_blocks_per_sm.argtypes = [ctypes.c_int] * 7
+    lib.sf_frame2_blocks_per_sm.restype = ctypes.c_int
     lib.sf_slots_shared_bytes.argtypes = [ctypes.c_int] * 2
     lib.sf_slots_shared_bytes.restype = ctypes.c_longlong
     lib.sf_slots_blocks_per_sm.argtypes = [ctypes.c_int] * 2

@@ -1,7 +1,7 @@
 """Whole-frame XPBD solve for a world batch.
 
 Replaces ``starframe_tpu/pallas/frame2.py``'s ``_frame2_kernel`` (via
-``run_frame2``) with the CUDA kernel in ``csrc/frame2.cu``, in every
+``run_frame2``) with the CUDA kernel in ``csrc/frame2.cuh``, in every
 configuration the reference has: contact-only or with joints, with or
 without CCD, with or without per-frame solve-slot compaction (``Cs``), with
 one collider -> body list for the batch or one per world. :func:`run_frame2`
@@ -15,11 +15,15 @@ and a mask byte) in shared memory beside the world's state and the
 substep-start pose; each frame's live set (:func:`live_set`: the slots
 whose manifold has an active point, which the slot phases walk) reuses
 the planes only the frame's set-up reads (:func:`frame2_live_shared`).
-:func:`frame2_table_rows` gives how many rows' records fit there, and the
-wrapper hands the kernel a global table for the rest (none at the main
-path's shapes). ``run_frame2.live_items`` (a one-element int64 tensor on
-the device) and ``run_frame2.slot_items`` (an int) count the live items
-and all (row, solve slot) items of every frame run, kernel or twin. With
+Only rows that may hold a slot (K1's row rule) get a record where a table
+of just them buys the SM more blocks (:func:`frame2_layout`: the walker's
+5 of 204 rows, four worlds an SM in place of one); else every row does.
+:func:`frame2_table_rows` gives how many table rows' records fit there,
+and the wrapper hands the kernel a global table for the rest (none at the
+main path's shapes). ``run_frame2.live_items`` (a one-element int64
+tensor on the device) and ``run_frame2.slot_items`` (an int) count the
+live items and all (row, solve slot) items of every frame run, kernel or
+twin; ``.table_rows`` and ``.rows`` the rows the tables held and all. With
 joints the kernel lists each frame's live joint items (the body's joint
 slots with ``jact != 0``) once, and its joint passes walk that list, one
 item a thread (:func:`frame2_joints_shared`: in shared memory past the
@@ -46,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -71,9 +76,9 @@ SCRATCH_FIELDS = 16  # csrc/common.cuh F2_FIELDS: float fields a slot record kee
 SLOT_BYTES = 4 * SCRATCH_FIELDS + 3  # and its int16 partner and mask byte
 _KERNEL_V = (4, 8)  # vertex widths the kernel is compiled for
 SHARED_LIMIT = 232448  # bytes of shared memory one H100 block may use
-SM_BYTES = 233472  # csrc/frame2.cu kSmPerSM: shared memory an SM shares out
+SM_BYTES = 233472  # csrc/frame2.cuh kSmPerSM: shared memory an SM shares out
 SM_RESERVED = 1024  # kSmReserved: of it, what the runtime keeps a block
-MAX_COMPACT_C = 32  # csrc/frame2.cu kMaxC: table width a row can rank
+MAX_COMPACT_C = 32  # csrc/frame2.cuh kMaxC: table width a row can rank
 # the joint tables run_frame2 takes: parameters [W, J], then slots [W, JC, N]
 JOINT_SLOT_KEYS = ("jslot", "jside", "jact")
 
@@ -86,7 +91,7 @@ def kernel_verts(V: int):
 
 def frame2_state_bytes(N: int, M: int, V: int, J: int) -> int:
     """Shared memory of one frame-kernel block's world state
-    (``csrc/frame2.cu`` ``shared_bytes``): the bodies, colliders and row
+    (``csrc/frame2.cuh`` ``shared_bytes``): the bodies, colliders and row
     sums, and with joints their 15 parameter rows and ``4 N`` words, of
     which each body's first item in the joint list takes ``N + 1``. A
     batch whose state does not fit is not eligible."""
@@ -95,7 +100,7 @@ def frame2_state_bytes(N: int, M: int, V: int, J: int) -> int:
 
 
 def frame2_joint_bytes(J: int) -> int:
-    """Bytes of one world's joint list (``csrc/frame2.cu``
+    """Bytes of one world's joint list (``csrc/frame2.cuh``
     ``joint_bytes``): the build's 64 warp counts and 20 words for each of
     at most ``2J`` items (a joint lies in at most its two bodies' slots)."""
     return 4 * (64 + 20 * 2 * J) if J > 0 else 0
@@ -105,57 +110,109 @@ def _align16(b: int) -> int:
     return -(-b // 16) * 16
 
 
-def _two_blocks(smem: int) -> bool:
-    """Whether two blocks of ``smem`` bytes fit an SM (``csrc/frame2.cu``
-    ``two_blocks``: the kernel then runs 256 threads a block, else 512)."""
-    return 2 * (smem + SM_RESERVED) <= SM_BYTES
+def _sm_blocks(smem: int) -> int:
+    """Blocks of ``smem`` bytes an SM runs (``csrc/frame2.cuh``
+    ``sm_blocks``: four of 128 threads where four fit its shared memory,
+    two of 256 where two do, else one of 512)."""
+    return next((k for k in (4, 2) if k * (smem + SM_RESERVED) <= SM_BYTES),
+                1)
 
 
-def frame2_joints_shared(N: int, M: int, V: int, J: int, Csol: int) -> bool:
+class Frame2Layout(NamedTuple):
+    """Where one frame-kernel block keeps what (``csrc/frame2.cuh``
+    ``Placement``): ``R`` table rows' records in shared memory (None: the
+    world's state does not fit), of the ``rows`` the table holds (M, or
+    ``Rs`` where ``ranked``: only the rows that may hold a slot keep
+    records), the pose planes, the live set and the joint list in shared
+    memory or not, the block's dynamic shared ``bytes`` and a world's
+    global ``scratch`` bytes (0: none)."""
+
+    R: int | None
+    rows: int
+    ranked: bool
+    pose_shared: bool
+    live_shared: bool
+    joints_shared: bool
+    bytes: int
+    scratch: int
+
+
+def _rank_words(M: int, rows: int) -> int:
+    """Words of a ranked table's two int16 rank planes (``csrc/frame2.cuh``
+    ``rank_words``: a rank for each of M colliders, a collider for each of
+    ``rows`` ranks), ahead of the live set in the set-up's planes."""
+    return (M + rows + 1) // 2
+
+
+def _place_rows(N, M, V, J, Csol, rows, ranked) -> Frame2Layout:
+    """The layout of a table of ``rows`` rows (``csrc/frame2.cuh``
+    ``place_rows``): past the world's state the four ``[N]`` pose planes,
+    then as many rows' records as fit, then (16-aligned) the joint list
+    where it fits and costs the SM no block."""
+    state = frame2_state_bytes(N, M, V, J)
+    live_shared = frame2_live_shared(
+        M, V, Csol, _rank_words(M, rows) if ranked else 0)
+    R, pose_shared, joints_shared, smem = None, False, False, state
+    if state <= SHARED_LIMIT:
+        R = 0
+        if state + 16 * N <= SHARED_LIMIT:
+            per_row = SLOT_BYTES * Csol
+            R = min(rows, (SHARED_LIMIT - state - 16 * N) // per_row)
+            pose_shared, smem = True, state + 16 * N + per_row * R
+            top = _align16(smem) + frame2_joint_bytes(J)
+            joints_shared = (J > 0 and top <= SHARED_LIMIT
+                             and _sm_blocks(top) == _sm_blocks(smem))
+            smem = top if joints_shared else smem
+    scratch = (0 if pose_shared and live_shared and (J <= 0 or joints_shared)
+               else frame2_joint_bytes(J)
+               + _align16(16 * N + frame2_live_bytes(M, Csol)))
+    return Frame2Layout(R, rows, ranked, pose_shared, live_shared,
+                        joints_shared, smem, scratch)
+
+
+def frame2_layout(N: int, M: int, V: int, J: int, Csol: int,
+                  Rs: int | None = None) -> Frame2Layout:
+    """The frame kernel's layout at these shapes (``csrc/frame2.cuh``
+    ``place``): a table of the ``Rs`` rows that may hold a slot (the most
+    of any world) where it gives the SM more blocks than one of every row,
+    else one of every row (also where ``Rs`` is None)."""
+    every = _place_rows(N, M, V, J, Csol, M, False)
+    if every.R is None or Rs is None or not 0 < Rs < M:
+        return every
+    few = _place_rows(N, M, V, J, Csol, Rs, True)
+    return few if _sm_blocks(few.bytes) > _sm_blocks(every.bytes) else every
+
+
+def frame2_joints_shared(N: int, M: int, V: int, J: int, Csol: int,
+                         Rs: int | None = None) -> bool:
     """Whether the joint list goes to shared memory past the slot table
     (16-aligned; it takes no row from :func:`frame2_table_rows`): where it
-    fits there and leaves two blocks an SM wherever the table alone does.
-    Else it goes to global memory beside the pose planes and the live
-    set."""
-    R = frame2_table_rows(N, M, V, J, Csol)
-    state = frame2_state_bytes(N, M, V, J)
-    if J <= 0 or R is None or state + 16 * N > SHARED_LIMIT:
-        return False
-    end = state + 16 * N + SLOT_BYTES * Csol * R
-    top = _align16(end) + frame2_joint_bytes(J)
-    return top <= SHARED_LIMIT and _two_blocks(top) == _two_blocks(end)
+    fits there and costs the SM no block (:func:`frame2_layout`). Else it
+    goes to global memory beside the pose planes and the live set."""
+    return frame2_layout(N, M, V, J, Csol, Rs).joints_shared
 
 
-def frame2_table_rows(N: int, M: int, V: int, J: int, Csol: int):
-    """``R``: how many collider rows keep their ``Csol``-slot records in the
-    block's shared memory (``csrc/frame2.cu`` ``place``), the rest going to
-    a global table. The shared memory left after the world's state first
+def frame2_table_rows(N: int, M: int, V: int, J: int, Csol: int,
+                      Rs: int | None = None):
+    """``R``: how many table rows keep their ``Csol``-slot records in the
+    block's shared memory (:func:`frame2_layout`), the rest going to a
+    global table. The shared memory left after the world's state first
     holds the four ``[N]`` substep-start pose planes; when they do not fit,
     they go to global memory too and R = 0. None when the state itself does
     not fit."""
-    state = frame2_state_bytes(N, M, V, J)
-    if state > SHARED_LIMIT:
-        return None
-    free = SHARED_LIMIT - state - 16 * N
-    return min(M, free // (SLOT_BYTES * Csol)) if free >= 0 else 0
+    return frame2_layout(N, M, V, J, Csol, Rs).R
 
 
-def frame2_shared_bytes(N: int, M: int, V: int, J: int, Csol: int) -> int:
+def frame2_shared_bytes(N: int, M: int, V: int, J: int, Csol: int,
+                        Rs: int | None = None) -> int:
     """Dynamic shared memory of one frame-kernel block: the world's state,
     then (when they fit) the pose planes, the records of the first
-    :func:`frame2_table_rows` rows and the joint list."""
-    state = frame2_state_bytes(N, M, V, J)
-    R = frame2_table_rows(N, M, V, J, Csol)
-    if R is None or state + 16 * N > SHARED_LIMIT:
-        return state
-    end = state + 16 * N + SLOT_BYTES * Csol * R
-    if frame2_joints_shared(N, M, V, J, Csol):
-        return _align16(end) + frame2_joint_bytes(J)
-    return end
+    :func:`frame2_table_rows` table rows and the joint list."""
+    return frame2_layout(N, M, V, J, Csol, Rs).bytes
 
 
 def frame2_live_bytes(M: int, Csol: int) -> int:
-    """Bytes of one world's live set (``csrc/frame2.cu`` ``live_bytes``):
+    """Bytes of one world's live set (``csrc/frame2.cuh`` ``live_bytes``):
     the build's 64 warp counts, the row bits ``[ceil(Csol / 32), M]``
     (uint32) and one list entry an item (uint16 where ``Csol * M <=
     65536``, else uint32)."""
@@ -163,28 +220,25 @@ def frame2_live_bytes(M: int, Csol: int) -> int:
     return 4 * (64 + -(-Csol // 32) * M) + (2 if items <= 65536 else 4) * items
 
 
-def frame2_live_shared(M: int, V: int, Csol: int) -> bool:
+def frame2_live_shared(M: int, V: int, Csol: int, after: int = 0) -> bool:
     """Whether the live set takes the shared memory of the planes only the
-    frame's set-up reads (``csrc/frame2.cu`` ``dead_words``: ``(2V + 7) M``
-    words); else it goes to global memory beside the pose planes."""
-    return frame2_live_bytes(M, Csol) <= 4 * (2 * V + 7) * M
+    frame's set-up reads (``csrc/frame2.cuh`` ``dead_words``: ``(2V + 7) M``
+    words) past their first ``after`` words (a ranked table's rank planes);
+    else it goes to global memory beside the pose planes."""
+    return frame2_live_bytes(M, Csol) + 4 * after <= 4 * (2 * V + 7) * M
 
 
-def frame2_scratch_bytes(N: int, M: int, V: int, J: int, Csol: int) -> int:
-    """Bytes of one world's global scratch (``csrc/frame2.cu``
+def frame2_scratch_bytes(N: int, M: int, V: int, J: int, Csol: int,
+                         Rs: int | None = None) -> int:
+    """Bytes of one world's global scratch (``csrc/frame2.cuh``
     ``scratch_bytes``: with joints the joint list, then the pose planes
     and the live set, 16-aligned), or 0 where all fit in shared memory."""
-    pose_shared = frame2_state_bytes(N, M, V, J) + 16 * N <= SHARED_LIMIT
-    if (pose_shared and frame2_live_shared(M, V, Csol)
-            and (J <= 0 or frame2_joints_shared(N, M, V, J, Csol))):
-        return 0
-    return (frame2_joint_bytes(J)
-            + _align16(16 * N + frame2_live_bytes(M, Csol)))
+    return frame2_layout(N, M, V, J, Csol, Rs).scratch
 
 
 def table_bytes(K: int, rows: int) -> int:
     """Bytes of one world's global slot table of ``K`` slots x ``rows``
-    rows (``csrc/frame2.cu`` ``table_bytes``)."""
+    rows (``csrc/frame2.cuh`` ``table_bytes``)."""
     return -(-K * rows * SLOT_BYTES // 16) * 16
 
 
@@ -226,7 +280,10 @@ class Frame2Inputs:
     of a call changes (``parallel.frame2_inputs`` builds it once a call):
     collider planes ``[W, M]`` (``vlx``/``vly`` ``[W, V, M]``), body planes
     ``[W, N]`` (``invm``/``invi``/``dyn`` None where sleep leaves them to
-    each frame; ``bullet`` for ``ccd``), ``gravity [W, 2]``, the owner CSR
+    each frame; ``bullet`` for ``ccd``), ``slot_rows [W, M]`` (1 where a
+    row may hold a slot: K1's row rule, outside which K2's tables hold no
+    slot; the kernel keeps records of no other row where that pays,
+    :func:`frame2_layout`), ``gravity [W, 2]``, the owner CSR
     (:func:`owner_csr` or :func:`owner_csr_tables`), ``joints`` (None:
     contact-only; ``_build.JOINT_KEYS`` ``[W, J]`` and
     ``JOINT_SLOT_KEYS`` ``[W, JC, N]``, ``jmm`` with +inf as 3.4e38), ints
@@ -234,11 +291,13 @@ class Frame2Inputs:
     solve's parameters (``joint_solver`` ``"colored"`` or ``"jacobi"``;
     with ``0 < Cs < C`` rows solve their ``Cs`` closest slots, the TOI
     still over all C). Built, it checks its tensors and sets ``J``,
-    ``per_world``, ``compact`` and the kernel's layout: vertex width ``Vk``
-    (None past the widest) and the planes padded to it ``kvlx``/``kvly``,
-    solve width ``Csol``, shared table rows ``R`` (None: the state does
-    not fit) and global ``scratch`` bytes, held on a CUDA device to the
-    library's."""
+    ``per_world``, ``compact``, ``Rs`` (the most rows of a world that may
+    hold a slot: one host read) and the kernel's layout: vertex width
+    ``Vk`` (None past the widest) and the planes padded to it
+    ``kvlx``/``kvly``, solve width ``Csol``, the rows its slot table holds
+    ``table_rows`` (M, or Rs), shared table rows ``R`` (None: the state
+    does not fit) and global ``scratch`` bytes, held on a CUDA device to
+    the library's."""
 
     cbody: torch.Tensor
     vlx: torch.Tensor
@@ -248,6 +307,7 @@ class Frame2Inputs:
     fric: torch.Tensor
     rest: torch.Tensor
     sensor: torch.Tensor
+    slot_rows: torch.Tensor
     kin: torch.Tensor
     invm: torch.Tensor | None
     invi: torch.Tensor | None
@@ -287,7 +347,8 @@ class Frame2Inputs:
                   ("vly", self.vly, fl, (W, V, M)),
                   ("gravity", self.gravity, fl, (W, 2))]
         checks += [(k, getattr(self, k), fl, (W, M))
-                   for k in ("radius", "fric", "rest", "sensor")]
+                   for k in ("radius", "fric", "rest", "sensor",
+                             "slot_rows")]
         checks += [(k, getattr(self, k), fl, (W, N))
                    for k in ("kin", "invm", "invi", "dyn")
                    if getattr(self, k) is not None]
@@ -319,18 +380,20 @@ class Frame2Inputs:
             _check(name, t, dtype, shape, self.kin.device)
         Csol = self.Cs if compact else self.C
         Vk = kernel_verts(V)
-        R = frame2_table_rows(N, M, Vk, J, Csol) if Vk else None
-        scratch = frame2_scratch_bytes(N, M, Vk, J, Csol) if Vk else 0
+        Rs = int(self.slot_rows.sum(dim=1).max()) if W > 0 else 0
+        lay = frame2_layout(N, M, Vk, J, Csol, Rs) if Vk else None
+        R, rows = (lay.R, lay.rows) if lay else (None, M)
+        scratch = lay.scratch if lay else 0
         if Vk and _route(self.kin.device):  # the library's layout
-            lib, a = _build.library(), (N, M, Vk, J, Csol)
-            smem = frame2_shared_bytes(*a)
+            lib, a = _build.library(), (N, M, Vk, J, Csol, Rs)
             if (lib.sf_frame2_fields() != SCRATCH_FIELDS
                     or lib.sf_frame2_slot_bytes() != SLOT_BYTES
                     or lib.sf_frame2_table_rows(*a) != (-1 if R is None else R)
-                    or lib.sf_frame2_shared_bytes(*a) != smem
+                    or lib.sf_frame2_table_size(*a) != rows
+                    or lib.sf_frame2_shared_bytes(*a) != lay.bytes
                     or lib.sf_frame2_scratch_bytes(*a) != scratch
                     or bool(lib.sf_frame2_joints_shared(*a))
-                    != frame2_joints_shared(*a)):
+                    != lay.joints_shared):
                 raise RuntimeError("frame kernel layout differs from "
                                    "this module's (SLOT_BYTES, frame2_*)")
         kvlx, kvly = self.vlx, self.vly
@@ -339,8 +402,8 @@ class Frame2Inputs:
             kvlx = torch.cat([kvlx, kvlx[:, :1].expand(W, Vk - V, M)], 1)
             kvly = torch.cat([kvly, kvly[:, :1].expand(W, Vk - V, M)], 1)
         for k, v in dict(J=J, per_world=per_world, compact=compact,
-                         Csol=Csol, Vk=Vk, R=R, scratch=scratch, kvlx=kvlx,
-                         kvly=kvly).items():
+                         Csol=Csol, Vk=Vk, Rs=Rs, table_rows=rows, R=R,
+                         scratch=scratch, kvlx=kvlx, kvly=kvly).items():
             object.__setattr__(self, k, v)
 
 
@@ -601,6 +664,8 @@ def frame2_plain(posx, posy, ang, velx, vely, angvel, partner, slot_act,
     _live_counter(posx.device).add_(
         live_set(cb_.pmask.amax(dim=0) > 0, M)[1].sum())
     run_frame2.slot_items += W * Cp * M
+    run_frame2.table_rows += W * M  # the twin's table has every row
+    run_frame2.rows += W * M
 
     def tile_cp(x):
         return tile_w(x, Cp)
@@ -797,8 +862,10 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, partner, slot_act,
     Launches count in ``run_frame2.launches`` (CCD's in ``.ccd_launches``),
     and also in ``.compact_launches`` (compacted), ``.owner_launches``
     (per-world owner tables) and ``.shared_table_launches`` (the whole
-    slot table in shared memory). ``plain=True`` runs the twin even on
-    CUDA tensors (for timing the kernel against it)."""
+    slot table in shared memory); ``.table_rows`` adds the rows each
+    world's table holds (``inputs.table_rows``), ``.rows`` its M.
+    ``plain=True`` runs the twin even on CUDA tensors (for timing the
+    kernel against it)."""
     x = inputs
     W, N = x.kin.shape
     M, C, dev = x.cbody.shape[1], x.C, x.kin.device
@@ -828,13 +895,13 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, partner, slot_act,
             f"{frame2_shared_bytes(N, M, x.Vk, x.J, x.Csol)} bytes of shared "
             f"memory for the world's state at N={N}, M={M}, V={x.Vk}, "
             f"J={x.J}; a block has {SHARED_LIMIT}")
-    Cs, R, h, compact = x.Cs, x.R, x.h, x.compact
+    Cs, R, rows, h, compact = x.Cs, x.R, x.table_rows, x.h, x.compact
     u8 = torch.uint8
-    # rows past R keep their records in a global table of the same layout;
-    # with compaction and CCD the dropped slots go to a side table (the
-    # TOI reads them); pose planes that do not fit go to global memory
-    gtab = (torch.empty((W, table_bytes(x.Csol, M - R)), dtype=u8,
-                        device=dev) if R < M else None)
+    # table rows past R keep their records in a global table of the same
+    # layout; with compaction and CCD the dropped slots go to a side table
+    # (the TOI reads them); pose planes that do not fit go to global memory
+    gtab = (torch.empty((W, table_bytes(x.Csol, rows - R)), dtype=u8,
+                        device=dev) if R < rows else None)
     side = (torch.empty((W, table_bytes(C - Cs, M)), dtype=u8, device=dev)
             if compact and x.ccd else None)
     # the pose planes, the live set and the joint list, where they do not
@@ -869,10 +936,12 @@ def run_frame2(posx, posy, ang, velx, vely, angvel, partner, slot_act,
         int(x.per_world), Cs if compact else 0,
         p(o_partner) if compact else None, p(nact) if compact else None,
         p(gscratch) if gscratch is not None else None,
-        p(_live_counter(dev)))
+        p(_live_counter(dev)), p(x.slot_rows), x.Rs)
     _build.launch("sf_frame2", args, dev)
     run_frame2.slot_items += W * x.Csol * M
-    if R == M:
+    run_frame2.table_rows += W * rows
+    run_frame2.rows += W * M
+    if R == rows:
         run_frame2.shared_table_launches += 1
     if x.ccd:
         run_frame2.ccd_launches += 1
@@ -891,8 +960,12 @@ run_frame2.launches = 0
 run_frame2.ccd_launches = 0  # the ccd instances', counted apart
 run_frame2.compact_launches = 0  # launches with Cs (also in one above)
 run_frame2.owner_launches = 0  # launches with per-world owner tables
-# launches whose whole slot table sat in shared memory (R = M)
+# launches whose whole slot table sat in shared memory (R = table_rows)
 run_frame2.shared_table_launches = 0
+# the rows each world's slot table held (M, or Rs where only the rows that
+# may hold a slot keep records) and all rows, over every frame run
+run_frame2.table_rows = 0
+run_frame2.rows = 0
 # the frames' live (row, solve slot) items (live_set), counted on the
 # device (a [1] int64 tensor, None before the first frame), and all of them
 run_frame2.live_items = None

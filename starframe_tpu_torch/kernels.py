@@ -6,7 +6,7 @@ written op for op in the same order so the two agree to float32 rounding.
 Every function takes tensors whose leading axis (where there is one) is the
 per-vertex ``[V, ...]`` or per-point ``[2, ...]`` axis and broadcasts over
 the rest. The plain twin of the frame kernel (``hopper/frame2.py``) calls
-these; the CUDA frame kernel (``csrc/frame2.cu``) is a per-thread scalar
+these; the CUDA frame kernel (``csrc/frame2.cuh``) is a per-thread scalar
 transcription of the same sequence.
 """
 

@@ -126,6 +126,17 @@ def _elig_args(worlds: World, kin: torch.Tensor) -> tuple:
             _flag(c, COL_SENSOR), responds, torch.maximum(responds, kin))
 
 
+def _slot_rows(elig: tuple) -> torch.Tensor:
+    """K1's row rule on its arguments ``elig`` (:func:`_elig_args`): ``[W,
+    M]`` f32, 1 where collider i's row may hold a slot (active, and its body
+    responds or it is a sensor on a moving body). K2's tables hold no slot
+    elsewhere."""
+    cbody, _, _, active, sensor, responds, moves = elig
+    cb = cbody.long()
+    return active * torch.maximum(torch.gather(responds, 1, cb),
+                                  sensor * torch.gather(moves, 1, cb))
+
+
 def _flag(objs, bit: int) -> torch.Tensor:
     """Where ``objs.flags`` has ``bit``, f32 0 or 1."""
     return ((objs.flags & bit) != 0).to(torch.float32)
@@ -172,7 +183,8 @@ def frame2_inputs(worlds: World, cfg: SolverConfig,
     vlx, vly = _vert_planes(worlds)
     k4 = Frame2Inputs(
         cbody=c.body_idx, vlx=vlx, vly=vly, nverts=c.nverts, radius=c.radius,
-        fric=c.friction, rest=c.restitution, sensor=elig[4], kin=kin,
+        fric=c.friction, rest=c.restitution, sensor=elig[4],
+        slot_rows=_slot_rows(elig), kin=kin,
         invm=None if sleep else b.inv_mass,
         invi=None if sleep else b.inv_inertia,
         dyn=None if sleep else (b.inv_mass > 0).to(torch.float32),

@@ -455,6 +455,58 @@ def build_escorted(builder_cls, shape_cls, escorts, speed=1000.0):
                     max_joints=0, max_verts=4)
 
 
+def build_static_floor(builder_cls, shape_cls, n_dynamic=32, n=256,
+                       sensor=False):
+    """A floor of static 0.5 m tiles side by side (every body past the
+    dynamic ones) under ``n_dynamic`` boxes and circles resting 1 cm above
+    it, 0.45 m apart: a world whose rows mostly may not hold a slot (K1's
+    row rule), as a walker's terrain. With ``sensor`` the first tile is a
+    sensor (a row that may not) and a kinematic body carries a sensor box
+    sweeping along the row at 1 m/s (one that may). Returns the builder and
+    its capacity's fields (N = M = n)."""
+    wb = builder_cls()
+    wb.gravity = (0.0, -9.81)
+    n_static = n - n_dynamic - (1 if sensor else 0)
+    for k in range(n_static):
+        t = wb.add_static(pos=(0.5 * (k - n_static / 2), -0.25))
+        wb.add_collider(t, shape_cls.box(0.25, 0.25), sensor=sensor and k == 0)
+    for k in range(n_dynamic):
+        d = wb.add_body(pos=(0.45 * (k - n_dynamic / 2), 0.21))
+        wb.add_collider(d, shape_cls.circle(0.2) if k % 2
+                        else shape_cls.box(0.2, 0.2))
+    if sensor:
+        s = wb.add_body(pos=(-0.45 * n_dynamic / 2, 0.2), vel=(1.0, 0.0),
+                        body_type="kinematic")
+        wb.add_collider(s, shape_cls.box(0.5, 0.3), sensor=True)
+    return wb, dict(max_bodies=n, max_colliders=n, max_pairs=4 * n,
+                    max_joints=0, max_verts=4)
+
+
+def walker_batch(n_worlds, seed, device, frames=0):
+    """``(cfg, world)``: ``n_worlds`` BipedalWalker-v3 envs of the
+    benchmark's walker cell (``portbench/``: its scene, solver and motor
+    control, each env's motors set once from ``seed``), ``frames`` frames
+    in."""
+    import sys
+    from pathlib import Path
+
+    from starframe_tpu_torch import parallel
+
+    bench = Path(__file__).resolve().parents[1] / "portbench"
+    if str(bench) not in sys.path:
+        sys.path.append(str(bench))
+    from harness import cells
+
+    cell = cells.resolve("bipedal_walker.random_actions")
+    args = dict(cell.config["scene_args"], n_worlds=n_worlds)
+    w = cell.control.apply(cell.scene.program(args, seed, device), seed, 0)
+    cfg = cells.solver_config(cell.config)
+    if frames:
+        w = parallel.batched_rollout(w, cfg, 0, frames,
+                                     record=lambda _: None)[0]
+    return cfg, w
+
+
 def build_compound128(builder_cls, shape_cls, n=128, seed=3):
     """tests/test_frame2.py's ``_compound_scene``: ``_scene``'s capacity,
     every 4th dynamic body a compound of 3 colliders (an L of boxes and a

@@ -178,7 +178,16 @@ def _live_counts():
             hopper.run_frame2.slot_items)
 
 
-def _frame_kernel_matches_twin(cfg, w, touching=True):
+def _every_row(inputs):
+    """``inputs`` (``parallel.frame2_inputs``) with every row flagged as one
+    that may hold a slot: K4 then keeps a record for every row (the layout
+    of a shape whose rows that may hold a slot buy no block)."""
+    k4 = inputs.k4
+    return dataclasses.replace(inputs, k4=dataclasses.replace(
+        k4, slot_rows=torch.ones_like(k4.slot_rows)))
+
+
+def _frame_kernel_matches_twin(cfg, w, touching=True, inputs=None):
     tables = parallel.frame2_tables(w, cfg,
                                     frames=max(cfg.frames_per_broadphase, 1),
                                     elig=parallel.frame2_elig(w, cfg))
@@ -187,7 +196,8 @@ def _frame_kernel_matches_twin(cfg, w, touching=True):
     c0 = hopper.run_frame2.compact_launches
     o0 = hopper.run_frame2.owner_launches
     live, slots = _live_counts()
-    wk, tk, pk, _, ak = parallel.frame2_step(w, cfg, tables=tables)
+    wk, tk, pk, _, ak = parallel.frame2_step(w, cfg, tables=tables,
+                                             inputs=inputs)
     assert getattr(hopper.run_frame2, counter) == n0 + 1
     compact = 0 < cfg.batch_solve_capacity < cfg.slot_capacity
     assert hopper.run_frame2.compact_launches == c0 + compact
@@ -196,7 +206,7 @@ def _frame_kernel_matches_twin(cfg, w, touching=True):
     # the kernel's live items (its device counter) are the twin's count
     live_k, slots_k = _live_counts()
     wp, tp, pp, _, ap = parallel.frame2_step(w, cfg, tables=tables,
-                                             plain=True)
+                                             inputs=inputs, plain=True)
     live_p, slots_p = _live_counts()
     assert 0 < live_k - live == live_p - live_k < slots_k - slots
     assert slots_k - slots == slots_p - slots_k
@@ -554,7 +564,9 @@ def test_frame_kernel_joint_list_in_global_memory_matches_twin(
     scratch, through the same accessor: the rope bridge at 10 slots (two
     256-thread blocks an SM) and at 23 (R = M and the pose planes and live
     set in shared memory, so the list alone is global) and the 850-joint
-    batch (everything global), against the twin, both tiers."""
+    batch (everything global), against the twin, both tiers; every row
+    keeps a record (at 23 slots the rope's 47 rows that may hold a slot
+    would leave the list room in shared memory)."""
     if case == "850_joints":
         cfg, w = split_table["joints"]
     else:
@@ -568,7 +580,8 @@ def test_frame_kernel_joint_list_in_global_memory_matches_twin(
     assert (hopper.frame2_table_rows(N, M, 4, J, C)
             == (M if case != "850_joints" else 0))
     assert hopper.frame2.frame2_scratch_bytes(N, M, 4, J, C) > 0
-    _frame_kernel_matches_twin(cfg, w)
+    every = _every_row(parallel.frame2_inputs(w, cfg))
+    _frame_kernel_matches_twin(cfg, w, inputs=every)
 
 
 # the benchmark's walker cell, its configuration and scene (portbench/)
@@ -629,6 +642,94 @@ def test_live_joint_items_are_the_joint_slots_every_frame(walker,
     assert int(hopper.build_joint_slots.live_slots.sum()) == 24 * W
     assert hopper.build_joint_slots.slot_items == (
         W * cfg.joint_slot_capacity * N)
+
+
+@pytest.fixture(scope="module")
+def static_floor():
+    """16 worlds of ``_torch_parity.build_static_floor`` (32 dynamic bodies
+    over 223 static tiles, 256 rows), and a per-world pair of it with 32
+    and 24 dynamic bodies, 20 frames into contact: ``{name: (cfg, w)}``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from _torch_parity import build_static_floor
+
+    def world(n):
+        b, cap = build_static_floor(WorldBuilder, Shape, n_dynamic=n)
+        return b.build(Capacity(**cap), device="cuda")[0]
+
+    cfg = SolverConfig(substeps=4, slot_capacity=8)
+    out = {}
+    for name, w, c in (
+            ("uniform", parallel.replicate_world(world(32), 16), cfg),
+            ("per_world", parallel.stack_worlds([world(32), world(24)] * 8),
+             dataclasses.replace(cfg, batch_uniform_topology=False))):
+        w, _, _ = parallel.batched_rollout(w, c, 0, 20,
+                                           record=lambda _: None)
+        out[name] = (c, w)
+    return out
+
+
+def _ranked_form(static_floor, jointed, walker, form):
+    """``(cfg, w)`` of a form of the ranked-table test."""
+    if form.startswith("walker"):
+        cfg, w = walker
+        return dataclasses.replace(cfg, joint_solver=form.split("_")[1]), w
+    if form in JOINTED:
+        return jointed[form]
+    cfg, w = static_floor["per_world" if form == "floor_owners"
+                          else "uniform"]
+    if "ccd" in form:
+        cfg, w = dataclasses.replace(cfg, ccd=True), _bulleted(w)
+    if "compact" in form:
+        cfg = dataclasses.replace(cfg, batch_solve_capacity=4)
+    return cfg, w
+
+
+RANKED_FORMS = ("walker_colored", "walker_jacobi", "mechanism",
+                "rope_bridge", "floor", "floor_ccd", "floor_compact",
+                "floor_compact_ccd", "floor_owners")
+
+
+@pytest.mark.parametrize("form", RANKED_FORMS)
+def test_table_of_the_rows_that_may_hold_a_slot_is_bitwise_every_rows(
+        static_floor, jointed, walker, form):
+    """K4 with a table of only the rows that may hold a slot (K1's row
+    rule) against K4 with every row's (``_every_row``), 3 frames each on
+    its own state, fresh tables a frame: the states, ``touched``, the
+    partners and the counters bitwise equal, on the walker (both joint
+    tiers), the mechanism and the rope bridge (its joint list then in
+    global memory), and a contact-only floor batch alone, with CCD, with
+    ``Cs`` (with and without CCD) and with per-world owners on worlds that
+    differ in those rows. A table of those rows never spills to the global
+    table (``test_torch_frame2.py``'s ``never_split`` case)."""
+    cfg, w = _ranked_form(static_floor, jointed, walker, form)
+    W, M = w.bodies.pos.shape[0], w.colliders.m
+    few = parallel.frame2_inputs(w, cfg)
+    every = _every_row(few)
+    assert few.k4.table_rows == few.k4.Rs == few.k4.R < M
+    assert every.k4.table_rows == M
+    if form == "floor_owners":
+        assert few.k4.slot_rows.sum(dim=1).tolist()[:2] == [32.0, 24.0]
+    wa = wb = w
+    touched = 0.0
+    for _ in range(3):
+        rows0 = hopper.run_frame2.table_rows
+        ra = parallel.frame2_step(
+            wa, cfg, inputs=few,
+            tables=parallel.frame2_tables(wa, cfg, inputs=few))
+        assert hopper.run_frame2.table_rows - rows0 == W * few.k4.Rs
+        rb = parallel.frame2_step(
+            wb, cfg, inputs=every,
+            tables=parallel.frame2_tables(wb, cfg, inputs=every))
+        for field in ("pos", "angle", "vel", "ang_vel", "sleep_count"):
+            assert torch.equal(getattr(ra[0].bodies, field),
+                               getattr(rb[0].bodies, field)), field
+        assert torch.equal(ra[1], rb[1]) and torch.equal(ra[2], rb[2])
+        assert {k: int(v) for k, v in ra[4].items()} == {
+            k: int(v) for k, v in rb[4].items()}
+        touched += float(ra[1].sum())
+        wa, wb = ra[0], rb[0]
+    assert touched > 0, "no touching contacts: vacuous"
 
 
 @pytest.mark.parametrize("name", sorted(JOINTED))

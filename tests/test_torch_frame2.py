@@ -132,7 +132,7 @@ def test_every_phase_keeps_its_whole_table_in_shared_memory(phase):
                     + hopper.frame2.frame2_joint_bytes(J) if J else table_end)
     assert smem <= hopper.frame2.SHARED_LIMIT
     # and leaves the block's threads (two blocks an SM at 256, else one
-    # at 512: csrc/frame2.cu block_threads) as the table alone did
+    # at 512: csrc/frame2.cuh block_threads) as the table alone did
     two = 2 * (table_end + 1024) <= 233472
     assert (2 * (smem + 1024) <= 233472) == two
     # the live set reuses the set-up's planes: no byte of its own
@@ -252,6 +252,141 @@ def test_eligibility_follows_the_world_state_only(V):
                 n_ok += want
                 n_no += not want
     assert n_ok > 50 and n_no > 50
+
+
+# ---- a table of only the rows that may hold a slot ------------------------
+# (hopper.frame2.frame2_layout: where it buys the SM more blocks)
+
+
+def _floor_batch(n_dynamic=(32, 32), sensor=False):
+    """Worlds of ``_torch_parity.build_static_floor``, one a count of
+    dynamic bodies (each world its own topology where they differ)."""
+    from _torch_parity import build_static_floor
+
+    worlds = []
+    for n in n_dynamic:
+        b, cap = build_static_floor(st.WorldBuilder, st.Shape, n_dynamic=n,
+                                    sensor=sensor)
+        worlds.append(b.build(Capacity(**cap), device="cpu")[0])
+    return parallel.stack_worlds(worlds)
+
+
+def _walker_layout():
+    """The benchmark's walker (2 CPU envs): 5 of 204 rows may hold a slot,
+    so a table of them (51,280 bytes a block in place of 157,952) runs
+    four blocks an SM in place of one."""
+    from _torch_parity import walker_batch
+
+    cfg, w = walker_batch(2, 6700417, "cpu")
+    k4 = parallel.frame2_inputs(w, cfg).k4
+    assert (k4.Rs, k4.table_rows, k4.R) == (5, 5, 5)
+    lay = hopper.frame2.frame2_layout(204, 204, 8, 12, 8, 5)
+    assert lay.ranked and lay.joints_shared and lay.scratch == 0
+    # the state, the pose planes, 5 rows' records, 16-aligned, the list
+    assert lay.bytes == 51280 == -(-(43156 + 3264 + 5 * 536) // 16) * 16 + 2176
+    assert hopper.frame2._sm_blocks(lay.bytes) == 4
+    assert hopper.frame2_shared_bytes(204, 204, 8, 12, 8) == 157952
+    assert hopper.frame2._sm_blocks(157952) == 1
+
+
+def _batched_rl_layout():
+    """``batched_rl``'s worlds: 253 of 256 rows may hold a slot, which buys
+    no block, so the table keeps every row (R = M) and the parent's bytes
+    at V = 4 and 8."""
+    sc = st.scenes.batched_worlds(n_worlds=2, n_bodies=256, device="cpu")
+    k4 = parallel.frame2_inputs(sc.world, sc.config).k4
+    assert (k4.Rs, k4.table_rows, k4.R) == (253, 256, 256)
+    for V, smem in ((4, 182276), (8, 190468)):
+        lay = hopper.frame2.frame2_layout(256, 256, V, 0, 8, 253)
+        assert not lay.ranked and lay.R == lay.rows == 256
+        assert lay.bytes == smem == hopper.frame2_shared_bytes(
+            256, 256, V, 0, 8)
+
+
+def _per_world_owners_layout():
+    """Per-world owner lists on worlds that differ in the rows that may
+    hold a slot (32 and 24 dynamic bodies): Rs is the larger count."""
+    w = _floor_batch((32, 24))
+    cfg = SolverConfig(substeps=4, slot_capacity=8,
+                       batch_uniform_topology=False)
+    x = parallel.frame2_inputs(w, cfg)
+    assert x.k4.slot_rows.sum(dim=1).tolist() == [32.0, 24.0]
+    assert (x.k4.Rs, x.k4.table_rows, x.k4.R) == (32, 32, 32)
+    # every row's table: one block an SM; the 32 rows': two
+    assert hopper.frame2._sm_blocks(hopper.frame2_shared_bytes(
+        256, 256, 4, 0, 8)) == 1
+    assert hopper.frame2._sm_blocks(hopper.frame2_shared_bytes(
+        256, 256, 4, 0, 8, 32)) == 2
+
+
+def _ranked_tables_never_split():
+    """Over a grid of shapes, a ranked table (chosen only where it buys a
+    block) keeps every row in shared memory: a table that spills holds
+    the block above half an SM. Where Rs rows buy no block, the layout is
+    every row's, bit for bit."""
+    n_ranked = 0
+    for N in (64, 128, 204, 256, 512, 1024):
+        for V, J, csol in ((4, 0, 8), (8, 12, 8), (4, 50, 16), (4, 0, 32)):
+            every = hopper.frame2.frame2_layout(N, N, V, J, csol)
+            for Rs in (1, 5, N // 8, N // 2, N - 3, N):
+                lay = hopper.frame2.frame2_layout(N, N, V, J, csol, Rs)
+                if lay.ranked:
+                    n_ranked += 1
+                    assert lay.R == lay.rows == Rs
+                    assert (hopper.frame2._sm_blocks(lay.bytes)
+                            > hopper.frame2._sm_blocks(every.bytes))
+                else:
+                    assert lay == every
+    assert n_ranked > 20
+
+
+RANKED = {"walker": _walker_layout, "batched_rl": _batched_rl_layout,
+          "per_world_owners": _per_world_owners_layout,
+          "never_split": _ranked_tables_never_split}
+
+
+@pytest.mark.parametrize("case", sorted(RANKED))
+def test_table_of_the_rows_that_may_hold_a_slot(case):
+    """Where K4's table holds only the rows that may hold a slot (K1's row
+    rule; Rs: the most of any world, one host read a call): the walker
+    gets four blocks an SM, ``batched_rl`` keeps the parent's layout, per-
+    world owners take the largest world's count."""
+    RANKED[case]()
+
+
+def _moving_sensor():
+    """A floor batch with a sensor tile (a row that may not hold a slot)
+    and a sensor on a kinematic body (one that may), 5 frames in."""
+    w = _floor_batch((32, 32), sensor=True)
+    cfg = SolverConfig(substeps=4, slot_capacity=8)
+    w = parallel.batched_rollout(w, cfg, 0, 5, record=lambda _: None)[0]
+    return cfg, w
+
+
+def _walker_frames():
+    from _torch_parity import walker_batch
+
+    return walker_batch(2, 6700417, "cpu", frames=20)
+
+
+@pytest.mark.parametrize("case", ["moving_sensor", "walker"])
+def test_tables_hold_no_slot_outside_the_row_rule(case):
+    """What K4's table of only some rows rests on: K2's plain tables hold
+    no slot on a row that K1's row rule (``parallel._slot_rows``)
+    excludes, and rows it admits do hold slots."""
+    cfg, w = (_moving_sensor if case == "moving_sensor" else _walker_frames)()
+    x = parallel.frame2_inputs(w, cfg)
+    rows = x.k4.slot_rows
+    _, act, *_ = parallel.frame2_tables(
+        w, cfg, frames=max(cfg.frames_per_broadphase, 1), plain=True)
+    assert float((act * (1.0 - rows)[:, None, :]).sum()) == 0.0
+    assert float(act.sum()) > 0, "no slot at all: vacuous"
+    assert int(rows.sum(dim=1).max()) == x.k4.Rs < w.colliders.m
+    if case == "moving_sensor":
+        # the kinematic sensor (the last row) holds slots; the static
+        # sensor tile (row 0) may not
+        assert bool((rows[:, -1] == 1).all()) and bool((rows[:, 0] == 0).all())
+        assert float(act[:, :, -1].sum()) > 0
 
 
 def test_slot_record_layout_matches_the_kernel_source():

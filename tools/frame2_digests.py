@@ -13,7 +13,8 @@ keyed forms, the two jointed batches, the projectile batches and the
 escorted projectile, and the 4,096 BipedalWalker-v3 envs of the
 benchmark's walker cell (``walker``: its scene and configuration under
 ``portbench/``, each env's 4 motor actions drawn once from
-:data:`WALKER_SEED`). Each phase's digest hashes
+:data:`WALKER_SEED`; ``walker_owners``: the same with per-world owner
+lists, each world ranking its own rows). Each phase's digest hashes
 the final bodies' pose, velocity and sleep counter (and, for the keyed
 phase, every frame's contact keys). The scenes come from this checkout's
 ``chip_smoke.py``, so two package roots (a change and its parent, unpacked
@@ -35,7 +36,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("main", "mechanism", "rope_bridge", "main_ccd", "projectile_200",
           "projectile_1000", "projectile_1000_rest", "compact",
           "compact_ccd", "compact_off", "compact_ccd_off", "escorted",
-          "owners", "owners_alternating", "sleep", "events", "walker")
+          "owners", "owners_alternating", "sleep", "events", "walker",
+          "walker_owners")
 # the phases whose slot table does not fit in shared memory whole (rows
 # past frame2_table_rows in K4's global table): the uncompacted tables
 # that batched_compact times its compacted ones against
@@ -143,6 +145,10 @@ def phase(cs, name, dev) -> tuple:
 
     if name == "walker":
         return walker(dev, cs.FRAMES)
+    if name == "walker_owners":
+        w, cfg, frames = walker(dev, cs.FRAMES)
+        return (w, dataclasses.replace(cfg, batch_uniform_topology=False),
+                frames)
     if name in cs.JOINTED:
         sc, _ = cs.jointed_scene(name, cs.W_JOINTED, dev)
         return sc.world, sc.config, cs.FRAMES

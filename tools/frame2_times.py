@@ -2,6 +2,7 @@
 """K4 alone, for one or more checkouts, in turns on one card.
 
     python3 tools/frame2_times.py ROOT [ROOT ...] [--rounds 2] [--reps 10]
+        [--phases main ...]
 
 For each package root (a checkout, e.g. a change and its parent unpacked
 with ``git archive`` into ``_checkouts/``) runs, in a process of its own,
@@ -12,9 +13,10 @@ every dynamic body a bullet), the same with 8 solve slots of 16, the
 4096-world alternating-topology batch with per-world lists after 30
 frames, the mechanism and rope-bridge batches after 60 frames, and the
 benchmark's 4,096 BipedalWalker-v3 envs after 60 frames (``walker``). Each
-call is timed with CUDA events over
-``--reps`` launches after two warm-up ones; its outputs are hashed, so the
-roots' results can be compared bitwise. The roots run in turns (ABBA for
+call is timed with CUDA events over ``--reps`` launches after two warm-up
+ones, beside the blocks an SM its launch runs (the root's library's
+occupancy answer); its outputs are hashed, so the roots' results can be
+compared bitwise. The roots run in turns (ABBA for
 two), ``--rounds`` times. Prints one line a root and phase, and a JSON
 summary last. Needs a CUDA device.
 """
@@ -55,8 +57,20 @@ def _inputs(cs, tool, name, dev):
     return cs.frame_call(hopper, parallel, w, cfg, tables)
 
 
-def child(root: str, reps: int) -> int:
-    """Time every phase with the package of ``root``; print JSON."""
+def _blocks_per_sm(x) -> int:
+    """Resident blocks an SM of the K4 launch on inputs ``x`` (a
+    ``Frame2Inputs``), from the root's library: with the rows that may
+    hold a slot (``x.Rs``) where the root's layout takes them."""
+    from starframe_tpu_torch.hopper import _build
+
+    N, M = x.kin.shape[1], x.cbody.shape[1]
+    rs = (x.Rs,) if hasattr(x, "Rs") else ()
+    return _build.library().sf_frame2_blocks_per_sm(
+        x.Vk, x.J, int(x.ccd), N, M, x.Csol, *rs)
+
+
+def child(root: str, reps: int, phases=PHASES) -> int:
+    """Time each phase with the package of ``root``; print JSON."""
     sys.path.insert(0, root)
     import torch
 
@@ -68,7 +82,7 @@ def child(root: str, reps: int) -> int:
     cs, tool = _tools()
     dev = torch.device("cuda", 0)
     out = {}
-    for name in PHASES:
+    for name in phases:
         args, kw = _inputs(cs, tool, name, dev)
 
         def call():
@@ -88,6 +102,7 @@ def child(root: str, reps: int) -> int:
         for t in res:
             h.update(t.contiguous().cpu().numpy().tobytes())
         out[name] = {"ms": t0.elapsed_time(t1) / reps,
+                     "blocks": _blocks_per_sm(args[-1]),
                      "sha256": h.hexdigest()}
         del args, kw, res
         torch.cuda.empty_cache()
@@ -124,9 +139,10 @@ def run_turns(script: str, roots, rounds: int, reps: int,
             return proc.returncode
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         runs[root].append(res)
-        print(f"{root}: " + ", ".join(f"{n} {r['ms']:.4f} ms"
-                                      for n, r in res.items())
-              + f" on {card}", flush=True)
+        print(f"{root}: " + ", ".join(
+            f"{n} {r['ms']:.4f} ms"
+            + (f" ({r['blocks']} blocks an SM)" if "blocks" in r else "")
+            for n, r in res.items()) + f" on {card}", flush=True)
     names = list(runs[roots[0]][0])
     summary = {root: {n: {k: ([r[n].get(k) for r in rs] if k != "sha256"
                               else rs[0][n][k]) for k in rs[0][n]}
@@ -144,12 +160,15 @@ def main() -> int:
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--phases", nargs="+", default=list(PHASES),
+                    choices=PHASES)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     roots = [os.path.abspath(r) for r in args.roots]
     if args.child:
-        return child(roots[0], args.reps)
-    return run_turns(__file__, roots, args.rounds, args.reps)
+        return child(roots[0], args.reps, args.phases)
+    return run_turns(__file__, roots, args.rounds, args.reps,
+                     extra=("--phases", *args.phases))
 
 
 if __name__ == "__main__":

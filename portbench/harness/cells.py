@@ -4,8 +4,11 @@
   ``file`` and the metrics it reports (``parked.json``: cells kept out of
   it, which the harness's tests still run);
 - the configuration file (JSON): the scene module (``scenes/<scene>.py``),
-  its arguments, the entry (``entries/<entry>.py``) and the solver
-  configuration as run;
+  its arguments, the entry (``entries/<entry>.py``), the solver
+  configuration as run, and ``reference``: the plain reference package
+  that decides ``correct`` and counts the work (a dotted name of a folder
+  under ``portbench/``; ``"reference"``, ``reference/``, where the file
+  names none);
 - ``traffic/<traffic>.json``: the call pattern, and the ``control``
   (``control/<control>.py``) that sets each call's actions, if it names
   one;
@@ -15,7 +18,23 @@
 - ``roofline/<kernel>.py``: one work count per kernel.
 
 Nothing here branches on a cell's name: a new cell is new files and new
-entries in ``BENCHMARK.json``.
+entries in ``BENCHMARK.json``. A configuration whose physics
+``reference/`` lacks brings its own reference package as new files and
+names it; the harness reaches a reference only through ``Cell.reference``.
+A reference package gives:
+
+- ``world.build(desc, device)`` -> ``(geom, state)``, ``world.cast(state,
+  dtype)``, ``world.cast_geom(geom, dtype)``, ``world.shapes(desc)``;
+- ``frame.frame(geom, st, cfg, stats=None)`` and ``frame.rollout(geom, st,
+  cfg, n_frames, stats=None)``, ``stats`` summing ``frames``, ``awake``,
+  ``cand``, ``cand_live``, ``active``, ``solved``, ``joints`` and keeping
+  the largest ``max_touching``, ``max_imminent``, ``max_joint_rows``;
+- ``config(solver, entry_name)``: the frame settings from the solver
+  block (it refuses what the reference cannot run);
+- ``world_state(world)`` and ``actions(world)``: a call's input state and
+  the per-call inputs a control wrote, captured from the program's world.
+
+``reference/__init__.py`` says what each returns.
 """
 
 from __future__ import annotations
@@ -23,10 +42,18 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import re
+import sys
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parents[1]  # the portbench folder
 ROOT = BENCH.parent
+DEFAULT_REFERENCE = "reference"
+# what the harness calls of a reference package
+REFERENCE_INTERFACE = ("world.build", "world.cast", "world.cast_geom",
+                       "world.shapes", "frame.frame", "frame.rollout",
+                       "config", "world_state", "actions")
+_PACKAGE_NAME = re.compile(r"^[A-Za-z_]\w*(\.[A-Za-z_]\w*)*$", re.ASCII)
 
 
 def load_module(path: Path):
@@ -39,6 +66,53 @@ def load_module(path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_package(name: str):
+    """Import the package ``name`` (dotted, relative to the portbench
+    folder: ``tests.references.x`` is ``tests/references/x/``) under a name
+    of its own, once a process; its modules import each other relatively."""
+    if not _PACKAGE_NAME.match(name):
+        raise ModuleNotFoundError(f"no package name {name!r}")
+    key = "portbench_" + name.replace(".", "_")
+    if key in sys.modules:
+        return sys.modules[key]
+    path = BENCH.joinpath(*name.split("."))
+    init = path / "__init__.py"
+    if not init.is_file():
+        raise ModuleNotFoundError(f"no package {name!r} at {path}")
+    spec = importlib.util.spec_from_file_location(
+        key, init, submodule_search_locations=[str(path)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[key] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[key]
+        raise
+    return mod
+
+
+def reference_package(name: str = DEFAULT_REFERENCE):
+    """The reference package ``name``, refused where it lacks a part of
+    the interface (the module's docstring)."""
+    ref = load_package(name)
+    missing = []
+    for part in REFERENCE_INTERFACE:
+        obj = ref
+        for attr in part.split("."):
+            obj = getattr(obj, attr, None)
+        if not callable(obj):
+            missing.append(part)
+    if missing:
+        raise TypeError(f"reference package {name!r} lacks {missing}")
+    return ref
+
+
+def reference_of(config: dict):
+    """The reference package the configuration file names (its
+    ``reference``, by default ``reference/``)."""
+    return reference_package(config.get("reference", DEFAULT_REFERENCE))
 
 
 def load_json(path: Path) -> dict:
@@ -57,6 +131,7 @@ class Cell:
     per_layer: list
     scene: object  # scenes/<scene>.py
     entry: object  # entries/<entry>.py
+    reference: object  # the configuration's reference package
     control: object = None  # control/<control>.py, where the traffic names one
 
     @property
@@ -99,7 +174,7 @@ def resolve(cell: str, bench: dict | None = None) -> Cell:
         per_layer=reported(bench["per_layer"], cell),
         scene=load_module(BENCH / "scenes" / f"{config['scene']}.py"),
         entry=load_module(BENCH / "entries" / f"{config['entry']}.py"),
-        control=control_of(traffic))
+        reference=reference_of(config), control=control_of(traffic))
 
 
 def control_of(traffic: dict):

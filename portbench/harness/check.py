@@ -1,7 +1,7 @@
 """The comparison that decides ``correct``: each sampled call's answer (the
-final state the program returned) against the plain reference run over
-the same frames from the same input state, with the joint parameters the
-call ran with.
+final state the program returned) against the plain reference (the cell's
+reference package, ``Cell.reference``) run over the same frames from the
+same input state, with the actions the call ran with.
 
 Numbers over the dynamic bodies of the sampled calls: the position gap's
 median, 99th percentile and maximum (m), the angle gap's 99th percentile
@@ -22,63 +22,33 @@ import math
 
 import torch
 
-from reference import frame as ref_frame
-from reference import joints as ref_joints
-from reference import world as ref_world
+from . import cells
 
 
-def reference_config(solver: dict, entry_name: str) -> dict:
+def _package(reference):
+    """``reference``, or the default reference package where it is None."""
+    return cells.reference_package() if reference is None else reference
+
+
+def reference_config(solver: dict, entry_name: str, reference=None) -> dict:
     """The reference's frame settings from the configuration file's
-    solver block, with the entry's solve-slot compaction."""
-    s = dict(solver)
-    h = s["dt"] / s["substeps"]
-    slots = 0
-    if entry_name == "tiled_rollout":
-        table = -(-s["slot_capacity"] // 8) * 8
-        want = -(-s["tile_solve_capacity"] // 8) * 8
-        if 0 < s["tile_solve_capacity"] and want < table:
-            slots = want
-    elif 0 < s.get("batch_solve_capacity", 0) < s["slot_capacity"]:
-        raise NotImplementedError("the reference has no tiered solve ranking")
-    return dict(
-        dt=s["dt"], substeps=s["substeps"], iterations=s["iterations"],
-        relaxation=s["relaxation"], contact_margin=s["contact_margin"],
-        contact_compliance=s["contact_compliance"],
-        restitution_threshold=s["restitution_threshold"],
-        max_dpos=min(s["max_dpos"], s["max_depenetration_velocity"] * h),
-        linear_damping=s["linear_damping"],
-        angular_damping=s["angular_damping"],
-        sleep_velocity=s["sleep_velocity"], sleep_frames=s["sleep_frames"],
-        wake_velocity_factor=s["wake_velocity_factor"], solve_slots=slots,
-        joint_solver=s["joint_solver"], joint_colors=s["max_joint_colors"],
-        joint_max_dpos=s["max_dpos"])
+    solver block (the reference package's ``config``)."""
+    return _package(reference).config(solver, entry_name)
 
 
-def world_state(world) -> dict:
+def world_state(world, reference=None) -> dict:
     """A program world's dynamic state as flat ``[B]`` tensors (copies),
-    with :func:`joint_state`'s."""
-    b = world.bodies
-    return dict(px=b.pos[..., 0].reshape(-1).clone(),
-                py=b.pos[..., 1].reshape(-1).clone(),
-                an=b.angle.reshape(-1).clone(),
-                vx=b.vel[..., 0].reshape(-1).clone(),
-                vy=b.vel[..., 1].reshape(-1).clone(),
-                om=b.ang_vel.reshape(-1).clone(),
-                sleep=b.sleep_count.reshape(-1).clone(),
-                steps=world.step_count.reshape(-1).clone(),
-                **joint_state(world))
+    with :func:`joint_state`'s (the reference package's
+    ``world_state``)."""
+    return _package(reference).world_state(world)
 
 
-def joint_state(world) -> dict:
-    """The joint parameters a control rewrites each call (``motor_speed``
-    and ``motor_max``), flat ``[W * J]`` copies; none without joints. Taken
-    from the world the call is handed, they are the parameters it ran
-    with, and the reference runs with them in place of the scene's."""
-    j = world.joints
-    if j.j == 0:
-        return {}
-    return {k: getattr(j, k).reshape(-1).clone()
-            for k in ref_joints.STATE}
+def joint_state(world, reference=None) -> dict:
+    """The per-call inputs a control wrote into ``world`` (the reference
+    package's ``actions``). Taken from the world the call is handed, they
+    are the inputs it ran with, and the reference runs with them in place
+    of the scene's."""
+    return _package(reference).actions(world)
 
 
 def gaps(out: dict, ref: dict, dynamic) -> dict:
@@ -108,15 +78,17 @@ def numbers(pos, ang) -> dict:
                 ang_gap_p99_rad=quantile(ang, 0.99))
 
 
-def reference_outputs(geom, rcfg, samples, frames: int, dtype=torch.float32):
+def reference_outputs(geom, rcfg, samples, frames: int, dtype=torch.float32,
+                      reference=None):
     """The reference's answer to each sample's input state, and its counts
-    at the call's first frame (``reference.frame.frame``'s ``stats``)."""
-    g = ref_world.cast_geom(geom, dtype)
+    at the call's first frame (the package's ``frame.frame`` ``stats``)."""
+    ref = _package(reference)
+    g = ref.world.cast_geom(geom, dtype)
     outs, counts = [], []
     for s in samples:
         first = {}
-        st = ref_frame.frame(g, ref_world.cast(s["in"], dtype), rcfg, first)
-        outs.append(ref_frame.rollout(g, st, rcfg, frames - 1))
+        st = ref.frame.frame(g, ref.world.cast(s["in"], dtype), rcfg, first)
+        outs.append(ref.frame.rollout(g, st, rcfg, frames - 1))
         counts.append(first)
     return outs, counts
 

@@ -17,7 +17,8 @@ episode positions drawn for the check keep their input and answer, and so
 does every position whose call flagged: every episode runs the same calls
 from the same start, so the positions that flagged in the warm-up episode
 are kept from the window's first, any other that flags in the next, and
-the check holds each flagged position to the reference."""
+the check holds each flagged position to the reference. Inputs, actions and
+answers are captured by the cell's reference package (``Cell.reference``)."""
 
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import time
 
 import torch
 
-from .check import joint_state, world_state
+from . import check
 
 
 def clone_world(world):
@@ -144,7 +145,7 @@ def run(cell, start, cfg, call, seconds: float, positions, device,
         for k in range(per_episode):
             keep = k in positions or (k in flagged and k not in samples)
             if keep:
-                inp = world_state(world)
+                inp = check.world_state(world, cell.reference)
             tc = time.perf_counter()
             with mark("portbench.call"):
                 sent = world = act(cell, world, seed, k)
@@ -158,8 +159,10 @@ def run(cell, start, cfg, call, seconds: float, positions, device,
                 flagged.add(k)
             frames.append(F)
             if keep:
-                inp.update(joint_state(sent))  # the actions it ran with
-                samples[k] = dict(pos=k, **{"in": inp}, out=world_state(world),
+                # the actions it ran with
+                inp.update(check.joint_state(sent, cell.reference))
+                samples[k] = dict(pos=k, **{"in": inp},
+                                  out=check.world_state(world, cell.reference),
                                   hard=hard)
             # the traced episodes always run whole
             if prof is None and time.perf_counter() - t0 >= seconds:

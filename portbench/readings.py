@@ -7,9 +7,9 @@ own size, on the card, in one process:
 
 For each seed: the cell's set-up (with its warm-up episode, which finds
 the calls that fail) and a short window at its own load (long enough for
-an episode), then the compared numbers of the
-program's sampled answers against the plain reference; for the first
-``--control-seeds`` seeds also the control's: the reference computed in
+an episode), then the compared numbers of the program's sampled answers
+against the cell's plain reference package; for the first
+``--control-seeds`` seeds also the control's: that reference computed in
 bfloat16, the nearest precision below the configuration's float32, put in
 the program's place on the same inputs. One JSON line a seed; the largest
 program reading and the smallest control reading of each number at the
@@ -42,8 +42,6 @@ def extended(pos, ang) -> dict:
 def readings(cell, seed: int, seconds: float, control: bool, device):
     import torch
 
-    from reference import world as ref_world
-
     cfg = cells.solver_config(cell.config)
     call = cell.entry.call
     t0 = time.perf_counter()
@@ -60,13 +58,16 @@ def readings(cell, seed: int, seconds: float, control: bool, device):
     setup = time.perf_counter() - t0
     del start
     torch.cuda.empty_cache()
-    rcfg = check.reference_config(cell.config["solver"], cell.config["entry"])
+    ref = cell.reference
+    rcfg = check.reference_config(cell.config["solver"], cell.config["entry"],
+                                  ref)
     rcfg["gravity"] = tuple(cell.config["gravity"])
-    geom, _ = ref_world.build(cell.scene.describe(cell.config["scene_args"],
+    geom, _ = ref.world.build(cell.scene.describe(cell.config["scene_args"],
                                                   seed), device)
     dyn = geom["invm"] > 0
     t1 = time.perf_counter()
-    refs, first = check.reference_outputs(geom, rcfg, win.samples, F)
+    refs, first = check.reference_outputs(geom, rcfg, win.samples, F,
+                                          reference=ref)
     ref_s = time.perf_counter() - t1
 
     def nums(answers):
@@ -92,7 +93,7 @@ def readings(cell, seed: int, seconds: float, control: bool, device):
                program=nums([s["out"] for s in win.samples]))
     if control:
         low, _ = check.reference_outputs(geom, rcfg, win.samples, F,
-                                         dtype=torch.bfloat16)
+                                         dtype=torch.bfloat16, reference=ref)
         row["control"] = nums(low)
     return row
 

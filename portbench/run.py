@@ -12,11 +12,14 @@ dropped; the window then runs episodes of calls for ``--seconds``
 (``harness/window.py``). With ``--trace 1`` the
 window's first episodes run under ``torch.profiler`` and the result holds
 the cell's per-layer metrics, else its end-to-end metrics. After the window
-the plain reference (``reference/``) recomputes the sampled calls and
-decides ``correct`` (``harness/check.py``).
+the cell's plain reference package (``reference/`` unless its
+configuration names another) recomputes the sampled calls and decides
+``correct`` (``harness/check.py``).
 
 The last line of standard output is the result's JSON object; the last
-lines of standard error are the compared numbers with their limits.
+lines of standard error are the compared numbers with their limits. A run
+whose process holds JAX or the JAX package once the window has closed
+exits 3 and prints no result, naming what it found.
 """
 
 from __future__ import annotations
@@ -80,20 +83,18 @@ def count_episode(cell, start, cfg, call, geom, rcfg, device,
                   seed: int) -> dict:
     """The problem's work over one episode, for the roofline counts: the
     program replays the episode (untimed), with the control's actions; the
-    reference runs each call's frames from the call's input state and
-    counts candidate, active and solved pairs and solved joint rows a frame
-    (``reference.frame``)."""
-    from reference import frame as ref_frame
-
+    cell's reference runs each call's frames from the call's input state
+    and counts candidate, active and solved pairs and solved joint rows a
+    frame (its ``frame.rollout``'s ``stats``)."""
     F = cell.traffic["frames_per_call"]
     world = window.clone_world(start)
     stats = {}
     calls = cell.traffic["episode_frames"] // F
     for k in range(calls):
         world = window.act(cell, world, seed, k)
-        inp = check.world_state(world)
+        inp = check.world_state(world, cell.reference)
         world, _ = call(world, cfg, F)
-        ref_frame.rollout(geom, inp, rcfg, F, stats)
+        cell.reference.frame.rollout(geom, inp, rcfg, F, stats)
     window.sync(device)
     stats["calls"] = calls
     return stats
@@ -142,8 +143,23 @@ def main(argv=None) -> int:
         return 2
     result, checks = run_cell(cell, args.seed, args.seconds,
                               bool(args.trace), "cuda:0", T_START)
+    found = jax_modules()
+    if found:
+        print(f"portbench: the run loaded {found}; the benchmark measures "
+              "the PyTorch port alone", file=sys.stderr)
+        return 3
     emit(result, checks)
     return 0
+
+
+# JAX and the JAX package the port was made from: no run may load them
+JAX = ("jax", "jaxlib", "flax", "starframe_tpu")
+
+
+def jax_modules() -> list:
+    """The names of ``JAX`` that are the top-level name of a module in
+    ``sys.modules`` (``starframe_tpu_torch`` is not ``starframe_tpu``)."""
+    return sorted({name.split(".", 1)[0] for name in sys.modules} & set(JAX))
 
 
 def json_number(v):
@@ -202,12 +218,12 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     active = int((start.bodies.flags & 1).ne(0).sum())
 
-    from reference import world as ref_world
-
-    rcfg = check.reference_config(cell.config["solver"], cell.config["entry"])
+    ref = cell.reference
+    rcfg = check.reference_config(cell.config["solver"], cell.config["entry"],
+                                  ref)
     rcfg["gravity"] = tuple(cell.config["gravity"])
     desc = cell.scene.describe(cell.config["scene_args"], seed)
-    geom, _ = ref_world.build(desc, device)
+    geom, _ = ref.world.build(desc, device)
     traced = counts = None
     if trace_on:
         traced = reduce_trace(win.traced)
@@ -221,7 +237,8 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
     samples = win.samples
     if answer_hook is not None:
         answer_hook(samples)
-    refs, first = check.reference_outputs(geom, rcfg, samples, F)
+    refs, first = check.reference_outputs(geom, rcfg, samples, F,
+                                          reference=ref)
     dynamic = geom["invm"] > 0
     values = check.compare(samples, refs, [s["out"] for s in samples],
                            dynamic)
@@ -236,7 +253,7 @@ def run_cell(cell, seed: int, seconds: float, trace_on: bool, device,
     ctx = SimpleNamespace(
         cell=cell, window=win, active_bodies=active,
         setup_s=setup_s, trace=traced, counts=counts,
-        shapes=ref_world.shapes(desc))
+        shapes=ref.world.shapes(desc))
     metrics = {}
     wanted = cell.per_layer if trace_on else cell.end_to_end
     for m in wanted:

@@ -37,13 +37,17 @@ from harness import cells  # noqa: E402
 NAME = "legged_hull.motors"
 
 
-def cell(n_worlds: int | None = None) -> cells.Cell:
+def cell(n_worlds: int | None = None,
+         reference: str | None = None) -> cells.Cell:
     """The cell, at ``n_worlds`` worlds (by default the configuration's
-    1,024)."""
+    1,024), with the reference package ``reference`` in place of the one
+    its configuration names (by default ``reference/``)."""
     config = cells.load_json(HERE / "config.json")
     traffic = cells.load_json(HERE / "traffic.json")
     if n_worlds is not None:
         config["scene_args"]["n_worlds"] = n_worlds
+    if reference is not None:
+        config["reference"] = reference
     bench = cells.benchmark()
     return cells.Cell(
         name=NAME, workload=dict(name=NAME, config=config["name"],
@@ -55,6 +59,7 @@ def cell(n_worlds: int | None = None) -> cells.Cell:
         scene=cells.load_module(HERE / "scene.py"),
         entry=cells.load_module(BENCH / "entries"
                                 / f"{config['entry']}.py"),
+        reference=cells.reference_of(config),
         control=cells.control_of(traffic))
 
 
